@@ -1,0 +1,139 @@
+"""Paged flash decode: the Hopper port of the Pallas TPU kernel
+``repro/kernels/paged_decode.py::_paged_decode_kernel`` (launcher
+``paged_flash_decode``).
+
+Single-token decode against a paged KV cache: each sequence's history lives
+in fixed-size pages of a shared pool ``[n_pages, page_size, n_kv, hd]``,
+addressed through a per-sequence page table. Two versions of one function:
+
+* ``paged_flash_decode`` launches the hand-written CUDA kernel
+  (``csrc/paged_decode.cu``, built by ``kernels/build.py`` at first use) on
+  CUDA tensors, on PyTorch's current stream. It checks what the kernel
+  takes and raises on anything else: there is no fallback.
+* ``paged_decode_ref`` is the plain PyTorch version: gather the pages into
+  a contiguous view, mask, softmax in f32. The CPU path and the on-card
+  comparison use it.
+
+What bounds the kernel on an H100: bytes — the K/V rows of the positions
+each (slot, kv head) must read, once, over 3.35 TB/s; at small batch the
+B * n_kv blocks leave the card latency-bound above that. Its design (one
+block per (slot, kv head) serving all query heads of the group, so each
+K/V row is read once; the block walks only the positions the mask keeps,
+never the table padding) is set out in the source's header.
+
+The public entry with the JAX package's checks is
+``repro_torch.kernels.ops.paged_decode_attention``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -2.0 ** 30
+
+
+def paged_decode_ref(q, k_pages, v_pages, page_table, lengths, g_f, *,
+                     window: int = 0):
+    """Plain PyTorch version of the kernel.
+
+    q: [B, H, hd] post-rope queries at position ``lengths[b]``; pools
+    [n_pages, page_size, n_kv, hd]; page_table [B, n_pmax] int; lengths [B];
+    g_f [B, H]. Attends over positions ``<= lengths[b]`` (and
+    ``> lengths[b] - window`` when window > 0) in f32. Rows with no such
+    position and heads with ``g_f == 0`` are exact zeros; other heads are
+    scaled by ``g_f``. Returns [B, H, hd] in q's dtype."""
+    B, H, hd = q.shape
+    _, ps, n_kv, _ = k_pages.shape
+    n_pmax = page_table.shape[1]
+    L = n_pmax * ps
+    idx = page_table.long()
+    keys = k_pages[idx].reshape(B, L, n_kv, hd).float()
+    vals = v_pages[idx].reshape(B, L, n_kv, hd).float()
+    rep = H // n_kv
+    keys = keys.repeat_interleave(rep, dim=2)                # [B, L, H, hd]
+    vals = vals.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bhd,blhd->bhl", q.float() * (1.0 / hd ** 0.5), keys)
+    pos = torch.arange(L, device=q.device)[None, :]
+    t = lengths.long()[:, None]
+    valid = pos <= t
+    if window and window > 0:
+        valid &= pos > t - window
+    s = torch.where(valid[:, None, :], s, torch.tensor(NEG_INF,
+                                                       device=q.device))
+    pr = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhl,blhd->bhd", pr, vals) / pr.sum(-1, keepdim=True)
+    g = g_f.float()[:, :, None]
+    live = valid.any(dim=-1)[:, None, None] & (g != 0)
+    out = torch.where(live, out * g, torch.zeros((), device=q.device))
+    return out.to(q.dtype)
+
+
+def _check(name, x, dtype, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, q on {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+@functools.cache
+def _lib():
+    lib = build.load("paged_decode")
+    lib.paged_decode_f32.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.paged_decode_f32.restype = ctypes.c_int
+    lib.paged_decode_error_string.argtypes = [ctypes.c_int]
+    lib.paged_decode_error_string.restype = ctypes.c_char_p
+    lib.paged_decode_max_rep.restype = ctypes.c_int
+    lib.paged_decode_supports_head_dim.argtypes = [ctypes.c_int]
+    lib.paged_decode_supports_head_dim.restype = ctypes.c_int
+    return lib
+
+
+def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, g_f, *,
+                       window: int = 0):
+    """Launch the CUDA kernel (one launch, counted in
+    ``paged_flash_decode.launches``). Arguments as ``paged_decode_ref``;
+    q, pools and g_f float32, page_table and lengths int32, all contiguous
+    on one CUDA device. Raises on anything else and on a launch error."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"paged_flash_decode needs CUDA tensors, got {dev}")
+    for name, x, dt in (("q", q, torch.float32),
+                        ("k_pages", k_pages, torch.float32),
+                        ("v_pages", v_pages, torch.float32),
+                        ("page_table", page_table, torch.int32),
+                        ("lengths", lengths, torch.int32),
+                        ("g_f", g_f, torch.float32)):
+        _check(name, x, dt, dev)
+    B, H, hd = q.shape
+    _, ps, n_kv, _ = k_pages.shape
+    n_pmax = page_table.shape[1]
+    lib = _lib()
+    if not lib.paged_decode_supports_head_dim(hd):
+        raise ValueError(f"head_dim {hd} has no kernel instantiation")
+    if H % n_kv or H // n_kv > lib.paged_decode_max_rep():
+        raise ValueError(f"H={H}, n_kv={n_kv}: rep must divide H and be <= "
+                         f"{lib.paged_decode_max_rep()}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.paged_decode_f32(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), lengths.data_ptr(), g_f.data_ptr(),
+            out.data_ptr(), B, H, n_kv, hd, ps, n_pmax, int(window),
+            1.0 / hd ** 0.5, stream)
+    if err != 0:
+        raise RuntimeError("paged_decode kernel launch failed: "
+                           + lib.paged_decode_error_string(err).decode())
+    paged_flash_decode.launches += 1
+    return out
+
+
+paged_flash_decode.launches = 0

@@ -1,0 +1,177 @@
+"""GQA attention for prefill: causal, bidirectional and sliding-window
+(block-local, subquadratic). Port of the prefill subset of
+``repro/models/attention.py``; plain tensor code, no kernel — the JAX
+package computes these outside any Pallas kernel too.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models.layers import _param, apply_rope, dense_init
+
+NEG_INF = -2.0 ** 30
+
+
+# ------------------------------------------------------------------- params
+class Attention(nn.Module):
+    """wq [d, H*hd], wk/wv [d, n_kv*hd], wo [H*hd, d]; optional biases."""
+
+    def __init__(self, wq, wk, wv, wo, bq=None, bk=None, bv=None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = (
+            _param(wq), _param(wk), _param(wv), _param(wo))
+        if bq is not None:
+            self.bq, self.bk, self.bv = _param(bq), _param(bk), _param(bv)
+
+
+def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
+                   n_kv_heads: int, head_dim: int, qkv_bias: bool,
+                   dtype) -> Attention:
+    wq = dense_init(gen, d_model, n_heads * head_dim, dtype)
+    wk = dense_init(gen, d_model, n_kv_heads * head_dim, dtype)
+    wv = dense_init(gen, d_model, n_kv_heads * head_dim, dtype)
+    wo = dense_init(gen, n_heads * head_dim, d_model, dtype)
+    biases = {}
+    if qkv_bias:
+        dev = gen.device
+        biases = {
+            "bq": torch.zeros((n_heads * head_dim,), dtype=dtype, device=dev),
+            "bk": torch.zeros((n_kv_heads * head_dim,), dtype=dtype,
+                              device=dev),
+            "bv": torch.zeros((n_kv_heads * head_dim,), dtype=dtype,
+                              device=dev)}
+    return Attention(wq, wk, wv, wo, **biases)
+
+
+def _project_qkv(p: Attention, x, n_heads, n_kv_heads, head_dim):
+    B, S, _ = x.shape
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if hasattr(p, "bq"):
+        q = q + p.bq
+        k = k + p.bk
+        v = v + p.bv
+    q = q.reshape(B, S, n_heads, head_dim)
+    k = k.reshape(B, S, n_kv_heads, head_dim)
+    v = v.reshape(B, S, n_kv_heads, head_dim)
+    return q, k, v
+
+
+def _repeat_kv(k, Hq: int):
+    """[B,S,Hkv,hd] -> [B,S,Hq,hd] (kv head g serves query heads
+    g*rep .. g*rep+rep-1)."""
+    Hkv = k.shape[2]
+    if Hkv == Hq:
+        return k
+    return torch.repeat_interleave(k, Hq // Hkv, dim=2)
+
+
+def _scale(hd: int, dtype, device):
+    # 1/sqrt(hd) rounded in float32 as the JAX package rounds it
+    return (1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
+                                          device=device))).to(dtype)
+
+
+def _sdpa(q, k, v, mask):
+    """q: [B,Sq,Hq,hd]; k,v: [B,Sk,Hkv,hd]; mask: broadcastable
+    [B,1,Sq,Sk] boolean (True = attend). GQA via KV head repetition."""
+    B, Sq, Hq, hd = q.shape
+    k = _repeat_kv(k, Hq)
+    v = _repeat_kv(v, Hq)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * _scale(hd, q.dtype, q.device),
+                          k)
+    logits = torch.where(mask, logits.float(),
+                         torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _causal_mask(Sq, Sk, offset=0, device=None):
+    # True where key position <= query position (+offset aligns positions)
+    qpos = torch.arange(Sq, device=device)[:, None] + offset
+    kpos = torch.arange(Sk, device=device)[None, :]
+    return (kpos <= qpos)[None, None]
+
+
+def _window_mask(Sq, Sk, window, offset=0, device=None):
+    qpos = torch.arange(Sq, device=device)[:, None] + offset
+    kpos = torch.arange(Sk, device=device)[None, :]
+    return ((kpos <= qpos) & (kpos > qpos - window))[None, None]
+
+
+# ----------------------------------------------------------- train / prefill
+def apply_attention(p: Attention, x, *, n_heads: int, n_kv_heads: int,
+                    head_dim: int, causal: bool, window: int = 0,
+                    rope: bool = True, rope_theta: float = 10_000.0,
+                    positions: Optional[torch.Tensor] = None,
+                    return_kv: bool = False):
+    """Returns attention block output [B,S,d_model].
+
+    window > 0 selects sliding-window attention; when S > 2*window and
+    S % window == 0 the block-local (chunked) subquadratic implementation
+    is used. return_kv: additionally return the post-rope (k, v)
+    [B,S,n_kv,hd] that the serving prefill writes into the KV pages.
+    """
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    if rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+
+    if window and window > 0 and S > 2 * window and S % window == 0:
+        out = _block_local_attention(q, k, v, window)
+    else:
+        if window and window > 0:
+            mask = _window_mask(S, S, window, device=x.device)
+        elif causal:
+            mask = _causal_mask(S, S, device=x.device)
+        else:
+            mask = torch.ones((1, 1, S, S), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, mask)
+
+    out = out.reshape(B, S, n_heads * head_dim) @ p.wo
+    if return_kv:
+        return out, k, v
+    return out
+
+
+def _block_local_attention(q, k, v, window: int):
+    """Subquadratic sliding-window attention: chunk queries by `window`;
+    each chunk attends to itself + the previous chunk under an exact
+    (kpos <= qpos) & (kpos > qpos - window) mask. O(S * 2W) work."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    C = S // window
+    qc = q.reshape(B, C, window, Hq, hd)
+    kc = k.reshape(B, C, window, Hkv, hd)
+    vc = v.reshape(B, C, window, Hkv, hd)
+    # previous chunk (zeros for the first chunk)
+    kprev = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)
+    vprev = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
+    kcat = torch.cat([kprev, kc], dim=2)          # [B,C,2W,Hkv,hd]
+    vcat = torch.cat([vprev, vc], dim=2)
+    kcat = _repeat_kv(kcat.reshape(B, C * 2 * window, Hkv, hd), Hq) \
+        .reshape(B, C, 2 * window, Hq, hd)
+    vcat = _repeat_kv(vcat.reshape(B, C * 2 * window, Hkv, hd), Hq) \
+        .reshape(B, C, 2 * window, Hq, hd)
+    dev = q.device
+    qpos = torch.arange(window, device=dev)[:, None] + window  # in [W, 2W)
+    kpos = torch.arange(2 * window, device=dev)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)      # [W, 2W]
+    # first chunk: mask out the zero-padded "previous" half
+    first = (kpos >= window) & mask
+    mask_all = mask.expand(C, window, 2 * window).clone()
+    mask_all[0] = first
+    logits = torch.einsum("bcqhd,bckhd->bchqk",
+                          qc * _scale(hd, q.dtype, dev), kcat)
+    logits = torch.where(mask_all[None, :, None], logits.float(),
+                         torch.tensor(NEG_INF, device=dev))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bchqk,bckhd->bcqhd", probs, vcat)
+    return out.reshape(B, S, Hq, hd)
