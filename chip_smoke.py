@@ -10,7 +10,8 @@ Phases, one line each (any failure raises and exits non-zero):
 1. device — the card's name and power limit; TF32 off for matmuls and
    cuDNN, so float32 means float32.
 2. build — every ``src/repro_torch/kernels/csrc/*.cu`` compiled with nvcc
-   for sm_90a, the build seconds and the ``-Xptxas -v`` report.
+   for sm_90a (one nvcc per source, all started together), the build
+   seconds and the ``-Xptxas -v`` report.
 3. kernel vs plain — the paged flash-decode kernel against its plain
    PyTorch version at gemma3-1b decode shapes, <= 1e-5 in float32.
 4. serve — the paged serving engine on gemma3-1b at full width (random
@@ -19,10 +20,32 @@ Phases, one line each (any failure raises and exits non-zero):
    returns, and the greedy tokens equal those of the plain gather path.
    Then a profiler window over five decode steps of the four longest
    requests: device busy and idle share per step, top kernels.
-5. kernel timing — CUDA-event times of the kernel, its plain version and
-   one PyTorch library call (gather + scaled_dot_product_attention, a
-   yardstick the port never calls) at the trace's final lengths, beside
-   the bytes bound.
+5. kernel timing — CUDA-event times of the decode kernel, its plain
+   version and one PyTorch library call (gather +
+   scaled_dot_product_attention, a yardstick the port never calls) at the
+   trace's final lengths, beside the bytes bound.
+6. attention kernels vs plain — the gated flash-attention forward and
+   backward kernels against their plain version and its autograd
+   gradients: ViT-small shapes (B 40, H 6, S 197, hd 64, bidirectional)
+   under a p_f / p_o / p_s mix, without, with and above compaction
+   bounds; causal S 256 hd 128; window 128 at S 512 hd 64. o and lse
+   <= 1e-5, dq/dk/dv <= 1e-4, exact zeros on gated slices, lse = 2^30 on
+   dead ones, executed tiles = live slices x live tiles per slice.
+7. fine-tune — the paper's D2FT fine-tune of ViT-small at full size
+   (12 layers, d 384, S 197, random weights from seed 0) on the synthetic
+   image task, batch 40 in 5 micro-batches, n_pf 3 / n_po 1, SGD, 8 steps:
+   scores and knapsack at step 0, then the gated kernel path. 12 forward
+   and 12 backward kernel launches per step, executed tile fractions 0.800
+   forward and 0.600 backward, finite losses within 1e-4 x max(1, |loss|)
+   of the masked plain path on the same weights and schedule. p50 step
+   ms of the kernel path, the masked path and standard full fine-tuning
+   (each run twice, in turns), images/s, peak memory; then a profiler
+   window over 3 kernel-path steps.
+8. attention kernel timing — CUDA-event times of the forward and backward
+   kernels at the fine-tune's shapes and (192, 144) bounds, L2 flushed,
+   beside their plain version's, the bound, and the library yardstick
+   (scaled_dot_product_attention forward and its autograd backward on the
+   live slices, which the port never calls).
 
 Then one JSON line of kernel records, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -49,6 +72,13 @@ MAX_SLOTS = 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, non-tensor-core float32
 KERNEL_TOL = 1e-5
+GRAD_TOL = 1e-4                    # gated attention dq/dk/dv, float32
+
+# the D2FT fine-tune: the quickstart's batch, split and 68 % budget
+FT_BATCH = 40
+FT_STEPS = 8
+FT_D2FT = dict(n_microbatches=5, n_pf=3, n_po=1)
+FT_LR = 0.05
 
 
 def card_line() -> str:
@@ -93,6 +123,26 @@ def bound(lengths, window, *, H, n_kv, hd, n_pmax, itemsize=4):
                                        else "operations")
 
 
+def attn_inputs(torch, gen, B, H, S, hd):
+    """q, k, v, a cotangent and a p_f / p_o / p_s gate mix in the
+    fine-tune's 3 : 1 : 1 proportions (slice op = random permutation mod
+    5), on the card."""
+    q, k, v, do = (torch.randn((B, H, S, hd), generator=gen, device="cuda")
+                   for _ in range(4))
+    op = torch.randperm(B * H, generator=gen, device="cuda") % 5
+    g_f = (op != 4).float().reshape(B, H)
+    g_b = (op <= 2).float().reshape(B, H)
+    return q, k, v, do, g_f, g_b
+
+
+def roofline(nbytes, flops):
+    """(ms, by): the larger of bytes over HBM bandwidth and FLOPs over the
+    float32 peak, and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def time_ms(torch, fn, *, iters=50, warmup=5):
     """Median CUDA-event time of one call, with L2 flushed before each
     (decode finds a layer's pages cold: 26 layers of pools and 4 GB of
@@ -112,6 +162,282 @@ def time_ms(torch, fn, *, iters=50, warmup=5):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def attention_vs_plain(torch, gen):
+    """Phase 6. Returns the largest errors {"fwd": o/lse, "bwd": grads}."""
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import d2ft_attention as d2a
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    # (B, H, S, hd, causal, window, bounds): ViT-small without bounds, at
+    # the live counts and above them; causal; sliding window
+    cases = [(40, 6, 197, 64, False, 0, None),
+             (40, 6, 197, 64, False, 0, "exact"),
+             (40, 6, 197, 64, False, 0, "above"),
+             (4, 8, 256, 128, True, 0, "above"),
+             (4, 4, 512, 64, True, 128, "exact")]
+    for B, H, S, hd, causal, window, mode in cases:
+        q, k, v, do, g_f, g_b = attn_inputs(torch, gen, B, H, S, hd)
+        n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+        live = {None: (None, None), "exact": (n_f, n_b),
+                "above": (n_f + 7, n_b + 5)}[mode]
+        with contract.count_tiles("cuda") as tc:
+            qk, kk, vk = (t.clone().requires_grad_() for t in (q, k, v))
+            out = d2a.gated_flash_attention(
+                qk, kk, vk, g_f, g_b, causal=causal, window=window,
+                live_fwd=live[0], live_bwd=live[1])
+            out.backward(do)
+            o2, lse = d2a.flash_fwd(q, k, v, g_f, causal=causal,
+                                    window=window, live=live[0])
+            torch.cuda.synchronize()
+            counts = tc.read()
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        ref = d2a.gated_attention_ref(qr, kr, vr, g_f, g_b, causal=causal,
+                                      window=window)
+        ref.backward(do)
+        lse_ref = d2a.gated_attention_lse_ref(q, k, g_f, causal=causal,
+                                              window=window)
+        out, ref = out.detach(), ref.detach()
+        e_f = max(float((out - ref).abs().max()),
+                  float((lse - lse_ref).abs().max()))
+        e_b = max(float((a.grad - b.grad).abs().max())
+                  for a, b in ((qk, qr), (kk, kr), (vk, vr)))
+        zeros = (float(out[g_f == 0].abs().max()) == 0.0
+                 and torch.equal(o2, out.detach())
+                 and bool((lse[g_f == 0] == d2a.LSE_MASKED).all())
+                 and all(float(t.grad[g_b == 0].abs().max()) == 0.0
+                         for t in (qk, kk, vk)))
+        tiles = d2a.kernel_live_tiles(S, causal, window)
+        want = {"fwd": 2 * n_f * tiles, "bwd_dkdv": n_b * tiles,
+                "bwd_dq": n_b * tiles}
+        what = (f"B {B} H {H} S {S} hd {hd} causal {causal} window "
+                f"{window} bounds {live}")
+        if e_f > KERNEL_TOL or e_b > GRAD_TOL or not zeros or \
+                counts != want or not torch.isfinite(out).all():
+            raise AssertionError(
+                f"attention kernels vs plain, {what}: o/lse err {e_f} (tol "
+                f"{KERNEL_TOL}), grad err {e_b} (tol {GRAD_TOL}), exact "
+                f"zeros {zeros}, tiles {counts} != {want}")
+        worst = {"fwd": max(worst["fwd"], e_f), "bwd": max(worst["bwd"], e_b)}
+        print(f"[attention vs plain] {what}: live {n_f}/{n_b} of {B * H}, "
+              f"o/lse err {e_f:.3e}, grad err {e_b:.3e}, zeros exact, "
+              f"tiles {counts}", flush=True)
+    print(f"[attention vs plain] max abs err fwd {worst['fwd']:.3e} <= "
+          f"{KERNEL_TOL}, bwd {worst['bwd']:.3e} <= {GRAD_TOL}", flush=True)
+    return worst
+
+
+def finetune(torch, np, tag):
+    """Phase 7. Returns {"launches": {"fwd", "bwd"}, "bounds": ...}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import vit_small_paper
+    from repro_torch.configs.base import D2FTConfig
+    from repro_torch.core.cost_model import compute_cost
+    from repro_torch.core.d2ft import plan_schedule
+    from repro_torch.core.schedule import (gates_from_schedule,
+                                           live_slice_bounds)
+    from repro_torch.core.scores import compute_scores, vit_blocks
+    from repro_torch.data.synthetic import (image_batches, make_image_task,
+                                            microbatch_assignment)
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.models.vit import init_vit, vit_loss
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.train.loop import finetune_vit, make_vit_step
+
+    cfg = vit_small_paper.CONFIG
+    d2 = D2FTConfig(**FT_D2FT)
+    n_mb = d2.n_microbatches
+    task = make_image_task(3, n_classes=cfg.n_classes,
+                           image_size=cfg.image_size)
+    scheds = []
+
+    def schedule_fn(step, model, images, labels):       # the quickstart's
+        if step % 16 != 0:
+            return None
+        mbs = list(zip(np.split(images, n_mb), np.split(labels, n_mb)))
+
+        def loss_fn(p, mb):
+            return vit_loss(model, torch.as_tensor(mb[0], device="cuda"),
+                            torch.as_tensor(mb[1], device="cuda"), cfg)[0]
+
+        bw, fw = compute_scores(loss_fn, dict(model.named_parameters()),
+                                vit_blocks, mbs, cfg.n_heads)
+        scheds.append(plan_schedule(d2, bw, fw, cfg.n_layers, cfg.n_heads))
+        return scheds[-1]
+
+    def run(use_kernel, sched_fn):
+        model = init_vit(cfg, seed=0, device="cuda")
+        _, _, log = finetune_vit(model, cfg, sgd(FT_LR),
+                                 image_batches(task, 5, FT_BATCH, FT_STEPS),
+                                 steps=FT_STEPS, schedule_fn=sched_fn,
+                                 n_microbatches=n_mb, use_kernel=use_kernel)
+        return model, log
+
+    torch.cuda.reset_peak_memory_stats()
+    d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
+    with contract.count_tiles("cuda") as tc:
+        model, log_k = run(True, schedule_fn)
+        counts = tc.read()
+    launches = {"fwd": d2a.flash_fwd.launches, "bwd": d2a.flash_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    sched = scheds[0]
+    mb_of = microbatch_assignment(FT_BATCH, n_mb)
+    bounds = live_slice_bounds(sched, mb_of)
+    N = FT_BATCH * cfg.n_heads
+    tiles = d2a.kernel_live_tiles(cfg.n_patches + 1, False, 0)
+    total = FT_STEPS * cfg.n_layers * N * tiles
+    frac = {k: counts[k] / total for k in counts}
+    per_step = cfg.n_layers * FT_STEPS
+    if launches != {"fwd": per_step, "bwd": per_step}:
+        raise AssertionError(f"kernel launches {launches} != {cfg.n_layers} "
+                             f"per step x {FT_STEPS} steps each")
+    if frac != {"fwd": 0.8, "bwd_dkdv": 0.6, "bwd_dq": 0.6} or \
+            bounds != (192, 144):
+        raise AssertionError(f"executed tile fractions {frac} (want 0.800 "
+                             f"fwd, 0.600 bwd), live bounds {bounds}")
+    losses = np.asarray(log_k.losses)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite losses {losses}")
+
+    def replay(step, *_):
+        return sched if step == 0 else None
+    del model
+    _, log_m = run(False, replay)
+    if d2a.flash_fwd.launches != launches["fwd"]:
+        raise AssertionError("the masked path launched the kernel")
+    diff = np.abs(losses - np.asarray(log_m.losses))
+    lim = 1e-4 * np.maximum(1.0, np.abs(np.asarray(log_m.losses)))
+    if not (diff <= lim).all():
+        raise AssertionError(f"kernel-path losses {losses.tolist()} vs "
+                             f"masked {log_m.losses}: diff {diff.tolist()}")
+    # timed in turns, kernel masked full full masked kernel, so that no
+    # path gains from running later in the process
+    _, log_f = run(True, None)
+    rounds = {"kernel": [log_k.step_times], "masked": [log_m.step_times],
+              "full": [log_f.step_times]}
+    for name in ("full", "masked", "kernel"):
+        _, lg = run(name != "masked", None if name == "full" else replay)
+        rounds[name].append(lg.step_times)
+    p50 = {k: 1e3 * float(np.median(r[0] + r[1])) for k, r in rounds.items()}
+    print(f"[fine-tune] ViT-small full size ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads, S {cfg.n_patches + 1}, f32, "
+          f"seed 0), batch {FT_BATCH} in {n_mb} micro-batches, n_pf "
+          f"{d2.n_pf} n_po {d2.n_po} (compute {compute_cost(sched.table):.0%}),"
+          f" SGD lr {FT_LR}, {FT_STEPS} steps: kernel launches {launches}, "
+          f"live (sample, group) bounds {bounds} x "
+          f"{cfg.n_heads // sched.n_groups} heads per group, executed tile "
+          f"fractions fwd {frac['fwd']:.3f} bwd "
+          f"{frac['bwd_dkdv']:.3f}/{frac['bwd_dq']:.3f}", flush=True)
+    print(f"[fine-tune] losses kernel {[round(float(x), 6) for x in losses]}"
+          f" | masked {[round(x, 6) for x in log_m.losses]} | max diff "
+          f"{float(diff.max()):.3e}", flush=True)
+    print(f"[fine-tune] p50 step ms over 2 x {FT_STEPS} steps: kernel path "
+          f"{p50['kernel']:.3f}, masked path {p50['masked']:.3f}, standard "
+          f"full fine-tuning (kernel, all-ones gates) {p50['full']:.3f}; "
+          f"per round " + ", ".join(
+              f"{k} {1e3 * float(np.median(r[0])):.3f} / "
+              f"{1e3 * float(np.median(r[1])):.3f}"
+              for k, r in rounds.items()) + f" {tag}")
+    print(f"[fine-tune] images/s: kernel path "
+          f"{FT_BATCH / p50['kernel'] * 1e3:.1f}, masked "
+          f"{FT_BATCH / p50['masked'] * 1e3:.1f}, full "
+          f"{FT_BATCH / p50['full'] * 1e3:.1f} {tag}")
+    print(f"[fine-tune] max_memory_allocated (kernel path, scoring "
+          f"included) {peak} bytes ({peak / 2**30:.2f} GiB) {tag}",
+          flush=True)
+
+    # where a kernel-path step's time goes
+    model = init_vit(cfg, seed=0, device="cuda")
+    opt = sgd(FT_LR)
+    state = opt.init(dict(model.named_parameters()))
+    step = make_vit_step(cfg, opt, True, use_kernel=True)
+    gates = gates_from_schedule(sched, mb_of, "cuda")
+    images, labels = next(image_batches(task, 5, FT_BATCH, 1))
+    x = torch.as_tensor(images, device="cuda")
+    y = torch.as_tensor(labels, device="cuda")
+    step(model, state, x, y, gates, bounds)
+    torch.cuda.synchronize()
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            step(model, state, x, y, gates, bounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sorted(((e.self_device_time_total, e.count, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_us = sum(t for t, _, _ in dev)
+    if busy_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    attn_us = sum(t for t, _, k in dev if "d2ft_attn" in k)
+    print(f"[profile] {n_prof} kernel-path fine-tune steps: device busy "
+          f"{busy_us / 1e3 / n_prof:.3f} ms per step, wall "
+          f"{1e3 * wall / n_prof:.3f} ms per step under the profiler, idle "
+          f"share {1 - busy_us / 1e6 / wall:.1%}; d2ft attention kernels "
+          f"{attn_us / 1e3 / n_prof:.3f} ms per step "
+          f"({attn_us / busy_us:.1%} of busy) {tag}")
+    print("[profile] top device time per step: " + "; ".join(
+        f"{k[:60]} x{c // n_prof}: {t / 1e3 / n_prof:.3f} ms"
+        for t, c, k in dev[:8]), flush=True)
+    return {"launches": launches}
+
+
+def attention_timing(torch, gen, tag):
+    """Phase 8. Returns {"fwd"|"bwd": (ms, plain_ms, library_ms, bound_ms,
+    bound_by)} at the fine-tune's shapes and live counts."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import d2ft_attention as d2a
+    B, H, S, hd = FT_BATCH, 6, 197, 64
+    q, k, v, do, g_f, g_b = attn_inputs(torch, gen, B, H, S, hd)
+    n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+    if (n_f, n_b) != (192, 144):
+        raise AssertionError(f"live slices {n_f}/{n_b} != 192/144")
+    o, lse = d2a.flash_fwd(q, k, v, g_f, causal=False, live=n_f)
+
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = d2a.gated_attention_ref(qr, kr, vr, g_f, g_b, causal=False)
+
+    def flat(t, gate):                     # [live, S, hd], gathered once
+        return t.reshape(B * H, S, hd)[gate.reshape(-1) != 0].contiguous()
+
+    lq, lk, lv = (flat(t, g_f) for t in (q, k, v))
+    bq, bk, bv = (flat(t, g_b).requires_grad_() for t in (q, k, v))
+    lib_o = F.scaled_dot_product_attention(bq, bk, bv)
+    ldo = flat(do, g_b)
+    out = {}
+    fwd_bytes = 4 * (3 * n_f * S * hd + B * H * S * hd + B * H * S)
+    fwd_flops = n_f * 2 * 2 * S * S * hd
+    out["fwd"] = (
+        time_ms(torch, lambda: d2a.flash_fwd(q, k, v, g_f, causal=False,
+                                             live=n_f)),
+        time_ms(torch, lambda: d2a.gated_attention_ref(q, k, v, g_f, g_b,
+                                                       causal=False)),
+        time_ms(torch, lambda: F.scaled_dot_product_attention(lq, lk, lv)),
+        *roofline(fwd_bytes, fwd_flops))
+    # backward: q, k, v, o, do and lse of each live slice read once, dq, dk,
+    # dv written for every slice; 5 products per live slice (s recomputed)
+    bwd_bytes = 4 * (5 * n_b * S * hd + n_b * S + 3 * B * H * S * hd)
+    bwd_flops = n_b * 5 * 2 * S * S * hd
+    out["bwd"] = (
+        time_ms(torch, lambda: d2a.flash_bwd(q, k, v, g_b, o, lse, do,
+                                             causal=False, live=n_b)),
+        time_ms(torch, lambda: torch.autograd.grad(
+            ref, (qr, kr, vr), do, retain_graph=True)),
+        time_ms(torch, lambda: torch.autograd.grad(
+            lib_o, (bq, bk, bv), ldo, retain_graph=True)),
+        *roofline(bwd_bytes, bwd_flops))
+    for kind, (k_ms, p_ms, l_ms, b_ms, by) in out.items():
+        print(f"[attention timing] d2ft_attention_{kind} B {B} H {H} S {S} "
+              f"hd {hd}, live {n_f if kind == 'fwd' else n_b} of {B * H}: "
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library (sdpa "
+              f"{'forward' if kind == 'fwd' else 'autograd backward'} on "
+              f"the live slices) {l_ms:.4f} ms, bound {b_ms:.5f} ms by "
+              f"{by}, {b_ms / k_ms:.1%} of bound {tag}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -344,14 +670,37 @@ def main() -> int:
               f"{lib_err:.1e}), bound {b_ms:.5f} ms by {by}, "
               f"{b_ms / k_ms:.1%} of bound {tag}", flush=True)
 
-    k_ms, p_ms, l_ms, b_ms, by = records[0]
-    print(json.dumps({"kernels": [{
+    paged = records[0]
+    del eng, plain, prof_eng, args
+    torch.cuda.empty_cache()
+
+    # 6. attention kernels vs plain ----------------------------------------
+    errs = attention_vs_plain(torch, gen)
+
+    # 7. fine-tune --------------------------------------------------------
+    train = finetune(torch, np, tag)
+
+    # 8. attention kernel timing ------------------------------------------
+    timing = attention_timing(torch, gen, tag)
+
+    k_ms, p_ms, l_ms, b_ms, by = paged
+    kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/paged_decode.py:54",
         "launches": launches, "max_abs_err": max_err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-        "library_ms": l_ms}]}))
+        "library_ms": l_ms}]
+    for kind, line in (("fwd", 133), ("bwd", 273)):
+        k_ms, p_ms, l_ms, b_ms, by = timing[kind]
+        kernels.append({
+            "name": f"d2ft_attention_{kind}", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/d2ft_attention_{kind}.cu",
+            "replaces": f"src/repro/kernels/d2ft_attention.py:{line}",
+            "launches": train["launches"][kind], "max_abs_err": errs[kind],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": l_ms})
+    print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

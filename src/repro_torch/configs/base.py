@@ -1,9 +1,8 @@
 """Model configuration dataclasses (own copy of ``repro/configs/base.py``).
 
-``ModelConfig`` and the block kinds are verbatim, so a config built here
-compares field for field with the JAX package's. Run-shape and scheduler
-dataclasses (``InputShape``, ``D2FTConfig``) come with the slices that use
-them.
+``ModelConfig``, the block kinds, ``InputShape`` and ``D2FTConfig`` are
+verbatim, so a config built here compares field for field with the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -111,3 +110,35 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train|prefill|decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class D2FTConfig:
+    """Scheduler configuration for Distributed Dynamic Fine-Tuning."""
+    n_microbatches: int = 5           # micro-batches per batch (paper: 5)
+    # Budget expressed as number of micro-batches per subnet per batch.
+    n_pf: int = 3                     # micro-batches doing full fwd+bwd
+    n_po: int = 1                     # micro-batches doing forward-only
+    # Relative costs (paper Table IV: fwd ~= 40% of fwd+bwd).
+    cost_fwd: float = 0.4
+    cost_bwd: float = 0.6
+    backward_score: str = "weight_magnitude"   # paper's final choice
+    forward_score: str = "fisher"
+    head_groups: int = 0              # subnets per layer (0 = n_heads)
+    mode: str = "packed"              # packed|masked

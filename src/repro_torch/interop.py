@@ -1,4 +1,4 @@
-"""Weight carry-over from the JAX package's param tree into the port.
+"""Weight carry-over from the JAX package's param trees into the port.
 
 ``params_from_jax(tree)`` takes the tree of ``repro.models.transformer.
 init_model`` with its leaves as numpy arrays (``jax.tree.map(np.asarray,
@@ -10,6 +10,11 @@ layers of each pattern position over cycles (``cycles[j]`` has a leading
 position ``j`` becomes flat layer ``c*P + j``, remainder layer ``i`` becomes
 ``n_cycles*P + i``. Tests use it so both packages compute with the same
 weights; the serving path never does.
+
+``vit_params_from_jax(tree)`` does the same for ``repro.models.vit.
+init_vit``'s tree (``patch_proj``, ``patch_bias``, ``cls``, ``pos``, a
+``blocks`` list, ``final_norm``, ``head``): block ``i`` becomes
+``blocks.i`` of ``repro_torch.models.vit.ViT``; names and layouts are kept.
 """
 from __future__ import annotations
 
@@ -47,4 +52,16 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for name, a in _leaves("", block):
             state[f"layers.{n_cycles * P + i}.{name}"] = torch.from_numpy(
                 a.copy())
+    return state
+
+
+def vit_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    state: Dict[str, torch.Tensor] = {}
+    for key in ("patch_proj", "patch_bias", "cls", "pos", "head"):
+        state[key] = torch.from_numpy(np.asarray(tree[key]).copy())
+    for name, a in _leaves("final_norm", tree["final_norm"]):
+        state[name] = torch.from_numpy(a.copy())
+    for i, block in enumerate(tree["blocks"]):
+        for name, a in _leaves(f"blocks.{i}", block):
+            state[name] = torch.from_numpy(a.copy())
     return state

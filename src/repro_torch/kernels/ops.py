@@ -1,5 +1,6 @@
 """Public kernel entries with the JAX package's argument checks (port of the
-``paged_decode_attention`` entry of ``repro/kernels/ops.py``).
+``gated_attention`` and ``paged_decode_attention`` entries of
+``repro/kernels/ops.py``).
 
 Each entry dispatches on where its tensors lie: CPU tensors go to the
 kernel's plain PyTorch version, CUDA tensors to the hand-written kernel,
@@ -7,8 +8,12 @@ which raises rather than fall back when it cannot run.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
+from repro_torch.kernels.d2ft_attention import gated_flash_attention
 from repro_torch.kernels.paged_decode import (paged_decode_ref,
                                               paged_flash_decode)
 
@@ -55,3 +60,69 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
                                 g_f, window=window)
     return paged_flash_decode(q, k_pages, v_pages, page_table, lengths, g_f,
                               window=window)
+
+
+def _validate_gates(g_f, g_b, B: int, H: int, live_fwd, live_bwd):
+    """Shape check, then the two value contracts:
+
+    * ``g_b <= g_f`` elementwise (a p_s head cannot run its backward);
+    * ``live_fwd`` / ``live_bwd`` are true upper bounds on the live gate
+      counts: an undersized bound would drop live slices from the
+      compaction and zero their outputs or gradients.
+
+    The JAX package checks the values only where the gates are concrete;
+    here they always are, and reading CUDA gates costs one device
+    synchronisation. So this runs on a direct call of ``gated_attention``
+    and on the fine-tune's host-side gates, never per layer on the model
+    path (which calls ``d2ft_attention.gated_flash_attention``)."""
+    if tuple(g_f.shape) != (B, H) or tuple(g_b.shape) != (B, H):
+        raise ValueError(f"gates must be [B={B}, H={H}], got "
+                         f"{tuple(g_f.shape)} / {tuple(g_b.shape)}")
+    cf, cb = g_f.detach().cpu().numpy(), g_b.detach().cpu().numpy()
+    if (cb > cf).any():
+        bad = np.argwhere(cb > cf)
+        raise ValueError(
+            "g_b <= g_f violated (a gated-off forward cannot have a live "
+            f"backward): g_b > g_f at (sample, head) {bad[:8].tolist()}"
+            f"{' ...' if len(bad) > 8 else ''}")
+    for name, bound, live in (("live_fwd", live_fwd, int((cf != 0).sum())),
+                              ("live_bwd", live_bwd, int((cb != 0).sum()))):
+        if bound is not None and bound < live:
+            raise ValueError(
+                f"{name}={bound} is below the live gate count {live}: the "
+                "compaction bound must be an upper bound or live slices "
+                "would be silently dropped (did you forget the H//G "
+                "heads-per-group scaling?)")
+
+
+def gated_attention(q, k, v, g_f, g_b=None, *, causal: bool = True,
+                    window: int = 0, block_q: int = 128, block_k: int = 128,
+                    live_fwd: Optional[int] = None,
+                    live_bwd: Optional[int] = None):
+    """D2FT-gated flash attention with a gate-aware backward.
+
+    q, k, v: [B, H, S, hd]; g_f, g_b: [B, H] float {0,1} with g_b <= g_f
+    (checked). g_f gates the forward (0 -> zeros, no forward work: p_s);
+    g_b gates the backward (0 -> zero dq/dk/dv, no backward work: p_o and
+    p_s). Omitting g_b uses g_b = g_f, the fully differentiable p_f path.
+
+    live_fwd / live_bwd: optional upper bounds on the number of g_f != 0 /
+    g_b != 0 (sample, head) slices (``core.schedule.live_slice_bounds``
+    scaled by heads per group). With them the kernels launch that many
+    slice blocks, each reading its slice id from a compaction table; the
+    rest come out as exact zeros. None dispatches all B*H slices.
+
+    block_q, block_k: the JAX package's TPU tile request, accepted so one
+    call site serves both packages. The CUDA kernels' tiles are fixed
+    (``d2ft_attention.KERNEL_BLOCK``) and they mask odd lengths themselves,
+    and the plain version has no tiles, so neither is read here.
+
+    CPU tensors take the plain version, CUDA tensors the kernels.
+    """
+    if g_b is None:
+        g_b = g_f
+    B, H, S, _ = q.shape
+    _validate_gates(g_f, g_b, B, H, live_fwd, live_bwd)
+    return gated_flash_attention(q, k, v, g_f, g_b, causal=causal,
+                                 window=window, live_fwd=live_fwd,
+                                 live_bwd=live_bwd)

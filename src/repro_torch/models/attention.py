@@ -1,15 +1,17 @@
-"""GQA attention for prefill: causal, bidirectional and sliding-window
-(block-local, subquadratic). Port of the prefill subset of
-``repro/models/attention.py``; plain tensor code, no kernel — the JAX
-package computes these outside any Pallas kernel too.
+"""GQA attention: causal, bidirectional and sliding-window (block-local,
+subquadratic), and the gated kernel route of the fine-tune. Port of the
+prefill and training subset of ``repro/models/attention.py``: plain tensor
+code, except ``gated_kernel_attention``, which calls the gated flash
+kernels (``kernels/d2ft_attention.py``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch.kernels.d2ft_attention import gated_flash_attention
 from repro_torch.models.layers import _param, apply_rope, dense_init
 
 NEG_INF = -2.0 ** 30
@@ -70,6 +72,31 @@ def _repeat_kv(k, Hq: int):
     return torch.repeat_interleave(k, Hq // Hkv, dim=2)
 
 
+def gated_kernel_attention(q, k, v, g_f, g_b, *, causal: bool,
+                           window: int = 0,
+                           live_bounds: Optional[Tuple[int, int]] = None):
+    """Kernel attention with D2FT (g_f, g_b) head gates.
+
+    q: [B,S,Hq,hd]; k, v: [B,S,Hkv,hd] (GQA expanded here); g_f, g_b:
+    [B,Hq] in {0,1}. Returns [B,S,Hq,hd]. The forward output is g_f-gated
+    (p_s heads are zeros and run nothing); the backward skips every
+    (sample, head) slice with g_b == 0 (p_o and p_s). live_bounds: optional
+    (live_fwd, live_bwd) upper bounds on the g_f != 0 / g_b != 0 (sample,
+    head) slice counts, for the kernels' compaction. Calls the kernel
+    module's ``gated_flash_attention`` directly, with shape checks only:
+    the gates' values are the caller's contract (no host sync per layer).
+    """
+    Hq = q.shape[2]
+    k = _repeat_kv(k, Hq)
+    v = _repeat_kv(v, Hq)
+    live_f, live_b = live_bounds if live_bounds is not None else (None, None)
+    out = gated_flash_attention(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), g_f, g_b, causal=causal,
+        window=window, live_fwd=live_f, live_bwd=live_b)
+    return out.transpose(1, 2)
+
+
 def _scale(hd: int, dtype, device):
     # 1/sqrt(hd) rounded in float32 as the JAX package rounds it
     return (1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
@@ -104,6 +131,23 @@ def _window_mask(Sq, Sk, window, offset=0, device=None):
 
 
 # ----------------------------------------------------------- train / prefill
+def dense_attention(q, k, v, *, causal: bool, window: int = 0):
+    """Attention without the kernels: q [B,S,Hq,hd], k, v [B,S,Hkv,hd] ->
+    [B,S,Hq,hd]. window > 0 selects sliding-window attention, block-local
+    (subquadratic) when S > 2*window and S % window == 0; else the causal
+    or full mask."""
+    S = q.shape[1]
+    if window and window > 0 and S > 2 * window and S % window == 0:
+        return _block_local_attention(q, k, v, window)
+    if window and window > 0:
+        mask = _window_mask(S, S, window, device=q.device)
+    elif causal:
+        mask = _causal_mask(S, S, device=q.device)
+    else:
+        mask = torch.ones((1, 1, S, S), dtype=torch.bool, device=q.device)
+    return _sdpa(q, k, v, mask)
+
+
 def apply_attention(p: Attention, x, *, n_heads: int, n_kv_heads: int,
                     head_dim: int, causal: bool, window: int = 0,
                     rope: bool = True, rope_theta: float = 10_000.0,
@@ -124,17 +168,7 @@ def apply_attention(p: Attention, x, *, n_heads: int, n_kv_heads: int,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
 
-    if window and window > 0 and S > 2 * window and S % window == 0:
-        out = _block_local_attention(q, k, v, window)
-    else:
-        if window and window > 0:
-            mask = _window_mask(S, S, window, device=x.device)
-        elif causal:
-            mask = _causal_mask(S, S, device=x.device)
-        else:
-            mask = torch.ones((1, 1, S, S), dtype=torch.bool, device=x.device)
-        out = _sdpa(q, k, v, mask)
-
+    out = dense_attention(q, k, v, causal=causal, window=window)
     out = out.reshape(B, S, n_heads * head_dim) @ p.wo
     if return_kv:
         return out, k, v

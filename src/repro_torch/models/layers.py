@@ -21,7 +21,9 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable parameter. Serving runs under ``torch.inference_mode``,
+    so it records no graph and leaves every ``.grad`` None."""
+    return nn.Parameter(t)
 
 
 # ---------------------------------------------------------------- init utils

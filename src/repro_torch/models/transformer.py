@@ -1,4 +1,4 @@
-"""Transformer backbone, serving subset (port of ``repro/models/transformer.py``).
+"""Transformer backbone (port of ``repro/models/transformer.py``).
 
 The model holds a flat list of layers: layer ``i`` is ``model.layers[i]``.
 The JAX package stacks layers per pattern cycle for ``lax.scan``;
@@ -6,9 +6,19 @@ The JAX package stacks layers per pattern cycle for ``lax.scan``;
 ``j`` into layer ``c*P + j``. PyTorch runs eagerly, so there is nothing to
 gain from the stacked layout here.
 
-This slice covers dense attention blocks (global and sliding-window) with a
-dense FFN, and the batched serving prefill. SSD, RG-LRU and MoE blocks come
-with the slice that ports their kernels.
+Ported so far: dense attention blocks (global and sliding-window) with a
+dense FFN, the batched serving prefill, and the D2FT-gated block forward
+(``apply_block``). Gating: ``gates = (g_f, g_b)`` of shape [n_layers, B, G];
+per block, the residual contribution is split into G head/width groups
+c_g and mixed as
+
+    c_eff = g_f * (g_b * c_g + (1 - g_b) * c_g.detach()),
+
+which is p_f (1, 1), p_o (1, 0) and p_s (0, ·) exactly: p_o keeps the
+forward value but no gradient flows through the subnet for that sample;
+p_s removes the contribution. SSD, RG-LRU and MoE blocks come with the
+slice that ports their kernels; the tensor-parallel and sharding-policy
+branches with the distributed slice.
 """
 from __future__ import annotations
 
@@ -30,6 +40,29 @@ def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet: it comes with the slice that ports the "
         "SSD / RG-LRU / MoE block kernels")
+
+
+def _not_ported_dist(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with the distributed slice")
+
+
+# ============================================================ gating helpers
+def gate_mix(c_g, g_f, g_b):
+    """c_g: [B,S,G,D]; g_f,g_b: [B,G] in {0,1}. See module docstring."""
+    gf = g_f[:, None, :, None].to(c_g.dtype)
+    gb = g_b[:, None, :, None].to(c_g.dtype)
+    return gf * (gb * c_g + (1.0 - gb) * c_g.detach())
+
+
+def _group_project(heads_out, wo, G):
+    """heads_out: [B,S,H,hd]; wo: [H*hd, D]. Returns per-group projected
+    contributions [B,S,G,D] (sum over G == plain projection)."""
+    B, S, H, hd = heads_out.shape
+    D = wo.shape[-1]
+    w3 = wo.reshape(H, hd, D)
+    per_head = torch.einsum("bshd,hdD->bshD", heads_out, w3)
+    return per_head.reshape(B, S, G, H // G, D).sum(dim=3)
 
 
 # ============================================================== block params
@@ -63,15 +96,96 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
                  init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype))
 
 
-def _apply_ffn(p: Block, h, cfg: ModelConfig):
-    """Dense FFN branch of the JAX ``_apply_ffn`` (ungated, unsharded)."""
+def _apply_ffn(p: Block, h, cfg: ModelConfig, layer_gates=None):
+    """Dense FFN branch of the JAX ``_apply_ffn`` (unsharded): plain, or
+    split into G column groups of w_down and mixed by ``gate_mix``.
+    Returns y (the JAX function's aux is always None for a dense FFN)."""
     mlp = p.mlp
     up = h @ mlp.w_up
     if cfg.mlp_gated:
         hid = _act(cfg.mlp_act)(h @ mlp.w_gate) * up
     else:
         hid = _act(cfg.mlp_act)(up)
-    return hid @ mlp.w_down
+    if layer_gates is None:
+        return hid @ mlp.w_down
+    g_f, g_b = layer_gates
+    G = g_f.shape[-1]
+    B, S, F = hid.shape
+    D = mlp.w_down.shape[-1]
+    wd = mlp.w_down.reshape(G, F // G, D)
+    c_g = torch.einsum("bsgf,gfD->bsgD", hid.reshape(B, S, G, F // G), wd)
+    return gate_mix(c_g, g_f, g_b).sum(dim=2)
+
+
+def _apply_attn_inner(p, h, kind: str, cfg: ModelConfig, layer_gates,
+                      use_kernel: bool = False, live_bounds=None):
+    """Attention contribution (pre-residual), with per-head-group gating
+    (the unsharded branches of the JAX function).
+
+    use_kernel routes attention through the gated flash kernels, whose
+    backward skips every g_b == 0 (sample, head) slice. live_bounds: the
+    (live_fwd, live_bwd) bounds at (sample, group) granularity
+    (``core.schedule.live_slice_bounds``), scaled here to per-head slice
+    counts for the kernels' compaction."""
+    window = cfg.window if kind == ATTN_LOCAL else 0
+    hd = cfg.resolved_head_dim
+    B, S, _ = h.shape
+    n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
+    q, k, v = attn._project_qkv(p, h, n_heads, n_kv, hd)
+    if cfg.rope:
+        pos = torch.arange(S, device=h.device)[None, :]
+        q = attn.apply_rope(q, pos, cfg.rope_theta)
+        k = attn.apply_rope(k, pos, cfg.rope_theta)
+    if use_kernel:
+        # the window branch is always causal-windowed, as _window_mask is
+        kernel_bounds = None
+        if layer_gates is None:
+            gf_h = gb_h = torch.ones((B, n_heads), dtype=h.dtype,
+                                     device=h.device)
+        else:
+            g_f, g_b = layer_gates
+            rep = n_heads // g_f.shape[-1]
+            gf_h = torch.repeat_interleave(g_f, rep, dim=1).to(h.dtype)
+            gb_h = torch.repeat_interleave(g_b, rep, dim=1).to(h.dtype)
+            if live_bounds is not None:
+                # schedule bounds are per (sample, group); each group is
+                # rep consecutive per-head slices after the expansion above
+                kernel_bounds = (live_bounds[0] * rep, live_bounds[1] * rep)
+        out = attn.gated_kernel_attention(q, k, v, gf_h, gb_h,
+                                          causal=cfg.causal or window > 0,
+                                          window=window,
+                                          live_bounds=kernel_bounds)
+    else:
+        out = attn.dense_attention(q, k, v, causal=cfg.causal, window=window)
+    if layer_gates is None:
+        return out.reshape(B, S, n_heads * hd) @ p.wo
+    # group-wise projection + gate_mix: on the kernel path this also cuts
+    # wo gradients for p_o groups, matching the masked path exactly
+    g_f, g_b = layer_gates
+    c_g = _group_project(out, p.wo, g_f.shape[-1])         # [B,S,G,D]
+    return gate_mix(c_g, g_f, g_b).sum(dim=2)
+
+
+def apply_block(p: Block, x, kind: str, cfg: ModelConfig, layer_gates=None,
+                policy=None, use_kernel: bool = False, live_bounds=None,
+                tp=None):
+    """Pre-norm residual block. Returns (x, None): the JAX function's aux
+    losses come only from MoE blocks, not ported yet. ``policy`` and ``tp``
+    (sharding policy, tensor parallelism) raise until the distributed
+    slice ports them."""
+    if policy is not None:
+        raise _not_ported_dist("the sharding-policy branch of apply_block")
+    if tp is not None:
+        raise _not_ported_dist("the tensor-parallel branch of apply_block")
+    if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
+        raise _not_ported(f"block kind {kind!r}")
+    h = apply_norm(p.norm1, x, cfg.norm)
+    x = x + _apply_attn_inner(p.attn, h, kind, cfg, layer_gates, use_kernel,
+                              live_bounds)
+    if hasattr(p, "mlp"):
+        h2 = apply_norm(p.norm2, x, cfg.norm)
+        x = x + _apply_ffn(p, h2, cfg, layer_gates)
+    return x, None
 
 
 # ========================================================== layer grouping

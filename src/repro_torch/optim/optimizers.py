@@ -1,0 +1,94 @@
+"""Minimal optimizer library (port of ``repro/optim/optimizers.py``).
+
+The paper fine-tunes with SGD + momentum (§IV-A); AdamW is provided for the
+LLM fine-tuning paths. Parameters, gradients and moments are dicts of
+tensors keyed by parameter name (``dict(model.named_parameters())``), and
+``update`` is leaf-wise, as in the JAX package.
+
+Unlike the JAX package's pure updates, ``update`` works in place under
+``torch.no_grad()``: it overwrites the parameter tensors (so the model that
+owns them is updated) and the moment tensors, and returns the same dicts.
+That keeps one copy of each instead of two. The step counter is a Python
+int in the state, so the update needs no device synchronisation.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Params], Any]
+    update: Callable[[Params, Any, Params], Tuple[Params, Any]]
+    # True when a parameter with zero gradient AND zero moments gets an
+    # exactly-identity update (no weight decay): the ZeRO-1 sync of the
+    # distributed slice may then skip its all-gather.
+    elidable: bool = True
+    # params-shaped moment copies in the state (sgd: mu; adamw: m and v)
+    n_moments: int = 1
+
+
+def sgd(lr: float, momentum: float = 0.9, weight_decay: float = 0.0,
+        nesterov: bool = False) -> Optimizer:
+    def init(params: Params):
+        return {"mu": {n: torch.zeros_like(p) for n, p in params.items()},
+                "step": 0}
+
+    @torch.no_grad()
+    def update(grads: Params, state, params: Params):
+        for n, p in params.items():
+            g = grads[n]
+            if weight_decay:
+                g = g + weight_decay * p
+            mu = state["mu"][n].mul_(momentum).add_(g)
+            upd = momentum * mu + g if nesterov else mu
+            p.sub_(lr * upd)
+        state["step"] += 1
+        return params, state
+
+    return Optimizer(init, update, elidable=weight_decay == 0.0,
+                     n_moments=1)
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.01) -> Optimizer:
+    def init(params: Params):
+        return {"m": {n: torch.zeros_like(p) for n, p in params.items()},
+                "v": {n: torch.zeros_like(p) for n, p in params.items()},
+                "step": 0}
+
+    @torch.no_grad()
+    def update(grads: Params, state, params: Params):
+        step = state["step"] + 1
+        # bias corrections in float32, as the JAX package computes them
+        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(step))
+        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
+        for n, p in params.items():
+            g = grads[n]
+            m = state["m"][n].mul_(b1).add_((1 - b1) * g)
+            v = state["v"][n].mul_(b2).add_((1 - b2) * g * g)
+            mh = m / bc1
+            vh = v / bc2
+            p.sub_(lr * (mh / (torch.sqrt(vh) + eps) + weight_decay * p))
+        state["step"] = step
+        return params, state
+
+    return Optimizer(init, update, elidable=weight_decay == 0.0,
+                     n_moments=2)
+
+
+def clip_scale(norm, max_norm: float):
+    """Global-norm clip factor."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def clip_by_global_norm(grads: Params, max_norm: float):
+    """Returns (clipped grads, global norm); the norm stays a device
+    tensor, so clipping needs no synchronisation."""
+    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+    scale = clip_scale(norm, max_norm)
+    return {n: g * scale for n, g in grads.items()}, norm

@@ -6,18 +6,28 @@ JAX, so they run on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance 1e-5 abs in float32: the same softmax over the same positions,
-summed in another order."""
+Tolerance 1e-5 abs in float32 for outputs: the same softmax over the same
+positions, summed in another order; 1e-4 for the gated attention's
+gradients."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import vit_small_paper
+from repro_torch.configs.base import D2FTConfig
 from repro_torch.configs.gemma3_1b import smoke_config
+from repro_torch.core.d2ft import plan_schedule
+from repro_torch.data.synthetic import image_batches, make_image_task
+from repro_torch.kernels import contract, ops
+from repro_torch.kernels import d2ft_attention as d2a
 from repro_torch.kernels.ops import paged_decode_attention
 from repro_torch.kernels.paged_decode import (paged_decode_ref,
                                               paged_flash_decode)
 from repro_torch.models.transformer import init_model
+from repro_torch.models.vit import init_vit
+from repro_torch.optim.optimizers import sgd
 from repro_torch.serving.engine import PagedServingEngine, Request
+from repro_torch.train.loop import finetune_vit
 
 TOL = 1e-5
 
@@ -127,3 +137,120 @@ def test_engine_kernel_path_matches_plain_path_on_card():
     for r in reqs:
         np.testing.assert_array_equal(out[r.uid], plain[r.uid])
     assert eng.pm.n_free == eng.pm.capacity
+
+
+# ------------------------------------------------- d2ft gated attention
+# Tolerances in float32 with TF32 off: o and lse 1e-5, gradients 1e-4 (sums
+# over up to 197 keys in another order than the plain version's).
+GRAD_TOL = 1e-4
+
+
+def test_d2ft_kernels_refuse_cpu_tensors():
+    """CPU tensors are the plain version's business: the launchers raise."""
+    x = torch.zeros((1, 2, 5, 32))
+    g = torch.ones((1, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        d2a.flash_fwd(x, x, x, g, causal=False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        d2a.flash_bwd(x, x, x, g, x, torch.zeros((1, 2, 5)), x, causal=False)
+
+
+def _attn_case(seed, B, H, S, hd):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((B, H, S, hd), generator=gen, device="cuda")
+                   for _ in range(4))
+    ops_ = torch.randperm(B * H, generator=gen, device="cuda") % 3
+    g_f = (ops_ != 2).float().reshape(B, H)
+    g_b = (ops_ == 0).float().reshape(B, H)
+    return q, k, v, do, g_f, g_b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("S", [1, 63, 197])
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0), (True, 40)])
+def test_d2ft_kernels_match_plain(hd, S, causal, window):
+    """Forward and backward kernels against the plain version and its
+    autograd gradients, with compaction bounds above the live counts;
+    exact zeros on gated slices, LSE_MASKED on dead ones, and executed
+    tiles = live slices x live tiles per slice."""
+    _need_card()
+    B, H = 3, 4
+    q, k, v, do, g_f, g_b = _attn_case(hd + S, B, H, S, hd)
+    n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+    f0, b0 = d2a.flash_fwd.launches, d2a.flash_bwd.launches
+    with contract.count_tiles("cuda") as tc:
+        qk, kk, vk = (t.clone().requires_grad_() for t in (q, k, v))
+        out = d2a.gated_flash_attention(qk, kk, vk, g_f, g_b, causal=causal,
+                                        window=window, live_fwd=n_f + 1,
+                                        live_bwd=n_b + 2)
+        out.backward(do)
+        counts = tc.read()
+    assert d2a.flash_fwd.launches == f0 + 1
+    assert d2a.flash_bwd.launches == b0 + 1
+    _, lse = d2a.flash_fwd(q, k, v, g_f, causal=causal, window=window,
+                           live=n_f + 1)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = d2a.gated_attention_ref(qr, kr, vr, g_f, g_b, causal=causal,
+                                  window=window)
+    ref.backward(do)
+    lse_ref = d2a.gated_attention_lse_ref(q, k, g_f, causal=causal,
+                                          window=window)
+    out, ref = out.detach(), ref.detach()
+    assert float((out - ref).abs().max()) <= TOL
+    assert float((lse - lse_ref).abs().max()) <= TOL
+    for a, b in ((qk, qr), (kk, kr), (vk, vr)):
+        assert float((a.grad - b.grad).abs().max()) <= GRAD_TOL
+        assert float(a.grad[g_b == 0].abs().max()) == 0.0
+    assert float(out[g_f == 0].abs().max()) == 0.0
+    assert bool((lse[g_f == 0] == d2a.LSE_MASKED).all())
+    tiles = d2a.kernel_live_tiles(S, causal, window)
+    assert counts == {"fwd": n_f * tiles, "bwd_dkdv": n_b * tiles,
+                      "bwd_dq": n_b * tiles}
+
+
+@pytest.mark.gpu
+def test_d2ft_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    q, k, v, do, g_f, g_b = _attn_case(0, 2, 3, 20, 32)
+    with pytest.raises(TypeError, match="float32"):
+        d2a.flash_fwd(q.double(), k, v, g_f, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        d2a.flash_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v,
+                      g_f, causal=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        x = q[..., :24].contiguous()
+        d2a.flash_fwd(x, x, x, g_f, causal=True)
+    with pytest.raises(ValueError, match="below the live gate count"):
+        ops.gated_attention(q, k, v, g_f, g_b,
+                            live_fwd=int((g_f != 0).sum()) - 1)
+    with pytest.raises(ValueError, match="g_b <= g_f"):
+        ops.gated_attention(q, k, v, g_b, g_f)
+
+
+@pytest.mark.gpu
+def test_finetune_vit_kernel_path_matches_masked_path_on_card():
+    """Two D2FT steps on the smoke ViT: the kernel path launches one forward
+    and one backward per layer per step and its losses match the masked
+    path's from the same weights and schedule."""
+    _need_card()
+    cfg = vit_small_paper.smoke_config()
+    L, G, N = cfg.n_layers, cfg.n_heads, 5
+    rng = np.random.default_rng(0)
+    bw, fw = rng.random((L * G, N)), rng.random((L * G, N))
+    sched = plan_schedule(D2FTConfig(n_microbatches=N, n_pf=3, n_po=1), bw,
+                          fw, L, G)
+    task = make_image_task(3, n_classes=10, image_size=32)
+    losses = {}
+    for use_kernel in (True, False):
+        f0, b0 = d2a.flash_fwd.launches, d2a.flash_bwd.launches
+        model = init_vit(cfg, seed=0, device="cuda")
+        _, _, log = finetune_vit(model, cfg, sgd(0.05),
+                                 image_batches(task, 5, 10, 2), steps=2,
+                                 schedule_fn=lambda *a: sched,
+                                 n_microbatches=N, use_kernel=use_kernel)
+        assert d2a.flash_fwd.launches - f0 == (2 * L if use_kernel else 0)
+        assert d2a.flash_bwd.launches - b0 == (2 * L if use_kernel else 0)
+        losses[use_kernel] = log.losses
+    np.testing.assert_allclose(losses[True], losses[False], atol=1e-4,
+                               rtol=0)

@@ -36,10 +36,12 @@ def test_apply_norm(kind):
     bias = rs.randn(48).astype(np.float32)
     jp = {"scale": jnp.asarray(scale)}
     tp = Norm(kind, 48, torch.float32, "cpu")
-    tp.scale.copy_(torch.from_numpy(scale))
+    with torch.no_grad():                  # parameters are trainable leaves
+        tp.scale.copy_(torch.from_numpy(scale))
+        if kind == "layer":
+            tp.bias.copy_(torch.from_numpy(bias))
     if kind == "layer":
         jp["bias"] = jnp.asarray(bias)
-        tp.bias.copy_(torch.from_numpy(bias))
     _close(jl.apply_norm(jp, jnp.asarray(x), kind),
            tl.apply_norm(tp, torch.from_numpy(x), kind))
 

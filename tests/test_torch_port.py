@@ -23,17 +23,29 @@ SLICE_MODULES = [
     "repro_torch.configs",
     "repro_torch.configs.base",
     "repro_torch.configs.gemma3_1b",
+    "repro_torch.configs.vit_small_paper",
+    "repro_torch.core.cost_model",
+    "repro_torch.core.d2ft",
+    "repro_torch.core.knapsack",
+    "repro_torch.core.schedule",
+    "repro_torch.core.scores",
+    "repro_torch.data.synthetic",
     "repro_torch.interop",
     "repro_torch.kernels",
     "repro_torch.kernels.build",
+    "repro_torch.kernels.contract",
+    "repro_torch.kernels.d2ft_attention",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.paged_decode",
     "repro_torch.models.attention",
     "repro_torch.models.layers",
     "repro_torch.models.transformer",
+    "repro_torch.models.vit",
+    "repro_torch.optim.optimizers",
     "repro_torch.serving.engine",
     "repro_torch.serving.paged_decode",
     "repro_torch.serving.pages",
+    "repro_torch.train.loop",
 ]
 
 
@@ -81,8 +93,9 @@ def test_params_from_jax_unstacks_cycles_into_flat_layers():
         c, j = divmod(i, P)
         leaf = tree["cycles"][j]["attn"]["wq"][c] if c < n_cycles else \
             tree["rest"][i - n_cycles * P]["attn"]["wq"]
-        np.testing.assert_array_equal(model.layers[i].attn.wq.numpy(), leaf)
-    np.testing.assert_array_equal(model.embed.table.numpy(),
+        np.testing.assert_array_equal(model.layers[i].attn.wq.detach().numpy(),
+                                      leaf)
+    np.testing.assert_array_equal(model.embed.table.detach().numpy(),
                                   tree["embed"]["table"])
 
 
