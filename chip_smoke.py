@@ -46,6 +46,33 @@ Phases, one line each (any failure raises and exits non-zero):
    beside their plain version's, the bound, and the library yardstick
    (scaled_dot_product_attention forward and its autograd backward on the
    live slices, which the port never calls).
+9. SSD kernels vs plain — the gated SSD chunked-scan forward and backward
+   kernels against their plain version and its autograd gradients, on the
+   operands the main path gives them (mamba2-130m's first SSD layer,
+   weights from seed 0, on the launcher's batch: B 8, H 24, P 64, N 128,
+   chunk 256) and a unit-normal cotangent, at S 2048 and S 1000 (the pad
+   path), under a p_f / p_o / p_s mix, without, at and above compaction
+   bounds: y and prevs <= 1e-5, dx / ddA / dB / dC <= 1e-4, exact zeros
+   on gated slices, executed (slice, chunk) steps = live slices x chunks.
+   Beside each, both against the plain version evaluated in float64; and
+   one case at the JAX tests' N(0, 1) operand scale, printed, not held
+   (there the values reach ~200 and float32's own rounding is of the order
+   of the tolerances). From here on ``contract.on_fallback`` raises, so
+   no non-kernel route can stand in for a kernel.
+10. LLM fine-tune — ``repro_torch.launch.train`` on mamba2-130m at full
+   size (24 layers, d 768, random weights from seed 0), batch 8 x seq
+   2048 of ``lm_batches`` in 4 micro-batches, n_pf 2 / n_po 1, AdamW lr
+   1e-3, 8 steps, scores and knapsack at step 0. 24 forward and 24
+   backward SSD launches per step, executed step fractions equal to the
+   schedule's live counts (read from the device counter), finite losses
+   within 1e-4 x max(1, |loss|) of the masked plain path on the same
+   weights and schedule. p50 step ms of the kernel path, the masked path
+   and standard full fine-tuning (no D2FT), each run twice in turns,
+   tokens/s, peak memory; then a profiler window over 3 kernel-path steps.
+11. SSD kernel timing — CUDA-event times of both kernels at phase 10's
+   shapes, layer 0's gates and bounds, L2 flushed, beside their plain
+   version's and the bound; no single PyTorch call computes the scan, so
+   there is no library yardstick.
 
 Then one JSON line of kernel records, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -79,6 +106,15 @@ FT_BATCH = 40
 FT_STEPS = 8
 FT_D2FT = dict(n_microbatches=5, n_pf=3, n_po=1)
 FT_LR = 0.05
+
+# the LLM D2FT fine-tune on mamba2-130m: the budget of
+# examples/d2ft_llm_finetune.py (2 p_f + 1 p_o of 4 micro-batches)
+LM_BATCH = 8
+LM_SEQ = 2048
+LM_STEPS = 8
+LM_LR = 1e-3
+LM_D2FT = dict(n_microbatches=4, n_pf=2, n_po=1)
+SSD_P, SSD_N, SSD_CHUNK = 64, 128, 256         # mamba2-130m's SSD widths
 
 
 def card_line() -> str:
@@ -209,7 +245,7 @@ def attention_vs_plain(torch, gen):
                          for t in (qk, kk, vk)))
         tiles = d2a.kernel_live_tiles(S, causal, window)
         want = {"fwd": 2 * n_f * tiles, "bwd_dkdv": n_b * tiles,
-                "bwd_dq": n_b * tiles}
+                "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0}
         what = (f"B {B} H {H} S {S} hd {hd} causal {causal} window "
                 f"{window} bounds {live}")
         if e_f > KERNEL_TOL or e_b > GRAD_TOL or not zeros or \
@@ -288,7 +324,7 @@ def finetune(torch, np, tag):
     N = FT_BATCH * cfg.n_heads
     tiles = d2a.kernel_live_tiles(cfg.n_patches + 1, False, 0)
     total = FT_STEPS * cfg.n_layers * N * tiles
-    frac = {k: counts[k] / total for k in counts}
+    frac = {k: counts[k] / total for k in ("fwd", "bwd_dkdv", "bwd_dq")}
     per_step = cfg.n_layers * FT_STEPS
     if launches != {"fwd": per_step, "bwd": per_step}:
         raise AssertionError(f"kernel launches {launches} != {cfg.n_layers} "
@@ -437,6 +473,357 @@ def attention_timing(torch, gen, tag):
               f"{'forward' if kind == 'fwd' else 'autograd backward'} on "
               f"the live slices) {l_ms:.4f} ms, bound {b_ms:.5f} ms by "
               f"{by}, {b_ms / k_ms:.1%} of bound {tag}", flush=True)
+    return out
+
+
+def ssd_inputs(torch, gen, B, H, S, P, N, *, g=None, operands=None):
+    """Operands of the gated SSD scan, a unit-normal cotangent and gates.
+    ``operands`` = (x, da, Bm, Cm) or, by default, the JAX block-kernel
+    tests' distributions (x ~ N(0, 1), da = -softplus(N(0, 1)), B and C
+    ~ N(0, 0.25)); ``g`` = (g_f, g_b) or a p_f / p_o / p_s mix in the LLM
+    fine-tune's 2 : 1 : 1 proportions."""
+    if operands is None:
+        operands = (
+            torch.randn((B, S, H, P), generator=gen, device="cuda"),
+            -torch.nn.functional.softplus(
+                torch.randn((B, S, H), generator=gen, device="cuda")),
+            torch.randn((B, S, N), generator=gen, device="cuda") * 0.5,
+            torch.randn((B, S, N), generator=gen, device="cuda") * 0.5)
+    dy = torch.randn((B, S, H, P), generator=gen, device="cuda")
+    if g is None:
+        op = torch.randperm(B * H, generator=gen, device="cuda") % 4
+        g = ((op != 3).float().reshape(B, H), (op <= 1).float().reshape(B, H))
+    return (*operands, dy, g[0], g[1])
+
+
+def main_path_operands(torch):
+    """x * dt, dt * A, B and C of mamba2-130m's first SSD layer (random
+    weights from seed 0) on the launcher's first batch (B 8, S 2048): the
+    operands the main path gives the kernels."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import apply_embedding, apply_norm
+    from repro_torch.models.transformer import init_model
+    cfg = get_config("mamba2-130m")
+    model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = next(lm_batches(0, cfg.vocab_size, LM_BATCH, LM_SEQ, 1))
+    d_inner, H, P, N = ssm._dims(cfg.d_model, cfg.ssm)
+    with torch.no_grad():
+        tokens = torch.as_tensor(batch["tokens"], device="cuda")
+        layer = model.layers[0]
+        h = apply_norm(layer.norm1, apply_embedding(model.embed, tokens),
+                       cfg.norm)
+        _, xBC, dt = ssm._split_in(layer.ssd, h, cfg.d_model, cfg.ssm)
+        xBC = ssm._causal_conv(xBC, layer.ssd.conv_w, layer.ssd.conv_b)
+        xin = xBC[..., :d_inner].reshape(*h.shape[:2], H, P)
+        dt = F.softplus(dt + layer.ssd.dt_bias)
+        A = -torch.exp(layer.ssd.A_log.float())
+        return ((xin * dt[..., None]).contiguous(), (dt * A).contiguous(),
+                xBC[..., d_inner:d_inner + N].contiguous(),
+                xBC[..., d_inner + N:].contiguous())
+
+
+def ssd_case(torch, args, chunk, live):
+    """One kernel-vs-plain comparison: the kernels through
+    ``ops.gated_ssd_scan`` (forward, backward, executed-step counts) and a
+    direct ``ssd_fwd`` for prevs; the plain version and its autograd
+    gradients in float32 and in float64 on the same inputs. Returns
+    (kernel - plain32, plain32 - plain64, kernel - plain64) max abs errors
+    as [y, prevs, dx, ddA, dB, dC], exact-zero flag, step counts, Sp // Q."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import contract, ops
+    from repro_torch.kernels import d2ft_ssd as d2s
+    x, da, Bm, Cm, dy, g_f, g_b = args
+    S = x.shape[1]
+    Q, Sp = ops._scan_pad(S, chunk)
+    with contract.count_tiles("cuda") as tc:
+        ins = [t.clone().requires_grad_() for t in (x, da, Bm, Cm)]
+        y = ops.gated_ssd_scan(*ins, g_f, g_b, chunk=chunk, live_fwd=live[0],
+                               live_bwd=live[1])
+        y.backward(dy)
+        torch.cuda.synchronize()
+        counts = tc.read()
+    with torch.no_grad():
+        pin = [F.pad(x, (0, 0, 0, 0, 0, Sp - S))] + [
+            F.pad(t, (0, 0, 0, Sp - S)) for t in (da, Bm, Cm)]
+        _, prevs = d2s.ssd_fwd(*pin, g_f, chunk=Q, live=live[0])
+    y = y.detach()
+    mine = [y, prevs] + [t.grad for t in ins]
+    refs = {}
+    for dt in (torch.float32, torch.float64):
+        leaves = [t.to(dt, copy=True).requires_grad_()
+                  for t in (x, da, Bm, Cm)]
+        padded = [F.pad(leaves[0], (0, 0, 0, 0, 0, Sp - S))] + [
+            F.pad(t, (0, 0, 0, Sp - S)) for t in leaves[1:]]
+        out = d2s.gated_ssd_ref(*padded, g_f.to(dt), g_b.to(dt),
+                                chunk=Q)[:, :S]
+        out.backward(dy.to(dt))
+        with torch.no_grad():
+            pv = d2s.gated_ssd_prevs_ref(*padded, g_f.to(dt), chunk=Q)
+        refs[dt] = [out.detach(), pv] + [t.grad for t in leaves]
+        del out, padded
+
+    def err(a, b):
+        return [float((u.double() - v.double()).abs().max())
+                for u, v in zip(a, b)]
+    zeros = (float(y.transpose(1, 2)[g_f == 0].abs().max()) == 0.0
+             and float(prevs[g_f.reshape(-1) == 0].abs().max()) == 0.0
+             and float(ins[0].grad.transpose(1, 2)[g_b == 0].abs().max())
+             == 0.0
+             and float(ins[1].grad.transpose(1, 2)[g_b == 0].abs().max())
+             == 0.0)
+    steps = {"ssd_fwd": counts["ssd_fwd"], "ssd_bwd": counts["ssd_bwd"]}
+    return (err(mine, refs[torch.float32]),
+            err(refs[torch.float32], refs[torch.float64]),
+            err(mine, refs[torch.float64]), zeros, steps, Sp // Q)
+
+
+def _errs(e):
+    return (f"y/prevs {max(e[:2]):.2e}, dx/ddA/dB/dC "
+            + "/".join(f"{v:.2e}" for v in e[2:]))
+
+
+def ssd_vs_plain(torch):
+    """Phase 9. Returns the largest errors {"fwd": y/prevs, "bwd": grads}."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, H, P, N, chunk = LM_BATCH, 24, SSD_P, SSD_N, SSD_CHUNK
+    operands = main_path_operands(torch)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for S, mode in ((2048, None), (2048, "exact"), (2048, "above"),
+                    (1000, "exact"), (1000, None)):
+        args = ssd_inputs(torch, gen, B, H, S, P, N,
+                          operands=[t[:, :S].contiguous() for t in operands])
+        g_f, g_b = args[5:]
+        n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+        live = {None: (None, None), "exact": (n_f, n_b),
+                "above": (n_f + 7, n_b + 5)}[mode]
+        e32, p64, k64, zeros, steps, nc = ssd_case(torch, args, chunk, live)
+        want = {"ssd_fwd": n_f * nc, "ssd_bwd": n_b * nc}
+        e_f, e_b = max(e32[:2]), max(e32[2:])
+        what = (f"B {B} H {H} S {S} P {P} N {N} chunk {chunk} bounds {live}")
+        if e_f > KERNEL_TOL or e_b > GRAD_TOL or not zeros or steps != want:
+            raise AssertionError(
+                f"SSD kernels vs plain, {what}: {_errs(e32)} (tol "
+                f"{KERNEL_TOL} / {GRAD_TOL}), exact zeros {zeros}, steps "
+                f"{steps} != {want}")
+        worst = {"fwd": max(worst["fwd"], e_f), "bwd": max(worst["bwd"], e_b)}
+        print(f"[ssd vs plain] {what}, the main path's operands: live "
+              f"{n_f}/{n_b} of {B * H}, kernel vs plain {_errs(e32)}; plain "
+              f"vs its float64 evaluation {_errs(p64)}; kernel vs float64 "
+              f"{_errs(k64)}; zeros exact, steps {steps}", flush=True)
+    # the JAX block-kernel tests' operand scale at these widths: outputs of
+    # ~50 and gradients of ~200, where float32's own rounding is of the
+    # order of the tolerances; printed, not held
+    args = ssd_inputs(torch, gen, B, H, 2048, P, N)
+    e32, p64, k64, _, _, _ = ssd_case(torch, args, chunk, (None, None))
+    print(f"[ssd vs plain] N(0, 1) operands (the JAX tests' scale), S 2048: "
+          f"kernel vs plain {_errs(e32)}; plain vs its float64 evaluation "
+          f"{_errs(p64)}; kernel vs float64 {_errs(k64)}", flush=True)
+    print(f"[ssd vs plain] max abs err fwd {worst['fwd']:.3e} <= "
+          f"{KERNEL_TOL}, bwd {worst['bwd']:.3e} <= {GRAD_TOL}", flush=True)
+    return worst
+
+
+def lm_finetune(torch, np, tag):
+    """Phase 10. Returns {"launches": {"fwd", "bwd"}, "gates": layer 0's
+    per-head (g_f, g_b) of the step-0 split, "bounds": per-head bounds}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedule import (gates_from_schedule,
+                                           live_slice_bounds)
+    from repro_torch.data.synthetic import lm_batches, microbatch_assignment
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import d2ft_ssd as d2s
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.ssm import _dims
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train import loop
+
+    cfg = get_config("mamba2-130m")
+    _, H, _, _ = _dims(cfg.d_model, cfg.ssm)
+    B, S, n_mb = LM_BATCH, LM_SEQ, LM_D2FT["n_microbatches"]
+    argv = ["--arch", "mamba2-130m", "--full", "--batch", str(B), "--seq",
+            str(S), "--steps", str(LM_STEPS), "--lr", str(LM_LR),
+            "--n-microbatches", str(n_mb), "--n-pf", str(LM_D2FT["n_pf"]),
+            "--n-po", str(LM_D2FT["n_po"])]
+    scheds = []
+    plan = loop.plan_from_scores
+
+    def recording(*a, **k):                  # keeps the step-0 schedule
+        scheds.append(plan(*a, **k))
+        return scheds[-1]
+
+    def replay(*a, **k):                     # the masked path reuses it
+        return scheds[0]
+
+    def run(name):
+        loop.plan_from_scores = recording if not scheds else replay
+        try:
+            return launcher.main(argv + {"kernel": ["--d2ft", "--kernel"],
+                                         "masked": ["--d2ft"],
+                                         "full": []}[name])
+        finally:
+            loop.plan_from_scores = plan
+
+    torch.cuda.reset_peak_memory_stats()
+    d2s.ssd_fwd.launches = d2s.ssd_bwd.launches = 0
+    with contract.count_tiles("cuda") as tc:
+        log_k = run("kernel")
+        counts = tc.read()
+    launches = {"fwd": d2s.ssd_fwd.launches, "bwd": d2s.ssd_bwd.launches}
+    peak_k = torch.cuda.max_memory_allocated()
+    sched = scheds[0]
+    mb_of = microbatch_assignment(B, n_mb)
+    bounds = live_slice_bounds(sched, mb_of)
+    g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")    # [L, B, G]
+    rep = H // sched.n_groups
+    nc = S // cfg.ssm.chunk
+    live_f = int(g_f.sum()) * rep * nc * LM_STEPS
+    live_b = int(g_b.sum()) * rep * nc * LM_STEPS
+    total = cfg.n_layers * B * H * nc * LM_STEPS
+    frac = {"fwd": counts["ssd_fwd"] / total, "bwd": counts["ssd_bwd"] / total}
+    per_step = cfg.n_layers * LM_STEPS
+    if launches != {"fwd": per_step, "bwd": per_step}:
+        raise AssertionError(f"SSD kernel launches {launches} != "
+                             f"{cfg.n_layers} per step x {LM_STEPS} steps")
+    if counts["ssd_fwd"] != live_f or counts["ssd_bwd"] != live_b or \
+            counts["fwd"] or counts["bwd_dkdv"] or counts["bwd_dq"]:
+        raise AssertionError(f"executed steps {counts} != the schedule's "
+                             f"live (sample, head, chunk) counts "
+                             f"{live_f} / {live_b}")
+    losses = np.asarray(log_k.losses)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite losses {losses}")
+    torch.cuda.reset_peak_memory_stats()
+    log_m = run("masked")
+    peak_m = torch.cuda.max_memory_allocated()
+    if d2s.ssd_fwd.launches != launches["fwd"]:
+        raise AssertionError("the masked path launched the kernel")
+    diff = np.abs(losses - np.asarray(log_m.losses))
+    lim = 1e-4 * np.maximum(1.0, np.abs(np.asarray(log_m.losses)))
+    if not (diff <= lim).all():
+        raise AssertionError(f"kernel-path losses {losses.tolist()} vs "
+                             f"masked {log_m.losses}: diff {diff.tolist()}")
+    # timed in turns, kernel masked full full masked kernel
+    log_f = run("full")
+    rounds = {"kernel": [log_k.step_times], "masked": [log_m.step_times],
+              "full": [log_f.step_times]}
+    for name in ("full", "masked", "kernel"):
+        rounds[name].append(run(name).step_times)
+    p50 = {k: 1e3 * float(np.median(r[0] + r[1])) for k, r in rounds.items()}
+    print(f"[lm fine-tune] mamba2-130m full size ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {H} SSD heads of {cfg.ssm.head_dim}, N "
+          f"{cfg.ssm.state_dim}, chunk {cfg.ssm.chunk}, vocab "
+          f"{cfg.vocab_size}, f32, seed 0) through repro_torch.launch.train, "
+          f"batch {B} x seq {S} in {n_mb} micro-batches, n_pf "
+          f"{LM_D2FT['n_pf']} n_po {LM_D2FT['n_po']}, G {sched.n_groups}, "
+          f"AdamW lr {LM_LR}, {LM_STEPS} steps: SSD kernel launches "
+          f"{launches}, live (sample, group) bounds {bounds} x {rep} heads "
+          f"per group, executed step fractions fwd {frac['fwd']:.3f} bwd "
+          f"{frac['bwd']:.3f} (= the schedule's live counts)", flush=True)
+    print(f"[lm fine-tune] losses kernel {[round(float(x), 6) for x in losses]}"
+          f" | masked {[round(x, 6) for x in log_m.losses]} | max diff "
+          f"{float(diff.max()):.3e}", flush=True)
+    print(f"[lm fine-tune] p50 step ms over 2 x {LM_STEPS} steps: kernel path "
+          f"{p50['kernel']:.3f}, masked path {p50['masked']:.3f}, standard "
+          f"full fine-tuning (d2ft off, plain scan) {p50['full']:.3f}; per "
+          f"round " + ", ".join(
+              f"{k} {1e3 * float(np.median(r[0])):.3f} / "
+              f"{1e3 * float(np.median(r[1])):.3f}"
+              for k, r in rounds.items()) + f" {tag}")
+    print(f"[lm fine-tune] tokens/s: kernel path "
+          f"{B * S / p50['kernel'] * 1e3:.1f}, masked "
+          f"{B * S / p50['masked'] * 1e3:.1f}, full "
+          f"{B * S / p50['full'] * 1e3:.1f} {tag}")
+    print(f"[lm fine-tune] max_memory_allocated, scoring included: kernel "
+          f"path {peak_k} bytes ({peak_k / 2**30:.2f} GiB), masked path "
+          f"{peak_m} bytes ({peak_m / 2**30:.2f} GiB) {tag}", flush=True)
+
+    # where a kernel-path step's time goes
+    model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = adamw(LM_LR)
+    state = opt.init(dict(model.named_parameters()))
+    step = loop.make_train_step(cfg, opt, use_gates=True, use_kernel=True,
+                                live_bounds=bounds)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(0, cfg.vocab_size, B, S, 1)).items()}
+    gates = (g_f.cuda(), g_b.cuda())
+    step(model, state, batch, gates)
+    torch.cuda.synchronize()
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            step(model, state, batch, gates)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sorted(((e.self_device_time_total, e.count, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_us = sum(t for t, _, _ in dev)
+    if busy_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    ssd_us = sum(t for t, _, k in dev if "ssd_" in k)
+    print(f"[profile] {n_prof} kernel-path LM fine-tune steps: device busy "
+          f"{busy_us / 1e3 / n_prof:.3f} ms per step, wall "
+          f"{1e3 * wall / n_prof:.3f} ms per step under the profiler, idle "
+          f"share {1 - busy_us / 1e6 / wall:.1%}; d2ft SSD kernels "
+          f"{ssd_us / 1e3 / n_prof:.3f} ms per step "
+          f"({ssd_us / busy_us:.1%} of busy) {tag}")
+    print("[profile] top device time per step: " + "; ".join(
+        f"{k[:60]} x{c // n_prof}: {t / 1e3 / n_prof:.3f} ms"
+        for t, c, k in dev[:8]), flush=True)
+    del model, state, batch
+    torch.cuda.empty_cache()
+    gh_f = torch.repeat_interleave(g_f[0], rep, dim=1).cuda()
+    gh_b = torch.repeat_interleave(g_b[0], rep, dim=1).cuda()
+    return {"launches": launches, "gates": (gh_f, gh_b),
+            "bounds": (bounds[0] * rep, bounds[1] * rep)}
+
+
+def ssd_timing(torch, train, tag):
+    """Phase 11. Returns {"fwd"|"bwd": (ms, plain_ms, bound_ms, bound_by)}
+    at phase 10's shapes, layer 0's gates and the per-head bounds."""
+    from repro_torch.kernels import d2ft_ssd as d2s
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    B, S, H, P, N, Q = LM_BATCH, LM_SEQ, 24, SSD_P, SSD_N, SSD_CHUNK
+    x, da, Bm, Cm, dy, g_f, g_b = ssd_inputs(torch, gen, B, H, S, P, N,
+                                             g=train["gates"])
+    lf, lb = train["bounds"]
+    _, prevs = d2s.ssd_fwd(x, da, Bm, Cm, g_f, chunk=Q, live=lf)
+    refs = [t.clone().requires_grad_() for t in (x, da, Bm, Cm)]
+    ref = d2s.gated_ssd_ref(*refs, g_f, g_b, chunk=Q)
+    g_np, b_np = g_f.cpu().numpy(), g_b.cpu().numpy()
+    fl = d2s.needed_flops(g_np, b_np, S, P, N, chunk=Q)
+    by = d2s.needed_bytes(g_np, b_np, S, P, N, chunk=Q)
+    out = {
+        "fwd": (time_ms(torch, lambda: d2s.ssd_fwd(x, da, Bm, Cm, g_f,
+                                                   chunk=Q, live=lf),
+                        iters=20),
+                time_ms(torch, lambda: d2s.gated_ssd_ref(
+                    x, da, Bm, Cm, g_f, g_b, chunk=Q), iters=20),
+                *roofline(by[0], fl[0])),
+        "bwd": (time_ms(torch, lambda: d2s.ssd_bwd(x, da, Bm, Cm, g_b, prevs,
+                                                   dy, chunk=Q, live=lb),
+                        iters=20),
+                time_ms(torch, lambda: torch.autograd.grad(
+                    ref, refs, dy, retain_graph=True), iters=20),
+                *roofline(by[1], fl[1]))}
+    live = {"fwd": int((g_f != 0).sum()), "bwd": int((g_b != 0).sum())}
+    for kind, (k_ms, p_ms, b_ms, bb) in out.items():
+        print(f"[ssd timing] d2ft_ssd_{kind} B {B} S {S} H {H} P {P} N {N} "
+              f"chunk {Q}, live {live[kind]} of {B * H} (bound "
+              f"{lf if kind == 'fwd' else lb}): kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, library none, bound {b_ms:.5f} ms by {bb} "
+              f"({fl[0 if kind == 'fwd' else 1] / 1e9:.3f} GFLOP with CB once "
+              f"per (sample, chunk), causal halves; "
+              f"{by[0 if kind == 'fwd' else 1] / 1e6:.1f} MB), "
+              f"{b_ms / k_ms:.1%} of bound {tag}", flush=True)
     return out
 
 
@@ -682,6 +1069,24 @@ def main() -> int:
 
     # 8. attention kernel timing ------------------------------------------
     timing = attention_timing(torch, gen, tag)
+    torch.cuda.empty_cache()
+
+    # a route that takes no kernel despite use_kernel=True must not pass
+    from repro_torch.kernels import contract
+
+    def refuse_fallback(kind, reason):
+        raise AssertionError(f"{kind} took a non-kernel route: {reason}")
+    contract.on_fallback = refuse_fallback
+
+    # 9. SSD kernels vs plain ---------------------------------------------
+    ssd_errs = ssd_vs_plain(torch)
+    torch.cuda.empty_cache()
+
+    # 10. LLM fine-tune through the launcher ------------------------------
+    lm = lm_finetune(torch, np, tag)
+
+    # 11. SSD kernel timing -----------------------------------------------
+    ssd_t = ssd_timing(torch, lm, tag)
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{
@@ -700,6 +1105,15 @@ def main() -> int:
             "launches": train["launches"][kind], "max_abs_err": errs[kind],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": l_ms})
+    for kind, line in (("fwd", 80), ("bwd", 182)):
+        k_ms, p_ms, b_ms, by = ssd_t[kind]
+        kernels.append({
+            "name": f"d2ft_ssd_{kind}", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/d2ft_ssd_{kind}.cu",
+            "replaces": f"src/repro/kernels/d2ft_ssd.py:{line}",
+            "launches": lm["launches"][kind], "max_abs_err": ssd_errs[kind],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ from repro_torch.configs.base import ModelConfig
 # arch id -> module name (grows as slices port more archs)
 ARCH_MODULES: Dict[str, str] = {
     "gemma3-1b": "gemma3_1b",
+    "mamba2-130m": "mamba2_130m",
 }
 
 ARCH_IDS = tuple(ARCH_MODULES)

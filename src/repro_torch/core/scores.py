@@ -139,14 +139,25 @@ def compute_scores(loss_fn: Callable, params: Mapping[str, torch.Tensor],
 
 
 # ------------------------------------------------------- block extractors
-_BLOCK_KEY = re.compile(r"blocks\.(\d+)\.(.+)")
+def _indexed_blocks(params: Mapping[str, torch.Tensor], prefix: str
+                    ) -> List[dict]:
+    """Per-layer block dicts of the ``<prefix>.<i>.<name>`` entries."""
+    pattern = re.compile(re.escape(prefix) + r"\.(\d+)\.(.+)")
+    blocks: Dict[int, dict] = {}
+    for key, t in params.items():
+        m = pattern.fullmatch(key)
+        if m:
+            blocks.setdefault(int(m.group(1)), {})[m.group(2)] = t
+    return [blocks[i] for i in sorted(blocks)]
+
+
+def transformer_blocks(params: Mapping[str, torch.Tensor], cfg=None
+                       ) -> List[dict]:
+    """Per-layer block dicts of a Transformer's flat ``layers.<i>.<name>``
+    entries: the JAX package's unstacked scan cycles, in layer order."""
+    return _indexed_blocks(params, "layers")
 
 
 def vit_blocks(params: Mapping[str, torch.Tensor], cfg=None) -> List[dict]:
     """Per-layer block dicts of a ViT's ``blocks.<i>.<name>`` entries."""
-    blocks: Dict[int, dict] = {}
-    for key, t in params.items():
-        m = _BLOCK_KEY.fullmatch(key)
-        if m:
-            blocks.setdefault(int(m.group(1)), {})[m.group(2)] = t
-    return [blocks[i] for i in sorted(blocks)]
+    return _indexed_blocks(params, "blocks")

@@ -8,8 +8,11 @@ packages, so the mapping only unstacks the layers: the JAX tree stacks the
 layers of each pattern position over cycles (``cycles[j]`` has a leading
 ``n_cycles`` dim) and keeps the remainder in ``rest``; cycle ``c``,
 position ``j`` becomes flat layer ``c*P + j``, remainder layer ``i`` becomes
-``n_cycles*P + i``. Tests use it so both packages compute with the same
-weights; the serving path never does.
+``n_cycles*P + i``. Every block's leaves cross the same way, an attention
+block's (``attn.wq`` ...) as an SSD block's (``ssd.w_in``, ``conv_w``,
+``conv_b``, ``A_log``, ``dt_bias``, ``D``, ``norm_scale``, ``w_out``;
+mamba2-130m stacks its 24 layers in one pattern cycle). Tests use it so
+both packages compute with the same weights; the serving path never does.
 
 ``vit_params_from_jax(tree)`` does the same for ``repro.models.vit.
 init_vit``'s tree (``patch_proj``, ``patch_bias``, ``cls``, ``pos``, a

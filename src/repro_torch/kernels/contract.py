@@ -13,11 +13,12 @@ Every gated kernel speaks one interface:
   bound, the kernel launches ``dispatch_count(live, N)`` slice blocks
   instead of N; each block reads its slice id from the int32 table that
   ``live_permutation`` returns, so nothing is gathered or scattered.
-* **executed-tile counter** — in place of the JAX package's
+* **executed-work counter** — in place of the JAX package's
   ``on_backward_block`` debug callback. Inside ``count_tiles(device)``,
-  every kernel launch adds the number of (q tile, k tile) pairs it
-  executed to a device int64 counter, one atomic per block. Reading the
-  counter synchronises, so it is off on the normal path.
+  every attention kernel launch adds the number of (q tile, k tile) pairs
+  it executed, and every SSD kernel launch the number of (slice, chunk)
+  steps it executed, to a device int64 counter, one atomic per block.
+  Reading the counter synchronises, so it is off on the normal path.
 * **fallback hook** — a route that takes no kernel despite
   ``use_kernel=True`` reports itself through ``on_fallback``.
 """
@@ -56,11 +57,13 @@ def live_permutation(gate_flat: torch.Tensor, n_dispatch: int) -> torch.Tensor:
 
 
 class TileCounter:
-    """Executed (q tile, k tile) pairs per kernel, summed on the device:
-    ``fwd`` (forward kernel), ``bwd_dkdv`` and ``bwd_dq`` (the two backward
-    kernels, each of which executes every live tile once)."""
+    """Executed work per kernel, summed on the device: (q tile, k tile)
+    pairs of the attention kernels, ``fwd`` (forward kernel), ``bwd_dkdv``
+    and ``bwd_dq`` (the two backward kernels, each of which executes every
+    live tile once); (slice, chunk) steps of the SSD kernels, ``ssd_fwd``
+    and ``ssd_bwd``."""
 
-    KINDS = ("fwd", "bwd_dkdv", "bwd_dq")
+    KINDS = ("fwd", "bwd_dkdv", "bwd_dq", "ssd_fwd", "ssd_bwd")
 
     def __init__(self, device):
         self.counts = torch.zeros(len(self.KINDS), dtype=torch.int64,

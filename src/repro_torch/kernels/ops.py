@@ -1,6 +1,6 @@
 """Public kernel entries with the JAX package's argument checks (port of the
-``gated_attention`` and ``paged_decode_attention`` entries of
-``repro/kernels/ops.py``).
+``gated_attention``, ``gated_ssd_scan`` and ``paged_decode_attention``
+entries of ``repro/kernels/ops.py``).
 
 Each entry dispatches on where its tensors lie: CPU tensors go to the
 kernel's plain PyTorch version, CUDA tensors to the hand-written kernel,
@@ -12,7 +12,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels import d2ft_ssd
 from repro_torch.kernels.d2ft_attention import gated_flash_attention
 from repro_torch.kernels.paged_decode import (paged_decode_ref,
                                               paged_flash_decode)
@@ -126,3 +128,55 @@ def gated_attention(q, k, v, g_f, g_b=None, *, causal: bool = True,
     return gated_flash_attention(q, k, v, g_f, g_b, causal=causal,
                                  window=window, live_fwd=live_fwd,
                                  live_bwd=live_bwd)
+
+
+# ------------------------------------------------------------- gated SSD
+def _scan_pad(S: int, chunk: int):
+    """(Q, Sp): the chunk size actually used and the padded length. A scan
+    cannot shrink its chunk the way attention shrinks its tiles (the chunk
+    is the recurrence granularity), so odd lengths zero-pad up to the next
+    chunk multiple: a padded row has zero log-decay (identity state update)
+    and zero input."""
+    Q = min(chunk, S)
+    return Q, -(-S // Q) * Q
+
+
+def _gated_ssd_impl(x, da, Bm, Cm, g_f, g_b, *, chunk: int, live_fwd,
+                    live_bwd):
+    """Pad, scan, slice back; no value checks, so the model path
+    (``models/ssm.apply_ssd``) pays no host sync per layer."""
+    S = x.shape[1]
+    Q, Sp = _scan_pad(S, chunk)
+    if Sp != S:
+        pad = Sp - S
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        da = F.pad(da, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    y = d2ft_ssd.gated_ssd_scan(x, da, Bm, Cm, g_f, g_b, chunk=Q,
+                                live_fwd=live_fwd, live_bwd=live_bwd)
+    return y[:, :S] if Sp != S else y
+
+
+def gated_ssd_scan(x, da, Bm, Cm, g_f, g_b=None, *, chunk: int,
+                   live_fwd: Optional[int] = None,
+                   live_bwd: Optional[int] = None):
+    """D2FT-gated SSD chunked scan with a gate-aware backward.
+
+    x: [B,S,H,P] dt-weighted input, da: [B,S,H] per-step log-decay
+    (``dt * A``), Bm/Cm: [B,S,N] (shared across heads); g_f, g_b: [B,H]
+    float {0,1} with g_b <= g_f (checked) — g_f == 0 heads produce zeros
+    and run no forward work (p_s), g_b == 0 heads run no backward work and
+    get zero dx/ddA/dB/dC (p_o and p_s). Omitting g_b uses g_b = g_f.
+    live_fwd / live_bwd are upper bounds on the live slice counts
+    (``core.schedule.live_slice_bounds`` scaled by heads per group). S that
+    is not a chunk multiple is zero-padded and sliced back.
+
+    CPU tensors take the plain version, CUDA tensors the kernels.
+    """
+    if g_b is None:
+        g_b = g_f
+    B, S, H, P = x.shape
+    _validate_gates(g_f, g_b, B, H, live_fwd, live_bwd)
+    return _gated_ssd_impl(x, da, Bm, Cm, g_f, g_b, chunk=chunk,
+                           live_fwd=live_fwd, live_bwd=live_bwd)

@@ -7,18 +7,20 @@ The JAX package stacks layers per pattern cycle for ``lax.scan``;
 gain from the stacked layout here.
 
 Ported so far: dense attention blocks (global and sliding-window) with a
-dense FFN, the batched serving prefill, and the D2FT-gated block forward
-(``apply_block``). Gating: ``gates = (g_f, g_b)`` of shape [n_layers, B, G];
-per block, the residual contribution is split into G head/width groups
-c_g and mixed as
+dense FFN, SSD blocks (mamba2: no FFN), the batched serving prefill of the
+attention blocks, the D2FT-gated block forward (``apply_block``), the
+text-only ``forward`` and the LLM loss (``fused_xent``, ``lm_loss``).
+Gating: ``gates = (g_f, g_b)`` of shape [n_layers, B, G]; per block, the
+residual contribution is split into G head/width groups c_g and mixed as
 
     c_eff = g_f * (g_b * c_g + (1 - g_b) * c_g.detach()),
 
 which is p_f (1, 1), p_o (1, 0) and p_s (0, ·) exactly: p_o keeps the
 forward value but no gradient flows through the subnet for that sample;
-p_s removes the contribution. SSD, RG-LRU and MoE blocks come with the
-slice that ports their kernels; the tensor-parallel and sharding-policy
-branches with the distributed slice.
+p_s removes the contribution. An SSD block gates its scan per (sample,
+head) instead (``models/ssm.apply_ssd``). RG-LRU and MoE blocks, the
+frontends and the decode caches come with later slices; the
+tensor-parallel and sharding-policy branches with the distributed slice.
 """
 from __future__ import annotations
 
@@ -27,9 +29,12 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.kernels import contract as kernel_contract
+
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSD,
                                       ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (_act, _param, apply_embedding,
                                        apply_norm, dense_init, init_embedding,
                                        init_mlp, init_norm, softcap,
@@ -38,8 +43,7 @@ from repro_torch.models.layers import (_act, _param, apply_embedding,
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet: it comes with the slice that ports the "
-        "SSD / RG-LRU / MoE block kernels")
+        f"{what} is not ported yet: it comes with a later slice of the port")
 
 
 def _not_ported_dist(what: str):
@@ -67,12 +71,16 @@ def _group_project(heads_out, wo, G):
 
 # ============================================================== block params
 class Block(nn.Module):
-    """Pre-norm residual block: norm1 + attn, then norm2 + mlp."""
+    """Pre-norm residual block: norm1 + a mixer (``attn``, or ``ssd``), then,
+    where the config has an FFN, norm2 + mlp."""
 
-    def __init__(self, norm1, attn_mod, norm2=None, mlp=None):
+    def __init__(self, norm1, attn_mod=None, norm2=None, mlp=None, ssd=None):
         super().__init__()
         self.norm1 = norm1
-        self.attn = attn_mod
+        if attn_mod is not None:
+            self.attn = attn_mod
+        if ssd is not None:
+            self.ssd = ssd
         if mlp is not None:
             self.norm2 = norm2
             self.mlp = mlp
@@ -81,13 +89,20 @@ class Block(nn.Module):
 def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
                 dtype) -> Block:
     dev = gen.device
-    if kind in (SSD, RGLRU):
+    if kind == RGLRU:
         raise _not_ported(f"block kind {kind!r}")
-    if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
+    if kind not in (ATTN_GLOBAL, ATTN_LOCAL, SSD):
         raise ValueError(kind)
+    norm1 = init_norm(cfg.norm, cfg.d_model, dtype, dev)
+    if kind == SSD:
+        s = ssm_mod.init_ssd(gen, cfg.d_model, cfg.ssm, dtype)
+        if cfg.d_ff <= 0:                   # mamba2: no FFN
+            return Block(norm1, ssd=s)
+        return Block(norm1, None, init_norm(cfg.norm, cfg.d_model, dtype, dev),
+                     init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated,
+                              dtype), ssd=s)
     if cfg.moe is not None:
         raise _not_ported("the MoE FFN")
-    norm1 = init_norm(cfg.norm, cfg.d_model, dtype, dev)
     a = attn.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                             cfg.resolved_head_dim, cfg.qkv_bias, dtype)
     if cfg.d_ff <= 0:
@@ -166,6 +181,38 @@ def _apply_attn_inner(p, h, kind: str, cfg: ModelConfig, layer_gates,
     return gate_mix(c_g, g_f, g_b).sum(dim=2)
 
 
+def _apply_ssd_inner(p: ssm_mod.SSD, h, cfg: ModelConfig, layer_gates,
+                     use_kernel: bool = False, live_bounds=None):
+    """SSD contribution (pre-residual), gated per SSD head."""
+    if layer_gates is None:
+        return ssm_mod.apply_ssd(p, h, cfg.d_model, cfg.ssm)
+    g_f, g_b = layer_gates
+    G = g_f.shape[-1]
+    d_inner, H, P, N = ssm_mod._dims(cfg.d_model, cfg.ssm)
+    if H % G != 0:
+        # heads don't tile into gate groups: fall back to the coarse
+        # block-granularity run-twice mix (test-scale only)
+        if use_kernel:
+            kernel_contract.report_fallback(
+                "ssd", f"H={H} not divisible by G={G} gate groups")
+        full = ssm_mod.apply_ssd(p, h, cfg.d_model, cfg.ssm)
+        sg = full.detach()
+        gf = g_f[:, :1].mean(-1)[:, None, None]         # block granularity
+        gb = g_b[:, :1].mean(-1)[:, None, None]
+        return gf * (gb * full + (1 - gb) * sg)
+    # gate per SSD head: each of the G schedule groups spans H // G
+    # consecutive heads; the scan is gated per (sample, head) inside
+    # apply_ssd (kernel or masked mix) before the D-residual shortcut
+    rep = H // G
+    gf_h = torch.repeat_interleave(g_f, rep, dim=1).float()
+    gb_h = torch.repeat_interleave(g_b, rep, dim=1).float()
+    kernel_bounds = None
+    if live_bounds is not None:
+        kernel_bounds = (live_bounds[0] * rep, live_bounds[1] * rep)
+    return ssm_mod.apply_ssd(p, h, cfg.d_model, cfg.ssm, gates=(gf_h, gb_h),
+                             use_kernel=use_kernel, live_bounds=kernel_bounds)
+
+
 def apply_block(p: Block, x, kind: str, cfg: ModelConfig, layer_gates=None,
                 policy=None, use_kernel: bool = False, live_bounds=None,
                 tp=None):
@@ -177,11 +224,16 @@ def apply_block(p: Block, x, kind: str, cfg: ModelConfig, layer_gates=None,
         raise _not_ported_dist("the sharding-policy branch of apply_block")
     if tp is not None:
         raise _not_ported_dist("the tensor-parallel branch of apply_block")
-    if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
-        raise _not_ported(f"block kind {kind!r}")
     h = apply_norm(p.norm1, x, cfg.norm)
-    x = x + _apply_attn_inner(p.attn, h, kind, cfg, layer_gates, use_kernel,
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        c = _apply_attn_inner(p.attn, h, kind, cfg, layer_gates, use_kernel,
                               live_bounds)
+    elif kind == SSD:
+        c = _apply_ssd_inner(p.ssd, h, cfg, layer_gates, use_kernel,
+                             live_bounds)
+    else:
+        raise _not_ported(f"block kind {kind!r}")
+    x = x + c
     if hasattr(p, "mlp"):
         h2 = apply_norm(p.norm2, x, cfg.norm)
         x = x + _apply_ffn(p, h2, cfg, layer_gates)
@@ -237,6 +289,89 @@ def logits_from_hidden(model: Transformer, cfg: ModelConfig, x):
     else:
         logits = x @ model.unembed.to(cdt)
     return softcap(logits, cfg.logit_softcap)
+
+
+# ============================================================ model forward
+def forward(model: Transformer, cfg: ModelConfig, tokens=None, features=None,
+            gates=None, policy=None, remat: bool = False,
+            use_kernel: bool = False, live_bounds=None, tp=None):
+    """Returns (logits, aux) — logits [B, S, vocab], aux {"aux_loss"}.
+
+    tokens: [B, S] int. gates: optional (g_f, g_b) of shape [n_layers, B,
+    G]. use_kernel routes attention and SSD blocks through the gated
+    kernels; live_bounds: optional (live_fwd, live_bwd) per-layer max live
+    (sample, group) slice counts (``core.schedule.live_slice_bounds``), one
+    bound shared by every layer, for the kernels' compaction. The layers
+    run as a plain loop over the flat layer list. Frontend features, remat
+    and the sharding branches (policy, tp) are not ported yet.
+    """
+    if features is not None:
+        raise _not_ported("the frontend (features) path of forward")
+    if remat:
+        raise _not_ported("remat (activation checkpointing)")
+    if policy is not None or tp is not None:
+        raise _not_ported_dist("the sharding branches of forward")
+    cdt = torch_dtype(cfg.compute_dtype)
+    x = apply_embedding(model.embed, tokens).to(cdt)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (p, kind) in enumerate(zip(model.layers, cfg.layer_kinds)):
+        lg = None if gates is None else (gates[0][i], gates[1][i])
+        x, _ = apply_block(p, x, kind, cfg, lg, use_kernel=use_kernel,
+                           live_bounds=live_bounds)
+    return logits_from_hidden(model, cfg, x), {"aux_loss": aux_sum}
+
+
+# ============================================================== loss helpers
+class _FusedXent(torch.autograd.Function):
+    """Mean token cross-entropy with a hand-written backward.
+
+    The forward gathers the label logit first and reduces the logsumexp
+    without a log-softmax buffer; the backward emits softmax - onehot
+    directly, subtracting at the label positions by scatter, so no
+    [B, S, V] one-hot is ever built."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        labels = labels.long()
+        label_logit = torch.gather(logits, -1,
+                                   labels[..., None])[..., 0].float()
+        m = torch.amax(logits, dim=-1)
+        e = logits - m[..., None]
+        lse = m.float() + torch.log(torch.sum(e.exp_(), dim=-1,
+                                              dtype=torch.float32))
+        del e
+        ctx.save_for_backward(logits, labels, m, lse)
+        return torch.mean(lse - label_logit)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, m, lse = ctx.saved_tensors
+        n = logits.numel() // logits.shape[-1]
+        z = (lse - m.float()).to(logits.dtype)
+        gn = (g / n).to(logits.dtype)
+        # softmax in the logits dtype, built in one buffer
+        d = logits - m[..., None]
+        d.sub_(z[..., None]).exp_().mul_(gn)
+        d.scatter_add_(-1, labels[..., None],
+                       (-gn).expand(labels.shape)[..., None].contiguous())
+        return d, None
+
+
+def fused_xent(logits, labels):
+    """Mean token cross-entropy; see ``_FusedXent``."""
+    return _FusedXent.apply(logits, labels)
+
+
+def lm_loss(model: Transformer, cfg: ModelConfig, tokens, labels,
+            features=None, gates=None, policy=None, remat: bool = False,
+            use_kernel: bool = False, live_bounds=None, tp=None):
+    """Next-token cross-entropy. Returns (loss, {"ce", "aux"})."""
+    logits, aux = forward(model, cfg, tokens=tokens, features=features,
+                          gates=gates, policy=policy, remat=remat,
+                          use_kernel=use_kernel, live_bounds=live_bounds,
+                          tp=tp)
+    loss = fused_xent(logits, labels)
+    return loss + aux["aux_loss"], {"ce": loss, "aux": aux["aux_loss"]}
 
 
 # ====================================================== prefill (cache dump)

@@ -8,26 +8,30 @@ JAX, so they run on a machine that has only PyTorch:
 
 Tolerance 1e-5 abs in float32 for outputs: the same softmax over the same
 positions, summed in another order; 1e-4 for the gated attention's
+gradients; 1e-5 for the gated SSD scan's y and prevs and 1e-4 for its
 gradients."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import vit_small_paper
+from repro_torch.configs import mamba2_130m, vit_small_paper
 from repro_torch.configs.base import D2FTConfig
 from repro_torch.configs.gemma3_1b import smoke_config
+from repro_torch.configs.mamba2_130m import smoke_config as mamba2_smoke
 from repro_torch.core.d2ft import plan_schedule
-from repro_torch.data.synthetic import image_batches, make_image_task
+from repro_torch.data.synthetic import (image_batches, lm_batches,
+                                        make_image_task)
 from repro_torch.kernels import contract, ops
 from repro_torch.kernels import d2ft_attention as d2a
+from repro_torch.kernels import d2ft_ssd as d2s
 from repro_torch.kernels.ops import paged_decode_attention
 from repro_torch.kernels.paged_decode import (paged_decode_ref,
                                               paged_flash_decode)
 from repro_torch.models.transformer import init_model
 from repro_torch.models.vit import init_vit
-from repro_torch.optim.optimizers import sgd
+from repro_torch.optim.optimizers import adamw, sgd
 from repro_torch.serving.engine import PagedServingEngine, Request
-from repro_torch.train.loop import finetune_vit
+from repro_torch.train.loop import finetune, finetune_vit
 
 TOL = 1e-5
 
@@ -206,7 +210,7 @@ def test_d2ft_kernels_match_plain(hd, S, causal, window):
     assert bool((lse[g_f == 0] == d2a.LSE_MASKED).all())
     tiles = d2a.kernel_live_tiles(S, causal, window)
     assert counts == {"fwd": n_f * tiles, "bwd_dkdv": n_b * tiles,
-                      "bwd_dq": n_b * tiles}
+                      "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0}
 
 
 @pytest.mark.gpu
@@ -252,5 +256,135 @@ def test_finetune_vit_kernel_path_matches_masked_path_on_card():
         assert d2a.flash_fwd.launches - f0 == (2 * L if use_kernel else 0)
         assert d2a.flash_bwd.launches - b0 == (2 * L if use_kernel else 0)
         losses[use_kernel] = log.losses
+    np.testing.assert_allclose(losses[True], losses[False], atol=1e-4,
+                               rtol=0)
+
+
+# ------------------------------------------------------------ d2ft gated SSD
+# Tolerances in float32 with TF32 off: y and prevs 1e-5, dx / ddA / dB / dC
+# 1e-4 against the plain version's autograd gradients. The kernels sum the
+# in-chunk decays in the plain version's order, so both take the same
+# decays; the operands are the JAX block-kernel tests' (N(0, 1) x), at
+# few slices.
+def _ssd_case(seed, B, H, S, P, N):
+    """Operands in the JAX block-kernel tests' distributions and a p_f /
+    p_o / p_s gate mix with every op present."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=gen, device="cuda")
+    da = -torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda"))
+    Bm = torch.randn((B, S, N), generator=gen, device="cuda") * 0.5
+    Cm = torch.randn((B, S, N), generator=gen, device="cuda") * 0.5
+    dy = torch.randn((B, S, H, P), generator=gen, device="cuda")
+    ops_ = torch.randperm(B * H, generator=gen, device="cuda") % 3
+    g_f = (ops_ != 2).float().reshape(B, H)
+    g_b = (ops_ == 0).float().reshape(B, H)
+    return x, da, Bm, Cm, dy, g_f, g_b
+
+
+def test_ssd_kernels_refuse_cpu_tensors():
+    x = torch.zeros((1, 8, 2, 16))
+    d, bc, g = torch.zeros((1, 8, 2)), torch.zeros((1, 8, 16)), \
+        torch.ones((1, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        d2s.ssd_fwd(x, d, bc, bc, g, chunk=8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        d2s.ssd_bwd(x, d, bc, bc, g, torch.zeros((2, 1, 16, 16)), x, chunk=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N,chunk,S", [
+    (16, 16, 8, 24), (16, 16, 8, 21), (64, 128, 256, 256),
+    (64, 128, 256, 300), (64, 128, 256, 100), (64, 128, 64, 200)])
+@pytest.mark.parametrize("bounded", [False, True])
+def test_ssd_kernels_match_plain(P, N, chunk, S, bounded):
+    """Forward and backward kernels through ``ops.gated_ssd_scan`` (the pad
+    path where S is not a chunk multiple) against the plain version and
+    its autograd gradients, with and without compaction bounds above the
+    live counts; prevs against the plain version's; exact zeros on gated
+    slices; executed steps = live slices x chunks."""
+    _need_card()
+    B, H = 2, 6
+    x, da, Bm, Cm, dy, g_f, g_b = _ssd_case(S + P + bounded, B, H, S, P, N)
+    n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+    live = (n_f + 1, n_b + 2) if bounded else (None, None)
+    f0, b0 = d2s.ssd_fwd.launches, d2s.ssd_bwd.launches
+    with contract.count_tiles("cuda") as tc:
+        ins = [t.clone().requires_grad_() for t in (x, da, Bm, Cm)]
+        y = ops.gated_ssd_scan(*ins, g_f, g_b, chunk=chunk, live_fwd=live[0],
+                               live_bwd=live[1])
+        y.backward(dy)
+        counts = tc.read()
+    assert d2s.ssd_fwd.launches == f0 + 1
+    assert d2s.ssd_bwd.launches == b0 + 1
+    refs = [t.clone().requires_grad_() for t in (x, da, Bm, Cm)]
+    Q, Sp = ops._scan_pad(S, chunk)
+    pad = Sp - S
+    padded = [torch.nn.functional.pad(refs[0], (0, 0, 0, 0, 0, pad))] + [
+        torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in refs[1:]]
+    ref = d2s.gated_ssd_ref(*padded, g_f, g_b, chunk=Q)[:, :S]
+    ref.backward(dy)
+    assert float((y.detach() - ref.detach()).abs().max()) <= TOL
+    for a, b in zip(ins, refs):
+        assert float((a.grad - b.grad).abs().max()) <= GRAD_TOL
+    assert float(y.detach().transpose(1, 2)[g_f == 0].abs().max()) == 0.0
+    assert float(ins[0].grad.transpose(1, 2)[g_b == 0].abs().max()) == 0.0
+    assert float(ins[1].grad.transpose(1, 2)[g_b == 0].abs().max()) == 0.0
+    with torch.no_grad():
+        pin = [t.detach().contiguous() for t in padded]
+        _, prevs = d2s.ssd_fwd(*pin, g_f, chunk=Q, live=live[0])
+        prevs_ref = d2s.gated_ssd_prevs_ref(*pin, g_f, chunk=Q)
+    assert float((prevs - prevs_ref).abs().max()) <= TOL
+    assert float(prevs[g_f.reshape(-1) == 0].abs().max()) == 0.0
+    nc = Sp // Q
+    assert counts["ssd_fwd"] == n_f * nc and counts["ssd_bwd"] == n_b * nc
+
+
+@pytest.mark.gpu
+def test_ssd_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    x, da, Bm, Cm, dy, g_f, g_b = _ssd_case(0, 2, 3, 32, 64, 128)
+    with pytest.raises(TypeError, match="float32"):
+        d2s.ssd_fwd(x.double(), da, Bm, Cm, g_f, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        d2s.ssd_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), da, Bm,
+                    Cm, g_f, chunk=16)
+    with pytest.raises(ValueError, match="no kernel"):
+        xs = x[..., :32].contiguous()
+        d2s.ssd_fwd(xs, da, Bm, Cm, g_f, chunk=16)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        d2s.ssd_fwd(x, da, Bm, Cm, g_f, chunk=24)
+    with pytest.raises(ValueError, match="below the live gate count"):
+        ops.gated_ssd_scan(x, da, Bm, Cm, g_f, g_b,
+                           chunk=16, live_fwd=int((g_f != 0).sum()) - 1)
+    with pytest.raises(ValueError, match="g_b <= g_f"):
+        ops.gated_ssd_scan(x, da, Bm, Cm, g_b, g_f, chunk=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("smoke", [True, False])
+def test_finetune_kernel_path_matches_masked_path_on_card(smoke):
+    """Two D2FT steps of the launcher's loop: the smoke mamba2 (P 16, N 16,
+    chunk 8) and mamba2-130m's widths at depth 2 (P 64, N 128, chunk 256,
+    S 300: the pad path). The kernel path launches one forward and one
+    backward per layer per step and its losses match the masked path's from
+    the same weights and schedule."""
+    _need_card()
+    cfg = mamba2_smoke() if smoke else \
+        mamba2_130m.CONFIG.replace(n_layers=2, vocab_size=512)
+    seq = 16 if smoke else 300
+    d2 = D2FTConfig(n_microbatches=4, n_pf=2, n_po=1, head_groups=4)
+    losses = {}
+    for use_kernel in (True, False):
+        f0, b0 = d2s.ssd_fwd.launches, d2s.ssd_bwd.launches
+        model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+        _, _, log = finetune(model, cfg, d2, adamw(1e-3),
+                             lm_batches(0, cfg.vocab_size, 8, seq, 2),
+                             steps=2, use_kernel=use_kernel)
+        L = cfg.n_layers
+        assert d2s.ssd_fwd.launches - f0 == (2 * L if use_kernel else 0)
+        assert d2s.ssd_bwd.launches - b0 == (2 * L if use_kernel else 0)
+        losses[use_kernel] = log.losses
+    assert np.isfinite(losses[True]).all()
     np.testing.assert_allclose(losses[True], losses[False], atol=1e-4,
                                rtol=0)

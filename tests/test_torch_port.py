@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from repro.configs import gemma3_1b as jax_gemma
+from repro.configs import mamba2_130m as jax_mamba
 from repro.models.transformer import init_model as jax_init_model
-from repro_torch.configs import gemma3_1b, get_config, get_smoke_config
+from repro_torch.configs import (gemma3_1b, get_config, get_smoke_config,
+                                 mamba2_130m)
 from repro_torch.interop import params_from_jax
 from repro_torch.models.transformer import init_model
 from repro_torch.serving.engine import make_engine
@@ -23,6 +25,7 @@ SLICE_MODULES = [
     "repro_torch.configs",
     "repro_torch.configs.base",
     "repro_torch.configs.gemma3_1b",
+    "repro_torch.configs.mamba2_130m",
     "repro_torch.configs.vit_small_paper",
     "repro_torch.core.cost_model",
     "repro_torch.core.d2ft",
@@ -31,14 +34,18 @@ SLICE_MODULES = [
     "repro_torch.core.scores",
     "repro_torch.data.synthetic",
     "repro_torch.interop",
+    "repro_torch.launch",
+    "repro_torch.launch.train",
     "repro_torch.kernels",
     "repro_torch.kernels.build",
     "repro_torch.kernels.contract",
     "repro_torch.kernels.d2ft_attention",
+    "repro_torch.kernels.d2ft_ssd",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.paged_decode",
     "repro_torch.models.attention",
     "repro_torch.models.layers",
+    "repro_torch.models.ssm",
     "repro_torch.models.transformer",
     "repro_torch.models.vit",
     "repro_torch.optim.optimizers",
@@ -65,14 +72,17 @@ def test_port_imports_no_jax_triton_or_reference_package():
     assert res.stdout.strip() == "", f"port pulled in: {res.stdout.strip()}"
 
 
+@pytest.mark.parametrize("arch,mod,ref_mod", [
+    ("gemma3-1b", gemma3_1b, jax_gemma),
+    ("mamba2-130m", mamba2_130m, jax_mamba)])
 @pytest.mark.parametrize("which", ["full", "smoke"])
-def test_config_copy_matches_reference(which):
-    mine = gemma3_1b.CONFIG if which == "full" else gemma3_1b.smoke_config()
-    ref = jax_gemma.CONFIG if which == "full" else jax_gemma.smoke_config()
+def test_config_copy_matches_reference(which, arch, mod, ref_mod):
+    mine = mod.CONFIG if which == "full" else mod.smoke_config()
+    ref = ref_mod.CONFIG if which == "full" else ref_mod.smoke_config()
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
     assert mine.layer_kinds == ref.layer_kinds
     lookup = get_config if which == "full" else get_smoke_config
-    assert lookup("gemma3-1b") == mine
+    assert lookup(arch) == mine
 
 
 def test_params_from_jax_unstacks_cycles_into_flat_layers():
