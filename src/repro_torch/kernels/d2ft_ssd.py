@@ -18,10 +18,11 @@ Four groups of things live here:
   ``gated_ssd_prevs_ref``, the counterpart of ``repro/kernels/ref.py::
   gated_ssd_ref`` and of the masked mix in ``models/ssm.apply_ssd``; the
   CPU path, the CPU tests and the on-card comparison use it;
-* accounting: ``gated_ssd_flops`` (identical to the JAX package's), the
-  operations the function needs (``needed_flops``) and the bytes the CUDA
-  kernels load and store (``kernel_bytes``, in place of the TPU's
-  ``gated_ssd_dispatched_bytes``, which counts BlockSpec streams);
+* accounting: ``gated_ssd_flops`` (identical to the JAX package's), and
+  the operations and bytes the function needs (``needed_flops``,
+  ``needed_bytes``), the bound's numerators; the TPU's
+  ``gated_ssd_dispatched_bytes`` counts BlockSpec streams and does not
+  apply;
 * the launchers of the CUDA kernels, ``ssd_fwd`` (``csrc/d2ft_ssd_fwd.cu``)
   and ``ssd_bwd`` (``csrc/d2ft_ssd_bwd.cu``), each with a ``.launches``
   counter;
@@ -50,8 +51,7 @@ import torch
 
 from repro_torch.kernels import build, contract
 
-# The CUDA kernels' row tile within a chunk, and the largest chunk they take.
-KERNEL_ROWS = 64
+# The largest chunk the CUDA kernels take (four of their 64-row tiles).
 KERNEL_MAX_CHUNK = 256
 # (P, N) pairs with a kernel instantiation: the smoke config's and
 # mamba2-130m's.
@@ -187,47 +187,6 @@ def needed_bytes(g_f, g_b, S: int, P: int, N: int, *, chunk: int,
            + B * H * (S * P + state))
     bwd = (gb.sum() * (2 * S * P + S + state) + gb.any(axis=1).sum()
            * 2 * S * N + B * H * (S * P + S) + B * 2 * S * N)
-    return float(fwd * itemsize), float(bwd * itemsize)
-
-
-def kernel_bytes(n_live_fwd: int, n_live_bwd: int, n_fwd_disp: int,
-                 n_bwd_disp: int, B: int, H: int, S: int, P: int, N: int, *,
-                 chunk: int, itemsize: int = 4):
-    """Device-memory bytes (fwd, bwd) the CUDA kernels load and store, in
-    place of the JAX package's BlockSpec count (``gated_ssd_dispatched_
-    bytes``). Per live (slice, chunk) of Q rows in 64-row tiles:
-
-    * forward: the state kernel reads da, x, B and writes a state and the
-      chunk's total decay; the pass reads and writes every state once; the
-      scan kernel reads da once, C and the entering state once per q tile,
-      B and x once per live (q tile, k tile) pair, and writes y;
-    * backward: the cotangent kernel reads da, dy, C and writes a state
-      cotangent; the pass reads and writes it once; the chunk kernel reads
-      da, prev and ds once, then in its q-tile sweep C, dy and prev once
-      per q tile and B, x per pair, in its k-tile sweep B, x and ds once
-      per k tile and C, dy per pair, and writes dx, ddA and the per-slice
-      dB and dC, which the head sum reads once and writes as [B, S, N].
-
-    A dispatched dead slice writes its zeros (y and prevs; dx, ddA, dB and
-    dC) and reads nothing."""
-    Q = min(chunk, S)
-    nc = S // Q
-    rows = [min(KERNEL_ROWS, Q - t) for t in range(0, Q, KERNEL_ROWS)]
-    pair_q = sum(r * (i + 1) for i, r in enumerate(rows))   # q rows x pairs
-    pair_k = sum(r * (len(rows) - i) for i, r in enumerate(rows))
-    st = P * N
-    fwd_chunk = ((Q + Q * P + Q * N + st + 1) + 2 * st
-                 + Q + Q * N + len(rows) * st + pair_k * (N + P) + Q * P)
-    bwd_chunk = ((Q + Q * P + Q * N + st + 1) + 2 * st
-                 + Q + 2 * st
-                 + Q * (N + P) + len(rows) * st + pair_k * (N + P)
-                 + Q * (N + P) + len(rows) * st + pair_q * (N + P)
-                 + Q * P + Q + 2 * Q * N)
-    fwd = nc * (n_live_fwd * fwd_chunk
-                + (n_fwd_disp - n_live_fwd) * (Q * P + st))
-    bwd = nc * (n_live_bwd * bwd_chunk
-                + (n_bwd_disp - n_live_bwd) * (Q * P + Q + 2 * Q * N)) \
-        + 2 * (B * H * S * N + B * S * N)
     return float(fwd * itemsize), float(bwd * itemsize)
 
 
@@ -411,5 +370,8 @@ def gated_ssd_scan(x, da, Bm, Cm, g_f, g_b, *, chunk: int, live_fwd=None,
                          f"{tuple(g_f.shape)} / {tuple(g_b.shape)}")
     if x.device.type == "cpu":
         return gated_ssd_ref(x, da, Bm, Cm, g_f, g_b, chunk=chunk)
-    return _GatedSSD.apply(x, da, Bm, Cm, g_f, g_b, chunk, live_fwd,
+    # the kernels read dense rows; B and C arrive as column slices of the
+    # conv output
+    return _GatedSSD.apply(x.contiguous(), da.contiguous(), Bm.contiguous(),
+                           Cm.contiguous(), g_f, g_b, chunk, live_fwd,
                            live_bwd)

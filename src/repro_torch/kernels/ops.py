@@ -141,10 +141,9 @@ def _scan_pad(S: int, chunk: int):
     return Q, -(-S // Q) * Q
 
 
-def _gated_ssd_impl(x, da, Bm, Cm, g_f, g_b, *, chunk: int, live_fwd,
-                    live_bwd):
-    """Pad, scan, slice back; no value checks, so the model path
-    (``models/ssm.apply_ssd``) pays no host sync per layer."""
+def _padded_scan(scan, x, da, Bm, Cm, *args, chunk: int, **kw):
+    """``scan(x, da, Bm, Cm, *args, chunk=Q, **kw)`` on operands zero-padded
+    to a chunk multiple (``_scan_pad``), sliced back to S."""
     S = x.shape[1]
     Q, Sp = _scan_pad(S, chunk)
     if Sp != S:
@@ -153,9 +152,21 @@ def _gated_ssd_impl(x, da, Bm, Cm, g_f, g_b, *, chunk: int, live_fwd,
         da = F.pad(da, (0, 0, 0, pad))
         Bm = F.pad(Bm, (0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, pad))
-    y = d2ft_ssd.gated_ssd_scan(x, da, Bm, Cm, g_f, g_b, chunk=Q,
-                                live_fwd=live_fwd, live_bwd=live_bwd)
+    y = scan(x, da, Bm, Cm, *args, chunk=Q, **kw)
     return y[:, :S] if Sp != S else y
+
+
+def _gated_ssd_impl(x, da, Bm, Cm, g_f, g_b, *, chunk: int, live_fwd=None,
+                    live_bwd=None, plain: bool = False):
+    """Pad, scan, slice back; no value checks, so the model path
+    (``models/ssm.apply_ssd``) pays no host sync per layer. ``plain`` takes
+    the plain version on any device (the model's masked path), else CPU
+    tensors take the plain version and CUDA tensors the kernels."""
+    if plain:
+        return _padded_scan(d2ft_ssd.gated_ssd_ref, x, da, Bm, Cm, g_f, g_b,
+                            chunk=chunk)
+    return _padded_scan(d2ft_ssd.gated_ssd_scan, x, da, Bm, Cm, g_f, g_b,
+                        chunk=chunk, live_fwd=live_fwd, live_bwd=live_bwd)
 
 
 def gated_ssd_scan(x, da, Bm, Cm, g_f, g_b=None, *, chunk: int,

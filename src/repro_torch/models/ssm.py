@@ -94,24 +94,15 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int,
                 return_final_state: bool = False):
     """Core SSD. xh: [B,S,H,P]; dt: [B,S,H]; A: [H] (negative); Bm, Cm:
     [B,S,N]. Returns y: [B,S,H,P]. Odd lengths zero-pad to the chunk (a
-    padded row has dt == 0: zero log-decay and zero input)."""
+    padded row has zero log-decay and zero input)."""
     if return_final_state:
         raise NotImplementedError(
             "return_final_state is not ported yet: it comes with the serving "
             "slice of the SSM family")
-    S = xh.shape[1]
-    Q = min(chunk, S)
-    Sp = -(-S // Q) * Q
-    if Sp != S:
-        pad = Sp - S
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
     dA = dt * A[None, None, :]                          # [B,S,H] (negative)
     xbar = xh * dt[..., None]                           # dt-weighted input
-    y = d2ft_ssd.ssd_scan_ref(xbar, dA, Bm, Cm, Q).to(xh.dtype)
-    return y[:, :S] if Sp != S else y
+    return kernel_ops._padded_scan(d2ft_ssd.ssd_scan_ref, xbar, dA, Bm, Cm,
+                                   chunk=chunk).to(xh.dtype)
 
 
 def apply_ssd(p: SSD, x, d_model: int, cfg: SSMConfig,
@@ -128,8 +119,9 @@ def apply_ssd(p: SSD, x, d_model: int, cfg: SSMConfig,
     (1 - g_b) share detached. use_kernel routes the gated scan through the
     kernels (``ops.gated_ssd_scan``, unchecked: the fine-tune checks its
     gates once per step) with ``live_bounds`` = (live_fwd, live_bwd)
-    head-slice upper bounds for compaction; otherwise a masked mix over
-    the dense chunked scan computes the same function.
+    head-slice upper bounds for compaction; otherwise the plain version of
+    the kernels (``d2ft_ssd.gated_ssd_ref``, the masked mix over the dense
+    chunked scan) computes the same function.
     """
     if return_state:
         raise NotImplementedError(
@@ -143,24 +135,18 @@ def apply_ssd(p: SSD, x, d_model: int, cfg: SSMConfig,
     Cm = xBC[..., d_inner + N:]
     dt = F.softplus(dt + p.dt_bias)
     A = -torch.exp(p.A_log.float())
-    if gates is not None and use_kernel:
+    if gates is None:
+        y = ssd_chunked(xin, dt, A, Bm, Cm, cfg.chunk)
+    else:
+        # the kernel path and the masked path share the padding and the
+        # operands; the masked path takes the plain version on any device
         g_f, g_b = gates
-        # same operand preprocessing as ssd_chunked; the entry pads odd S
         dA = dt * A[None, None, :]
         xbar = xin * dt[..., None]
         lf, lb = live_bounds if live_bounds is not None else (None, None)
         y = kernel_ops._gated_ssd_impl(
-            xbar.contiguous(), dA.contiguous(), Bm.contiguous(),
-            Cm.contiguous(), g_f, g_b, chunk=cfg.chunk, live_fwd=lf,
-            live_bwd=lb)
-        y = y.to(xin.dtype)
-    else:
-        y = ssd_chunked(xin, dt, A, Bm, Cm, cfg.chunk)
-        if gates is not None:
-            g_f, g_b = gates
-            gf = g_f[:, None, :, None].to(y.dtype)
-            gb = g_b[:, None, :, None].to(y.dtype)
-            y = gf * (gb * y + (1.0 - gb) * y.detach())
+            xbar, dA, Bm, Cm, g_f, g_b, chunk=cfg.chunk, live_fwd=lf,
+            live_bwd=lb, plain=not use_kernel).to(xin.dtype)
     y = y + p.D[None, None, :, None] * xin
     if head_scale is not None:
         y = y * head_scale[:, None, :, None].to(y.dtype)

@@ -190,9 +190,14 @@ def _apply_ssd_inner(p: ssm_mod.SSD, h, cfg: ModelConfig, layer_gates,
     G = g_f.shape[-1]
     d_inner, H, P, N = ssm_mod._dims(cfg.d_model, cfg.ssm)
     if H % G != 0:
-        # heads don't tile into gate groups: fall back to the coarse
-        # block-granularity run-twice mix (test-scale only)
+        # heads don't tile into gate groups: no kernel route. On the CPU
+        # this takes JAX's coarse block-granularity run-twice mix
+        # (test-scale only); on the card the kernel path refuses it
         if use_kernel:
+            if h.device.type != "cpu":
+                raise ValueError(
+                    f"the {H} SSD heads do not tile into G={G} gate groups: "
+                    "no kernel route; choose head_groups dividing the heads")
             kernel_contract.report_fallback(
                 "ssd", f"H={H} not divisible by G={G} gate groups")
         full = ssm_mod.apply_ssd(p, h, cfg.d_model, cfg.ssm)

@@ -388,3 +388,18 @@ def test_finetune_kernel_path_matches_masked_path_on_card(smoke):
     assert np.isfinite(losses[True]).all()
     np.testing.assert_allclose(losses[True], losses[False], atol=1e-4,
                                rtol=0)
+
+
+@pytest.mark.gpu
+def test_heads_not_tiling_groups_refuse_the_kernel_path_on_card():
+    """G = 3 does not divide the smoke mamba2's 16 SSD heads: there is no
+    kernel route, and on the card the kernel path raises instead of taking
+    the plain block-granularity mix."""
+    _need_card()
+    from repro_torch.models.transformer import forward
+    cfg = mamba2_smoke()
+    model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = torch.zeros((2, 16), dtype=torch.int64, device="cuda")
+    gates = torch.ones((cfg.n_layers, 2, 3), device="cuda")
+    with pytest.raises(ValueError, match="no kernel route"):
+        forward(model, cfg, tokens, gates=(gates, gates), use_kernel=True)

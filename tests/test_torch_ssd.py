@@ -174,10 +174,14 @@ def test_needed_work_counts_cb_once_per_sample():
     assert fwd < jf and bwd < jb
     g[3] = 0.0                                  # a sample with no live head
     assert d2ft_ssd.needed_flops(g, g, S, Pm, Nm, chunk=Q)[0] < fwd
+    g = np.ones((8, 24), np.float32)
     fb, bb = d2ft_ssd.needed_bytes(g, g, S, Pm, Nm, chunk=Q)
-    kb = d2ft_ssd.kernel_bytes(168, 168, 192, 192, 8, 24, S, Pm, Nm,
-                               chunk=Q)
-    assert 0 < fb < kb[0] and 0 < bb < kb[1]
+    # every slice live: x, da, B, C read and y, prevs written once forward;
+    # x, da, B, C, prevs, dy read and dx, ddA, dB, dC written once backward
+    state = nc * Pm * Nm
+    assert fb == 4 * (8 * 24 * (S * Pm + S + S * Pm + state) + 8 * 2 * S * Nm)
+    assert bb == 4 * (8 * 24 * (2 * S * Pm + S + state + S * Pm + S)
+                      + 8 * 2 * S * Nm + 8 * 2 * S * Nm)
 
 
 def test_counter_kinds_include_ssd_steps():
