@@ -58,8 +58,9 @@ Phases, one line each (any failure raises and exits non-zero):
    the plain version's max |value| of each output; and one case at the JAX
    tests' N(0, 1) operand scale, where the values reach ~200 and float32's
    own rounding is of the order of the absolute tolerances, held to them
-   scaled as tol x max(1, max |plain|). From here on ``contract.on_fallback`` raises, so
-   no non-kernel route can stand in for a kernel.
+   scaled as tol x max(1, max |plain|). From here on
+   ``contract.on_fallback`` raises, so no non-kernel route can stand in
+   for a kernel.
 10. LLM fine-tune — ``repro_torch.launch.train`` on mamba2-130m at full
    size (24 layers, d 768, random weights from seed 0), batch 8 x seq
    2048 of ``lm_batches`` in 4 micro-batches, n_pf 2 / n_po 1, AdamW lr
@@ -74,6 +75,39 @@ Phases, one line each (any failure raises and exits non-zero):
    shapes, layer 0's gates and bounds, L2 flushed, beside their plain
    version's and the bound; no single PyTorch call computes the scan, so
    there is no library yardstick.
+12. hd-256 attention kernels vs plain — the gated flash-attention kernels
+   at gemma3-1b's shapes (B 4, H 4, S 1024, hd 256: 32-row tiles), causal
+   with its 512 window and global, on the operands the main path gives
+   them (layers 0 and 5 of phase 13's model on its batch) and on N(0, 1)
+   ones, under a p_f / p_o / p_s mix, without, at and above compaction
+   bounds: o and lse <= 1e-5, dq/dk/dv <= 1e-4 (x max(1, max |plain|) on
+   the N(0, 1) case), exact zeros, executed tiles = live slices x live
+   tiles per slice.
+13. gemma3-1b fine-tune — ``repro_torch.launch.train --arch gemma3-1b
+   --full --d2ft --kernel`` (26 layers, d 1152, random weights from seed
+   0), batch 4 x seq 1024 in 4 micro-batches, n_pf 3 / n_po 1, G 4, AdamW
+   lr 1e-3, 8 steps: 26 + 26 attention launches per step, executed tile
+   fractions from the device counter equal to the schedule's, finite
+   losses within 1e-4 x max(1, |loss|) of the masked path; p50 step ms of
+   the kernel path, the masked path and standard full fine-tuning (each
+   twice, in turns), tokens/s, peak memory, a profiler window.
+14. D2FT-LoRA on gemma3-1b — ``repro_torch.examples.lora_finetune``'s
+   ``run`` with the example's settings (rank 8 on wq/wk/wv, SGD 0.1, n_pf
+   3 / n_po 0 of 4, 4 head groups) at full size, batch 4 x seq 1024, 8
+   steps: its one fused ``lora_linear`` call launches the LoRA kernel,
+   26 + 26 attention launches per step, 1,038,336 adapter parameters,
+   the base bit-identical after the steps and the adapters moved, losses
+   within tolerance of the masked path; p50 step ms, tokens/s and peak
+   memory of the kernel path, the masked path and plain LoRA, a profiler
+   window. Then the LoRA kernel against its plain version and against
+   x @ (W + s A@B) on this run's layer-0 operands (wq, wk, wv) and on the
+   ragged M 4095 x N 1000 at ranks 1, 8, 64, 240, <= 1e-5 x max(1, max
+   |plain|).
+15. LoRA and hd-256 attention timing — CUDA-event times, L2 flushed, of
+   the LoRA kernel at phase 14's wq (M 4096, K 1152, N 1024, r 8) and of
+   the hd-256 attention kernels at phase 13's shapes, gates and bounds,
+   beside their plain versions, the bound and a library yardstick the
+   port never calls (addmm + two matmuls; SDPA on the live slices).
 
 Then one JSON line of kernel records, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -116,6 +150,17 @@ LM_STEPS = 8
 LM_LR = 1e-3
 LM_D2FT = dict(n_microbatches=4, n_pf=2, n_po=1)
 SSD_P, SSD_N, SSD_CHUNK = 64, 128, 256         # mamba2-130m's SSD widths
+
+# the gemma3-1b fine-tunes: the JAX launcher's defaults and its docstring's
+# budget (3 p_f + 1 p_o of 4 micro-batches); seq 1024 so that full
+# fine-tuning (16 GB of weights, gradients and AdamW moments) and the
+# [4096, 262144] logits fit beside each other. The D2FT-LoRA run takes the
+# LoRA example's own settings (repro_torch/examples/lora_finetune.py)
+GM_BATCH = 4
+GM_SEQ = 1024
+GM_STEPS = 8
+GM_LR = 1e-3
+GM_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 
 
 def card_line() -> str:
@@ -201,10 +246,53 @@ def time_ms(torch, fn, *, iters=50, warmup=5):
     return times[len(times) // 2]
 
 
-def attention_vs_plain(torch, gen):
-    """Phase 6. Returns the largest errors {"fwd": o/lse, "bwd": grads}."""
+def attention_case(torch, q, k, v, do, g_f, g_b, *, causal, window, live):
+    """One comparison of the gated attention kernels with their plain
+    version: forward and backward through ``gated_flash_attention`` and a
+    direct ``flash_fwd`` for lse, executed tiles counted, against the plain
+    version and its autograd gradients. Returns (o/lse err, grad err, max
+    |plain| of o and of the grads, exact zeros and finite, tile counts,
+    the counts the schedule wants)."""
     from repro_torch.kernels import contract
     from repro_torch.kernels import d2ft_attention as d2a
+    n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+    with contract.count_tiles("cuda") as tc:
+        qk, kk, vk = (t.clone().requires_grad_() for t in (q, k, v))
+        out = d2a.gated_flash_attention(
+            qk, kk, vk, g_f, g_b, causal=causal, window=window,
+            live_fwd=live[0], live_bwd=live[1])
+        out.backward(do)
+        o2, lse = d2a.flash_fwd(q, k, v, g_f, causal=causal, window=window,
+                                live=live[0])
+        torch.cuda.synchronize()
+        counts = tc.read()
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = d2a.gated_attention_ref(qr, kr, vr, g_f, g_b, causal=causal,
+                                  window=window)
+    ref.backward(do)
+    lse_ref = d2a.gated_attention_lse_ref(q, k, g_f, causal=causal,
+                                          window=window)
+    out, ref = out.detach(), ref.detach()
+    e_f = max(float((out - ref).abs().max()),
+              float((lse - lse_ref).abs().max()))
+    e_b = max(float((a.grad - b.grad).abs().max())
+              for a, b in ((qk, qr), (kk, kr), (vk, vr)))
+    s_f = float(ref.abs().max())
+    s_b = max(float(t.grad.abs().max()) for t in (qr, kr, vr))
+    zeros = (float(out[g_f == 0].abs().max()) == 0.0
+             and torch.equal(o2, out)
+             and bool((lse[g_f == 0] == d2a.LSE_MASKED).all())
+             and all(float(t.grad[g_b == 0].abs().max()) == 0.0
+                     for t in (qk, kk, vk))
+             and bool(torch.isfinite(out).all()))
+    tiles = d2a.kernel_live_tiles(q.shape[2], causal, window, q.shape[3])
+    want = {"fwd": 2 * n_f * tiles, "bwd_dkdv": n_b * tiles,
+            "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0}
+    return e_f, e_b, s_f, s_b, zeros, counts, want
+
+
+def attention_vs_plain(torch, gen):
+    """Phase 6. Returns the largest errors {"fwd": o/lse, "bwd": grads}."""
     worst = {"fwd": 0.0, "bwd": 0.0}
     # (B, H, S, hd, causal, window, bounds): ViT-small without bounds, at
     # the live counts and above them; causal; sliding window
@@ -218,39 +306,13 @@ def attention_vs_plain(torch, gen):
         n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
         live = {None: (None, None), "exact": (n_f, n_b),
                 "above": (n_f + 7, n_b + 5)}[mode]
-        with contract.count_tiles("cuda") as tc:
-            qk, kk, vk = (t.clone().requires_grad_() for t in (q, k, v))
-            out = d2a.gated_flash_attention(
-                qk, kk, vk, g_f, g_b, causal=causal, window=window,
-                live_fwd=live[0], live_bwd=live[1])
-            out.backward(do)
-            o2, lse = d2a.flash_fwd(q, k, v, g_f, causal=causal,
-                                    window=window, live=live[0])
-            torch.cuda.synchronize()
-            counts = tc.read()
-        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
-        ref = d2a.gated_attention_ref(qr, kr, vr, g_f, g_b, causal=causal,
-                                      window=window)
-        ref.backward(do)
-        lse_ref = d2a.gated_attention_lse_ref(q, k, g_f, causal=causal,
-                                              window=window)
-        out, ref = out.detach(), ref.detach()
-        e_f = max(float((out - ref).abs().max()),
-                  float((lse - lse_ref).abs().max()))
-        e_b = max(float((a.grad - b.grad).abs().max())
-                  for a, b in ((qk, qr), (kk, kr), (vk, vr)))
-        zeros = (float(out[g_f == 0].abs().max()) == 0.0
-                 and torch.equal(o2, out.detach())
-                 and bool((lse[g_f == 0] == d2a.LSE_MASKED).all())
-                 and all(float(t.grad[g_b == 0].abs().max()) == 0.0
-                         for t in (qk, kk, vk)))
-        tiles = d2a.kernel_live_tiles(S, causal, window)
-        want = {"fwd": 2 * n_f * tiles, "bwd_dkdv": n_b * tiles,
-                "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0}
+        e_f, e_b, _, _, zeros, counts, want = attention_case(
+            torch, q, k, v, do, g_f, g_b, causal=causal, window=window,
+            live=live)
         what = (f"B {B} H {H} S {S} hd {hd} causal {causal} window "
                 f"{window} bounds {live}")
         if e_f > KERNEL_TOL or e_b > GRAD_TOL or not zeros or \
-                counts != want or not torch.isfinite(out).all():
+                counts != want:
             raise AssertionError(
                 f"attention kernels vs plain, {what}: o/lse err {e_f} (tol "
                 f"{KERNEL_TOL}), grad err {e_b} (tol {GRAD_TOL}), exact "
@@ -264,10 +326,47 @@ def attention_vs_plain(torch, gen):
     return worst
 
 
-def finetune(torch, np, tag):
-    """Phase 7. Returns {"launches": {"fwd", "bwd"}, "bounds": ...}."""
+def profile_steps(torch, step, key, n_prof=3):
+    """One warm-up call of step(), then a profiler window over n_prof calls.
+    Returns (device busy ms per step, wall ms per step under the profiler,
+    idle share, ms per step in kernels whose name holds ``key``, its share
+    of busy, the top-8 (ms per step, calls per step, name))."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sorted(((e.self_device_time_total, e.count, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_us = sum(t for t, _, _ in dev)
+    if busy_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    key_us = sum(t for t, _, k in dev if key in k)
+    top = [(t / 1e3 / n_prof, c // n_prof, k) for t, c, k in dev[:8]]
+    return (busy_us / 1e3 / n_prof, 1e3 * wall / n_prof,
+            1 - busy_us / 1e6 / wall, key_us / 1e3 / n_prof,
+            key_us / busy_us, top)
+
+
+def print_profile(what, prof, key_name, tag):
+    busy, wall, idle, key_ms, share, top = prof
+    print(f"[profile] {what}: device busy {busy:.3f} ms per step, wall "
+          f"{wall:.3f} ms per step under the profiler, idle share "
+          f"{idle:.1%}; {key_name} {key_ms:.3f} ms per step ({share:.1%} of "
+          f"busy) {tag}")
+    print("[profile] top device time per step: " + "; ".join(
+        f"{k[:60]} x{c}: {t:.3f} ms" for t, c, k in top), flush=True)
+
+
+def finetune(torch, np, tag):
+    """Phase 7. Returns {"launches": {"fwd", "bwd"}}."""
     from repro_torch.configs import vit_small_paper
     from repro_torch.configs.base import D2FTConfig
     from repro_torch.core.cost_model import compute_cost
@@ -323,7 +422,8 @@ def finetune(torch, np, tag):
     mb_of = microbatch_assignment(FT_BATCH, n_mb)
     bounds = live_slice_bounds(sched, mb_of)
     N = FT_BATCH * cfg.n_heads
-    tiles = d2a.kernel_live_tiles(cfg.n_patches + 1, False, 0)
+    tiles = d2a.kernel_live_tiles(cfg.n_patches + 1, False, 0,
+                                  cfg.d_model // cfg.n_heads)
     total = FT_STEPS * cfg.n_layers * N * tiles
     frac = {k: counts[k] / total for k in ("fwd", "bwd_dkdv", "bwd_dq")}
     per_step = cfg.n_layers * FT_STEPS
@@ -394,32 +494,9 @@ def finetune(torch, np, tag):
     images, labels = next(image_batches(task, 5, FT_BATCH, 1))
     x = torch.as_tensor(images, device="cuda")
     y = torch.as_tensor(labels, device="cuda")
-    step(model, state, x, y, gates, bounds)
-    torch.cuda.synchronize()
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            step(model, state, x, y, gates, bounds)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = sorted(((e.self_device_time_total, e.count, e.key)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA), reverse=True)
-    busy_us = sum(t for t, _, _ in dev)
-    if busy_us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    attn_us = sum(t for t, _, k in dev if "d2ft_attn" in k)
-    print(f"[profile] {n_prof} kernel-path fine-tune steps: device busy "
-          f"{busy_us / 1e3 / n_prof:.3f} ms per step, wall "
-          f"{1e3 * wall / n_prof:.3f} ms per step under the profiler, idle "
-          f"share {1 - busy_us / 1e6 / wall:.1%}; d2ft attention kernels "
-          f"{attn_us / 1e3 / n_prof:.3f} ms per step "
-          f"({attn_us / busy_us:.1%} of busy) {tag}")
-    print("[profile] top device time per step: " + "; ".join(
-        f"{k[:60]} x{c // n_prof}: {t / 1e3 / n_prof:.3f} ms"
-        for t, c, k in dev[:8]), flush=True)
+    print_profile("3 kernel-path fine-tune steps", profile_steps(
+        torch, lambda: step(model, state, x, y, gates, bounds), "d2ft_attn"),
+        "d2ft attention kernels", tag)
     return {"launches": launches}
 
 
@@ -650,38 +727,22 @@ def ssd_vs_plain(torch):
     return worst
 
 
-def lm_finetune(torch, np, tag):
-    """Phase 10. Returns {"launches": {"fwd", "bwd"}, "gates": layer 0's
-    per-head (g_f, g_b) of the step-0 split, "bounds": per-head bounds}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
-    from repro_torch.core.schedule import (gates_from_schedule,
-                                           live_slice_bounds)
-    from repro_torch.data.synthetic import lm_batches, microbatch_assignment
-    from repro_torch.kernels import contract
-    from repro_torch.kernels import d2ft_ssd as d2s
+def launcher_paths(argv):
+    """(run, scheds): run(name) drives ``repro_torch.launch.train.main`` on
+    argv plus the path's flags ("kernel": --d2ft --kernel, "masked": --d2ft,
+    "full": none, standard full fine-tuning) and returns its TrainLog. The
+    first D2FT run keeps its step-0 schedule in ``scheds``; later runs
+    replay it, so every path runs on the same schedule."""
     from repro_torch.launch import train as launcher
-    from repro_torch.models.ssm import _dims
-    from repro_torch.models.transformer import init_model
-    from repro_torch.optim.optimizers import adamw
     from repro_torch.train import loop
-
-    cfg = get_config("mamba2-130m")
-    _, H, _, _ = _dims(cfg.d_model, cfg.ssm)
-    B, S, n_mb = LM_BATCH, LM_SEQ, LM_D2FT["n_microbatches"]
-    argv = ["--arch", "mamba2-130m", "--full", "--batch", str(B), "--seq",
-            str(S), "--steps", str(LM_STEPS), "--lr", str(LM_LR),
-            "--n-microbatches", str(n_mb), "--n-pf", str(LM_D2FT["n_pf"]),
-            "--n-po", str(LM_D2FT["n_po"])]
     scheds = []
     plan = loop.plan_from_scores
 
-    def recording(*a, **k):                  # keeps the step-0 schedule
+    def recording(*a, **k):
         scheds.append(plan(*a, **k))
         return scheds[-1]
 
-    def replay(*a, **k):                     # the masked path reuses it
+    def replay(*a, **k):
         return scheds[0]
 
     def run(name):
@@ -692,6 +753,61 @@ def lm_finetune(torch, np, tag):
                                          "full": []}[name])
         finally:
             loop.plan_from_scores = plan
+    return run, scheds
+
+
+def in_turns(np, run, first, last="full"):
+    """Step times of every path twice, in turns: ``first`` holds the first
+    round's logs of the kernel and masked paths; then ``last``, again
+    ``last``, masked, kernel, so that no path gains from running later in
+    the process. Returns (p50 ms per path, per-round p50 ms)."""
+    rounds = {"kernel": [first["kernel"].step_times],
+              "masked": [first["masked"].step_times],
+              last: [run(last).step_times]}
+    for name in (last, "masked", "kernel"):
+        rounds[name].append(run(name).step_times)
+    p50 = {k: 1e3 * float(np.median(r[0] + r[1])) for k, r in rounds.items()}
+    per = {k: [1e3 * float(np.median(x)) for x in r]
+           for k, r in rounds.items()}
+    return p50, per
+
+
+def check_losses(np, log_k, log_m):
+    """Finite kernel-path losses within 1e-4 x max(1, |loss|) of the masked
+    path's. Returns the largest difference."""
+    losses = np.asarray(log_k.losses)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite losses {losses}")
+    diff = np.abs(losses - np.asarray(log_m.losses))
+    lim = 1e-4 * np.maximum(1.0, np.abs(np.asarray(log_m.losses)))
+    if not (diff <= lim).all():
+        raise AssertionError(f"kernel-path losses {losses.tolist()} vs "
+                             f"masked {log_m.losses}: diff {diff.tolist()}")
+    return float(diff.max())
+
+
+def lm_finetune(torch, np, tag):
+    """Phase 10. Returns {"launches": {"fwd", "bwd"}, "gates": layer 0's
+    per-head (g_f, g_b) of the step-0 split, "bounds": per-head bounds}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedule import (gates_from_schedule,
+                                           live_slice_bounds)
+    from repro_torch.data.synthetic import lm_batches, microbatch_assignment
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import d2ft_ssd as d2s
+    from repro_torch.models.ssm import _dims
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train import loop
+
+    cfg = get_config("mamba2-130m")
+    _, H, _, _ = _dims(cfg.d_model, cfg.ssm)
+    B, S, n_mb = LM_BATCH, LM_SEQ, LM_D2FT["n_microbatches"]
+    run, scheds = launcher_paths(
+        ["--arch", "mamba2-130m", "--full", "--batch", str(B), "--seq",
+         str(S), "--steps", str(LM_STEPS), "--lr", str(LM_LR),
+         "--n-microbatches", str(n_mb), "--n-pf", str(LM_D2FT["n_pf"]),
+         "--n-po", str(LM_D2FT["n_po"])])
 
     torch.cuda.reset_peak_memory_stats()
     d2s.ssd_fwd.launches = d2s.ssd_bwd.launches = 0
@@ -719,26 +835,13 @@ def lm_finetune(torch, np, tag):
         raise AssertionError(f"executed steps {counts} != the schedule's "
                              f"live (sample, head, chunk) counts "
                              f"{live_f} / {live_b}")
-    losses = np.asarray(log_k.losses)
-    if not np.isfinite(losses).all():
-        raise AssertionError(f"non-finite losses {losses}")
     torch.cuda.reset_peak_memory_stats()
     log_m = run("masked")
     peak_m = torch.cuda.max_memory_allocated()
     if d2s.ssd_fwd.launches != launches["fwd"]:
         raise AssertionError("the masked path launched the kernel")
-    diff = np.abs(losses - np.asarray(log_m.losses))
-    lim = 1e-4 * np.maximum(1.0, np.abs(np.asarray(log_m.losses)))
-    if not (diff <= lim).all():
-        raise AssertionError(f"kernel-path losses {losses.tolist()} vs "
-                             f"masked {log_m.losses}: diff {diff.tolist()}")
-    # timed in turns, kernel masked full full masked kernel
-    log_f = run("full")
-    rounds = {"kernel": [log_k.step_times], "masked": [log_m.step_times],
-              "full": [log_f.step_times]}
-    for name in ("full", "masked", "kernel"):
-        rounds[name].append(run(name).step_times)
-    p50 = {k: 1e3 * float(np.median(r[0] + r[1])) for k, r in rounds.items()}
+    diff = check_losses(np, log_k, log_m)
+    p50, per = in_turns(np, run, {"kernel": log_k, "masked": log_m})
     print(f"[lm fine-tune] mamba2-130m full size ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {H} SSD heads of {cfg.ssm.head_dim}, N "
           f"{cfg.ssm.state_dim}, chunk {cfg.ssm.chunk}, vocab "
@@ -749,16 +852,15 @@ def lm_finetune(torch, np, tag):
           f"{launches}, live (sample, group) bounds {bounds} x {rep} heads "
           f"per group, executed step fractions fwd {frac['fwd']:.3f} bwd "
           f"{frac['bwd']:.3f} (= the schedule's live counts)", flush=True)
-    print(f"[lm fine-tune] losses kernel {[round(float(x), 6) for x in losses]}"
-          f" | masked {[round(x, 6) for x in log_m.losses]} | max diff "
-          f"{float(diff.max()):.3e}", flush=True)
+    print(f"[lm fine-tune] losses kernel "
+          f"{[round(float(x), 6) for x in log_k.losses]} | masked "
+          f"{[round(x, 6) for x in log_m.losses]} | max diff {diff:.3e}",
+          flush=True)
     print(f"[lm fine-tune] p50 step ms over 2 x {LM_STEPS} steps: kernel path "
           f"{p50['kernel']:.3f}, masked path {p50['masked']:.3f}, standard "
           f"full fine-tuning (d2ft off, plain scan) {p50['full']:.3f}; per "
-          f"round " + ", ".join(
-              f"{k} {1e3 * float(np.median(r[0])):.3f} / "
-              f"{1e3 * float(np.median(r[1])):.3f}"
-              for k, r in rounds.items()) + f" {tag}")
+          f"round " + ", ".join(f"{k} {r[0]:.3f} / {r[1]:.3f}"
+                                for k, r in per.items()) + f" {tag}")
     print(f"[lm fine-tune] tokens/s: kernel path "
           f"{B * S / p50['kernel'] * 1e3:.1f}, masked "
           f"{B * S / p50['masked'] * 1e3:.1f}, full "
@@ -776,32 +878,9 @@ def lm_finetune(torch, np, tag):
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in next(lm_batches(0, cfg.vocab_size, B, S, 1)).items()}
     gates = (g_f.cuda(), g_b.cuda())
-    step(model, state, batch, gates)
-    torch.cuda.synchronize()
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            step(model, state, batch, gates)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = sorted(((e.self_device_time_total, e.count, e.key)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA), reverse=True)
-    busy_us = sum(t for t, _, _ in dev)
-    if busy_us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    ssd_us = sum(t for t, _, k in dev if "ssd_" in k)
-    print(f"[profile] {n_prof} kernel-path LM fine-tune steps: device busy "
-          f"{busy_us / 1e3 / n_prof:.3f} ms per step, wall "
-          f"{1e3 * wall / n_prof:.3f} ms per step under the profiler, idle "
-          f"share {1 - busy_us / 1e6 / wall:.1%}; d2ft SSD kernels "
-          f"{ssd_us / 1e3 / n_prof:.3f} ms per step "
-          f"({ssd_us / busy_us:.1%} of busy) {tag}")
-    print("[profile] top device time per step: " + "; ".join(
-        f"{k[:60]} x{c // n_prof}: {t / 1e3 / n_prof:.3f} ms"
-        for t, c, k in dev[:8]), flush=True)
+    print_profile("3 kernel-path LM fine-tune steps", profile_steps(
+        torch, lambda: step(model, state, batch, gates), "ssd_"),
+        "d2ft SSD kernels", tag)
     del model, state, batch
     torch.cuda.empty_cache()
     gh_f = torch.repeat_interleave(g_f[0], rep, dim=1).cuda()
@@ -848,6 +927,493 @@ def ssd_timing(torch, train, tag):
               f"per (sample, chunk), causal halves; "
               f"{by[0 if kind == 'fwd' else 1] / 1e6:.1f} MB), "
               f"{b_ms / k_ms:.1%} of bound {tag}", flush=True)
+    return out
+
+
+def gemma_attention_operands(torch):
+    """Post-rope q and kv-expanded k, v [B, H, S, hd] of gemma3-1b's layer 0
+    (local, window 512) and layer 5 (global), random weights from seed 0
+    (the launcher's), on phase 13's first batch (B 4, S 1024): the
+    operands the main path gives the hd-256 kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import (apply_embedding, apply_norm,
+                                           apply_rope)
+    from repro_torch.models.transformer import apply_block, init_model
+    cfg = get_config("gemma3-1b")
+    model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = next(lm_batches(0, cfg.vocab_size, GM_BATCH, GM_SEQ, 1))
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    pos = torch.arange(GM_SEQ, device="cuda")[None, :]
+    out = {}
+    with torch.no_grad():
+        x = apply_embedding(model.embed,
+                            torch.as_tensor(batch["tokens"], device="cuda"))
+        for i, (p, kind) in enumerate(zip(model.layers, cfg.layer_kinds)):
+            if i in (0, 5):
+                h = apply_norm(p.norm1, x, cfg.norm)
+                q, k, v = attn._project_qkv(p.attn, h, H, cfg.n_kv_heads, hd)
+                q = apply_rope(q, pos, cfg.rope_theta)
+                k = apply_rope(k, pos, cfg.rope_theta)
+                out[i] = tuple(attn._repeat_kv(t, H).transpose(1, 2)
+                               .contiguous() for t in (q, k, v))
+            if i == 5:
+                break
+            x, _ = apply_block(p, x, kind, cfg)
+    del model
+    torch.cuda.empty_cache()
+    return cfg, out
+
+
+def gemma_attention_vs_plain(torch, gen):
+    """Phase 12. Returns the largest errors {"fwd": o/lse, "bwd": grads}
+    over the main path's operands."""
+    cfg, operands = gemma_attention_operands(torch)
+    B, H, S, hd = GM_BATCH, cfg.n_heads, GM_SEQ, cfg.resolved_head_dim
+    cases = [(f"layer {layer}'s operands", operands[layer], window, mode)
+             for layer, window in ((0, cfg.window), (5, 0))
+             for mode in (None, "exact", "above")]
+    cases += [("N(0, 1) operands", None, window, "exact")
+              for window in (cfg.window, 0)]
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for what, qkv, window, mode in cases:
+        q, k, v, do, g_f, g_b = attn_inputs(torch, gen, B, H, S, hd)
+        if qkv is not None:
+            q, k, v = qkv
+        n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+        live = {None: (None, None), "exact": (n_f, n_b),
+                "above": (n_f + 3, n_b + 2)}[mode]
+        e_f, e_b, s_f, s_b, zeros, counts, want = attention_case(
+            torch, q, k, v, do, g_f, g_b, causal=True, window=window,
+            live=live)
+        # the main path's operands are held to the absolute limits; the
+        # N(0, 1) case to them scaled by max(1, max |plain|), as phase 9
+        scaled = qkv is None
+        lim_f = KERNEL_TOL * (max(1.0, s_f) if scaled else 1.0)
+        lim_b = GRAD_TOL * (max(1.0, s_b) if scaled else 1.0)
+        what = (f"{what}, B {B} H {H} S {S} hd {hd} causal window {window} "
+                f"bounds {live}")
+        if e_f > lim_f or e_b > lim_b or not zeros or counts != want:
+            raise AssertionError(
+                f"hd-256 attention kernels vs plain, {what}: o/lse err {e_f} "
+                f"(limit {lim_f}), grad err {e_b} (limit {lim_b}), exact "
+                f"zeros {zeros}, tiles {counts} != {want}")
+        if not scaled:
+            worst = {"fwd": max(worst["fwd"], e_f),
+                     "bwd": max(worst["bwd"], e_b)}
+        print(f"[hd-256 attention vs plain] {what}: live {n_f}/{n_b} of "
+              f"{B * H}, o/lse err {e_f:.3e} (max |plain o| {s_f:.3g}), grad "
+              f"err {e_b:.3e} (max |plain grad| {s_b:.3g}), zeros exact, "
+              f"tiles {counts}", flush=True)
+    print(f"[hd-256 attention vs plain] max abs err on the main path's "
+          f"operands fwd {worst['fwd']:.3e} <= {KERNEL_TOL}, bwd "
+          f"{worst['bwd']:.3e} <= {GRAD_TOL}", flush=True)
+    return worst
+
+
+def schedule_tiles(sched, mb_of, cfg, steps):
+    """Attention tiles the schedule makes the kernels execute in ``steps``
+    steps, forward and backward, and those full fine-tuning would: per
+    layer, the live (sample, head) slices times the kernel's live tiles per
+    slice under that layer's causal or window mask."""
+    from repro_torch.core.schedule import gates_from_schedule
+    from repro_torch.kernels import d2ft_attention as d2a
+    g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")       # [L, B, G]
+    rep = cfg.n_heads // sched.n_groups
+    fwd = bwd = full = 0
+    for layer, kind in enumerate(cfg.layer_kinds):
+        window = cfg.window if kind == "attn_local" else 0
+        tiles = d2a.kernel_live_tiles(GM_SEQ, True, window,
+                                      cfg.resolved_head_dim)
+        fwd += int(g_f[layer].sum()) * rep * tiles
+        bwd += int(g_b[layer].sum()) * rep * tiles
+        full += g_f.shape[1] * cfg.n_heads * tiles
+    return steps * fwd, steps * bwd, steps * full
+
+
+def gemma_finetune(torch, np, tag):
+    """Phase 13. Returns {"launches": {"fwd", "bwd"}, "heads": per-head
+    (g_f, g_b) of layers 0 and 5 of the step-0 split, "bounds": per-head
+    bounds}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedule import (gates_from_schedule,
+                                           live_slice_bounds)
+    from repro_torch.data.synthetic import lm_batches, microbatch_assignment
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train import loop
+
+    cfg = get_config("gemma3-1b")
+    B, S, n_mb = GM_BATCH, GM_SEQ, GM_D2FT["n_microbatches"]
+    run, scheds = launcher_paths(
+        ["--arch", "gemma3-1b", "--full", "--batch", str(B), "--seq",
+         str(S), "--steps", str(GM_STEPS), "--lr", str(GM_LR),
+         "--n-microbatches", str(n_mb), "--n-pf", str(GM_D2FT["n_pf"]),
+         "--n-po", str(GM_D2FT["n_po"])])
+
+    torch.cuda.reset_peak_memory_stats()
+    d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
+    with contract.count_tiles("cuda") as tc:
+        log_k = run("kernel")
+        counts = tc.read()
+    launches = {"fwd": d2a.flash_fwd.launches, "bwd": d2a.flash_bwd.launches}
+    peak_k = torch.cuda.max_memory_allocated()
+    sched = scheds[0]
+    mb_of = microbatch_assignment(B, n_mb)
+    bounds = live_slice_bounds(sched, mb_of)
+    rep = cfg.n_heads // sched.n_groups
+    want_f, want_b, total = schedule_tiles(sched, mb_of, cfg, GM_STEPS)
+    frac = {k: counts[k] / total for k in ("fwd", "bwd_dkdv", "bwd_dq")}
+    per_step = cfg.n_layers * GM_STEPS
+    if launches != {"fwd": per_step, "bwd": per_step}:
+        raise AssertionError(f"attention kernel launches {launches} != "
+                             f"{cfg.n_layers} per step x {GM_STEPS} steps")
+    if counts != {"fwd": want_f, "bwd_dkdv": want_b, "bwd_dq": want_b,
+                  "ssd_fwd": 0, "ssd_bwd": 0}:
+        raise AssertionError(f"executed tiles {counts} != the schedule's "
+                             f"{want_f} forward, {want_b} backward")
+    torch.cuda.reset_peak_memory_stats()
+    log_m = run("masked")
+    peak_m = torch.cuda.max_memory_allocated()
+    if d2a.flash_fwd.launches != launches["fwd"]:
+        raise AssertionError("the masked path launched the kernel")
+    diff = check_losses(np, log_k, log_m)
+    torch.cuda.reset_peak_memory_stats()
+    p50, per = in_turns(np, run, {"kernel": log_k, "masked": log_m})
+    peak_all = torch.cuda.max_memory_allocated()
+    print(f"[gemma fine-tune] gemma3-1b full size ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} query heads and {cfg.n_kv_heads} KV "
+          f"head of {cfg.resolved_head_dim}, window {cfg.window}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, f32, seed 0) through "
+          f"repro_torch.launch.train, batch {B} x seq {S} in {n_mb} "
+          f"micro-batches, n_pf {GM_D2FT['n_pf']} n_po {GM_D2FT['n_po']}, G "
+          f"{sched.n_groups}, AdamW lr {GM_LR}, {GM_STEPS} steps: attention "
+          f"kernel launches {launches}, live (sample, group) bounds {bounds} "
+          f"x {rep} heads per group, executed tile fractions fwd "
+          f"{frac['fwd']:.3f} bwd {frac['bwd_dkdv']:.3f}/{frac['bwd_dq']:.3f}"
+          f" (= the schedule's: {want_f} / {want_b} of {total} tiles)",
+          flush=True)
+    print(f"[gemma fine-tune] losses kernel "
+          f"{[round(float(x), 6) for x in log_k.losses]} | masked "
+          f"{[round(x, 6) for x in log_m.losses]} | max diff {diff:.3e}",
+          flush=True)
+    print(f"[gemma fine-tune] p50 step ms over 2 x {GM_STEPS} steps: kernel "
+          f"path {p50['kernel']:.3f}, masked path {p50['masked']:.3f}, "
+          f"standard full fine-tuning (d2ft off, plain attention) "
+          f"{p50['full']:.3f}; per round " + ", ".join(
+              f"{k} {r[0]:.3f} / {r[1]:.3f}" for k, r in per.items())
+          + f" {tag}")
+    print(f"[gemma fine-tune] tokens/s: kernel path "
+          f"{B * S / p50['kernel'] * 1e3:.1f}, masked "
+          f"{B * S / p50['masked'] * 1e3:.1f}, full "
+          f"{B * S / p50['full'] * 1e3:.1f} {tag}")
+    print(f"[gemma fine-tune] max_memory_allocated, scoring included: kernel "
+          f"path {peak_k} bytes ({peak_k / 2**30:.2f} GiB), masked path "
+          f"{peak_m} bytes ({peak_m / 2**30:.2f} GiB), the largest of the "
+          f"timed rounds (full fine-tuning's AdamW state included) "
+          f"{peak_all} bytes ({peak_all / 2**30:.2f} GiB) {tag}", flush=True)
+
+    # where a kernel-path step's time goes
+    g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")
+    model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = adamw(GM_LR)
+    state = opt.init(dict(model.named_parameters()))
+    step = loop.make_train_step(cfg, opt, use_gates=True, use_kernel=True,
+                                live_bounds=bounds)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(0, cfg.vocab_size, B, S, 1)).items()}
+    gates = (g_f.cuda(), g_b.cuda())
+    print_profile("3 kernel-path gemma3-1b fine-tune steps", profile_steps(
+        torch, lambda: step(model, state, batch, gates), "d2ft_attn"),
+        "d2ft attention kernels", tag)
+    del model, state, batch, opt, step
+    torch.cuda.empty_cache()
+    heads = {layer: tuple(torch.repeat_interleave(g[layer], rep, dim=1)
+                          .cuda() for g in (g_f, g_b)) for layer in (0, 5)}
+    return {"launches": launches, "heads": heads,
+            "bounds": (bounds[0] * rep, bounds[1] * rep)}
+
+
+def lora_cases(torch, x, lora_w, gen):
+    """B3 against its plain version on phase 14's own layer-0 operands (the
+    normed hidden states x [4096, 1152] against wq, wk, wv with the trained
+    A, B, scale 1) and on the ragged path (M 4095 x N 1000 of x and wq)
+    at ranks 1, 8, 64 and 240 (A, B at init_lora's and a trained adapter's
+    scales), each against ``lora_matmul_ref`` and x @ (W + s·A@B), within
+    1e-5 x max(1, max |plain|). Returns the largest absolute error."""
+    from repro_torch.kernels import lora_matmul as lm
+    cases = [(name, x, w, a, b) for name, (w, a, b) in lora_w.items()]
+    K = x.shape[1]
+    w_r = lora_w["wq"][0][:, :1000].contiguous()
+    for r in (1, 8, 64, 240):
+        a = torch.randn((K, r), generator=gen, device="cuda") / K ** 0.5
+        b = torch.randn((r, 1000), generator=gen, device="cuda") / r ** 0.5
+        cases.append((f"ragged r {r}", x[:4095].contiguous(), w_r, a, b))
+    worst = 0.0
+    for name, xx, w, a, b in cases:
+        y = lm.lora_matmul(xx, w, a, b, 1.0)
+        ref = lm.lora_matmul_ref(xx, w, a, b, 1.0)
+        merged = xx @ (w + 1.0 * a @ b)
+        scale = float(ref.abs().max())
+        e_ref = float((y - ref).abs().max())
+        e_m = float((y - merged).abs().max())
+        lim = KERNEL_TOL * max(1.0, scale)
+        if e_ref > lim or e_m > lim or not torch.isfinite(y).all():
+            raise AssertionError(
+                f"LoRA kernel vs plain, {name} M {xx.shape[0]} K {K} N "
+                f"{w.shape[1]} r {a.shape[1]}: err {e_ref} vs the plain "
+                f"version, {e_m} vs the merged product (limit {lim})")
+        worst = max(worst, e_ref)
+        print(f"[lora vs plain] {name}: M {xx.shape[0]} K {K} N {w.shape[1]} "
+              f"r {a.shape[1]}: err {e_ref:.3e} vs lora_matmul_ref, {e_m:.3e} "
+              f"vs x @ (W + s A@B), max |plain| {scale:.3g}, limit "
+              f"{lim:.3g}", flush=True)
+    return worst
+
+
+def gemma_lora(torch, np, tag):
+    """Phase 14. Returns {"launches": {"lora", "fwd", "bwd"}, "err": B3's
+    largest error, "wq": (x, W, A, B) of layer 0's wq}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import init_lora, lora_param_count, lora_params
+    from repro_torch.core.schedule import (gates_from_schedule,
+                                           live_slice_bounds)
+    from repro_torch.data.synthetic import lm_batches, microbatch_assignment
+    from repro_torch.examples import lora_finetune as ex
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.models.layers import apply_embedding, apply_norm
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.optimizers import sgd
+
+    cfg = get_config("gemma3-1b")
+    B, S = GM_BATCH, GM_SEQ
+    kw = dict(device="cuda", batch=B, seq=S, steps=GM_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    lm.lora_matmul.launches = 0
+    d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
+    with contract.count_tiles("cuda") as tc:
+        model, lora, sched, y, log_k = ex.run(cfg, use_kernel=True, **kw)
+        counts = tc.read()
+    launches = {"lora": lm.lora_matmul.launches,
+                "fwd": d2a.flash_fwd.launches, "bwd": d2a.flash_bwd.launches}
+    peak_k = torch.cuda.max_memory_allocated()
+    per_step = cfg.n_layers * GM_STEPS
+    if launches != {"lora": 1, "fwd": per_step, "bwd": per_step}:
+        raise AssertionError(f"kernel launches {launches} != 1 fused LoRA "
+                             f"call and {cfg.n_layers} attention launches "
+                             f"per step x {GM_STEPS} steps")
+    mb_of = microbatch_assignment(B, ex.D2.n_microbatches)
+    want_f, want_b, total = schedule_tiles(sched, mb_of, cfg, GM_STEPS)
+    if counts != {"fwd": want_f, "bwd_dkdv": want_b, "bwd_dq": want_b,
+                  "ssd_fwd": 0, "ssd_bwd": 0}:
+        raise AssertionError(f"executed tiles {counts} != the schedule's "
+                             f"{want_f} forward, {want_b} backward")
+    frac = {k: counts[k] / total for k in ("fwd", "bwd_dkdv", "bwd_dq")}
+    n_adapters = lora_param_count(lora)
+    want_n = cfg.n_layers * (
+        cfg.d_model * ex.RANK + ex.RANK * cfg.n_heads * cfg.resolved_head_dim
+        + 2 * (cfg.d_model * ex.RANK
+               + ex.RANK * cfg.n_kv_heads * cfg.resolved_head_dim))
+    if n_adapters != want_n or n_adapters != 1_038_336:
+        raise AssertionError(f"{n_adapters} adapter parameters != {want_n}")
+    # the frozen base is the seed-0 model bit for bit; the adapters moved
+    fresh = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    same = all(torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                 fresh.parameters()))
+    init = init_lora(torch.Generator(device="cuda").manual_seed(1),
+                     dict(fresh.named_parameters()), rank=ex.RANK)
+    moved = all(not torch.equal(ab[k], init[n][k])
+                for n, ab in lora.items() for k in ("a", "b"))
+    if not same or not moved:
+        raise AssertionError(f"base bit-identical {same}, adapters moved "
+                             f"{moved}")
+    # the example's fused call on the card against its plain version
+    xd = torch.randn((128, cfg.d_model),
+                     generator=torch.Generator(device="cuda").manual_seed(2),
+                     device="cuda")
+    ab0 = init["layers.0.attn.wq"]
+    y_ref = lm.lora_matmul_ref(xd, fresh.layers[0].attn.wq.detach(),
+                               ab0["a"].detach(), ab0["b"].detach(),
+                               ex.FUSED_SCALE)
+    e_y = float((y - y_ref).abs().max())
+    if e_y > KERNEL_TOL * max(1.0, float(y_ref.abs().max())):
+        raise AssertionError(f"the fused call differs from its plain "
+                             f"version by {e_y}")
+    del fresh, init, xd, y_ref
+    torch.cuda.empty_cache()
+    # B3 vs plain on this run's own layer-0 operands
+    batch = next(lm_batches(0, cfg.vocab_size, B, S, 1))
+    with torch.no_grad():
+        tokens = torch.as_tensor(batch["tokens"], device="cuda")
+        layer = model.layers[0]
+        x = apply_norm(layer.norm1, apply_embedding(model.embed, tokens),
+                       cfg.norm).reshape(B * S, cfg.d_model).contiguous()
+        lora_w = {t: (getattr(layer.attn, t).detach(),
+                      lora[f"layers.0.attn.{t}"]["a"].detach(),
+                      lora[f"layers.0.attn.{t}"]["b"].detach())
+                  for t in ("wq", "wk", "wv")}
+        err = lora_cases(torch, x, lora_w,
+                         torch.Generator(device="cuda").manual_seed(14))
+    # where a kernel-path LoRA step's time goes
+    g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")
+    opt = sgd(ex.LR)
+    state = opt.init(lora_params(lora))
+    step = ex.make_lora_step(model, cfg, opt, use_kernel=True)
+    bt = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    gates = (g_f.cuda(), g_b.cuda())
+    bounds = live_slice_bounds(sched, mb_of)
+    prof = profile_steps(torch, lambda: step(lora, state, bt, gates, bounds),
+                         "d2ft_attn")
+    wq = (x, *lora_w["wq"])
+    del model, lora, state, step, bt, lora_w
+    torch.cuda.empty_cache()
+
+    # the masked path on the same schedule, plain LoRA without D2FT, then
+    # each again in turns
+    runs = {"kernel": dict(use_kernel=True, sched=sched),
+            "masked": dict(sched=sched), "plain": dict(d2=None)}
+    logs = {"kernel": [log_k]}
+    peaks = {"kernel": peak_k}
+    for name in ("masked", "plain", "plain", "masked", "kernel"):
+        torch.cuda.reset_peak_memory_stats()
+        before = d2a.flash_fwd.launches
+        logs.setdefault(name, []).append(ex.run(cfg, **runs[name], **kw)[-1])
+        peaks[name] = max(peaks.get(name, 0),
+                          torch.cuda.max_memory_allocated())
+        if d2a.flash_fwd.launches - before != \
+                (per_step if name == "kernel" else 0):
+            raise AssertionError(f"the {name} path launched the attention "
+                                 f"kernel {d2a.flash_fwd.launches - before} "
+                                 "times")
+        torch.cuda.empty_cache()
+    diff = check_losses(np, log_k, logs["masked"][0])
+    p50 = {k: 1e3 * float(np.median(v[0].step_times + v[1].step_times))
+           for k, v in logs.items()}
+    print(f"[lora fine-tune] D2FT-LoRA on gemma3-1b full size through "
+          f"repro_torch.examples.lora_finetune: rank {ex.RANK} on "
+          f"{'/'.join(('wq', 'wk', 'wv'))} ({n_adapters} adapter parameters = "
+          f"lora_param_count), SGD {ex.LR}, n_pf {ex.D2.n_pf} n_po "
+          f"{ex.D2.n_po} of {ex.D2.n_microbatches}, {ex.D2.head_groups} head "
+          f"groups, batch {B} x seq {S}, {GM_STEPS} steps: kernel launches "
+          f"{launches}, executed tile fractions fwd {frac['fwd']:.3f} bwd "
+          f"{frac['bwd_dkdv']:.3f}/{frac['bwd_dq']:.3f} (= the schedule's: "
+          f"{want_f} / {want_b} of {total} tiles), base bit-identical, "
+          f"adapters moved, fused call err {e_y:.3e}", flush=True)
+    print(f"[lora fine-tune] losses kernel "
+          f"{[round(float(v), 6) for v in log_k.losses]} | masked "
+          f"{[round(v, 6) for v in logs['masked'][0].losses]} | max diff "
+          f"{diff:.3e} | plain LoRA "
+          f"{[round(v, 6) for v in logs['plain'][0].losses]}", flush=True)
+    print(f"[lora fine-tune] p50 step ms over 2 x {GM_STEPS} steps: kernel "
+          f"path {p50['kernel']:.3f}, masked path {p50['masked']:.3f}, plain "
+          f"LoRA (no D2FT) {p50['plain']:.3f}; per round " + ", ".join(
+              f"{k} " + " / ".join(
+                  f"{1e3 * float(np.median(lg.step_times)):.3f}" for lg in v)
+              for k, v in logs.items()) + f" {tag}")
+    print(f"[lora fine-tune] tokens/s: kernel path "
+          f"{B * S / p50['kernel'] * 1e3:.1f}, masked "
+          f"{B * S / p50['masked'] * 1e3:.1f}, plain LoRA "
+          f"{B * S / p50['plain'] * 1e3:.1f} {tag}")
+    print("[lora fine-tune] max_memory_allocated, scoring included: " +
+          ", ".join(f"{k} {v} bytes ({v / 2**30:.2f} GiB)"
+                    for k, v in peaks.items()) + f" {tag}", flush=True)
+    print_profile("3 kernel-path D2FT-LoRA steps", prof,
+                  "d2ft attention kernels", tag)
+    return {"launches": launches, "err": err, "wq": wq}
+
+
+def gemma_timing(torch, gm, lo, tag):
+    """Phase 15. Returns {"lora"|"fwd"|"bwd": (ms, plain_ms, library_ms,
+    bound_ms, bound_by)}: B3 at phase 14's wq operands, the hd-256
+    attention kernels at phase 13's shapes, layer 0's gates and the
+    per-head bounds (printed for layer 5, global, too)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.kernels import lora_matmul as lm
+    x, w, a, b = lo["wq"]
+    M, K = x.shape
+    N, r = w.shape[1], a.shape[1]
+    out = {"lora": (
+        time_ms(torch, lambda: lm.lora_matmul(x, w, a, b, 1.0)),
+        time_ms(torch, lambda: lm.lora_matmul_ref(x, w, a, b, 1.0)),
+        time_ms(torch, lambda: torch.addmm(torch.matmul(x, w),
+                                           torch.matmul(x, a), b)),
+        *roofline(lm.needed_bytes(M, K, N, r), lm.needed_flops(M, K, N, r)))}
+    k_ms, p_ms, l_ms, b_ms, by = out["lora"]
+    print(f"[lora timing] lora_matmul M {M} K {K} N {N} r {r} (layer 0's wq, "
+          f"trained adapter): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"library (addmm + two matmuls, cuBLAS) {l_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms by {by} ({lm.needed_flops(M, K, N, r) / 1e9:.3f} "
+          f"GFLOP, {lm.needed_bytes(M, K, N, r) / 1e6:.1f} MB), "
+          f"{b_ms / k_ms:.1%} of bound {tag}", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    B, H, S, hd = GM_BATCH, 4, GM_SEQ, 256
+    lf, lb = gm["bounds"]
+    for layer, window in ((5, 0), (0, 512)):        # layer 0's last: kept
+        g_f, g_b = gm["heads"][layer]
+        q, k, v, do = (torch.randn((B, H, S, hd), generator=gen,
+                                   device="cuda") for _ in range(4))
+        o, lse = d2a.flash_fwd(q, k, v, g_f, causal=True, window=window,
+                               live=lf)
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        ref = d2a.gated_attention_ref(qr, kr, vr, g_f, g_b, causal=True,
+                                      window=window)
+        mask = d2a._mask(S, True, window, "cuda")
+        pairs = int(mask.sum())                # unmasked (q, k) pairs
+
+        def flat(t, gate):                 # [live, S, hd], gathered once
+            return t.reshape(B * H, S, hd)[gate.reshape(-1) != 0] \
+                .contiguous()
+
+        def sdpa(qq, kk, vv):
+            return F.scaled_dot_product_attention(qq, kk, vv,
+                                                  attn_mask=mask)
+        lq, lk, lv = (flat(t, g_f) for t in (q, k, v))
+        bq, bk, bv = (flat(t, g_b).requires_grad_() for t in (q, k, v))
+        lib_o = sdpa(bq, bk, bv)
+        ldo = flat(do, g_b)
+        n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+        res = {
+            "fwd": (time_ms(torch, lambda: d2a.flash_fwd(
+                        q, k, v, g_f, causal=True, window=window, live=lf)),
+                    time_ms(torch, lambda: d2a.gated_attention_ref(
+                        q, k, v, g_f, g_b, causal=True, window=window)),
+                    time_ms(torch, lambda: sdpa(lq, lk, lv)),
+                    *roofline(4 * (3 * n_f * S * hd + B * H * S * hd
+                                   + B * H * S),
+                              n_f * 2 * 2 * pairs * hd)),
+            # q, k, v, o, do and lse of each live slice read once, dq, dk,
+            # dv written for every slice; 5 products over the unmasked
+            # (q, k) pairs of each live slice (s recomputed)
+            "bwd": (time_ms(torch, lambda: d2a.flash_bwd(
+                        q, k, v, g_b, o, lse, do, causal=True, window=window,
+                        live=lb)),
+                    time_ms(torch, lambda: torch.autograd.grad(
+                        ref, (qr, kr, vr), do, retain_graph=True)),
+                    time_ms(torch, lambda: torch.autograd.grad(
+                        lib_o, (bq, bk, bv), ldo, retain_graph=True)),
+                    *roofline(4 * (5 * n_b * S * hd + n_b * S
+                                   + 3 * B * H * S * hd),
+                              n_b * 5 * 2 * pairs * hd))}
+        for kind, (k_ms, p_ms, l_ms, b_ms, by) in res.items():
+            print(f"[hd-256 attention timing] d2ft_attention_{kind} layer "
+                  f"{layer} ({'window ' + str(window) if window else 'global'}"
+                  f", causal) B {B} H {H} S {S} hd {hd}, live "
+                  f"{n_f if kind == 'fwd' else n_b} of {B * H} (bound "
+                  f"{lf if kind == 'fwd' else lb}): kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, library (sdpa "
+                  f"{'forward' if kind == 'fwd' else 'autograd backward'} on "
+                  f"the live slices) {l_ms:.4f} ms, bound {b_ms:.5f} ms by "
+                  f"{by}, {b_ms / k_ms:.1%} of bound {tag}", flush=True)
+        del q, k, v, do, o, lse, qr, kr, vr, ref, lib_o
+    out.update(res)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1111,6 +1677,20 @@ def main() -> int:
 
     # 11. SSD kernel timing -----------------------------------------------
     ssd_t = ssd_timing(torch, lm, tag)
+    torch.cuda.empty_cache()
+
+    # 12. hd-256 attention kernels vs plain --------------------------------
+    gm_errs = gemma_attention_vs_plain(torch, gen)
+    torch.cuda.empty_cache()
+
+    # 13. gemma3-1b LLM fine-tune through the launcher ---------------------
+    gm = gemma_finetune(torch, np, tag)
+
+    # 14. D2FT-LoRA fine-tune on gemma3-1b ---------------------------------
+    lo = gemma_lora(torch, np, tag)
+
+    # 15. LoRA and hd-256 attention kernel timing --------------------------
+    gm_t = gemma_timing(torch, gm, lo, tag)
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{
@@ -1138,6 +1718,23 @@ def main() -> int:
             "launches": lm["launches"][kind], "max_abs_err": ssd_errs[kind],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": None})
+    k_ms, p_ms, l_ms, b_ms, by = gm_t["lora"]
+    kernels.append({
+        "name": "lora_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lora_matmul.cu",
+        "replaces": "src/repro/kernels/lora_matmul.py:25",
+        "launches": lo["launches"]["lora"], "max_abs_err": lo["err"],
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+        "library_ms": l_ms})
+    for kind, line in (("fwd", 133), ("bwd", 273)):
+        k_ms, p_ms, l_ms, b_ms, by = gm_t[kind]
+        kernels.append({
+            "name": f"d2ft_attention_{kind}_hd256", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/d2ft_attention_{kind}.cu",
+            "replaces": f"src/repro/kernels/d2ft_attention.py:{line}",
+            "launches": gm["launches"][kind], "max_abs_err": gm_errs[kind],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": l_ms})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,12 @@ block's (``attn.wq`` ...) as an SSD block's (``ssd.w_in``, ``conv_w``,
 mamba2-130m stacks its 24 layers in one pattern cycle). Tests use it so
 both packages compute with the same weights; the serving path never does.
 
+``lora_from_jax(lora, cfg)`` carries the JAX package's LoRA adapters
+(``repro.core.lora.init_lora``: ``{"cycles/<j>/attn/wq": {"a": [n_cycles,
+in, r], "b": [n_cycles, r, out]}, "rest/<i>/attn/wq": {"a": [in, r], ...}}``,
+numpy leaves) into the port's ``{"layers.<l>.attn.wq": {"a", "b"}}`` with
+the same cycle and remainder rule.
+
 ``vit_params_from_jax(tree)`` does the same for ``repro.models.vit.
 init_vit``'s tree (``patch_proj``, ``patch_bias``, ``cls``, ``pos``, a
 ``blocks`` list, ``final_norm``, ``head``): block ``i`` becomes
@@ -56,6 +62,31 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             state[f"layers.{n_cycles * P + i}.{name}"] = torch.from_numpy(
                 a.copy())
     return state
+
+
+def lora_from_jax(lora: Dict[str, Any], cfg) -> Dict[str, Dict[str,
+                                                         torch.Tensor]]:
+    """Adapters keyed by the port's flat names; ``cfg`` (the model's
+    ``ModelConfig``) gives the pattern length P and the number of cycles.
+    The tensors are new leaves that require grad."""
+    P = len(cfg.block_pattern)
+    n_cycles = cfg.n_layers // P
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for path, ab in lora.items():
+        group, idx, *rest = path.split("/")
+        name = ".".join(rest)
+        if group == "cycles":
+            for c in range(n_cycles):
+                out[f"layers.{c * P + int(idx)}.{name}"] = {
+                    k: torch.from_numpy(np.asarray(ab[k])[c].copy())
+                    .requires_grad_() for k in ("a", "b")}
+        elif group == "rest":
+            out[f"layers.{n_cycles * P + int(idx)}.{name}"] = {
+                k: torch.from_numpy(np.asarray(ab[k]).copy())
+                .requires_grad_() for k in ("a", "b")}
+        else:
+            raise ValueError(f"unexpected LoRA path {path!r}")
+    return out
 
 
 def vit_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -11,8 +11,8 @@ Four groups of things live here:
 
 * accounting identical to the JAX package's (``select_blocks``,
   ``pad_to_blocks``, ``live_block_count``, ``gated_attention_flops``), plus
-  the CUDA kernels' own tiling (``kernel_live_tiles``, ``kernel_flops``,
-  ``kernel_bytes``);
+  the CUDA kernels' own tiling (``kernel_block``, a function of head_dim;
+  ``kernel_live_tiles``, ``kernel_flops``, ``kernel_bytes``);
 * the plain PyTorch version ``gated_attention_ref`` (with
   ``attention_ref``, ``d2ft_attention_ref`` and the forward's logsumexp
   ``gated_attention_lse_ref``), which the CPU path, the CPU tests and the
@@ -52,9 +52,14 @@ NEG_INF = -2.0 ** 30
 # exp(s - LSE_MASKED) is exactly 0 in the backward for any score.
 LSE_MASKED = 2.0 ** 30
 
-# The CUDA kernels' tile (queries and keys alike), fixed at compile time.
-KERNEL_BLOCK = 64
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)   # 16: the smoke ViT's
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)   # 16: the smoke ViT's
+
+
+def kernel_block(hd: int) -> int:
+    """The CUDA kernels' tile (queries and keys alike) at head_dim hd, fixed
+    at compile time: 64, or 32 at hd 256, where the backward's 64-row
+    tiles would take more shared memory than a block may have."""
+    return 32 if hd > 128 else 64
 
 
 # ======================================================= tile selection
@@ -139,20 +144,22 @@ def gated_attention_flops(g_f, g_b, S: int, hd: int, *, causal: bool = True,
     return fwd, bwd
 
 
-def kernel_live_tiles(S: int, causal: bool, window: int) -> int:
+def kernel_live_tiles(S: int, causal: bool, window: int, hd: int) -> int:
     """(q tile, k tile) pairs each CUDA kernel executes per live slice:
-    KERNEL_BLOCK tiles over S, the last one ragged and masked in-kernel."""
-    Sp = -(-S // KERNEL_BLOCK) * KERNEL_BLOCK
-    return live_block_count(Sp, KERNEL_BLOCK, KERNEL_BLOCK, causal, window,
-                            seq_len=S)
+    ``kernel_block(hd)`` tiles over S, the last one ragged and masked
+    in-kernel."""
+    blk = kernel_block(hd)
+    Sp = -(-S // blk) * blk
+    return live_block_count(Sp, blk, blk, causal, window, seq_len=S)
 
 
 def kernel_flops(n_live_fwd: int, n_live_bwd: int, S: int, hd: int, *,
                  causal: bool, window: int):
     """FLOPs (fwd, bwd) the CUDA kernels execute for the given live slice
-    counts: whole 64 x 64 tiles, the ragged edge included."""
-    per_matmul = 2 * KERNEL_BLOCK * KERNEL_BLOCK * hd
-    tiles = kernel_live_tiles(S, causal, window)
+    counts: whole ``kernel_block(hd)``-square tiles, the ragged edge
+    included."""
+    per_matmul = 2 * kernel_block(hd) ** 2 * hd
+    tiles = kernel_live_tiles(S, causal, window, hd)
     return (n_live_fwd * tiles * FWD_MATMULS_PER_TILE * per_matmul,
             n_live_bwd * tiles * KERNEL_BWD_MATMULS_PER_TILE * per_matmul)
 
@@ -168,7 +175,7 @@ def kernel_bytes(n_live_fwd: int, n_live_bwd: int, n_fwd_disp: int,
     k and v once and q, do, lse and delta per live pair, and writes dk and
     dv. A dispatched dead slice only writes its zeros (o and lse; dq, dk
     and dv). Ragged tiles count their real rows only."""
-    B = KERNEL_BLOCK
+    B = kernel_block(hd)
     n_t = -(-S // B)
     rows = [min(B, S - t * B) for t in range(n_t)]
     live = [(iq, ik) for iq in range(n_t) for ik in range(n_t)

@@ -1,6 +1,6 @@
 """Public kernel entries with the JAX package's argument checks (port of the
-``gated_attention``, ``gated_ssd_scan`` and ``paged_decode_attention``
-entries of ``repro/kernels/ops.py``).
+``gated_attention``, ``gated_ssd_scan``, ``paged_decode_attention`` and
+``lora_linear`` entries of ``repro/kernels/ops.py``).
 
 Each entry dispatches on where its tensors lie: CPU tensors go to the
 kernel's plain PyTorch version, CUDA tensors to the hand-written kernel,
@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import d2ft_ssd
 from repro_torch.kernels.d2ft_attention import gated_flash_attention
+from repro_torch.kernels.lora_matmul import lora_matmul, lora_matmul_ref
 from repro_torch.kernels.paged_decode import (paged_decode_ref,
                                               paged_flash_decode)
 
@@ -115,9 +116,10 @@ def gated_attention(q, k, v, g_f, g_b=None, *, causal: bool = True,
     rest come out as exact zeros. None dispatches all B*H slices.
 
     block_q, block_k: the JAX package's TPU tile request, accepted so one
-    call site serves both packages. The CUDA kernels' tiles are fixed
-    (``d2ft_attention.KERNEL_BLOCK``) and they mask odd lengths themselves,
-    and the plain version has no tiles, so neither is read here.
+    call site serves both packages. The CUDA kernels' tiles are fixed per
+    head_dim (``d2ft_attention.kernel_block``) and they mask odd lengths
+    themselves, and the plain version has no tiles, so neither is read
+    here.
 
     CPU tensors take the plain version, CUDA tensors the kernels.
     """
@@ -191,3 +193,25 @@ def gated_ssd_scan(x, da, Bm, Cm, g_f, g_b=None, *, chunk: int,
     _validate_gates(g_f, g_b, B, H, live_fwd, live_bwd)
     return _gated_ssd_impl(x, da, Bm, Cm, g_f, g_b, chunk=chunk,
                            live_fwd=live_fwd, live_bwd=live_bwd)
+
+
+# ------------------------------------------------------------- fused LoRA
+def lora_linear(x, w, a, b, scale: float = 1.0):
+    """Fused y = x·W + scale·(x·A)·B for 2-D [M, K] or 3-D [B, S, K] x; w
+    [K, N], a [K, r], b [r, N]. Forward only, like the JAX op: tensors that
+    require grad are refused, never detached here (pass ``.detach()``
+    explicitly). CPU tensors take the plain version, CUDA tensors the
+    kernel."""
+    if x.ndim not in (2, 3):
+        raise ValueError(f"x must be 2-D or 3-D, got {tuple(x.shape)}")
+    for name, t in (("x", x), ("w", w), ("a", a), ("b", b)):
+        if t.requires_grad:
+            raise ValueError(f"{name} requires grad, but lora_linear is "
+                             "forward only")
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if x.device.type == "cpu":
+        y = lora_matmul_ref(x2, w, a, b, scale)
+    else:
+        y = lora_matmul(x2.contiguous(), w, a, b, scale)
+    return y.reshape(*shape[:-1], w.shape[-1])

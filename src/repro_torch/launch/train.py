@@ -1,10 +1,12 @@
 """Train launcher (port of the single-device half of
 ``repro/launch/train.py``).
 
-On one CUDA card, the slice's main path:
+On one CUDA card, the main paths of the LLM fine-tune:
 
   python -m repro_torch.launch.train --arch mamba2-130m --full --d2ft \
       --kernel --n-pf 2 --n-po 1 --batch 8 --seq 2048 --steps 8
+  python -m repro_torch.launch.train --arch gemma3-1b --full --d2ft \
+      --kernel --batch 4 --seq 1024 --steps 8
 
 It runs on the card unless ``--device cpu`` is given, with a reduced
 (smoke) config unless ``--full`` is passed. The weights are random, from
@@ -47,8 +49,10 @@ def parse_args(argv=None):
     ap.add_argument("--distributed", action="store_true",
                     help="data-parallel D2FT (not ported yet)")
     ap.add_argument("--kernel", action="store_true",
-                    help="route attention and SSD blocks through the gated "
-                         "CUDA kernels (their plain versions on the CPU)")
+                    help="route the attention (any head_dim the kernels "
+                         "take, 256 included) and SSD blocks through the "
+                         "gated CUDA kernels (their plain versions on the "
+                         "CPU)")
     ap.add_argument("--mesh", default=None, metavar="data=D,stage=S,tensor=T",
                     help="multi-axis device mesh (not ported yet)")
     ap.add_argument("--sync-mode",

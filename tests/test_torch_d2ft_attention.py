@@ -101,13 +101,22 @@ def test_tile_accounting_equals_jax(S, bq, bk):
 
 
 def test_kernel_tiling_accounting():
-    """The CUDA kernels' 64-tiles: ViT-small's S = 197 is 4 x 4 tiles, the
-    last ragged; a causal or windowed mask skips whole tiles as JAX's
-    predicate does; FLOPs and bytes scale with the live slices only."""
-    assert d2a.kernel_live_tiles(197, False, 0) == 16
-    assert d2a.kernel_live_tiles(256, True, 0) == 10
-    assert d2a.kernel_live_tiles(512, True, 128) == 21
-    assert d2a.kernel_live_tiles(1, False, 0) == 1
+    """The CUDA kernels' tiles, 64 up to hd 128 and 32 at hd 256: ViT-small's
+    S = 197 is 4 x 4 tiles, the last ragged; a causal or windowed mask
+    skips whole tiles as JAX's predicate does (gemma3-1b's S 1024: 32 x 33
+    / 2 causal tiles, 408 under its 512 window); FLOPs and bytes scale with
+    the live slices only."""
+    assert [d2a.kernel_block(hd) for hd in d2a.KERNEL_HEAD_DIMS] == \
+        [64, 64, 64, 64, 32]
+    assert d2a.kernel_live_tiles(197, False, 0, 64) == 16
+    assert d2a.kernel_live_tiles(256, True, 0, 128) == 10
+    assert d2a.kernel_live_tiles(512, True, 128, 64) == 21
+    assert d2a.kernel_live_tiles(1, False, 0, 16) == 1
+    assert d2a.kernel_live_tiles(1024, True, 0, 256) == 528
+    assert d2a.kernel_live_tiles(1024, True, 512, 256) == 408
+    f, b = d2a.kernel_flops(8, 4, 1024, 256, causal=True, window=512)
+    assert (f, b) == (8 * 408 * 2 * 2 * 32 * 32 * 256,
+                      4 * 408 * 7 * 2 * 32 * 32 * 256)
     f, b = d2a.kernel_flops(192, 144, 197, 64, causal=False, window=0)
     assert f == 192 * 16 * 2 * 2 * 64 * 64 * 64
     assert b == 144 * 16 * 7 * 2 * 64 * 64 * 64

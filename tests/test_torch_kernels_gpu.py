@@ -9,21 +9,25 @@ JAX, so they run on a machine that has only PyTorch:
 Tolerance 1e-5 abs in float32 for outputs: the same softmax over the same
 positions, summed in another order; 1e-4 for the gated attention's
 gradients; 1e-5 for the gated SSD scan's y and prevs and 1e-4 for its
-gradients."""
+gradients; 1e-5 x max(1, max |plain|) for the fused LoRA matmul (sums of
+up to 1152 products of values of ~1, where float32 rounds at ~1e-7 of
+the sum)."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import mamba2_130m, vit_small_paper
+from repro_torch.configs import gemma3_1b, mamba2_130m, vit_small_paper
 from repro_torch.configs.base import D2FTConfig
 from repro_torch.configs.gemma3_1b import smoke_config
 from repro_torch.configs.mamba2_130m import smoke_config as mamba2_smoke
 from repro_torch.core.d2ft import plan_schedule
+from repro_torch.core.lora import init_lora
 from repro_torch.data.synthetic import (image_batches, lm_batches,
                                         make_image_task)
 from repro_torch.kernels import contract, ops
 from repro_torch.kernels import d2ft_attention as d2a
 from repro_torch.kernels import d2ft_ssd as d2s
+from repro_torch.kernels import lora_matmul as lm
 from repro_torch.kernels.ops import paged_decode_attention
 from repro_torch.kernels.paged_decode import (paged_decode_ref,
                                               paged_flash_decode)
@@ -170,14 +174,18 @@ def _attn_case(seed, B, H, S, hd):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
-@pytest.mark.parametrize("S", [1, 63, 197])
-@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0), (True, 40)])
+@pytest.mark.parametrize("hd,S,causal,window", [
+    *[(hd, S, causal, window) for hd in (16, 32, 64, 128, 256)
+      for S in (1, 63, 197)
+      for causal, window in ((False, 0), (True, 0), (True, 40))],
+    (256, 1024, True, 0), (256, 1024, True, 512)])
 def test_d2ft_kernels_match_plain(hd, S, causal, window):
     """Forward and backward kernels against the plain version and its
     autograd gradients, with compaction bounds above the live counts;
     exact zeros on gated slices, LSE_MASKED on dead ones, and executed
-    tiles = live slices x live tiles per slice."""
+    tiles = live slices x live tiles per slice. hd 256 takes 32-row tiles
+    (ragged at S 63 and 197); S 1024 is gemma3-1b's fine-tune length, with
+    its 512 window and without."""
     _need_card()
     B, H = 3, 4
     q, k, v, do, g_f, g_b = _attn_case(hd + S, B, H, S, hd)
@@ -208,7 +216,7 @@ def test_d2ft_kernels_match_plain(hd, S, causal, window):
         assert float(a.grad[g_b == 0].abs().max()) == 0.0
     assert float(out[g_f == 0].abs().max()) == 0.0
     assert bool((lse[g_f == 0] == d2a.LSE_MASKED).all())
-    tiles = d2a.kernel_live_tiles(S, causal, window)
+    tiles = d2a.kernel_live_tiles(S, causal, window, hd)
     assert counts == {"fwd": n_f * tiles, "bwd_dkdv": n_b * tiles,
                       "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0}
 
@@ -362,28 +370,38 @@ def test_ssd_kernels_refuse_what_they_do_not_take():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("smoke", [True, False])
-def test_finetune_kernel_path_matches_masked_path_on_card(smoke):
+@pytest.mark.parametrize("arch", ["mamba2-smoke", "mamba2-widths",
+                                  "gemma3-smoke", "gemma3-widths"])
+def test_finetune_kernel_path_matches_masked_path_on_card(arch):
     """Two D2FT steps of the launcher's loop: the smoke mamba2 (P 16, N 16,
-    chunk 8) and mamba2-130m's widths at depth 2 (P 64, N 128, chunk 256,
-    S 300: the pad path). The kernel path launches one forward and one
-    backward per layer per step and its losses match the masked path's from
-    the same weights and schedule."""
+    chunk 8), mamba2-130m's widths at depth 2 (P 64, N 128, chunk 256,
+    S 300: the pad path), the smoke gemma3 (hd 32, window 8) and
+    gemma3-1b's widths at depth 6 (one cycle of 5 local + 1 global, hd 256,
+    window 512, S 600: ragged 32-row tiles). The kernel path launches one
+    forward and one backward per layer per step and its losses match the
+    masked path's from the same weights and schedule."""
     _need_card()
-    cfg = mamba2_smoke() if smoke else \
-        mamba2_130m.CONFIG.replace(n_layers=2, vocab_size=512)
-    seq = 16 if smoke else 300
+    cfg, seq = {
+        "mamba2-smoke": (mamba2_smoke(), 16),
+        "mamba2-widths": (mamba2_130m.CONFIG.replace(n_layers=2,
+                                                     vocab_size=512), 300),
+        "gemma3-smoke": (smoke_config(), 16),
+        "gemma3-widths": (gemma3_1b.CONFIG.replace(n_layers=6,
+                                                   vocab_size=512), 600),
+    }[arch]
+    kernel = (d2s.ssd_fwd, d2s.ssd_bwd) if arch.startswith("mamba2") \
+        else (d2a.flash_fwd, d2a.flash_bwd)
     d2 = D2FTConfig(n_microbatches=4, n_pf=2, n_po=1, head_groups=4)
     losses = {}
     for use_kernel in (True, False):
-        f0, b0 = d2s.ssd_fwd.launches, d2s.ssd_bwd.launches
+        f0, b0 = kernel[0].launches, kernel[1].launches
         model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
         _, _, log = finetune(model, cfg, d2, adamw(1e-3),
                              lm_batches(0, cfg.vocab_size, 8, seq, 2),
                              steps=2, use_kernel=use_kernel)
         L = cfg.n_layers
-        assert d2s.ssd_fwd.launches - f0 == (2 * L if use_kernel else 0)
-        assert d2s.ssd_bwd.launches - b0 == (2 * L if use_kernel else 0)
+        assert kernel[0].launches - f0 == (2 * L if use_kernel else 0)
+        assert kernel[1].launches - b0 == (2 * L if use_kernel else 0)
         losses[use_kernel] = log.losses
     assert np.isfinite(losses[True]).all()
     np.testing.assert_allclose(losses[True], losses[False], atol=1e-4,
@@ -403,3 +421,103 @@ def test_heads_not_tiling_groups_refuse_the_kernel_path_on_card():
     gates = torch.ones((cfg.n_layers, 2, 3), device="cuda")
     with pytest.raises(ValueError, match="no kernel route"):
         forward(model, cfg, tokens, gates=(gates, gates), use_kernel=True)
+
+
+# ------------------------------------------------------- fused LoRA matmul
+def _lora_case(seed, M, K, N, r):
+    """x ~ N(0, 1) and W, A, B at the model's scales (dense_init's and
+    init_lora's 1/sqrt(fan-in), B as a trained adapter's ~N(0, 1/r))."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
+    a = torch.randn((K, r), generator=gen, device="cuda") / K ** 0.5
+    b = torch.randn((r, N), generator=gen, device="cuda") / r ** 0.5
+    return x, w, a, b
+
+
+def test_lora_matmul_refuses_cpu_tensors():
+    """CPU tensors are the plain version's business (``ops.lora_linear``
+    routes them): the launcher raises."""
+    x, w = torch.zeros((4, 8)), torch.zeros((8, 6))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        lm.lora_matmul(x, w, torch.zeros((8, 2)), torch.zeros((2, 6)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4096, 1152, 256), (4095, 1152, 1000),
+                                   (130, 97, 70), (1, 33, 5)])
+@pytest.mark.parametrize("r", [1, 8, 64, 240])
+def test_lora_matmul_matches_plain(M, K, N, r):
+    """The kernel against ``lora_matmul_ref`` and against the merged product
+    x @ (W + s·A@B): gemma3-1b's wk shape, ragged M, N and K (4095 x 1000,
+    odd sizes, a single row), the paper's ranks. Through ``ops.lora_linear``
+    once, 2-D and 3-D."""
+    _need_card()
+    x, w, a, b = _lora_case(M + N + r, M, K, N, r)
+    before = lm.lora_matmul.launches
+    y = lm.lora_matmul(x, w, a, b, 0.7)
+    torch.cuda.synchronize()
+    assert lm.lora_matmul.launches == before + 1
+    ref = lm.lora_matmul_ref(x, w, a, b, 0.7)
+    merged = x @ (w + 0.7 * a @ b)
+    tol = TOL * max(1.0, float(ref.abs().max()))
+    assert torch.isfinite(y).all()
+    assert float((y - ref).abs().max()) <= tol
+    assert float((y - merged).abs().max()) <= tol
+    y3 = ops.lora_linear(x[None], w, a, b, 0.7)
+    assert tuple(y3.shape) == (1, M, N) and torch.equal(y3[0], y)
+
+
+@pytest.mark.gpu
+def test_lora_matmul_refuses_what_it_does_not_take():
+    _need_card()
+    x, w, a, b = _lora_case(0, 64, 32, 48, 8)
+    with pytest.raises(TypeError, match="float32"):
+        lm.lora_matmul(x.double(), w, a, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        lm.lora_matmul(x, w.t().contiguous().t(), a, b)
+    with pytest.raises(ValueError, match="no kernel instantiation"):
+        big = torch.zeros((32, 257), device="cuda")
+        lm.lora_matmul(x, w, big, torch.zeros((257, 48), device="cuda"))
+    with pytest.raises(ValueError, match="do not chain"):
+        lm.lora_matmul(x, w, a, b[:, :40].contiguous())
+    with pytest.raises(ValueError, match="do not chain"):
+        lm.lora_matmul(x, w[:31].contiguous(), a, b)
+    with pytest.raises(ValueError, match="requires grad"):
+        lm.lora_matmul(x, w, a.clone().requires_grad_(), b)
+    with pytest.raises(ValueError, match="requires grad"):
+        ops.lora_linear(x, w.clone().requires_grad_(), a, b)
+
+
+@pytest.mark.gpu
+def test_lora_example_kernel_path_matches_masked_path_on_card():
+    """The D2FT-LoRA example end to end on the card (its config, 3 steps):
+    the fused call launches the LoRA kernel once and matches its plain
+    version; the kernel path launches the attention kernels once per layer
+    per step, its losses match the masked path's on the same schedule, and
+    the base model is never written."""
+    _need_card()
+    from repro_torch.examples import lora_finetune as ex
+    f0, l0 = d2a.flash_fwd.launches, lm.lora_matmul.launches
+    model, lora, sched, y, log_k = ex.run(device="cuda", steps=3,
+                                          use_kernel=True)
+    assert lm.lora_matmul.launches == l0 + 1
+    assert d2a.flash_fwd.launches - f0 == 3 * ex.CFG.n_layers
+    fresh = init_model(torch.Generator(device="cuda").manual_seed(0), ex.CFG)
+    for (n, p), (_, q) in zip(model.named_parameters(),
+                              fresh.named_parameters()):
+        assert torch.equal(p, q), n
+    x = torch.randn((128, ex.CFG.d_model),
+                    generator=torch.Generator(device="cuda").manual_seed(2),
+                    device="cuda")
+    ab = init_lora(torch.Generator(device="cuda").manual_seed(1),
+                   dict(fresh.named_parameters()), rank=ex.RANK)
+    ab = ab["layers.0.attn.wq"]
+    ref = lm.lora_matmul_ref(x, fresh.layers[0].attn.wq.detach(),
+                             ab["a"].detach(), ab["b"].detach(),
+                             ex.FUSED_SCALE)
+    assert float((y - ref).abs().max()) <= \
+        TOL * max(1.0, float(ref.abs().max()))
+    _, _, _, _, log_m = ex.run(device="cuda", steps=3, sched=sched)
+    assert d2a.flash_fwd.launches - f0 == 3 * ex.CFG.n_layers
+    np.testing.assert_allclose(log_k.losses, log_m.losses, atol=1e-4, rtol=0)

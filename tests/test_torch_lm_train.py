@@ -1,20 +1,26 @@
 """The LLM fine-tune slice of the PyTorch port against the JAX package on
-the CPU, at the mamba2 smoke config (2 SSD layers, d 128, 16 heads of
-P 16, state 16, chunk 8, vocab 512): weights carried over with
-``params_from_jax``; ``forward`` and ``lm_loss`` with and without gates,
-at G = 1 (the launcher's ``head_groups = max(n_heads, 1)``) and G = 4
-(4 heads per group), on the masked path and on the kernel path (whose CPU
-route is the kernels' plain version), logits, loss and gradients within
-1e-5; the scores over ``transformer_blocks`` and the schedule they give;
-a 3-step D2FT ``finetune`` within 1e-4 of JAX's, losses and parameters;
-the H % G != 0 branch's fallback report; the launcher on the CPU.
+the CPU, at two smoke configs: mamba2 (2 SSD layers, d 128, 16 heads of
+P 16, state 16, chunk 8, vocab 512) and gemma3 (7 attention layers, one
+cycle of 5 local + 1 global plus a local remainder, d 128, 4 query heads
+and 1 KV head of 32, window 8, vocab 512, tied embeddings, softcap 30):
+weights carried over with ``params_from_jax``; ``forward`` and
+``lm_loss`` with and without gates, at G = 1 (mamba2's launcher
+``head_groups = max(n_heads, 1)``) and G = 4 (gemma3's), on the masked
+path and on the kernel path (whose CPU route is the kernels' plain
+version), logits, loss and gradients within 1e-5; the scores over
+``transformer_blocks`` and the schedule they give; a 3-step D2FT
+``finetune`` within 1e-4 of JAX's, losses and parameters; the SSD H % G
+!= 0 branch's fallback report; the launcher on the CPU.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import gemma3_1b as jax_gemma
 from repro.configs import mamba2_130m as jax_mamba
 from repro.configs.base import D2FTConfig as JaxD2FTConfig
 from repro.core.d2ft import plan_schedule as jax_plan_schedule
@@ -26,7 +32,7 @@ from repro.models.transformer import init_model as jax_init_model
 from repro.models.transformer import lm_loss as jax_lm_loss
 from repro.optim.optimizers import adamw as jax_adamw
 from repro.train.loop import finetune as jax_finetune
-from repro_torch.configs import mamba2_130m
+from repro_torch.configs import gemma3_1b, mamba2_130m
 from repro_torch.configs.base import D2FTConfig
 from repro_torch.core.scores import compute_scores, transformer_blocks
 from repro_torch.data.synthetic import lm_batches, split_microbatches
@@ -39,21 +45,28 @@ from repro_torch.train.loop import finetune, plan_from_scores
 
 STEP_TOL = 1e-5
 TRAJ_TOL = 1e-4
-B, S = 4, 21                      # S 21: the scan's pad path (chunk 8)
+B, S = 4, 21           # S 21: the scan's pad path (chunk 8), past window 8
+# smoke configs: arch -> (JAX config module, port config module)
+ARCHS = {"mamba2": (jax_mamba, mamba2_130m), "gemma3": (jax_gemma, gemma3_1b)}
 
 
-@pytest.fixture(scope="module")
-def carried():
-    """(JAX params, their numpy tree) of the mamba2 smoke model, seed 0."""
-    cfg = jax_mamba.smoke_config()
+@functools.lru_cache(maxsize=None)
+def _carried(arch):
+    """(JAX params, their numpy tree) of the arch's smoke model, seed 0."""
+    cfg = ARCHS[arch][0].smoke_config()
     params = jax.jit(jax_init_model, static_argnums=1)(
         jax.random.PRNGKey(0), cfg)
     return params, jax.tree.map(np.asarray, params)
 
 
-def _port(tree):
+@pytest.fixture(scope="module")
+def carried():
+    return _carried("mamba2")
+
+
+def _port(tree, arch="mamba2"):
     model = init_model(torch.Generator().manual_seed(0),
-                       mamba2_130m.smoke_config())
+                       ARCHS[arch][1].smoke_config())
     model.load_state_dict(params_from_jax(tree))
     return model
 
@@ -82,13 +95,15 @@ def test_params_from_jax_carries_ssd_blocks(carried):
     assert not hasattr(model.layers[0], "norm2")        # mamba2: no FFN
 
 
-# (G, gated, use_kernel): ungated; the launcher's G = 1; 4 heads per group
+# (G, gated, use_kernel): ungated; G = 1; 4 heads per group (gemma3: one)
 @pytest.mark.parametrize("G,gated,use_kernel", [
     (1, False, False), (1, True, False), (1, True, True), (4, True, False),
     (4, True, True)])
-def test_forward_and_lm_loss_match_jax(carried, G, gated, use_kernel):
-    params, tree = carried
-    cfg = mamba2_130m.smoke_config()
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_forward_and_lm_loss_match_jax(arch, G, gated, use_kernel):
+    params, tree = _carried(arch)
+    jmod, mod = ARCHS[arch]
+    cfg = mod.smoke_config()
     rng = np.random.default_rng(G * 10 + gated + 2 * use_kernel)
     tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
@@ -100,7 +115,7 @@ def test_forward_and_lm_loss_match_jax(carried, G, gated, use_kernel):
             bounds = (int((g_f != 0).sum(axis=(1, 2)).max()),
                       int((g_b != 0).sum(axis=(1, 2)).max()))
 
-    jcfg = jax_mamba.smoke_config()
+    jcfg = jmod.smoke_config()
     jg = None if gates is None else tuple(map(jnp.asarray, gates))
     jlogits, _ = jax.jit(
         lambda p: jax_forward(p, jcfg, tokens=jnp.asarray(tokens), gates=jg,
@@ -112,7 +127,7 @@ def test_forward_and_lm_loss_match_jax(carried, G, gated, use_kernel):
                               use_kernel=use_kernel, live_bounds=bounds),
         has_aux=True))(params)
 
-    model = _port(tree)
+    model = _port(tree, arch)
     tg = None if gates is None else tuple(map(torch.from_numpy, gates))
     tt = torch.from_numpy(tokens)
     with torch.no_grad():
@@ -135,15 +150,17 @@ def test_forward_and_lm_loss_match_jax(carried, G, gated, use_kernel):
 
 
 @pytest.mark.parametrize("G", [1, 4])
-def test_scores_give_the_jax_schedule(carried, G):
-    """Fisher / weight-magnitude scores of the SSD blocks over
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_scores_give_the_jax_schedule(arch, G):
+    """Fisher / weight-magnitude scores of the SSD or attention blocks over
     ``transformer_blocks`` of the flat layers (rtol 1e-4), then the
     knapsack: the same schedule as JAX's."""
-    params, tree = carried
-    cfg = mamba2_130m.smoke_config()
+    params, tree = _carried(arch)
+    jmod, mod = ARCHS[arch]
+    cfg = mod.smoke_config()
     d2 = dict(n_microbatches=4, n_pf=2, n_po=1, head_groups=G)
     batch = next(lm_batches(3, cfg.vocab_size, 8, 16, 1))
-    jcfg = jax_mamba.smoke_config()
+    jcfg = jmod.smoke_config()
     jmbs = split_microbatches({k: jnp.asarray(v) for k, v in batch.items()},
                               4)
 
@@ -155,7 +172,7 @@ def test_scores_give_the_jax_schedule(carried, G):
                                  jmbs, G)
     jsched = jax_plan_schedule(JaxD2FTConfig(**d2), *jscores, cfg.n_layers,
                                G)
-    model = _port(tree)
+    model = _port(tree, arch)
     params_t = dict(model.named_parameters())
     mbs = split_microbatches({k: torch.from_numpy(v)
                               for k, v in batch.items()}, 4)
@@ -168,24 +185,26 @@ def test_scores_give_the_jax_schedule(carried, G):
         assert mine.shape == (cfg.n_layers * G, 4)
         np.testing.assert_allclose(mine, theirs, rtol=1e-4)
     sched = plan_from_scores(cfg, D2FTConfig(**d2), params_t, mbs, loss)
-    assert len(transformer_blocks(params_t)) == 2
-    assert (sched.n_layers, sched.n_groups) == (2, G)
+    assert len(transformer_blocks(params_t)) == cfg.n_layers
+    assert (sched.n_layers, sched.n_groups) == (cfg.n_layers, G)
     np.testing.assert_array_equal(sched.table, jsched.table)
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
-def test_finetune_trajectory_matches_jax(carried, use_kernel):
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_finetune_trajectory_matches_jax(arch, use_kernel):
     """3 steps of the launcher's loop: scores and knapsack on the first
     batch, then per batch the gates (and, on the kernel path, the
     compaction bounds), AdamW, clipping."""
-    params, tree = carried
-    cfg = mamba2_130m.smoke_config()
+    params, tree = _carried(arch)
+    jmod, mod = ARCHS[arch]
+    cfg = mod.smoke_config()
     d2 = dict(n_microbatches=4, n_pf=2, n_po=1, head_groups=4)
     jp, _, jlog = jax_finetune(
-        params, jax_mamba.smoke_config(), JaxD2FTConfig(**d2),
+        params, jmod.smoke_config(), JaxD2FTConfig(**d2),
         jax_adamw(1e-3), lm_batches(0, cfg.vocab_size, 8, 16, 3), steps=3,
         use_kernel=use_kernel)
-    model = _port(tree)
+    model = _port(tree, arch)
     model, state, log = finetune(
         model, cfg, D2FTConfig(**d2), adamw(1e-3),
         lm_batches(0, cfg.vocab_size, 8, 16, 3), steps=3,
