@@ -108,6 +108,30 @@ Phases, one line each (any failure raises and exits non-zero):
    the hd-256 attention kernels at phase 13's shapes, gates and bounds,
    beside their plain versions, the bound and a library yardstick the
    port never calls (addmm + two matmuls; SDPA on the live slices).
+16. RG-LRU kernels vs plain — the gated RG-LRU scan forward and backward
+   kernels against their plain version and its autograd gradients, on the
+   operands the main path gives them (la and b of recurrentgemma-2b's
+   layer 0, weights from seed 0, on phase 17's first batch: B 4, S 512, W
+   2560) and on unit-scale ones (la = -|N(0, 0.1)|, b ~ N(0, 1)), at S
+   512, 500 (the pad path) and 4096, band widths Wg 256 and 32, under a
+   p_f / p_o / p_s mix, without, at and above compaction bounds: h <= 1e-5
+   and dla / db <= 1e-4, each x max(1, max |plain|), exact zeros on gated
+   bands, executed (slice, chunk) steps = live slices x chunks.
+17. recurrentgemma-2b fine-tune — ``repro_torch.launch.train --arch
+   recurrentgemma-2b --full --d2ft --kernel --optimizer sgd`` (26 layers:
+   18 RG-LRU and 8 local attention, d 2560, 10 query heads on 1 KV head of
+   256, window 2048, random weights from seed 0, 3,549,934,080
+   parameters), batch 4 x seq 512 in 4 micro-batches, n_pf 3 / n_po 1, G
+   10, lr 1e-3, 8 steps: 18 + 18 RG-LRU and 8 + 8 attention launches per
+   step, executed fractions from the device counter equal to the
+   schedule's, finite losses; p50 step ms of the kernel path and standard
+   full fine-tuning (each twice, in turns), tokens/s, peak memory, a
+   profiler window; at one cycle (3 layers, full width) the kernel path's
+   losses within 1e-4 x max(1, |loss|) of the masked path's.
+18. RG-LRU kernel timing — CUDA-event times of both kernels at phase 17's
+   shapes on layer 0's operands, gates and bounds, L2 flushed, beside
+   their plain version's and the bytes bound; no single PyTorch call
+   computes the scan, so there is no library yardstick.
 
 Then one JSON line of kernel records, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -161,6 +185,18 @@ GM_SEQ = 1024
 GM_STEPS = 8
 GM_LR = 1e-3
 GM_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
+
+# the recurrentgemma-2b fine-tune: the launcher's defaults (3 p_f + 1 p_o of
+# 4 micro-batches, G = n_heads = 10) with its SGD (momentum 0.9: weights,
+# gradients and one moment, 3 x 14.2 GB), batch 4 x seq 512, chosen by
+# memory before any run (PERF.md, section 4)
+RG_BATCH = 4
+RG_SEQ = 512
+RG_STEPS = 8
+RG_LR = 1e-3
+RG_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
+RG_CHUNK = 128                     # repro/models/rglru.py's scan chunk
+RG_PARAMS = 3_549_934_080          # the JAX init_model's, by jax.eval_shape
 
 
 def card_line() -> str:
@@ -287,7 +323,8 @@ def attention_case(torch, q, k, v, do, g_f, g_b, *, causal, window, live):
              and bool(torch.isfinite(out).all()))
     tiles = d2a.kernel_live_tiles(q.shape[2], causal, window, q.shape[3])
     want = {"fwd": 2 * n_f * tiles, "bwd_dkdv": n_b * tiles,
-            "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0}
+            "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0,
+            "rglru_fwd": 0, "rglru_bwd": 0}
     return e_f, e_b, s_f, s_b, zeros, counts, want
 
 
@@ -831,7 +868,8 @@ def lm_finetune(torch, np, tag):
         raise AssertionError(f"SSD kernel launches {launches} != "
                              f"{cfg.n_layers} per step x {LM_STEPS} steps")
     if counts["ssd_fwd"] != live_f or counts["ssd_bwd"] != live_b or \
-            counts["fwd"] or counts["bwd_dkdv"] or counts["bwd_dq"]:
+            counts["fwd"] or counts["bwd_dkdv"] or counts["bwd_dq"] or \
+            counts["rglru_fwd"] or counts["rglru_bwd"]:
         raise AssertionError(f"executed steps {counts} != the schedule's "
                              f"live (sample, head, chunk) counts "
                              f"{live_f} / {live_b}")
@@ -1072,7 +1110,8 @@ def gemma_finetune(torch, np, tag):
         raise AssertionError(f"attention kernel launches {launches} != "
                              f"{cfg.n_layers} per step x {GM_STEPS} steps")
     if counts != {"fwd": want_f, "bwd_dkdv": want_b, "bwd_dq": want_b,
-                  "ssd_fwd": 0, "ssd_bwd": 0}:
+                  "ssd_fwd": 0, "ssd_bwd": 0, "rglru_fwd": 0,
+                  "rglru_bwd": 0}:
         raise AssertionError(f"executed tiles {counts} != the schedule's "
                              f"{want_f} forward, {want_b} backward")
     torch.cuda.reset_peak_memory_stats()
@@ -1210,7 +1249,8 @@ def gemma_lora(torch, np, tag):
     mb_of = microbatch_assignment(B, ex.D2.n_microbatches)
     want_f, want_b, total = schedule_tiles(sched, mb_of, cfg, GM_STEPS)
     if counts != {"fwd": want_f, "bwd_dkdv": want_b, "bwd_dq": want_b,
-                  "ssd_fwd": 0, "ssd_bwd": 0}:
+                  "ssd_fwd": 0, "ssd_bwd": 0, "rglru_fwd": 0,
+                  "rglru_bwd": 0}:
         raise AssertionError(f"executed tiles {counts} != the schedule's "
                              f"{want_f} forward, {want_b} backward")
     frac = {k: counts[k] / total for k in ("fwd", "bwd_dkdv", "bwd_dq")}
@@ -1413,6 +1453,406 @@ def gemma_timing(torch, gm, lo, tag):
                   f"{by}, {b_ms / k_ms:.1%} of bound {tag}", flush=True)
         del q, k, v, do, o, lse, qr, kr, vr, ref, lib_o
     out.update(res)
+    torch.cuda.empty_cache()
+    return out
+
+
+def rglru_operands(torch):
+    """la and b [B 4, S 512, W 2560] of recurrentgemma-2b's layer 0 (an
+    RG-LRU block; random weights from seed 0, drawn as the launcher's
+    model draws them: at depth 1, init_model takes the same first draws) on
+    phase 17's first batch: the operands the main path gives the kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import rglru
+    from repro_torch.models.layers import apply_embedding, apply_norm
+    from repro_torch.models.transformer import init_model
+    cfg = get_config("recurrentgemma-2b")
+    model = init_model(torch.Generator(device="cuda").manual_seed(0),
+                       cfg.replace(n_layers=1))
+    batch = next(lm_batches(0, cfg.vocab_size, RG_BATCH, RG_SEQ, 1))
+    with torch.no_grad():
+        tokens = torch.as_tensor(batch["tokens"], device="cuda")
+        layer = model.layers[0]
+        h = apply_norm(layer.norm1, apply_embedding(model.embed, tokens),
+                       cfg.norm)
+        p = layer.rglru
+        u = rglru._causal_conv(h @ p.w_rec_branch, p.conv_w, p.conv_b)
+        la, b = rglru._rglru_log_gates(p, u)
+    del model, h, u
+    torch.cuda.empty_cache()
+    return la.contiguous(), b.contiguous()
+
+
+def _dead_max(t, dead):
+    sel = t[dead]
+    return float(sel.abs().max()) if sel.numel() else 0.0
+
+
+def rglru_case(torch, la, b, dy, g_f, g_b, live, f64=False):
+    """One comparison of the RG-LRU kernels with their plain version: the
+    kernels through ``ops.gated_rglru_scan`` (forward, backward, executed
+    steps) against the plain version and its autograd gradients. Returns
+    the max abs errors [h, dla, db], the plain version's max |value| of
+    each, the exact-zero flag, the step counts and the ones wanted; with
+    ``f64``, also (kernel - plain64, plain32 - plain64) errors against the
+    plain version evaluated in float64."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import contract, ops
+    from repro_torch.kernels import d2ft_rglru as d2r
+    B, S, W = la.shape
+    G = g_f.shape[1]
+    Q, Sp = ops._scan_pad(S, RG_CHUNK)
+    with contract.count_tiles("cuda") as tc:
+        ins = [t.clone().requires_grad_() for t in (la, b)]
+        h = ops.gated_rglru_scan(*ins, g_f, g_b, chunk=RG_CHUNK,
+                                 live_fwd=live[0], live_bwd=live[1])
+        h.backward(dy)
+        torch.cuda.synchronize()
+        counts = tc.read()
+    refs = [t.clone().requires_grad_() for t in (la, b)]
+    ref = d2r.gated_rglru_ref(*[F.pad(t, (0, 0, 0, Sp - S)) for t in refs],
+                              g_f, g_b, chunk=Q)[:, :S]
+    ref.backward(dy)
+    mine = [h.detach(), ins[0].grad, ins[1].grad]
+    theirs = [ref.detach(), refs[0].grad, refs[1].grad]
+    errs = [float((u - v).abs().max()) for u, v in zip(mine, theirs)]
+    scale = [float(v.abs().max()) for v in theirs]
+    e64 = None
+    if f64:
+        del ref
+        r64 = [t.double().requires_grad_() for t in (la, b)]
+        out = d2r.gated_rglru_ref(*[F.pad(t, (0, 0, 0, Sp - S)) for t in r64],
+                                  g_f.double(), g_b.double(),
+                                  chunk=Q)[:, :S]
+        out.backward(dy.double())
+        best = [out.detach(), r64[0].grad, r64[1].grad]
+        e64 = ([float((u.double() - v).abs().max())
+                for u, v in zip(mine, best)],
+               [float((u.double() - v).abs().max())
+                for u, v in zip(theirs, best)])
+        del r64, out, best
+
+    def bands(t):
+        return t.reshape(B, S, G, W // G).transpose(1, 2)
+    zeros = (_dead_max(bands(mine[0]), g_f == 0) == 0.0
+             and _dead_max(bands(mine[1]), g_b == 0) == 0.0
+             and _dead_max(bands(mine[2]), g_b == 0) == 0.0
+             and all(bool(torch.isfinite(t).all()) for t in mine))
+    nc = Sp // Q
+    want = {"fwd": 0, "bwd_dkdv": 0, "bwd_dq": 0, "ssd_fwd": 0,
+            "ssd_bwd": 0, "rglru_fwd": int((g_f != 0).sum()) * nc,
+            "rglru_bwd": int((g_b != 0).sum()) * nc}
+    del ins, refs, mine, theirs
+    return errs, scale, zeros, counts, want, e64
+
+
+def rglru_gates(torch, gen, B, G):
+    """A p_f / p_o / p_s mix over the B x G (sample, band) slices, every op
+    present from 3 slices on (slice op = random permutation mod 3)."""
+    op = torch.randperm(B * G, generator=gen, device="cuda") % 3
+    return (op != 2).float().reshape(B, G), (op == 0).float().reshape(B, G)
+
+
+def rglru_vs_plain(torch):
+    """Phase 16. Returns ({"fwd": h, "bwd": dla/db} largest absolute errors
+    on the main path's operands at G 10, (la, b) of layer 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    la0, b0 = rglru_operands(torch)
+    B, S0, W = la0.shape
+    cases = [("layer 0's operands", S, G, mode)
+             for S in (S0, 500) for G, modes in ((10, (None, "exact",
+                                                      "above")),
+                                                 (80, ("exact",)))
+             for mode in modes]
+    cases += [("unit-scale operands", S, G, mode, w)
+              for S, G, mode, w in ((512, 10, "exact", W),
+                                    (4096, 1, None, 256),
+                                    (4096, 8, "above", 256))]
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for case in cases:
+        what, S, G, mode = case[:4]
+        if len(case) == 4:
+            la, b = (t[:, :S].contiguous() for t in (la0, b0))
+        else:
+            w = case[4]
+            la = -(torch.randn((B, S, w), generator=gen, device="cuda")
+                   * 0.1).abs()
+            b = torch.randn((B, S, w), generator=gen, device="cuda")
+        dy = torch.randn(la.shape, generator=gen, device="cuda")
+        g_f, g_b = rglru_gates(torch, gen, B, G)
+        n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+        live = {None: (None, None), "exact": (n_f, n_b),
+                "above": (n_f + 7, n_b + 5)}[mode]
+        errs, scale, zeros, counts, want, e64 = rglru_case(
+            torch, la, b, dy, g_f, g_b, live,
+            f64=len(case) == 4 and S == S0 and G == 10 and mode is None)
+        lims = [KERNEL_TOL * max(1.0, scale[0])] + \
+            [GRAD_TOL * max(1.0, r) for r in scale[1:]]
+        desc = (f"{what}, B {B} S {S} W {la.shape[2]} G {G} (Wg "
+                f"{la.shape[2] // G}) chunk {RG_CHUNK} bounds {live}")
+        errs_s = (f"h {errs[0]:.3e}, dla {errs[1]:.3e}, db {errs[2]:.3e} "
+                  f"(max |plain| {scale[0]:.3g} / {scale[1]:.3g} / "
+                  f"{scale[2]:.3g})")
+        if any(e > m for e, m in zip(errs, lims)) or not zeros or \
+                counts != want:
+            raise AssertionError(
+                f"RG-LRU kernels vs plain, {desc}: {errs_s}, limits "
+                f"{lims}, exact zeros {zeros}, steps {counts} != {want}")
+        if len(case) == 4 and G == 10:
+            worst = {"fwd": max(worst["fwd"], errs[0]),
+                     "bwd": max(worst["bwd"], *errs[1:])}
+        if e64 is not None:
+            errs_s += ("; against the plain version in float64 h/dla/db: "
+                       "kernel " + "/".join(f"{v:.2e}" for v in e64[0])
+                       + ", plain " + "/".join(f"{v:.2e}" for v in e64[1]))
+        print(f"[rglru vs plain] {desc}: live {n_f}/{n_b} of {B * G}, "
+              f"{errs_s}, within tol x max(1, max |plain|), zeros exact, "
+              f"steps fwd {counts['rglru_fwd']} bwd {counts['rglru_bwd']}",
+              flush=True)
+        del la, b, dy
+        torch.cuda.empty_cache()
+    print(f"[rglru vs plain] max abs err on the main path's operands fwd "
+          f"{worst['fwd']:.3e}, bwd {worst['bwd']:.3e}", flush=True)
+    return worst, (la0, b0)
+
+
+def rg_schedule_counts(sched, mb_of, cfg, steps):
+    """What the schedule makes the kernels execute in ``steps`` steps:
+    RG-LRU (slice, chunk) steps and attention tiles, forward and backward,
+    and those full fine-tuning would."""
+    from repro_torch.core.schedule import gates_from_schedule
+    from repro_torch.kernels import d2ft_attention as d2a
+    g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")       # [L, B, G]
+    nc = -(-RG_SEQ // RG_CHUNK)
+    rep = cfg.n_heads // sched.n_groups
+    want = dict.fromkeys(("fwd", "bwd_dkdv", "bwd_dq", "ssd_fwd", "ssd_bwd",
+                          "rglru_fwd", "rglru_bwd"), 0)
+    full = {"rglru": 0, "attn": 0}
+    for layer, kind in enumerate(cfg.layer_kinds):
+        nf, nb = int(g_f[layer].sum()), int(g_b[layer].sum())
+        if kind == "rglru":
+            want["rglru_fwd"] += steps * nf * nc
+            want["rglru_bwd"] += steps * nb * nc
+            full["rglru"] += steps * g_f.shape[1] * g_f.shape[2] * nc
+        else:
+            tiles = d2a.kernel_live_tiles(RG_SEQ, True, cfg.window,
+                                          cfg.resolved_head_dim)
+            want["fwd"] += steps * nf * rep * tiles
+            want["bwd_dkdv"] += steps * nb * rep * tiles
+            want["bwd_dq"] += steps * nb * rep * tiles
+            full["attn"] += steps * g_f.shape[1] * cfg.n_heads * tiles
+    return want, full
+
+
+def rg_finetune(torch, np, tag):
+    """Phase 17. Returns {"launches": {"fwd", "bwd"} RG-LRU launches,
+    "gates": layer 0's (g_f, g_b) [B, G] of the step-0 split, "bounds":
+    the (sample, band) bounds}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedule import (gates_from_schedule,
+                                           live_slice_bounds)
+    from repro_torch.data.synthetic import lm_batches, microbatch_assignment
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.kernels import d2ft_rglru as d2r
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.train import loop
+
+    cfg = get_config("recurrentgemma-2b")
+    B, S, n_mb = RG_BATCH, RG_SEQ, RG_D2FT["n_microbatches"]
+    argv = ["--arch", "recurrentgemma-2b", "--full", "--optimizer", "sgd",
+            "--batch", str(B), "--seq", str(S), "--steps", str(RG_STEPS),
+            "--lr", str(RG_LR), "--n-microbatches", str(n_mb), "--n-pf",
+            str(RG_D2FT["n_pf"]), "--n-po", str(RG_D2FT["n_po"])]
+    n_rg = cfg.layer_kinds.count("rglru")
+    n_at = cfg.n_layers - n_rg
+
+    def launches():
+        return {"fwd": d2r.rglru_fwd.launches, "bwd": d2r.rglru_bwd.launches,
+                "attn_fwd": d2a.flash_fwd.launches,
+                "attn_bwd": d2a.flash_bwd.launches}
+
+    def per_step(n_rglru, n_attn, steps):
+        return {"fwd": n_rglru * steps, "bwd": n_rglru * steps,
+                "attn_fwd": n_attn * steps, "attn_bwd": n_attn * steps}
+
+    run, scheds = launcher_paths(argv)
+    torch.cuda.reset_peak_memory_stats()
+    d2r.rglru_fwd.launches = d2r.rglru_bwd.launches = 0
+    d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
+    with contract.count_tiles("cuda") as tc:
+        log_k = run("kernel")
+        counts = tc.read()
+    kernel_launches = launches()
+    peaks = {"kernel": torch.cuda.max_memory_allocated()}
+    if kernel_launches != per_step(n_rg, n_at, RG_STEPS):
+        raise AssertionError(f"kernel launches {kernel_launches} != {n_rg} "
+                             f"RG-LRU and {n_at} attention layers per step x "
+                             f"{RG_STEPS} steps")
+    sched = scheds[0]
+    mb_of = microbatch_assignment(B, n_mb)
+    bounds = live_slice_bounds(sched, mb_of)
+    want, full = rg_schedule_counts(sched, mb_of, cfg, RG_STEPS)
+    if counts != want:
+        raise AssertionError(f"executed work {counts} != the schedule's "
+                             f"{want}")
+    frac = {"rglru fwd": counts["rglru_fwd"] / full["rglru"],
+            "rglru bwd": counts["rglru_bwd"] / full["rglru"],
+            "attention fwd": counts["fwd"] / full["attn"],
+            "attention bwd": counts["bwd_dkdv"] / full["attn"]}
+    if not np.isfinite(log_k.losses).all():
+        raise AssertionError(f"non-finite losses {log_k.losses}")
+
+    # standard full fine-tuning (no D2FT: the doubling scan, dense
+    # attention), then each path again, in turns
+    logs = {"kernel": [log_k], "full": []}
+    for name in ("full", "full", "kernel"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = launches()
+        logs[name].append(run(name))
+        peaks[name] = max(peaks.get(name, 0),
+                          torch.cuda.max_memory_allocated())
+        got = {k: launches()[k] - before[k] for k in before}
+        if got != per_step(n_rg if name == "kernel" else 0,
+                           n_at if name == "kernel" else 0, RG_STEPS):
+            raise AssertionError(f"the {name} path launched {got}")
+        if not np.isfinite(logs[name][-1].losses).all():
+            raise AssertionError(f"non-finite {name} losses")
+    p50 = {k: 1e3 * float(np.median(v[0].step_times + v[1].step_times))
+           for k, v in logs.items()}
+
+    # one cycle (RG-LRU, RG-LRU, local attention): the kernel path against
+    # the masked plain path, whose chunked scan builds [B, nc, Q, Q, W]
+    # intermediates that full depth cannot hold
+    torch.cuda.empty_cache()
+    one = cfg.replace(n_layers=3)
+    get_config_full = launcher.get_config
+    launcher.get_config = lambda arch: one
+    try:
+        run1, _ = launcher_paths(argv)
+        before = launches()
+        log1_k = run1("kernel")
+        got = {k: launches()[k] - before[k] for k in before}
+        if got != per_step(2, 1, RG_STEPS):
+            raise AssertionError(f"one cycle: kernel launches {got}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log1_m = run1("masked")
+        peaks["one-cycle masked"] = torch.cuda.max_memory_allocated()
+        if launches() != {k: before[k] + got[k] for k in before}:
+            raise AssertionError("the masked path launched a kernel")
+    finally:
+        launcher.get_config = get_config_full
+    diff = check_losses(np, log1_k, log1_m)
+
+    print(f"[rg fine-tune] recurrentgemma-2b full size ({cfg.n_layers} "
+          f"layers: {n_rg} RG-LRU and {n_at} local attention, d "
+          f"{cfg.d_model}, LRU width {cfg.rglru.lru_width}, {cfg.n_heads} "
+          f"query heads and {cfg.n_kv_heads} KV head of "
+          f"{cfg.resolved_head_dim}, window {cfg.window} >= seq {S} (so "
+          f"causal), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, f32, seed 0) "
+          f"through repro_torch.launch.train, batch {B} x seq {S} in {n_mb} "
+          f"micro-batches, n_pf {RG_D2FT['n_pf']} n_po {RG_D2FT['n_po']}, G "
+          f"{sched.n_groups}, SGD lr {RG_LR}, {RG_STEPS} steps: kernel "
+          f"launches {kernel_launches}, live (sample, group) bounds "
+          f"{bounds}, executed fractions " + ", ".join(
+              f"{k} {v:.3f}" for k, v in frac.items())
+          + " (= the schedule's)", flush=True)
+    print(f"[rg fine-tune] losses kernel "
+          f"{[round(float(x), 6) for x in log_k.losses]} | full "
+          f"{[round(float(x), 6) for x in logs['full'][0].losses]}",
+          flush=True)
+    print(f"[rg fine-tune] one cycle (3 layers, full width), losses kernel "
+          f"{[round(float(x), 6) for x in log1_k.losses]} | masked "
+          f"{[round(x, 6) for x in log1_m.losses]} | max diff {diff:.3e}",
+          flush=True)
+    print(f"[rg fine-tune] p50 step ms over 2 x {RG_STEPS} steps: kernel "
+          f"path {p50['kernel']:.3f}, standard full fine-tuning (d2ft off, "
+          f"doubling scan, dense attention) {p50['full']:.3f}; per round "
+          + ", ".join(f"{k} " + " / ".join(
+              f"{1e3 * float(np.median(lg.step_times)):.3f}" for lg in v)
+              for k, v in logs.items())
+          + f"; one cycle: kernel "
+          f"{1e3 * float(np.median(log1_k.step_times)):.3f}, masked "
+          f"{1e3 * float(np.median(log1_m.step_times)):.3f} {tag}")
+    print(f"[rg fine-tune] tokens/s: kernel path "
+          f"{B * S / p50['kernel'] * 1e3:.1f}, full "
+          f"{B * S / p50['full'] * 1e3:.1f} {tag}")
+    print("[rg fine-tune] max_memory_allocated, scoring included: " +
+          ", ".join(f"{k} {v} bytes ({v / 2**30:.2f} GiB)"
+                    for k, v in peaks.items()) + f" {tag}", flush=True)
+
+    # where a kernel-path step's time goes
+    torch.cuda.empty_cache()
+    g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")
+    model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    n_params = sum(t.numel() for t in model.parameters())
+    if n_params != RG_PARAMS:
+        raise AssertionError(f"{n_params} parameters != {RG_PARAMS}")
+    opt = sgd(RG_LR)
+    state = opt.init(dict(model.named_parameters()))
+    step = loop.make_train_step(cfg, opt, use_gates=True, use_kernel=True,
+                                live_bounds=bounds)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(0, cfg.vocab_size, B, S, 1)).items()}
+    gates = (g_f.cuda(), g_b.cuda())
+    print(f"[rg fine-tune] parameters {n_params} (= the JAX init_model's)",
+          flush=True)
+    print_profile("3 kernel-path recurrentgemma-2b fine-tune steps",
+                  profile_steps(torch, lambda: step(model, state, batch,
+                                                    gates), "rglru"),
+                  "d2ft RG-LRU kernels", tag)
+    del model, state, batch, opt, step
+    torch.cuda.empty_cache()
+    return {"launches": {"fwd": kernel_launches["fwd"],
+                         "bwd": kernel_launches["bwd"]},
+            "gates": (g_f[0].cuda(), g_b[0].cuda()), "bounds": bounds}
+
+
+def rglru_timing(torch, operands, rg, tag):
+    """Phase 18. Returns {"fwd"|"bwd": (ms, plain_ms, bound_ms, bound_by)}
+    at phase 17's shapes on layer 0's operands, gates and bounds."""
+    from repro_torch.kernels import d2ft_rglru as d2r
+    la, b = operands
+    g_f, g_b = rg["gates"]
+    lf, lb = rg["bounds"]
+    B, S, W = la.shape
+    Wg = W // g_f.shape[1]
+    dy = torch.randn(la.shape, generator=torch.Generator(
+        device="cuda").manual_seed(18), device="cuda")
+    h = d2r.rglru_fwd(la, b, g_f, chunk=RG_CHUNK, live=lf)
+    refs = [t.clone().requires_grad_() for t in (la, b)]
+    ref = d2r.gated_rglru_ref(*refs, g_f, g_b, chunk=RG_CHUNK)
+    g_np, b_np = g_f.cpu().numpy(), g_b.cpu().numpy()
+    fl = d2r.needed_flops(g_np, b_np, S, Wg)
+    by = d2r.needed_bytes(g_np, b_np, S, Wg)
+    out = {
+        "fwd": (time_ms(torch, lambda: d2r.rglru_fwd(
+                    la, b, g_f, chunk=RG_CHUNK, live=lf)),
+                time_ms(torch, lambda: d2r.gated_rglru_ref(
+                    la, b, g_f, g_b, chunk=RG_CHUNK), iters=20),
+                *roofline(by[0], fl[0])),
+        "bwd": (time_ms(torch, lambda: d2r.rglru_bwd(
+                    la, g_b, h, dy, chunk=RG_CHUNK, live=lb)),
+                time_ms(torch, lambda: torch.autograd.grad(
+                    ref, refs, dy, retain_graph=True), iters=20),
+                *roofline(by[1], fl[1]))}
+    live = {"fwd": int((g_f != 0).sum()), "bwd": int((g_b != 0).sum())}
+    for kind, (k_ms, p_ms, b_ms, bb) in out.items():
+        i = 0 if kind == "fwd" else 1
+        print(f"[rglru timing] d2ft_rglru_{kind} B {B} S {S} W {W} Wg {Wg} "
+              f"chunk {RG_CHUNK}, layer 0's operands and gates, live "
+              f"{live[kind]} of {g_f.numel()} (bound "
+              f"{lf if kind == 'fwd' else lb}): kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, library none (no PyTorch call computes the "
+              f"scan), bound {b_ms:.5f} ms by {bb} ({by[i] / 1e6:.1f} MB, "
+              f"{fl[i] / 1e9:.3f} GFLOP), {b_ms / k_ms:.1%} of bound {tag}",
+              flush=True)
+    del h, refs, ref, dy
     torch.cuda.empty_cache()
     return out
 
@@ -1691,6 +2131,16 @@ def main() -> int:
 
     # 15. LoRA and hd-256 attention kernel timing --------------------------
     gm_t = gemma_timing(torch, gm, lo, tag)
+    torch.cuda.empty_cache()
+
+    # 16. RG-LRU kernels vs plain -----------------------------------------
+    rg_errs, rg_operands = rglru_vs_plain(torch)
+
+    # 17. recurrentgemma-2b fine-tune through the launcher ----------------
+    rg = rg_finetune(torch, np, tag)
+
+    # 18. RG-LRU kernel timing --------------------------------------------
+    rg_t = rglru_timing(torch, rg_operands, rg, tag)
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{
@@ -1735,6 +2185,15 @@ def main() -> int:
             "launches": gm["launches"][kind], "max_abs_err": gm_errs[kind],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": l_ms})
+    for kind, line in (("fwd", 74), ("bwd", 155)):
+        k_ms, p_ms, b_ms, by = rg_t[kind]
+        kernels.append({
+            "name": f"d2ft_rglru_{kind}", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/d2ft_rglru_{kind}.cu",
+            "replaces": f"src/repro/kernels/d2ft_rglru.py:{line}",
+            "launches": rg["launches"][kind], "max_abs_err": rg_errs[kind],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ from repro_torch.configs.base import ModelConfig
 ARCH_MODULES: Dict[str, str] = {
     "gemma3-1b": "gemma3_1b",
     "mamba2-130m": "mamba2_130m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(ARCH_MODULES)

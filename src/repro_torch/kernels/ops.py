@@ -1,6 +1,7 @@
 """Public kernel entries with the JAX package's argument checks (port of the
-``gated_attention``, ``gated_ssd_scan``, ``paged_decode_attention`` and
-``lora_linear`` entries of ``repro/kernels/ops.py``).
+``gated_attention``, ``gated_ssd_scan``, ``gated_rglru_scan``,
+``paged_decode_attention`` and ``lora_linear`` entries of
+``repro/kernels/ops.py``).
 
 Each entry dispatches on where its tensors lie: CPU tensors go to the
 kernel's plain PyTorch version, CUDA tensors to the hand-written kernel,
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import d2ft_ssd
+from repro_torch.kernels import d2ft_rglru, d2ft_ssd
 from repro_torch.kernels.d2ft_attention import gated_flash_attention
 from repro_torch.kernels.lora_matmul import lora_matmul, lora_matmul_ref
 from repro_torch.kernels.paged_decode import (paged_decode_ref,
@@ -143,18 +144,16 @@ def _scan_pad(S: int, chunk: int):
     return Q, -(-S // Q) * Q
 
 
-def _padded_scan(scan, x, da, Bm, Cm, *args, chunk: int, **kw):
-    """``scan(x, da, Bm, Cm, *args, chunk=Q, **kw)`` on operands zero-padded
-    to a chunk multiple (``_scan_pad``), sliced back to S."""
-    S = x.shape[1]
+def _padded_scan(scan, operands, *args, chunk: int, **kw):
+    """``scan(*operands, *args, chunk=Q, **kw)`` on operands zero-padded
+    along their sequence dimension (dim 1) to a chunk multiple
+    (``_scan_pad``), the output sliced back to S."""
+    S = operands[0].shape[1]
     Q, Sp = _scan_pad(S, chunk)
     if Sp != S:
-        pad = Sp - S
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        da = F.pad(da, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
-    y = scan(x, da, Bm, Cm, *args, chunk=Q, **kw)
+        operands = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, Sp - S))
+                    for t in operands]
+    y = scan(*operands, *args, chunk=Q, **kw)
     return y[:, :S] if Sp != S else y
 
 
@@ -165,9 +164,9 @@ def _gated_ssd_impl(x, da, Bm, Cm, g_f, g_b, *, chunk: int, live_fwd=None,
     the plain version on any device (the model's masked path), else CPU
     tensors take the plain version and CUDA tensors the kernels."""
     if plain:
-        return _padded_scan(d2ft_ssd.gated_ssd_ref, x, da, Bm, Cm, g_f, g_b,
-                            chunk=chunk)
-    return _padded_scan(d2ft_ssd.gated_ssd_scan, x, da, Bm, Cm, g_f, g_b,
+        return _padded_scan(d2ft_ssd.gated_ssd_ref, (x, da, Bm, Cm), g_f,
+                            g_b, chunk=chunk)
+    return _padded_scan(d2ft_ssd.gated_ssd_scan, (x, da, Bm, Cm), g_f, g_b,
                         chunk=chunk, live_fwd=live_fwd, live_bwd=live_bwd)
 
 
@@ -193,6 +192,49 @@ def gated_ssd_scan(x, da, Bm, Cm, g_f, g_b=None, *, chunk: int,
     _validate_gates(g_f, g_b, B, H, live_fwd, live_bwd)
     return _gated_ssd_impl(x, da, Bm, Cm, g_f, g_b, chunk=chunk,
                            live_fwd=live_fwd, live_bwd=live_bwd)
+
+
+# ----------------------------------------------------------- gated RG-LRU
+def _gated_rglru_impl(la, b, g_f, g_b, *, chunk: int, live_fwd=None,
+                      live_bwd=None, plain: bool = False):
+    """Pad, scan, slice back; no value checks, so the model path
+    (``models/rglru.apply_rglru``) pays no host sync per layer. ``plain``
+    takes the plain version on any device (the model's masked path), else
+    CPU tensors take the plain version and CUDA tensors the kernels."""
+    if plain:
+        return _padded_scan(d2ft_rglru.gated_rglru_ref, (la, b), g_f, g_b,
+                            chunk=chunk)
+    return _padded_scan(d2ft_rglru.gated_rglru_scan, (la, b), g_f, g_b,
+                        chunk=chunk, live_fwd=live_fwd, live_bwd=live_bwd)
+
+
+def gated_rglru_scan(la, b, g_f, g_b=None, *, chunk: int = 128,
+                     live_fwd: Optional[int] = None,
+                     live_bwd: Optional[int] = None):
+    """D2FT-gated RG-LRU scan h_t = exp(la_t) h_{t-1} + b_t with a
+    gate-aware backward.
+
+    la, b: [B,S,W] (la <= 0); g_f, g_b: [B,G] float {0,1} with g_b <= g_f
+    (checked) per (sample, channel group), W % G == 0 — the W channels
+    split into G contiguous bands gating independently. Returns h [B,S,W]
+    float32 with g_f-dead bands exactly zero; g_b-dead bands get zero
+    dla/db and run no backward work. Omitting g_b uses g_b = g_f.
+    live_fwd / live_bwd are upper bounds on the live (sample, band) slice
+    counts (``core.schedule.live_slice_bounds``, unscaled: the slice axis
+    is B·G). S that is not a chunk multiple is zero-padded (identity
+    decay) and sliced back.
+
+    CPU tensors take the plain version, CUDA tensors the kernels.
+    """
+    if g_b is None:
+        g_b = g_f
+    B, S, W = la.shape
+    G = g_f.shape[1]
+    if W % G != 0:
+        raise ValueError(f"lru width {W} not divisible by G={G} gate groups")
+    _validate_gates(g_f, g_b, B, G, live_fwd, live_bwd)
+    return _gated_rglru_impl(la, b, g_f, g_b, chunk=chunk,
+                             live_fwd=live_fwd, live_bwd=live_bwd)
 
 
 # ------------------------------------------------------------- fused LoRA

@@ -7,6 +7,8 @@ On one CUDA card, the main paths of the LLM fine-tune:
       --kernel --n-pf 2 --n-po 1 --batch 8 --seq 2048 --steps 8
   python -m repro_torch.launch.train --arch gemma3-1b --full --d2ft \
       --kernel --batch 4 --seq 1024 --steps 8
+  python -m repro_torch.launch.train --arch recurrentgemma-2b --full \
+      --d2ft --kernel --optimizer sgd --batch 4 --seq 512 --steps 8
 
 It runs on the card unless ``--device cpu`` is given, with a reduced
 (smoke) config unless ``--full`` is passed. The weights are random, from
@@ -50,9 +52,9 @@ def parse_args(argv=None):
                     help="data-parallel D2FT (not ported yet)")
     ap.add_argument("--kernel", action="store_true",
                     help="route the attention (any head_dim the kernels "
-                         "take, 256 included) and SSD blocks through the "
-                         "gated CUDA kernels (their plain versions on the "
-                         "CPU)")
+                         "take, 256 included), SSD and RG-LRU blocks "
+                         "through the gated CUDA kernels (their plain "
+                         "versions on the CPU)")
     ap.add_argument("--mesh", default=None, metavar="data=D,stage=S,tensor=T",
                     help="multi-axis device mesh (not ported yet)")
     ap.add_argument("--sync-mode",

@@ -101,7 +101,7 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int,
             "slice of the SSM family")
     dA = dt * A[None, None, :]                          # [B,S,H] (negative)
     xbar = xh * dt[..., None]                           # dt-weighted input
-    return kernel_ops._padded_scan(d2ft_ssd.ssd_scan_ref, xbar, dA, Bm, Cm,
+    return kernel_ops._padded_scan(d2ft_ssd.ssd_scan_ref, (xbar, dA, Bm, Cm),
                                    chunk=chunk).to(xh.dtype)
 
 

@@ -7,7 +7,8 @@ The JAX package stacks layers per pattern cycle for ``lax.scan``;
 gain from the stacked layout here.
 
 Ported so far: dense attention blocks (global and sliding-window) with a
-dense FFN, SSD blocks (mamba2: no FFN), the batched serving prefill of the
+dense FFN, SSD blocks (mamba2: no FFN), RG-LRU blocks with a dense FFN (and
+so the hybrid recurrentgemma pattern), the batched serving prefill of the
 attention blocks, the D2FT-gated block forward (``apply_block``), the
 text-only ``forward`` and the LLM loss (``fused_xent``, ``lm_loss``).
 Gating: ``gates = (g_f, g_b)`` of shape [n_layers, B, G]; per block, the
@@ -18,9 +19,10 @@ residual contribution is split into G head/width groups c_g and mixed as
 which is p_f (1, 1), p_o (1, 0) and p_s (0, ·) exactly: p_o keeps the
 forward value but no gradient flows through the subnet for that sample;
 p_s removes the contribution. An SSD block gates its scan per (sample,
-head) instead (``models/ssm.apply_ssd``). RG-LRU and MoE blocks, the
-frontends and the decode caches come with later slices; the
-tensor-parallel and sharding-policy branches with the distributed slice.
+head) instead (``models/ssm.apply_ssd``), an RG-LRU block per (sample,
+channel band) (``models/rglru.apply_rglru``). MoE blocks, the frontends
+and the decode caches come with later slices; the tensor-parallel and
+sharding-policy branches with the distributed slice.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.kernels import contract as kernel_contract
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSD,
                                       ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (_act, _param, apply_embedding,
                                        apply_norm, dense_init, init_embedding,
@@ -71,16 +74,19 @@ def _group_project(heads_out, wo, G):
 
 # ============================================================== block params
 class Block(nn.Module):
-    """Pre-norm residual block: norm1 + a mixer (``attn``, or ``ssd``), then,
-    where the config has an FFN, norm2 + mlp."""
+    """Pre-norm residual block: norm1 + a mixer (``attn``, ``ssd`` or
+    ``rglru``), then, where the config has an FFN, norm2 + mlp."""
 
-    def __init__(self, norm1, attn_mod=None, norm2=None, mlp=None, ssd=None):
+    def __init__(self, norm1, attn_mod=None, norm2=None, mlp=None, ssd=None,
+                 rglru=None):
         super().__init__()
         self.norm1 = norm1
         if attn_mod is not None:
             self.attn = attn_mod
         if ssd is not None:
             self.ssd = ssd
+        if rglru is not None:
+            self.rglru = rglru
         if mlp is not None:
             self.norm2 = norm2
             self.mlp = mlp
@@ -89,9 +95,7 @@ class Block(nn.Module):
 def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
                 dtype) -> Block:
     dev = gen.device
-    if kind == RGLRU:
-        raise _not_ported(f"block kind {kind!r}")
-    if kind not in (ATTN_GLOBAL, ATTN_LOCAL, SSD):
+    if kind not in (ATTN_GLOBAL, ATTN_LOCAL, SSD, RGLRU):
         raise ValueError(kind)
     norm1 = init_norm(cfg.norm, cfg.d_model, dtype, dev)
     if kind == SSD:
@@ -103,12 +107,18 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
                               dtype), ssd=s)
     if cfg.moe is not None:
         raise _not_ported("the MoE FFN")
-    a = attn.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                            cfg.resolved_head_dim, cfg.qkv_bias, dtype)
+    a = r = None
+    if kind == RGLRU:
+        r = rglru_mod.init_rglru(gen, cfg.d_model, cfg.rglru, dtype)
+    else:
+        a = attn.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                cfg.n_kv_heads, cfg.resolved_head_dim,
+                                cfg.qkv_bias, dtype)
     if cfg.d_ff <= 0:
-        return Block(norm1, a)
+        return Block(norm1, a, rglru=r)
     return Block(norm1, a, init_norm(cfg.norm, cfg.d_model, dtype, dev),
-                 init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype))
+                 init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype),
+                 rglru=r)
 
 
 def _apply_ffn(p: Block, h, cfg: ModelConfig, layer_gates=None):
@@ -218,6 +228,41 @@ def _apply_ssd_inner(p: ssm_mod.SSD, h, cfg: ModelConfig, layer_gates,
                              use_kernel=use_kernel, live_bounds=kernel_bounds)
 
 
+def _apply_rglru_inner(p: rglru_mod.RGLRU, h, cfg: ModelConfig, layer_gates,
+                       use_kernel: bool = False, live_bounds=None):
+    """RG-LRU contribution (pre-residual), gated per (sample, channel
+    band)."""
+    if layer_gates is None:
+        return rglru_mod.apply_rglru(p, h, cfg.rglru)
+    g_f, g_b = layer_gates
+    G = g_f.shape[-1]
+    W = cfg.rglru.lru_width or cfg.d_model
+    if W % G != 0:
+        # the width doesn't tile into gate groups: no kernel route. On the
+        # CPU this takes JAX's coarse block-granularity run-twice mix
+        # (test-scale only); on the card the kernel path refuses it
+        if use_kernel:
+            if h.device.type != "cpu":
+                raise ValueError(
+                    f"the lru width {W} does not tile into G={G} gate "
+                    "groups: no kernel route; choose head_groups dividing "
+                    "the width")
+            kernel_contract.report_fallback(
+                "rglru", f"lru width={W} not divisible by G={G} gate groups")
+        full = rglru_mod.apply_rglru(p, h, cfg.rglru)
+        sg = full.detach()
+        gf = g_f[:, :1].mean(-1)[:, None, None]
+        gb = g_b[:, :1].mean(-1)[:, None, None]
+        return gf * (gb * full + (1 - gb) * sg)
+    # gates stay at (sample, group) granularity: the G groups slice the LRU
+    # width into contiguous channel bands (the kernel's slice axis is B*G,
+    # so the schedule's live bounds pass through unscaled)
+    return rglru_mod.apply_rglru(p, h, cfg.rglru,
+                                 gates=(g_f.float(), g_b.float()),
+                                 use_kernel=use_kernel,
+                                 live_bounds=live_bounds)
+
+
 def apply_block(p: Block, x, kind: str, cfg: ModelConfig, layer_gates=None,
                 policy=None, use_kernel: bool = False, live_bounds=None,
                 tp=None):
@@ -236,8 +281,11 @@ def apply_block(p: Block, x, kind: str, cfg: ModelConfig, layer_gates=None,
     elif kind == SSD:
         c = _apply_ssd_inner(p.ssd, h, cfg, layer_gates, use_kernel,
                              live_bounds)
+    elif kind == RGLRU:
+        c = _apply_rglru_inner(p.rglru, h, cfg, layer_gates, use_kernel,
+                               live_bounds)
     else:
-        raise _not_ported(f"block kind {kind!r}")
+        raise ValueError(kind)
     x = x + c
     if hasattr(p, "mlp"):
         h2 = apply_norm(p.norm2, x, cfg.norm)
@@ -303,8 +351,8 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, features=None,
     """Returns (logits, aux) — logits [B, S, vocab], aux {"aux_loss"}.
 
     tokens: [B, S] int. gates: optional (g_f, g_b) of shape [n_layers, B,
-    G]. use_kernel routes attention and SSD blocks through the gated
-    kernels; live_bounds: optional (live_fwd, live_bwd) per-layer max live
+    G]. use_kernel routes attention, SSD and RG-LRU blocks through the
+    gated kernels; live_bounds: optional (live_fwd, live_bwd) per-layer max live
     (sample, group) slice counts (``core.schedule.live_slice_bounds``), one
     bound shared by every layer, for the kernels' compaction. The layers
     run as a plain loop over the flat layer list. Frontend features, remat

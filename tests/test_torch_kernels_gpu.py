@@ -11,12 +11,15 @@ positions, summed in another order; 1e-4 for the gated attention's
 gradients; 1e-5 for the gated SSD scan's y and prevs and 1e-4 for its
 gradients; 1e-5 x max(1, max |plain|) for the fused LoRA matmul (sums of
 up to 1152 products of values of ~1, where float32 rounds at ~1e-7 of
-the sum)."""
+the sum); 1e-5 (h) and 1e-4 (dla, db) x max(1, max |plain|) for the gated
+RG-LRU scan (a sequential float32 recurrence against the plain version's
+chunked log-space sums)."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import gemma3_1b, mamba2_130m, vit_small_paper
+from repro_torch.configs import (gemma3_1b, mamba2_130m, recurrentgemma_2b,
+                                 vit_small_paper)
 from repro_torch.configs.base import D2FTConfig
 from repro_torch.configs.gemma3_1b import smoke_config
 from repro_torch.configs.mamba2_130m import smoke_config as mamba2_smoke
@@ -26,6 +29,7 @@ from repro_torch.data.synthetic import (image_batches, lm_batches,
                                         make_image_task)
 from repro_torch.kernels import contract, ops
 from repro_torch.kernels import d2ft_attention as d2a
+from repro_torch.kernels import d2ft_rglru as d2r
 from repro_torch.kernels import d2ft_ssd as d2s
 from repro_torch.kernels import lora_matmul as lm
 from repro_torch.kernels.ops import paged_decode_attention
@@ -218,7 +222,8 @@ def test_d2ft_kernels_match_plain(hd, S, causal, window):
     assert bool((lse[g_f == 0] == d2a.LSE_MASKED).all())
     tiles = d2a.kernel_live_tiles(S, causal, window, hd)
     assert counts == {"fwd": n_f * tiles, "bwd_dkdv": n_b * tiles,
-                      "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0}
+                      "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0,
+                      "rglru_fwd": 0, "rglru_bwd": 0}
 
 
 @pytest.mark.gpu
@@ -419,6 +424,158 @@ def test_heads_not_tiling_groups_refuse_the_kernel_path_on_card():
     model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
     tokens = torch.zeros((2, 16), dtype=torch.int64, device="cuda")
     gates = torch.ones((cfg.n_layers, 2, 3), device="cuda")
+    with pytest.raises(ValueError, match="no kernel route"):
+        forward(model, cfg, tokens, gates=(gates, gates), use_kernel=True)
+
+
+# ------------------------------------------------------- d2ft gated RG-LRU
+def _rglru_case(seed, B, S, W, G):
+    """Operands in the JAX block-kernel tests' distributions (la =
+    -softplus(N(0, 1)), b and the cotangent N(0, 1)) and a p_f / p_o / p_s
+    gate mix with every op present."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    la = -torch.nn.functional.softplus(
+        torch.randn((B, S, W), generator=gen, device="cuda"))
+    b = torch.randn((B, S, W), generator=gen, device="cuda")
+    dy = torch.randn((B, S, W), generator=gen, device="cuda")
+    ops_ = torch.randperm(B * G, generator=gen, device="cuda") % 3
+    g_f = (ops_ != 2).float().reshape(B, G)
+    g_b = (ops_ == 0).float().reshape(B, G)
+    return la, b, dy, g_f, g_b
+
+
+def test_rglru_kernels_refuse_cpu_tensors():
+    """CPU tensors are the plain version's business: the launchers raise."""
+    la = torch.zeros((1, 8, 32))
+    g = torch.ones((1, 4))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        d2r.rglru_fwd(la, la, g, chunk=8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        d2r.rglru_bwd(la, g, la, la, chunk=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,G,chunk,S", [
+    (128, 4, 8, 24), (128, 4, 8, 21), (320, 10, 128, 512),
+    (2560, 10, 128, 512), (2560, 10, 128, 500), (128, 1, 128, 4096),
+    (96, 2, 128, 300)])
+@pytest.mark.parametrize("bounded", [False, True])
+def test_rglru_kernels_match_plain(W, G, chunk, S, bounded):
+    """Forward and backward kernels through ``ops.gated_rglru_scan`` (the
+    pad path where S is not a chunk multiple) against the plain version and
+    its autograd gradients, with and without compaction bounds above the
+    live counts, at band widths Wg 32, 256, 128 and 48; exact zeros on
+    gated bands; executed steps = live slices x chunks."""
+    _need_card()
+    B = 3
+    la, b, dy, g_f, g_b = _rglru_case(S + W + bounded, B, S, W, G)
+    n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+    live = (n_f + 1, n_b + 2) if bounded else (None, None)
+    f0, b0 = d2r.rglru_fwd.launches, d2r.rglru_bwd.launches
+    with contract.count_tiles("cuda") as tc:
+        ins = [t.clone().requires_grad_() for t in (la, b)]
+        h = ops.gated_rglru_scan(*ins, g_f, g_b, chunk=chunk,
+                                 live_fwd=live[0], live_bwd=live[1])
+        h.backward(dy)
+        counts = tc.read()
+    assert d2r.rglru_fwd.launches == f0 + 1
+    assert d2r.rglru_bwd.launches == b0 + 1
+    refs = [t.clone().requires_grad_() for t in (la, b)]
+    Q, Sp = ops._scan_pad(S, chunk)
+    padded = [torch.nn.functional.pad(t, (0, 0, 0, Sp - S)) for t in refs]
+    ref = d2r.gated_rglru_ref(*padded, g_f, g_b, chunk=Q)[:, :S]
+    ref.backward(dy)
+    scale = max(1.0, float(ref.detach().abs().max()))
+    assert float((h.detach() - ref.detach()).abs().max()) <= TOL * scale
+    for a, r in zip(ins, refs):
+        assert float((a.grad - r.grad).abs().max()) <= \
+            GRAD_TOL * max(1.0, float(r.grad.abs().max()))
+    Wg = W // G
+
+    def bands(t):
+        return t.detach().reshape(B, S, G, Wg).transpose(1, 2)
+    assert float(bands(h)[g_f == 0].abs().max()) == 0.0
+    for a in ins:
+        assert float(bands(a.grad)[g_b == 0].abs().max()) == 0.0
+    nc = Sp // Q
+    assert counts["rglru_fwd"] == n_f * nc and counts["rglru_bwd"] == n_b * nc
+    assert counts["ssd_fwd"] == counts["fwd"] == 0
+
+
+@pytest.mark.gpu
+def test_rglru_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    la, b, dy, g_f, g_b = _rglru_case(0, 2, 32, 64, 4)
+    with pytest.raises(TypeError, match="float32"):
+        d2r.rglru_fwd(la.double(), b, g_f, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        d2r.rglru_fwd(la.transpose(0, 1).contiguous().transpose(0, 1), b,
+                      g_f, chunk=16)
+    with pytest.raises(ValueError, match="not divisible by G=3"):
+        d2r.rglru_fwd(la, b, torch.ones((2, 3), device="cuda"), chunk=16)
+    with pytest.raises(ValueError, match="not divisible by G=3"):
+        g3 = torch.ones((2, 3), device="cuda")
+        ops.gated_rglru_scan(la, b, g3, g3, chunk=16)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        d2r.rglru_fwd(la, b, g_f, chunk=24)
+    with pytest.raises(ValueError, match="below the live gate count"):
+        ops.gated_rglru_scan(la, b, g_f, g_b, chunk=16,
+                             live_fwd=int((g_f != 0).sum()) - 1)
+    with pytest.raises(ValueError, match="g_b <= g_f"):
+        ops.gated_rglru_scan(la, b, g_b, g_f, chunk=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma-smoke",
+                                  "recurrentgemma-widths"])
+def test_recurrentgemma_kernel_path_matches_masked_path_on_card(arch):
+    """Two D2FT steps of the launcher's loop on the hybrid model: the smoke
+    config (W 128, G 4: Wg 32, hd 32, window 16, S 40: past the window)
+    and recurrentgemma-2b's widths at one cycle (RG-LRU, RG-LRU, local
+    attention; W 2560, G 10: Wg 256, hd 256, 10 query heads on 1 KV head,
+    S 300: the scan's pad path). The kernel path launches one forward and
+    one backward RG-LRU kernel per RG-LRU layer and attention kernel per
+    attention layer per step; its losses match the masked path's from the
+    same weights and schedule."""
+    _need_card()
+    cfg, seq, G = {
+        "recurrentgemma-smoke": (recurrentgemma_2b.smoke_config(), 40, 4),
+        "recurrentgemma-widths": (recurrentgemma_2b.CONFIG.replace(
+            n_layers=3, vocab_size=512), 300, 10),
+    }[arch]
+    d2 = D2FTConfig(n_microbatches=4, n_pf=2, n_po=1, head_groups=G)
+    n_rg = cfg.layer_kinds.count("rglru")
+    n_at = cfg.n_layers - n_rg
+    losses = {}
+    for use_kernel in (True, False):
+        r0, a0 = d2r.rglru_bwd.launches, d2a.flash_bwd.launches
+        model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+        _, _, log = finetune(model, cfg, d2, sgd(1e-3),
+                             lm_batches(0, cfg.vocab_size, 4, seq, 2),
+                             steps=2, use_kernel=use_kernel)
+        assert d2r.rglru_bwd.launches - r0 == \
+            (2 * n_rg if use_kernel else 0)
+        assert d2a.flash_bwd.launches - a0 == \
+            (2 * n_at if use_kernel else 0)
+        losses[use_kernel] = log.losses
+    assert np.isfinite(losses[True]).all()
+    np.testing.assert_allclose(losses[True], losses[False], atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.gpu
+def test_width_not_tiling_groups_refuses_the_kernel_path_on_card():
+    """An LRU width of 126 does not tile into G = 4 gate groups: there is no
+    kernel route, and on the card the kernel path raises instead of taking
+    the plain block-granularity mix."""
+    _need_card()
+    from repro_torch.configs.base import RGLRUConfig
+    from repro_torch.models.transformer import forward
+    cfg = recurrentgemma_2b.smoke_config().replace(
+        rglru=RGLRUConfig(lru_width=126, conv_width=4))
+    model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = torch.zeros((2, 16), dtype=torch.int64, device="cuda")
+    gates = torch.ones((cfg.n_layers, 2, 4), device="cuda")
     with pytest.raises(ValueError, match="no kernel route"):
         forward(model, cfg, tokens, gates=(gates, gates), use_kernel=True)
 

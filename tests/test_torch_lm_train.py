@@ -1,8 +1,10 @@
 """The LLM fine-tune slice of the PyTorch port against the JAX package on
-the CPU, at two smoke configs: mamba2 (2 SSD layers, d 128, 16 heads of
-P 16, state 16, chunk 8, vocab 512) and gemma3 (7 attention layers, one
+the CPU, at three smoke configs: mamba2 (2 SSD layers, d 128, 16 heads of
+P 16, state 16, chunk 8, vocab 512), gemma3 (7 attention layers, one
 cycle of 5 local + 1 global plus a local remainder, d 128, 4 query heads
-and 1 KV head of 32, window 8, vocab 512, tied embeddings, softcap 30):
+and 1 KV head of 32, window 8, vocab 512, tied embeddings, softcap 30) and
+recurrentgemma (one cycle of RG-LRU, RG-LRU, local attention, d 128, LRU
+width 128, 4 query heads and 1 KV head of 32, window 16, vocab 512):
 weights carried over with ``params_from_jax``; ``forward`` and
 ``lm_loss`` with and without gates, at G = 1 (mamba2's launcher
 ``head_groups = max(n_heads, 1)``) and G = 4 (gemma3's), on the masked
@@ -22,6 +24,7 @@ import torch
 
 from repro.configs import gemma3_1b as jax_gemma
 from repro.configs import mamba2_130m as jax_mamba
+from repro.configs import recurrentgemma_2b as jax_rg
 from repro.configs.base import D2FTConfig as JaxD2FTConfig
 from repro.core.d2ft import plan_schedule as jax_plan_schedule
 from repro.core.scores import compute_scores as jax_compute_scores
@@ -32,7 +35,7 @@ from repro.models.transformer import init_model as jax_init_model
 from repro.models.transformer import lm_loss as jax_lm_loss
 from repro.optim.optimizers import adamw as jax_adamw
 from repro.train.loop import finetune as jax_finetune
-from repro_torch.configs import gemma3_1b, mamba2_130m
+from repro_torch.configs import gemma3_1b, mamba2_130m, recurrentgemma_2b
 from repro_torch.configs.base import D2FTConfig
 from repro_torch.core.scores import compute_scores, transformer_blocks
 from repro_torch.data.synthetic import lm_batches, split_microbatches
@@ -47,7 +50,9 @@ STEP_TOL = 1e-5
 TRAJ_TOL = 1e-4
 B, S = 4, 21           # S 21: the scan's pad path (chunk 8), past window 8
 # smoke configs: arch -> (JAX config module, port config module)
-ARCHS = {"mamba2": (jax_mamba, mamba2_130m), "gemma3": (jax_gemma, gemma3_1b)}
+ARCHS = {"mamba2": (jax_mamba, mamba2_130m), "gemma3": (jax_gemma, gemma3_1b),
+         "recurrentgemma": (jax_rg, recurrentgemma_2b)}
+LOGITS_SCALED = {"recurrentgemma"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,8 +138,14 @@ def test_forward_and_lm_loss_match_jax(arch, G, gated, use_kernel):
     with torch.no_grad():
         logits, aux = forward(model, cfg, tt, gates=tg,
                               use_kernel=use_kernel, live_bounds=bounds)
+    # recurrentgemma's untied logits reach ~5 behind RG-LRU layers whose
+    # sqrt(1 - a^2) is ill-conditioned (a up to 0.9995 at init): JAX's
+    # fused float32 forward is itself 1.5e-5 from a float64 evaluation, so
+    # there the logits are held to STEP_TOL x max(1, max |JAX logit|)
+    lim = STEP_TOL * (max(1.0, float(np.abs(np.asarray(jlogits)).max()))
+                      if arch in LOGITS_SCALED else 1.0)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
-                               atol=STEP_TOL, rtol=0)
+                               atol=lim, rtol=0)
     assert float(aux["aux_loss"]) == 0.0
     loss, metrics = lm_loss(model, cfg, tt, torch.from_numpy(labels),
                             gates=tg, use_kernel=use_kernel,

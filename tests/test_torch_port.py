@@ -13,9 +13,10 @@ import torch
 
 from repro.configs import gemma3_1b as jax_gemma
 from repro.configs import mamba2_130m as jax_mamba
+from repro.configs import recurrentgemma_2b as jax_rg
 from repro.models.transformer import init_model as jax_init_model
 from repro_torch.configs import (gemma3_1b, get_config, get_smoke_config,
-                                 mamba2_130m)
+                                 mamba2_130m, recurrentgemma_2b)
 from repro_torch.interop import params_from_jax
 from repro_torch.models.transformer import init_model
 from repro_torch.serving.engine import make_engine
@@ -26,6 +27,7 @@ SLICE_MODULES = [
     "repro_torch.configs.base",
     "repro_torch.configs.gemma3_1b",
     "repro_torch.configs.mamba2_130m",
+    "repro_torch.configs.recurrentgemma_2b",
     "repro_torch.configs.vit_small_paper",
     "repro_torch.core.cost_model",
     "repro_torch.core.d2ft",
@@ -40,11 +42,13 @@ SLICE_MODULES = [
     "repro_torch.kernels.build",
     "repro_torch.kernels.contract",
     "repro_torch.kernels.d2ft_attention",
+    "repro_torch.kernels.d2ft_rglru",
     "repro_torch.kernels.d2ft_ssd",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.paged_decode",
     "repro_torch.models.attention",
     "repro_torch.models.layers",
+    "repro_torch.models.rglru",
     "repro_torch.models.ssm",
     "repro_torch.models.transformer",
     "repro_torch.models.vit",
@@ -74,7 +78,8 @@ def test_port_imports_no_jax_triton_or_reference_package():
 
 @pytest.mark.parametrize("arch,mod,ref_mod", [
     ("gemma3-1b", gemma3_1b, jax_gemma),
-    ("mamba2-130m", mamba2_130m, jax_mamba)])
+    ("mamba2-130m", mamba2_130m, jax_mamba),
+    ("recurrentgemma-2b", recurrentgemma_2b, jax_rg)])
 @pytest.mark.parametrize("which", ["full", "smoke"])
 def test_config_copy_matches_reference(which, arch, mod, ref_mod):
     mine = mod.CONFIG if which == "full" else mod.smoke_config()
