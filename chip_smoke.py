@@ -116,7 +116,13 @@ Phases, one line each (any failure raises and exits non-zero):
    512, 500 (the pad path) and 4096, band widths Wg 256 and 32, under a
    p_f / p_o / p_s mix, without, at and above compaction bounds: h <= 1e-5
    and dla / db <= 1e-4, each x max(1, max |plain|), exact zeros on gated
-   bands, executed (slice, chunk) steps = live slices x chunks.
+   bands, executed (slice, chunk) steps = live slices x chunks. Then the
+   hd-256 attention kernels at this path's shapes: post-rope q and
+   kv-expanded k, v of layer 2 (the first local attention layer; B 4, 10
+   query heads on 1 KV head, S 512, window 2048 >= S, so causal), one
+   gate per head (G 10, rep 1), without, at and above the bounds: o/lse
+   <= 1e-5 and grads <= 1e-4 absolute, exact zeros, tiles = live slices x
+   kernel_live_tiles(512, causal, 2048, 256).
 17. recurrentgemma-2b fine-tune — ``repro_torch.launch.train --arch
    recurrentgemma-2b --full --d2ft --kernel --optimizer sgd`` (26 layers:
    18 RG-LRU and 8 local attention, d 2560, 10 query heads on 1 KV head of
@@ -129,9 +135,11 @@ Phases, one line each (any failure raises and exits non-zero):
    profiler window; at one cycle (3 layers, full width) the kernel path's
    losses within 1e-4 x max(1, |loss|) of the masked path's.
 18. RG-LRU kernel timing — CUDA-event times of both kernels at phase 17's
-   shapes on layer 0's operands, gates and bounds, L2 flushed, beside
-   their plain version's and the bytes bound; no single PyTorch call
-   computes the scan, so there is no library yardstick.
+   shapes on layer 0's operands, gates and bounds, L2 flushed, through
+   the launcher call (the record's ms) and alone (compaction table and
+   zeroed outputs built outside the timed window), beside their plain
+   version's and the bytes bound; no single PyTorch call computes the
+   scan, so there is no library yardstick.
 
 Then one JSON line of kernel records, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -764,12 +772,13 @@ def ssd_vs_plain(torch):
     return worst
 
 
-def launcher_paths(argv):
+def launcher_paths(argv, drive=None):
     """(run, scheds): run(name) drives ``repro_torch.launch.train.main`` on
     argv plus the path's flags ("kernel": --d2ft --kernel, "masked": --d2ft,
-    "full": none, standard full fine-tuning) and returns its TrainLog. The
-    first D2FT run keeps its step-0 schedule in ``scheds``; later runs
-    replay it, so every path runs on the same schedule."""
+    "full": none, standard full fine-tuning), or ``drive(flags)`` where one
+    is given, and returns its TrainLog. The first D2FT run keeps its step-0
+    schedule in ``scheds``; later runs replay it, so every path runs on the
+    same schedule."""
     from repro_torch.launch import train as launcher
     from repro_torch.train import loop
     scheds = []
@@ -784,10 +793,10 @@ def launcher_paths(argv):
 
     def run(name):
         loop.plan_from_scores = recording if not scheds else replay
+        flags = {"kernel": ["--d2ft", "--kernel"], "masked": ["--d2ft"],
+                 "full": []}[name]
         try:
-            return launcher.main(argv + {"kernel": ["--d2ft", "--kernel"],
-                                         "masked": ["--d2ft"],
-                                         "full": []}[name])
+            return (drive or launcher.main)(flags if drive else argv + flags)
         finally:
             loop.plan_from_scores = plan
     return run, scheds
@@ -1004,16 +1013,20 @@ def gemma_attention_operands(torch):
     return cfg, out
 
 
-def gemma_attention_vs_plain(torch, gen):
-    """Phase 12. Returns the largest errors {"fwd": o/lse, "bwd": grads}
-    over the main path's operands."""
-    cfg, operands = gemma_attention_operands(torch)
-    B, H, S, hd = GM_BATCH, cfg.n_heads, GM_SEQ, cfg.resolved_head_dim
-    cases = [(f"layer {layer}'s operands", operands[layer], window, mode)
-             for layer, window in ((0, cfg.window), (5, 0))
+def hd256_attention_vs_plain(torch, gen, label, cfg, B, S, operands,
+                             unit_windows):
+    """The hd-256 attention kernels against their plain version on the
+    main path's operands, ``operands`` = [(layer, (q, k, v), window)],
+    without compaction bounds, at the bounds and above them, and on N(0, 1)
+    operands at each window of ``unit_windows``, under a p_f / p_o / p_s
+    mix of per-head gates. Returns the largest errors {"fwd": o/lse,
+    "bwd": grads} over the main path's operands."""
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    cases = [(f"layer {layer}'s operands", qkv, window, mode)
+             for layer, qkv, window in operands
              for mode in (None, "exact", "above")]
     cases += [("N(0, 1) operands", None, window, "exact")
-              for window in (cfg.window, 0)]
+              for window in unit_windows]
     worst = {"fwd": 0.0, "bwd": 0.0}
     for what, qkv, window, mode in cases:
         q, k, v, do, g_f, g_b = attn_inputs(torch, gen, B, H, S, hd)
@@ -1034,20 +1047,30 @@ def gemma_attention_vs_plain(torch, gen):
                 f"bounds {live}")
         if e_f > lim_f or e_b > lim_b or not zeros or counts != want:
             raise AssertionError(
-                f"hd-256 attention kernels vs plain, {what}: o/lse err {e_f} "
-                f"(limit {lim_f}), grad err {e_b} (limit {lim_b}), exact "
-                f"zeros {zeros}, tiles {counts} != {want}")
+                f"{label}, {what}: o/lse err {e_f} (limit {lim_f}), grad err "
+                f"{e_b} (limit {lim_b}), exact zeros {zeros}, tiles {counts} "
+                f"!= {want}")
         if not scaled:
             worst = {"fwd": max(worst["fwd"], e_f),
                      "bwd": max(worst["bwd"], e_b)}
-        print(f"[hd-256 attention vs plain] {what}: live {n_f}/{n_b} of "
-              f"{B * H}, o/lse err {e_f:.3e} (max |plain o| {s_f:.3g}), grad "
-              f"err {e_b:.3e} (max |plain grad| {s_b:.3g}), zeros exact, "
-              f"tiles {counts}", flush=True)
-    print(f"[hd-256 attention vs plain] max abs err on the main path's "
-          f"operands fwd {worst['fwd']:.3e} <= {KERNEL_TOL}, bwd "
-          f"{worst['bwd']:.3e} <= {GRAD_TOL}", flush=True)
+        print(f"[{label}] {what}: live {n_f}/{n_b} of {B * H}, o/lse err "
+              f"{e_f:.3e} (max |plain o| {s_f:.3g}), grad err {e_b:.3e} (max "
+              f"|plain grad| {s_b:.3g}), zeros exact, tiles {counts}",
+              flush=True)
+    print(f"[{label}] max abs err on the main path's operands fwd "
+          f"{worst['fwd']:.3e} <= {KERNEL_TOL}, bwd {worst['bwd']:.3e} <= "
+          f"{GRAD_TOL}", flush=True)
     return worst
+
+
+def gemma_attention_vs_plain(torch, gen):
+    """Phase 12. Returns the largest errors {"fwd": o/lse, "bwd": grads}
+    over the main path's operands."""
+    cfg, operands = gemma_attention_operands(torch)
+    return hd256_attention_vs_plain(
+        torch, gen, "hd-256 attention vs plain", cfg, GM_BATCH, GM_SEQ,
+        [(0, operands[0], cfg.window), (5, operands[5], 0)],
+        (cfg.window, 0))
 
 
 def schedule_tiles(sched, mb_of, cfg, steps):
@@ -1458,30 +1481,45 @@ def gemma_timing(torch, gm, lo, tag):
 
 
 def rglru_operands(torch):
-    """la and b [B 4, S 512, W 2560] of recurrentgemma-2b's layer 0 (an
-    RG-LRU block; random weights from seed 0, drawn as the launcher's
-    model draws them: at depth 1, init_model takes the same first draws) on
-    phase 17's first batch: the operands the main path gives the kernels."""
+    """recurrentgemma-2b's la and b [B 4, S 512, W 2560] of layer 0 (an
+    RG-LRU block) and post-rope q and kv-expanded k, v [B, H 10, S, hd 256]
+    of layer 2 (the first local attention block), random weights from seed
+    0 drawn as the launcher's model draws them (at depth 3, init_model
+    takes the same first draws), on phase 17's first batch: the operands
+    the main path gives the kernels."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import attention as attn
     from repro_torch.models import rglru
-    from repro_torch.models.layers import apply_embedding, apply_norm
-    from repro_torch.models.transformer import init_model
+    from repro_torch.models.layers import (apply_embedding, apply_norm,
+                                           apply_rope)
+    from repro_torch.models.transformer import apply_block, init_model
     cfg = get_config("recurrentgemma-2b")
     model = init_model(torch.Generator(device="cuda").manual_seed(0),
-                       cfg.replace(n_layers=1))
+                       cfg.replace(n_layers=3))
     batch = next(lm_batches(0, cfg.vocab_size, RG_BATCH, RG_SEQ, 1))
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
     with torch.no_grad():
-        tokens = torch.as_tensor(batch["tokens"], device="cuda")
-        layer = model.layers[0]
-        h = apply_norm(layer.norm1, apply_embedding(model.embed, tokens),
-                       cfg.norm)
-        p = layer.rglru
-        u = rglru._causal_conv(h @ p.w_rec_branch, p.conv_w, p.conv_b)
+        x = apply_embedding(model.embed,
+                            torch.as_tensor(batch["tokens"], device="cuda"))
+        p = model.layers[0].rglru
+        u = rglru._causal_conv(apply_norm(model.layers[0].norm1, x, cfg.norm)
+                               @ p.w_rec_branch, p.conv_w, p.conv_b)
         la, b = rglru._rglru_log_gates(p, u)
-    del model, h, u
+        for layer, kind in zip(model.layers[:2], cfg.layer_kinds):
+            x, _ = apply_block(layer, x, kind, cfg)
+        h = apply_norm(model.layers[2].norm1, x, cfg.norm)
+        q, k, v = attn._project_qkv(model.layers[2].attn, h, H,
+                                    cfg.n_kv_heads, hd)
+        if cfg.rope:
+            pos = torch.arange(RG_SEQ, device="cuda")[None, :]
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        qkv = tuple(attn._repeat_kv(t, H).transpose(1, 2).contiguous()
+                    for t in (q, k, v))
+    del model, x, u, h, q, k, v
     torch.cuda.empty_cache()
-    return la.contiguous(), b.contiguous()
+    return cfg, (la.contiguous(), b.contiguous()), qkv
 
 
 def _dead_max(t, dead):
@@ -1558,7 +1596,16 @@ def rglru_vs_plain(torch):
     """Phase 16. Returns ({"fwd": h, "bwd": dla/db} largest absolute errors
     on the main path's operands at G 10, (la, b) of layer 0)."""
     gen = torch.Generator(device="cuda").manual_seed(16)
-    la0, b0 = rglru_operands(torch)
+    cfg, (la0, b0), qkv = rglru_operands(torch)
+
+    # the hd-256 attention kernels under this path's conditions: 10 query
+    # heads on 1 KV head, one gate group per head (rep 1), window 2048 >=
+    # S 512, so causal with every tile of the causal triangle live
+    hd256_attention_vs_plain(
+        torch, gen, "rg attention vs plain", cfg, RG_BATCH, RG_SEQ,
+        [(2, qkv, cfg.window)], ())
+    del qkv
+    torch.cuda.empty_cache()
     B, S0, W = la0.shape
     cases = [("layer 0's operands", S, G, mode)
              for S in (S0, 500) for G, modes in ((10, (None, "exact",
@@ -1650,13 +1697,13 @@ def rg_finetune(torch, np, tag):
     "gates": layer 0's (g_f, g_b) [B, G] of the step-0 split, "bounds":
     the (sample, band) bounds}."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import D2FTConfig
     from repro_torch.core.schedule import (gates_from_schedule,
                                            live_slice_bounds)
     from repro_torch.data.synthetic import lm_batches, microbatch_assignment
     from repro_torch.kernels import contract
     from repro_torch.kernels import d2ft_attention as d2a
     from repro_torch.kernels import d2ft_rglru as d2r
-    from repro_torch.launch import train as launcher
     from repro_torch.models.transformer import init_model
     from repro_torch.optim.optimizers import sgd
     from repro_torch.train import loop
@@ -1730,23 +1777,27 @@ def rg_finetune(torch, np, tag):
     # intermediates that full depth cannot hold
     torch.cuda.empty_cache()
     one = cfg.replace(n_layers=3)
-    get_config_full = launcher.get_config
-    launcher.get_config = lambda arch: one
-    try:
-        run1, _ = launcher_paths(argv)
-        before = launches()
-        log1_k = run1("kernel")
-        got = {k: launches()[k] - before[k] for k in before}
-        if got != per_step(2, 1, RG_STEPS):
-            raise AssertionError(f"one cycle: kernel launches {got}")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        log1_m = run1("masked")
-        peaks["one-cycle masked"] = torch.cuda.max_memory_allocated()
-        if launches() != {k: before[k] + got[k] for k in before}:
-            raise AssertionError("the masked path launched a kernel")
-    finally:
-        launcher.get_config = get_config_full
+
+    def one_cycle(flags):
+        """The launcher's loop on ``one`` with the launcher's settings."""
+        model = init_model(torch.Generator(device="cuda").manual_seed(0), one)
+        d2 = D2FTConfig(**RG_D2FT, head_groups=one.n_heads)
+        return loop.finetune(
+            model, one, d2, sgd(RG_LR),
+            lm_batches(0, one.vocab_size, B, S, RG_STEPS), steps=RG_STEPS,
+            use_kernel="--kernel" in flags)[2]
+    run1, _ = launcher_paths(argv, drive=one_cycle)
+    before = launches()
+    log1_k = run1("kernel")
+    got = {k: launches()[k] - before[k] for k in before}
+    if got != per_step(2, 1, RG_STEPS):
+        raise AssertionError(f"one cycle: kernel launches {got}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log1_m = run1("masked")
+    peaks["one-cycle masked"] = torch.cuda.max_memory_allocated()
+    if launches() != {k: before[k] + got[k] for k in before}:
+        raise AssertionError("the masked path launched a kernel")
     diff = check_losses(np, log1_k, log1_m)
 
     print(f"[rg fine-tune] recurrentgemma-2b full size ({cfg.n_layers} "
@@ -1841,17 +1892,32 @@ def rglru_timing(torch, operands, rg, tag):
                 time_ms(torch, lambda: torch.autograd.grad(
                     ref, refs, dy, retain_graph=True), iters=20),
                 *roofline(by[1], fl[1]))}
+    # the kernels alone: the compaction table and the zero-filled outputs
+    # that each launcher call builds on the card are made once, outside
+    # the timed window
+    alone = {}
+    for kind, gate, live_b, call, args, outs in (
+            ("fwd", g_f, lf, d2r._fwd_call, (la, b, g_f), 1),
+            ("bwd", g_b, lb, d2r._bwd_call, (la, h, dy, g_b), 2)):
+        G, Q, nc, n_disp, idx = d2r._prepare(la, gate, RG_CHUNK, live_b)
+        bufs = [torch.zeros_like(la) for _ in range(outs)] + \
+            [torch.empty((n_disp, nc, Wg), device="cuda") for _ in range(2)]
+        alone[kind] = time_ms(torch, lambda: call(*args, idx, *bufs, n_disp,
+                                                  G, Q))
+        del bufs
     live = {"fwd": int((g_f != 0).sum()), "bwd": int((g_b != 0).sum())}
     for kind, (k_ms, p_ms, b_ms, bb) in out.items():
         i = 0 if kind == "fwd" else 1
         print(f"[rglru timing] d2ft_rglru_{kind} B {B} S {S} W {W} Wg {Wg} "
               f"chunk {RG_CHUNK}, layer 0's operands and gates, live "
               f"{live[kind]} of {g_f.numel()} (bound "
-              f"{lf if kind == 'fwd' else lb}): kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, library none (no PyTorch call computes the "
-              f"scan), bound {b_ms:.5f} ms by {bb} ({by[i] / 1e6:.1f} MB, "
-              f"{fl[i] / 1e9:.3f} GFLOP), {b_ms / k_ms:.1%} of bound {tag}",
-              flush=True)
+              f"{lf if kind == 'fwd' else lb}): launcher call {k_ms:.4f} ms "
+              f"(kernels alone, table and zeroed outputs built outside the "
+              f"window, {alone[kind]:.4f} ms), plain {p_ms:.4f} ms, library "
+              f"none (no PyTorch call computes the scan), bound {b_ms:.5f} "
+              f"ms by {bb} ({by[i] / 1e6:.1f} MB, {fl[i] / 1e9:.3f} GFLOP), "
+              f"{b_ms / k_ms:.1%} of bound ({b_ms / alone[kind]:.1%} alone) "
+              f"{tag}", flush=True)
     del h, refs, ref, dy
     torch.cuda.empty_cache()
     return out

@@ -190,6 +190,20 @@ def _bwd_lib():
     return lib
 
 
+def _check_gates(la, g_f, g_b=None):
+    """The gates' shape, [B, G] each, and W % G == 0; returns G."""
+    B, W = la.shape[0], la.shape[-1]
+    if g_f.dim() != 2 or g_f.shape[0] != B or (
+            g_b is not None and tuple(g_b.shape) != tuple(g_f.shape)):
+        shapes = " / ".join(str(tuple(g.shape)) for g in (g_f, g_b)
+                            if g is not None)
+        raise ValueError(f"gates must be [B={B}, G], got {shapes}")
+    G = g_f.shape[1]
+    if G < 1 or W % G:
+        raise ValueError(f"lru width {W} not divisible by G={G} gate groups")
+    return G
+
+
 def _prepare(la, gate, chunk, live, tensors=()):
     """Checks shared by both launchers; returns (G, Q, nc, n_disp, idx)
     with idx the int32 compaction table (None when every slice runs)."""
@@ -200,12 +214,7 @@ def _prepare(la, gate, chunk, live, tensors=()):
     if la.dim() != 3:
         raise ValueError(f"la must be [B, S, W], got {tuple(la.shape)}")
     B, S, W = la.shape
-    if gate.dim() != 2 or gate.shape[0] != B:
-        raise ValueError(f"gates must be [B={B}, G], got "
-                         f"{tuple(gate.shape)}")
-    G = gate.shape[1]
-    if G < 1 or W % G:
-        raise ValueError(f"lru width {W} not divisible by G={G} gate groups")
+    G = _check_gates(la, gate)
     for name, t, shape in (("la", la, (B, S, W)), ("gate", gate, (B, G)),
                            *tensors):
         _check(name, t, dev, shape)
@@ -236,14 +245,20 @@ def rglru_fwd(la, b, g_f, *, chunk: int, live=None):
     dispatched."""
     G, Q, nc, n_disp, idx = _prepare(la, g_f, chunk, live,
                                      (("b", b, la.shape),))
-    B, S, W = la.shape
-    Wg = W // G
     h = (torch.empty if idx is None else torch.zeros)(
         la.shape, dtype=torch.float32, device=la.device)
-    tot = torch.empty((n_disp, nc, Wg), dtype=torch.float32,
+    tot = torch.empty((n_disp, nc, la.shape[2] // G), dtype=torch.float32,
                       device=la.device)
-    last = torch.empty_like(tot)
+    _fwd_call(la, b, g_f, idx, h, tot, torch.empty_like(tot), n_disp, G, Q)
+    rglru_fwd.launches += 1
+    return h
+
+
+def _fwd_call(la, b, g_f, idx, h, tot, last, n_disp, G, Q):
+    """The forward kernels on buffers ``rglru_fwd`` checked and allocated
+    (h zero-filled where idx compacts the slices); uncounted."""
     lib = _fwd_lib()
+    _, S, W = la.shape
     with torch.cuda.device(la.device):
         stream = torch.cuda.current_stream(la.device).cuda_stream
         err = lib.d2ft_rglru_fwd_f32(
@@ -254,8 +269,6 @@ def rglru_fwd(la, b, g_f, *, chunk: int, live=None):
     if err != 0:
         raise RuntimeError("d2ft RG-LRU forward launch failed: "
                            + lib.d2ft_rglru_fwd_error_string(err).decode())
-    rglru_fwd.launches += 1
-    return h
 
 
 rglru_fwd.launches = 0
@@ -269,15 +282,22 @@ def rglru_bwd(la, g_b, h, dy, *, chunk: int, live=None):
     G, Q, nc, n_disp, idx = _prepare(la, g_b, chunk, live,
                                      (("h", h, la.shape),
                                       ("dy", dy, la.shape)))
-    B, S, W = la.shape
-    Wg = W // G
     alloc = torch.empty if idx is None else torch.zeros
     dla = alloc(la.shape, dtype=torch.float32, device=la.device)
     db = alloc(la.shape, dtype=torch.float32, device=la.device)
-    tot = torch.empty((n_disp, nc, Wg), dtype=torch.float32,
+    tot = torch.empty((n_disp, nc, la.shape[2] // G), dtype=torch.float32,
                       device=la.device)
-    lead = torch.empty_like(tot)
+    _bwd_call(la, h, dy, g_b, idx, dla, db, tot, torch.empty_like(tot),
+              n_disp, G, Q)
+    rglru_bwd.launches += 1
+    return dla, db
+
+
+def _bwd_call(la, h, dy, g_b, idx, dla, db, tot, lead, n_disp, G, Q):
+    """The backward kernels on buffers ``rglru_bwd`` checked and allocated
+    (dla, db zero-filled where idx compacts the slices); uncounted."""
     lib = _bwd_lib()
+    _, S, W = la.shape
     with torch.cuda.device(la.device):
         stream = torch.cuda.current_stream(la.device).cuda_stream
         err = lib.d2ft_rglru_bwd_f32(
@@ -288,8 +308,6 @@ def rglru_bwd(la, g_b, h, dy, *, chunk: int, live=None):
     if err != 0:
         raise RuntimeError("d2ft RG-LRU backward launch failed: "
                            + lib.d2ft_rglru_bwd_error_string(err).decode())
-    rglru_bwd.launches += 1
-    return dla, db
 
 
 rglru_bwd.launches = 0
@@ -326,14 +344,7 @@ def gated_rglru_scan(la, b, g_f, g_b, *, chunk: int, live_fwd=None,
     contracts are ``kernels.ops.gated_rglru_scan``'s, or the caller's (the
     fine-tune checks its schedule's gates on the host). CPU tensors take
     the plain version, CUDA tensors the kernels."""
-    B, W = la.shape[0], la.shape[2]
-    if g_f.dim() != 2 or tuple(g_f.shape) != tuple(g_b.shape) or \
-            g_f.shape[0] != B:
-        raise ValueError(f"gates must be [B={B}, G], got "
-                         f"{tuple(g_f.shape)} / {tuple(g_b.shape)}")
-    if W % g_f.shape[1]:
-        raise ValueError(f"lru width {W} not divisible by G={g_f.shape[1]} "
-                         "gate groups")
+    _check_gates(la, g_f, g_b)
     if la.device.type == "cpu":
         return gated_rglru_ref(la, b, g_f, g_b, chunk=chunk)
     # the model's layer gates are [B, G] slices of the schedule's [L, B, G]

@@ -215,8 +215,9 @@ def gated_rglru_scan(la, b, g_f, g_b=None, *, chunk: int = 128,
     gate-aware backward.
 
     la, b: [B,S,W] (la <= 0); g_f, g_b: [B,G] float {0,1} with g_b <= g_f
-    (checked) per (sample, channel group), W % G == 0 — the W channels
-    split into G contiguous bands gating independently. Returns h [B,S,W]
+    (checked) per (sample, channel group), W % G == 0 (checked in
+    ``d2ft_rglru.gated_rglru_scan``) — the W channels split into G
+    contiguous bands gating independently. Returns h [B,S,W]
     float32 with g_f-dead bands exactly zero; g_b-dead bands get zero
     dla/db and run no backward work. Omitting g_b uses g_b = g_f.
     live_fwd / live_bwd are upper bounds on the live (sample, band) slice
@@ -228,11 +229,7 @@ def gated_rglru_scan(la, b, g_f, g_b=None, *, chunk: int = 128,
     """
     if g_b is None:
         g_b = g_f
-    B, S, W = la.shape
-    G = g_f.shape[1]
-    if W % G != 0:
-        raise ValueError(f"lru width {W} not divisible by G={G} gate groups")
-    _validate_gates(g_f, g_b, B, G, live_fwd, live_bwd)
+    _validate_gates(g_f, g_b, la.shape[0], g_f.shape[1], live_fwd, live_bwd)
     return _gated_rglru_impl(la, b, g_f, g_b, chunk=chunk,
                              live_fwd=live_fwd, live_bwd=live_bwd)
 

@@ -96,10 +96,10 @@ def _rglru_log_gates(p: RGLRU, x):
     r = torch.sigmoid(x @ p.w_a + p.b_a)
     i = torch.sigmoid(x @ p.w_x + p.b_x)
     log_a = -_C * F.softplus(p.Lambda.float()) * r.float()
-    # 1 - a^2 as -expm1(2 log a): the same value as JAX's 1 - a * a without
-    # its cancellation as a -> 1 (a reaches 0.9995 at init, where one float32
-    # ulp of a moves 1 - a * a by 1e-4 relative)
-    beta = torch.sqrt(torch.clamp(-torch.expm1(2.0 * log_a), min=1e-12))
+    # JAX writes 1 - a * a with a = exp(log_a); XLA's algebraic simplifier
+    # rewrites exp(x) * exp(x) to exp(x + x), so the jitted reference
+    # computes 1 - exp(log_a + log_a), and so does the port
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(log_a + log_a), min=1e-12))
     b = beta * (i * x).float()
     return log_a, b
 
@@ -137,14 +137,6 @@ def _causal_conv(x, conv_w, conv_b):
     return out + conv_b
 
 
-def _gated_scan_ref(log_a, b, g_f, g_b):
-    """Masked-path gated scan: the chunked log-space plain version (which
-    the kernels are held against) with the detach mix, zero-padded to the
-    chunk as ``ops.gated_rglru_scan`` pads for the kernels."""
-    return kernel_ops._gated_rglru_impl(log_a, b, g_f, g_b,
-                                        chunk=_SCAN_CHUNK, plain=True)
-
-
 def apply_rglru(p: RGLRU, x, cfg: RGLRUConfig,
                 head_scale: Optional[torch.Tensor] = None,
                 return_state: bool = False,
@@ -172,13 +164,10 @@ def apply_rglru(p: RGLRU, x, cfg: RGLRUConfig,
     if gates is not None:
         g_f, g_b = gates
         log_a, b = _rglru_log_gates(p, u)
-        if use_kernel:
-            lf, lb = live_bounds if live_bounds is not None else (None, None)
-            h32 = kernel_ops._gated_rglru_impl(log_a, b, g_f, g_b,
-                                               chunk=_SCAN_CHUNK,
-                                               live_fwd=lf, live_bwd=lb)
-        else:
-            h32 = _gated_scan_ref(log_a, b, g_f, g_b)
+        lf, lb = live_bounds if live_bounds is not None else (None, None)
+        h32 = kernel_ops._gated_rglru_impl(log_a, b, g_f, g_b,
+                                           chunk=_SCAN_CHUNK, live_fwd=lf,
+                                           live_bwd=lb, plain=not use_kernel)
     else:
         a, b = _rglru_gates(p, u)
         h32 = _assoc_scan(a, b)                         # [B, S, W] float32

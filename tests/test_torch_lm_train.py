@@ -52,7 +52,6 @@ B, S = 4, 21           # S 21: the scan's pad path (chunk 8), past window 8
 # smoke configs: arch -> (JAX config module, port config module)
 ARCHS = {"mamba2": (jax_mamba, mamba2_130m), "gemma3": (jax_gemma, gemma3_1b),
          "recurrentgemma": (jax_rg, recurrentgemma_2b)}
-LOGITS_SCALED = {"recurrentgemma"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,14 +137,8 @@ def test_forward_and_lm_loss_match_jax(arch, G, gated, use_kernel):
     with torch.no_grad():
         logits, aux = forward(model, cfg, tt, gates=tg,
                               use_kernel=use_kernel, live_bounds=bounds)
-    # recurrentgemma's untied logits reach ~5 behind RG-LRU layers whose
-    # sqrt(1 - a^2) is ill-conditioned (a up to 0.9995 at init): JAX's
-    # fused float32 forward is itself 1.5e-5 from a float64 evaluation, so
-    # there the logits are held to STEP_TOL x max(1, max |JAX logit|)
-    lim = STEP_TOL * (max(1.0, float(np.abs(np.asarray(jlogits)).max()))
-                      if arch in LOGITS_SCALED else 1.0)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
-                               atol=lim, rtol=0)
+                               atol=STEP_TOL, rtol=0)
     assert float(aux["aux_loss"]) == 0.0
     loss, metrics = lm_loss(model, cfg, tt, torch.from_numpy(labels),
                             gates=tg, use_kernel=use_kernel,

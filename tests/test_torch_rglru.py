@@ -286,21 +286,18 @@ def test_width_not_tiling_groups_reports_its_fallback():
                                 gates=(torch.from_numpy(g_f),
                                        torch.from_numpy(g_b)),
                                 use_kernel=True)
-        jlogits, _ = jax_forward(params, jcfg, tokens=jnp.asarray(tokens),
-                                 gates=(jnp.asarray(g_f), jnp.asarray(g_b)),
-                                 use_kernel=True)
+        jlogits, _ = jax.jit(lambda p: jax_forward(
+            p, jcfg, tokens=jnp.asarray(tokens),
+            gates=(jnp.asarray(g_f), jnp.asarray(g_b)),
+            use_kernel=True))(params)
     finally:
         contract.on_fallback = None
         jax_contract.on_fallback = None
     assert seen == jseen and len(seen) == 2
     assert seen[0] == ("rglru", "lru width=126 not divisible by G=4 gate "
                                 "groups")
-    # logits of ~5 behind the ill-conditioned sqrt(1 - a^2): held to
-    # FWD_TOL x max(1, max |JAX logit|), as in test_torch_lm_train.py
-    jlogits = np.asarray(jlogits)
-    np.testing.assert_allclose(logits.numpy(), jlogits,
-                               atol=FWD_TOL * max(1.0, np.abs(jlogits).max()),
-                               rtol=0)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               atol=FWD_TOL, rtol=0)
 
 
 def test_gb_gt_gf_rejected():
