@@ -140,9 +140,47 @@ Phases, one line each (any failure raises and exits non-zero):
    zeroed outputs built outside the timed window), beside their plain
    version's and the bytes bound; no single PyTorch call computes the
    scan, so there is no library yardstick.
+19. MoE kernels vs plain — the gated MoE expert FFN forward and backward
+   kernels against their plain version and its autograd gradients, on the
+   operands the main path gives them (olmoe-1b-7b's layer 0, weights from
+   seed 0, on phase 20's first batch under two sample mixes: the
+   dispatched buffer E 64, C 320 -> 384, D 2048, F 1024 and its slot
+   masks) without slot bounds, at the model's, at the tightest and above
+   them, and on N(0, 1) operands at C 300 and E 4 (one expert with no
+   slot; bounds that cut both grids) for silu, gelu and relu:
+   y <= 1e-5 and dx / dW <= 1e-4, each
+   x max(1, max |plain|) (printed beside the errors), exact zeros on dead
+   tiles and for dead experts, executed tiles from the device counter =
+   the launched block masks' sums.
+20. D2FT-LoRA on olmoe-1b-7b — full width and depth (16 layers, 64
+   experts top-8, 6,919,096,320 parameters, seed 0) through
+   ``repro_torch.examples.lora_finetune``'s ``plan_lora`` and
+   ``finetune_lora``: rank 8 on wq/wk/wv and per-expert w_up (26,738,688
+   adapter parameters), SGD 0.1, n_pf 3 / n_po 0 of 4, G 16, batch 4 x
+   seq 512, 8 steps: 16 + 16 MoE and 16 + 16 attention launches per step,
+   executed MoE tiles = the launched masks', attention tiles = the
+   schedule's, the base bit-identical after the steps and the adapters
+   moved, losses within 1e-4 x max(1, |loss|) of the masked path; p50 step
+   ms and tokens/s of the kernel path, the masked path and plain LoRA
+   (each twice, in turns), peak memory after scoring and after the steps,
+   a profiler window.
+21. olmoe-1b-7b fine-tune — the launcher's loop (``train/loop.py::
+   finetune`` with ``repro_torch.launch.train``'s settings: --optimizer
+   sgd, lr 1e-3, n_pf 3 / n_po 1 of 4, G 16) at full width on 8 of the 16
+   layers (3,562,571,776 parameters), batch 4 x seq 512, 8 steps: 8 + 8
+   MoE and attention launches per step, device tile counts = the masks'
+   and the schedule's, losses within tolerance of the masked path; p50
+   step ms of the kernel, masked and full fine-tuning paths (each twice,
+   in turns), tokens/s, peak memory, a profiler window.
+22. MoE kernel timing — CUDA-event times, L2 flushed, of both kernels at
+   phase 21's layer-0 operands, gates and bounds, through the launcher
+   call (the record's ms) and alone (buffers allocated outside the
+   window), beside their plain version's, the operations bound and a
+   library yardstick the port never calls (three torch.bmm and silu on
+   the truncated buffer; its autograd backward).
 
-Then one JSON line of kernel records, the card line again, and as the last
-line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+Then one JSON line of the 12 kernel records, the card line again, and as
+the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a card or without the repo's sources beside this file.
 """
 from __future__ import annotations
@@ -205,6 +243,27 @@ RG_LR = 1e-3
 RG_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 RG_CHUNK = 128                     # repro/models/rglru.py's scan chunk
 RG_PARAMS = 3_549_934_080          # the JAX init_model's, by jax.eval_shape
+
+# the olmoe-1b-7b fine-tunes (PERF.md, section 4): the full model's 27.7 GB
+# of float32 weights leave no room for a full fine-tune's gradients and
+# optimizer state, so full depth runs as D2FT-LoRA (rank 8 on wq/wk/wv and
+# per-expert w_up, the LoRA example's SGD 0.1 and n_pf 3 / n_po 0 of 4) and
+# the launcher's loop (its SGD, n_pf 3 / n_po 1 of 4, G 16) runs at full
+# width on 8 of the 16 layers; batch 4 x seq 512 (capacity 320 of 2048
+# tokens x 8 / 64 experts, 384 after the pad to block_c 128)
+MO_BATCH = 4
+MO_SEQ = 512
+MO_STEPS = 8
+MO_LR = 1e-3
+MO_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
+MO_LORA_D2FT = dict(n_microbatches=4, n_pf=3, n_po=0)
+MO_LORA_TARGETS = ("wq", "wk", "wv", "w_up")
+MO_LORA_PARAMS = 26_738_688        # the JAX init_lora's, by jax.eval_shape
+MO_LAYERS = 8
+MO_PARAMS = 6_919_096_320          # the JAX init_model's, by jax.eval_shape
+MO_PARAMS_8 = 3_562_571_776        # the same at 8 layers
+MO_BLOCK_C = 128                   # repro/models/moe.py's apply_moe default
+ACTS_ALL = ("silu", "gelu", "relu")
 
 
 def card_line() -> str:
@@ -332,7 +391,7 @@ def attention_case(torch, q, k, v, do, g_f, g_b, *, causal, window, live):
     tiles = d2a.kernel_live_tiles(q.shape[2], causal, window, q.shape[3])
     want = {"fwd": 2 * n_f * tiles, "bwd_dkdv": n_b * tiles,
             "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0,
-            "rglru_fwd": 0, "rglru_bwd": 0}
+            "rglru_fwd": 0, "rglru_bwd": 0, "moe_fwd": 0, "moe_bwd": 0}
     return e_f, e_b, s_f, s_b, zeros, counts, want
 
 
@@ -878,7 +937,8 @@ def lm_finetune(torch, np, tag):
                              f"{cfg.n_layers} per step x {LM_STEPS} steps")
     if counts["ssd_fwd"] != live_f or counts["ssd_bwd"] != live_b or \
             counts["fwd"] or counts["bwd_dkdv"] or counts["bwd_dq"] or \
-            counts["rglru_fwd"] or counts["rglru_bwd"]:
+            counts["rglru_fwd"] or counts["rglru_bwd"] or \
+            counts["moe_fwd"] or counts["moe_bwd"]:
         raise AssertionError(f"executed steps {counts} != the schedule's "
                              f"live (sample, head, chunk) counts "
                              f"{live_f} / {live_b}")
@@ -1073,11 +1133,12 @@ def gemma_attention_vs_plain(torch, gen):
         (cfg.window, 0))
 
 
-def schedule_tiles(sched, mb_of, cfg, steps):
+def schedule_tiles(sched, mb_of, cfg, steps, seq=GM_SEQ):
     """Attention tiles the schedule makes the kernels execute in ``steps``
-    steps, forward and backward, and those full fine-tuning would: per
-    layer, the live (sample, head) slices times the kernel's live tiles per
-    slice under that layer's causal or window mask."""
+    steps at length ``seq``, forward and backward, and those full
+    fine-tuning would: per layer, the live (sample, head) slices times the
+    kernel's live tiles per slice under that layer's causal or window
+    mask."""
     from repro_torch.core.schedule import gates_from_schedule
     from repro_torch.kernels import d2ft_attention as d2a
     g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")       # [L, B, G]
@@ -1085,7 +1146,7 @@ def schedule_tiles(sched, mb_of, cfg, steps):
     fwd = bwd = full = 0
     for layer, kind in enumerate(cfg.layer_kinds):
         window = cfg.window if kind == "attn_local" else 0
-        tiles = d2a.kernel_live_tiles(GM_SEQ, True, window,
+        tiles = d2a.kernel_live_tiles(seq, True, window,
                                       cfg.resolved_head_dim)
         fwd += int(g_f[layer].sum()) * rep * tiles
         bwd += int(g_b[layer].sum()) * rep * tiles
@@ -1134,7 +1195,7 @@ def gemma_finetune(torch, np, tag):
                              f"{cfg.n_layers} per step x {GM_STEPS} steps")
     if counts != {"fwd": want_f, "bwd_dkdv": want_b, "bwd_dq": want_b,
                   "ssd_fwd": 0, "ssd_bwd": 0, "rglru_fwd": 0,
-                  "rglru_bwd": 0}:
+                  "rglru_bwd": 0, "moe_fwd": 0, "moe_bwd": 0}:
         raise AssertionError(f"executed tiles {counts} != the schedule's "
                              f"{want_f} forward, {want_b} backward")
     torch.cuda.reset_peak_memory_stats()
@@ -1273,7 +1334,7 @@ def gemma_lora(torch, np, tag):
     want_f, want_b, total = schedule_tiles(sched, mb_of, cfg, GM_STEPS)
     if counts != {"fwd": want_f, "bwd_dkdv": want_b, "bwd_dq": want_b,
                   "ssd_fwd": 0, "ssd_bwd": 0, "rglru_fwd": 0,
-                  "rglru_bwd": 0}:
+                  "rglru_bwd": 0, "moe_fwd": 0, "moe_bwd": 0}:
         raise AssertionError(f"executed tiles {counts} != the schedule's "
                              f"{want_f} forward, {want_b} backward")
     frac = {k: counts[k] / total for k in ("fwd", "bwd_dkdv", "bwd_dq")}
@@ -1580,7 +1641,8 @@ def rglru_case(torch, la, b, dy, g_f, g_b, live, f64=False):
     nc = Sp // Q
     want = {"fwd": 0, "bwd_dkdv": 0, "bwd_dq": 0, "ssd_fwd": 0,
             "ssd_bwd": 0, "rglru_fwd": int((g_f != 0).sum()) * nc,
-            "rglru_bwd": int((g_b != 0).sum()) * nc}
+            "rglru_bwd": int((g_b != 0).sum()) * nc, "moe_fwd": 0,
+            "moe_bwd": 0}
     del ins, refs, mine, theirs
     return errs, scale, zeros, counts, want, e64
 
@@ -1674,7 +1736,7 @@ def rg_schedule_counts(sched, mb_of, cfg, steps):
     nc = -(-RG_SEQ // RG_CHUNK)
     rep = cfg.n_heads // sched.n_groups
     want = dict.fromkeys(("fwd", "bwd_dkdv", "bwd_dq", "ssd_fwd", "ssd_bwd",
-                          "rglru_fwd", "rglru_bwd"), 0)
+                          "rglru_fwd", "rglru_bwd", "moe_fwd", "moe_bwd"), 0)
     full = {"rglru": 0, "attn": 0}
     for layer, kind in enumerate(cfg.layer_kinds):
         nf, nb = int(g_f[layer].sum()), int(g_b[layer].sum())
@@ -1919,6 +1981,592 @@ def rglru_timing(torch, operands, rg, tag):
               f"{b_ms / k_ms:.1%} of bound ({b_ms / alone[kind]:.1%} alone) "
               f"{tag}", flush=True)
     del h, refs, ref, dy
+    torch.cuda.empty_cache()
+    return out
+
+
+def capture(module, name, sink):
+    """Context manager: calls of ``module.name`` record their (args,
+    kwargs) in ``sink`` and run as before."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def patched():
+        orig = getattr(module, name)
+
+        def grab(*a, **k):
+            sink.append((a, k))
+            return orig(*a, **k)
+        setattr(module, name, grab)
+        try:
+            yield sink
+        finally:
+            setattr(module, name, orig)
+    return patched()
+
+
+def moe_operands(torch, layer_gates, bounds):
+    """The MoE kernels' operands on the main path: olmoe-1b-7b's layer 0,
+    random weights from seed 0 as the fine-tunes draw them (at depth 1,
+    init_model takes the same first draws), on phases 20-21's first batch
+    (B 4, S 512), under layer 0's gates [B, G] and the (sample, group)
+    bounds: the capacity buffer [E 64, C 320, D 2048], the expert weights,
+    both slot masks and the two slot bounds ``apply_moe`` hands to
+    ``ops._gated_moe_impl``, captured from one kernel-path block forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import apply_embedding
+    from repro_torch.models.transformer import apply_block, init_model
+    cfg = get_config("olmoe-1b-7b")
+    model = init_model(torch.Generator(device="cuda").manual_seed(0),
+                       cfg.replace(n_layers=1))
+    batch = next(lm_batches(0, cfg.vocab_size, MO_BATCH, MO_SEQ, 1))
+    calls = []
+    with torch.no_grad(), capture(ops, "_gated_moe_impl", calls):
+        x = apply_embedding(model.embed,
+                            torch.as_tensor(batch["tokens"], device="cuda"))
+        apply_block(model.layers[0], x, "attn_global", cfg, layer_gates,
+                    use_kernel=True, live_bounds=bounds)
+    (buf, wu, wg, wd, fs, bs), kw = calls[0]
+    out = (buf.clone(), wu.detach(), wg.detach(), wd.detach(), fs.clone(),
+           bs.clone(), kw["live_slots"], kw["live_bwd_slots"])
+    del model, x, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def _top(slots):
+    """One past the highest occupied slot of an [E, C] mask."""
+    idx = (slots != 0).any(0).nonzero()
+    return int(idx.max()) + 1 if idx.numel() else 0
+
+
+def moe_case(torch, xb, wu, wg, wd, dy, fs, bs, *, act, live, live_b):
+    """One comparison of the MoE kernels with their plain version: the
+    kernels through ``ops.gated_moe_ffn`` (forward, backward, executed
+    tiles, the launched block masks) against the plain version on the same
+    grid and its autograd gradients. Returns errors and max |plain| of
+    [y, dx, dw_up, dw_gate, dw_down], the exact-zero flag, the counts and
+    the tiles the launched masks hold."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import contract, ops
+    from repro_torch.kernels import d2ft_moe as d2m
+    masks = {}
+    d2m.dispatch = lambda kind, grid, m: masks.__setitem__(kind, m.clone())
+    try:
+        with contract.count_tiles("cuda") as tc:
+            ins = [t.clone().requires_grad_() for t in (xb, wu, wg, wd)]
+            y = ops.gated_moe_ffn(*ins, fs, bs, act=act, block_c=MO_BLOCK_C,
+                                  live_slots=live, live_bwd_slots=live_b)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            counts = tc.read()
+    finally:
+        d2m.dispatch = None
+    E, C, _ = xb.shape
+    bc = min(MO_BLOCK_C, C)
+    Cp = -(-C // bc) * bc
+
+    def blocks(slots):
+        return (F.pad(slots, (0, Cp - C)).reshape(E, -1, bc).sum(-1)
+                > 0).float()
+    fm, bm = blocks(fs), blocks(bs)
+    refs = [t.clone().requires_grad_() for t in (xb, wu, wg, wd)]
+    ref = d2m.gated_moe_ffn_ref(F.pad(refs[0], (0, 0, 0, Cp - C)),
+                                *refs[1:], fm, bm, act=act,
+                                block_c=bc)[:, :C]
+    ref.backward(dy)
+    mine = [y.detach()] + [t.grad for t in ins]
+    theirs = [ref.detach()] + [t.grad for t in refs]
+    errs = [float((a - b).abs().max()) for a, b in zip(mine, theirs)]
+    scale = [float(t.abs().max()) for t in theirs]
+    rows_f = fm.repeat_interleave(bc, 1)[:, :C] == 0
+    rows_b = bm.repeat_interleave(bc, 1)[:, :C] == 0
+    dead_e = bm.sum(1) == 0
+    zeros = (_dead_max(mine[0], rows_f) == 0.0
+             and _dead_max(mine[1], rows_b) == 0.0
+             and all(_dead_max(g, dead_e) == 0.0 for g in mine[2:])
+             and all(bool(torch.isfinite(t).all()) for t in mine))
+    mirror = {"moe_fwd": int(masks["fwd"].sum()),
+              "moe_bwd": int(masks["bwd"].sum())}
+    grids = (tuple(masks["fwd"].shape), tuple(masks["bwd"].shape))
+    del ins, refs, ref, mine, theirs
+    return errs, scale, zeros, counts, mirror, grids
+
+
+def moe_vs_plain(torch):
+    """Phase 19. Returns ({"fwd": y, "bwd": dx/dW} largest absolute errors
+    on the main path's operands)."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    operands = {}
+    # two sample mixes, every head group alike: p_f / p_o / p_s / p_f, and
+    # p_s / p_o / p_f / p_s, where fewer live samples leave room for the
+    # slot bounds to cut the grids (at the first, an expert at capacity
+    # puts the highest occupied slot at C)
+    for mix, op in (("p_f/p_o/p_s/p_f", (0, 1, 2, 0)),
+                    ("p_s/p_o/p_f/p_s", (2, 1, 0, 2))):
+        ops_ = torch.tensor(op, device="cuda")[:, None].repeat(1, 16)
+        g_f, g_b = (ops_ != 2).float(), (ops_ == 0).float()
+        operands[mix] = moe_operands(torch, (g_f, g_b),
+                                     (int(g_f.sum()), int(g_b.sum())))
+    D, Fd = operands[mix][0].shape[2], operands[mix][1].shape[2]
+    cases = [("layer 0's operands, " + mix, "silu", mode)
+             for mix, modes in (("p_f/p_o/p_s/p_f", (None, "model")),
+                                ("p_s/p_o/p_f/p_s", ("at", "above")))
+             for mode in modes]
+    cases += [("N(0, 1) operands", act, mode)
+              for act, mode in zip(ACTS_ALL, ("at", "above", None))]
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for what, act, mode in cases:
+        if what.startswith("N"):
+            e, c = 4, 300
+            xs = torch.randn((e, c, D), generator=gen, device="cuda")
+            ws = [torch.randn(s, generator=gen, device="cuda") / s[1] ** 0.5
+                  for s in ((e, D, Fd), (e, D, Fd), (e, Fd, D))]
+            slot = torch.arange(c, device="cuda")[None, :]
+            fs = (slot < torch.tensor([0, 250, 171, 40],
+                                      device="cuda")[:, None]).float()
+            bs = (slot < torch.tensor([0, 100, 60, 40],
+                                      device="cuda")[:, None]).float()
+            model = (None, None)
+        else:
+            xs, *ws, fs, bs = operands[what.split(", ")[1]][:6]
+            model = operands[what.split(", ")[1]][6:]
+        C = xs.shape[1]
+        top_f, top_b = _top(fs), _top(bs)
+        live, live_b = {None: (None, None), "model": model,
+                        "at": (top_f, top_b),
+                        "above": (min(C, top_f + 50),
+                                  min(C, top_b + 50))}[mode]
+        dy = torch.randn(xs.shape, generator=gen, device="cuda")
+        errs, scale, zeros, counts, mirror, grids = moe_case(
+            torch, xs, *ws, dy, fs, bs, act=act, live=live, live_b=live_b)
+        lims = [KERNEL_TOL * max(1.0, scale[0])] + \
+            [GRAD_TOL * max(1.0, r) for r in scale[1:]]
+        got = {k: counts[k] for k in ("moe_fwd", "moe_bwd")}
+        desc = (f"{what}, E {xs.shape[0]} C {C} D {D} F {Fd} block_c "
+                f"{MO_BLOCK_C} {act}, slot bounds ({live}, {live_b}) of "
+                f"occupied ({top_f}, {top_b}), launched grids {grids}")
+        errs_s = (f"y {errs[0]:.3e}, dx/dw_up/dw_gate/dw_down "
+                  + "/".join(f"{v:.3e}" for v in errs[1:])
+                  + " (max |plain| " + " / ".join(f"{v:.3g}" for v in scale)
+                  + ")")
+        if any(e > m for e, m in zip(errs, lims)) or not zeros or \
+                got != mirror or any(counts[k] for k in counts
+                                     if not k.startswith("moe")):
+            raise AssertionError(
+                f"MoE kernels vs plain, {desc}: {errs_s}, limits {lims}, "
+                f"exact zeros {zeros}, tiles {counts} != {mirror}")
+        if not what.startswith("N"):
+            worst = {"fwd": max(worst["fwd"], errs[0]),
+                     "bwd": max(worst["bwd"], *errs[1:])}
+        print(f"[moe vs plain] {desc}: {errs_s}, within tol x max(1, max "
+              f"|plain|), zeros exact, executed tiles fwd "
+              f"{got['moe_fwd']} bwd {got['moe_bwd']} (= the launched "
+              f"masks')", flush=True)
+        del xs, ws, dy
+        torch.cuda.empty_cache()
+    print(f"[moe vs plain] max abs err on the main path's operands fwd "
+          f"{worst['fwd']:.3e}, bwd {worst['bwd']:.3e}", flush=True)
+    del operands
+    torch.cuda.empty_cache()
+    return worst
+
+
+def mask_sums():
+    """A ``d2ft_moe.dispatch`` hook and its record: the launched masks'
+    sums per kind, left on the card (no synchronisation per launch)."""
+    sums = {"fwd": [], "bwd": []}
+
+    def hook(kind, grid, mask):
+        sums[kind].append(mask.sum())
+    return hook, sums
+
+
+def moe_launches():
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.kernels import d2ft_moe as d2m
+    return {"fwd": d2m.moe_fwd.launches, "bwd": d2m.moe_bwd.launches,
+            "attn_fwd": d2a.flash_fwd.launches,
+            "attn_bwd": d2a.flash_bwd.launches}
+
+
+def olmoe_lora(torch, np, tag):
+    """Phase 20. Returns {"launches": MoE and attention launches}."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import D2FTConfig
+    from repro_torch.core.lora import init_lora, lora_param_count
+    from repro_torch.core.schedule import (gates_from_schedule,
+                                           live_slice_bounds)
+    from repro_torch.data.synthetic import lm_batches, microbatch_assignment
+    from repro_torch.examples import lora_finetune as ex
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.kernels import d2ft_moe as d2m
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.optimizers import sgd
+
+    cfg = get_config("olmoe-1b-7b")
+    B, S, steps = MO_BATCH, MO_SEQ, MO_STEPS
+    d2 = D2FTConfig(**MO_LORA_D2FT, head_groups=cfg.n_heads)
+    model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    params = dict(model.named_parameters())
+    n_params = sum(t.numel() for t in params.values())
+
+    def adapters():
+        return init_lora(torch.Generator(device="cuda").manual_seed(1),
+                         params, rank=ex.RANK, targets=MO_LORA_TARGETS)
+    lora = adapters()
+    n_adapters = lora_param_count(lora)
+    if n_params != MO_PARAMS or n_adapters != MO_LORA_PARAMS:
+        raise AssertionError(f"{n_params} parameters, {n_adapters} adapter "
+                             f"parameters != {MO_PARAMS}, {MO_LORA_PARAMS}")
+    if tuple(lora["layers.0.moe.w_up"]["a"].shape) != (64, cfg.d_model,
+                                                        ex.RANK):
+        raise AssertionError("w_up adapters are not per expert")
+    batches = list(lm_batches(0, cfg.vocab_size, B, S, steps))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sched = ex.plan_lora(model, cfg, lora, d2, batches[0])
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    peak_plan = torch.cuda.max_memory_allocated()
+    mb_of = microbatch_assignment(B, d2.n_microbatches)
+
+    hook, sums = mask_sums()
+    d2m.moe_fwd.launches = d2m.moe_bwd.launches = 0
+    d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
+    d2m.dispatch = hook
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with contract.count_tiles("cuda") as tc:
+            _, _, log_k = ex.finetune_lora(model, cfg, lora, sgd(ex.LR),
+                                           batches, steps=steps, sched=sched,
+                                           use_kernel=True)
+            counts = tc.read()
+    finally:
+        d2m.dispatch = None
+    peak_k = torch.cuda.max_memory_allocated()
+    launches = moe_launches()
+    per = cfg.n_layers * steps
+    if launches != dict.fromkeys(launches, per):
+        raise AssertionError(f"kernel launches {launches} != {cfg.n_layers} "
+                             f"per step x {steps} steps")
+    mirror = {k: int(sum(int(v) for v in sums[k])) for k in sums}
+    want_f, want_b, total = schedule_tiles(sched, mb_of, cfg, steps, S)
+    if counts["moe_fwd"] != mirror["fwd"] or \
+            counts["moe_bwd"] != mirror["bwd"] or \
+            (counts["fwd"], counts["bwd_dkdv"], counts["bwd_dq"]) != \
+            (want_f, want_b, want_b):
+        raise AssertionError(f"executed tiles {counts} != the masks' "
+                             f"{mirror} / the schedule's attention "
+                             f"{want_f} / {want_b}")
+    # the frozen base is the seed-0 model bit for bit; the adapters moved
+    fresh = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    same = all(torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                 fresh.parameters()))
+    del fresh
+    torch.cuda.empty_cache()
+    init = adapters()
+    moved = all(not torch.equal(ab[k], init[n][k])
+                for n, ab in lora.items() for k in ("a", "b"))
+    if not same or not moved:
+        raise AssertionError(f"base bit-identical {same}, adapters moved "
+                             f"{moved}")
+    del init, lora
+
+    # the masked path on the same schedule, plain LoRA, then in turns
+    runs = {"kernel": dict(use_kernel=True, sched=sched),
+            "masked": dict(sched=sched), "plain": dict()}
+    logs = {"kernel": [log_k]}
+    peaks = {"kernel": peak_k}
+    for name in ("masked", "plain", "plain", "masked", "kernel"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = moe_launches()
+        logs.setdefault(name, []).append(ex.finetune_lora(
+            model, cfg, adapters(), sgd(ex.LR), batches, steps=steps,
+            **runs[name])[-1])
+        peaks[name] = max(peaks.get(name, 0),
+                          torch.cuda.max_memory_allocated())
+        got = {k: moe_launches()[k] - before[k] for k in before}
+        if got != dict.fromkeys(got, per if name == "kernel" else 0):
+            raise AssertionError(f"the {name} path launched {got}")
+    diff = check_losses(np, log_k, logs["masked"][0])
+    p50 = {k: 1e3 * float(np.median(v[0].step_times + v[1].step_times))
+           for k, v in logs.items()}
+    n_tiles = cfg.n_layers * steps * cfg.moe.n_experts * 3
+    frac = {k: counts[f"moe_{k}"] / n_tiles for k in ("fwd", "bwd")}
+    print(f"[olmoe lora] D2FT-LoRA on olmoe-1b-7b full size ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} of d_ff {cfg.moe.d_ff}, vocab {cfg.vocab_size}, "
+          f"f32, seed 0, {n_params} parameters) through "
+          f"repro_torch.examples.lora_finetune (plan_lora, finetune_lora): "
+          f"rank {ex.RANK} on {'/'.join(MO_LORA_TARGETS)} (w_up per expert; "
+          f"{n_adapters} adapter parameters), SGD {ex.LR}, n_pf "
+          f"{d2.n_pf} n_po {d2.n_po} of {d2.n_microbatches}, G "
+          f"{sched.n_groups}, batch {B} x seq {S}, {steps} steps: launches "
+          f"{launches}, executed MoE tiles fwd {counts['moe_fwd']} bwd "
+          f"{counts['moe_bwd']} (= the launched masks'; {frac['fwd']:.3f} / "
+          f"{frac['bwd']:.3f} of the {n_tiles} tiles), attention "
+          f"tiles = the schedule's ({want_f} / {want_b} of {total}), live "
+          f"(sample, group) bounds {live_slice_bounds(sched, mb_of)}, base "
+          f"bit-identical, adapters moved; scoring and knapsack "
+          f"{plan_s:.1f} s", flush=True)
+    print(f"[olmoe lora] losses kernel "
+          f"{[round(float(v), 6) for v in log_k.losses]} | masked "
+          f"{[round(v, 6) for v in logs['masked'][0].losses]} | max diff "
+          f"{diff:.3e} | plain LoRA "
+          f"{[round(v, 6) for v in logs['plain'][0].losses]}", flush=True)
+    print(f"[olmoe lora] p50 step ms over 2 x {steps} steps: kernel path "
+          f"{p50['kernel']:.3f}, masked path {p50['masked']:.3f}, plain "
+          f"LoRA (no D2FT) {p50['plain']:.3f}; per round " + ", ".join(
+              f"{k} " + " / ".join(
+                  f"{1e3 * float(np.median(lg.step_times)):.3f}" for lg in v)
+              for k, v in logs.items()) + f" {tag}")
+    print(f"[olmoe lora] tokens/s: kernel path "
+          f"{B * S / p50['kernel'] * 1e3:.1f}, masked "
+          f"{B * S / p50['masked'] * 1e3:.1f}, plain LoRA "
+          f"{B * S / p50['plain'] * 1e3:.1f} {tag}")
+    print(f"[olmoe lora] max_memory_allocated: scoring {peak_plan} bytes "
+          f"({peak_plan / 2**30:.2f} GiB); steps " + ", ".join(
+              f"{k} {v} bytes ({v / 2**30:.2f} GiB)"
+              for k, v in peaks.items()) + f" {tag}", flush=True)
+    # where a kernel-path D2FT-LoRA step's time goes
+    g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")
+    opt = sgd(ex.LR)
+    lora = adapters()
+    state = opt.init({f"{n}.{k}": ab[k] for n, ab in lora.items()
+                      for k in ("a", "b")})
+    step = ex.make_lora_step(model, cfg, opt, use_kernel=True)
+    bt = {k: torch.as_tensor(v, device="cuda") for k, v in batches[0].items()}
+    gates = (g_f.cuda(), g_b.cuda())
+    bounds = live_slice_bounds(sched, mb_of)
+    print_profile("3 kernel-path olmoe-1b-7b D2FT-LoRA steps", profile_steps(
+        torch, lambda: step(lora, state, bt, gates, bounds), "moe_"),
+        "d2ft MoE kernels", tag)
+    del model, params, lora, state, step, bt
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def olmoe_finetune(torch, np, tag):
+    """Phase 21. Returns {"launches": MoE and attention launches, "gates":
+    layer 0's (g_f, g_b) [B, G] of the step-0 split, "bounds": the (sample,
+    group) bounds}."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import D2FTConfig
+    from repro_torch.core.schedule import (gates_from_schedule,
+                                           live_slice_bounds)
+    from repro_torch.data.synthetic import lm_batches, microbatch_assignment
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.kernels import d2ft_moe as d2m
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.train import loop
+
+    cfg = get_config("olmoe-1b-7b").replace(n_layers=MO_LAYERS)
+    B, S, steps, n_mb = MO_BATCH, MO_SEQ, MO_STEPS, MO_D2FT["n_microbatches"]
+    argv = ["--arch", "olmoe-1b-7b", "--full", "--optimizer", "sgd",
+            "--batch", str(B), "--seq", str(S), "--steps", str(steps),
+            "--lr", str(MO_LR), "--n-microbatches", str(n_mb), "--n-pf",
+            str(MO_D2FT["n_pf"]), "--n-po", str(MO_D2FT["n_po"])]
+    n_params = {}
+
+    def drive(flags):
+        """The launcher's loop (``loop.finetune``, with the launcher's
+        settings) on the model cut to 8 layers."""
+        model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+        n_params["n"] = sum(t.numel() for t in model.parameters())
+        d2 = D2FTConfig(**MO_D2FT, head_groups=max(cfg.n_heads, 1)) \
+            if "--d2ft" in flags else None
+        return loop.finetune(
+            model, cfg, d2, sgd(MO_LR),
+            lm_batches(0, cfg.vocab_size, B, S, steps), steps=steps,
+            use_kernel="--kernel" in flags)[2]
+    run, scheds = launcher_paths(argv, drive=drive)
+
+    hook, sums = mask_sums()
+    d2m.moe_fwd.launches = d2m.moe_bwd.launches = 0
+    d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
+    d2m.dispatch = hook
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with contract.count_tiles("cuda") as tc:
+            log_k = run("kernel")
+            counts = tc.read()
+    finally:
+        d2m.dispatch = None
+    launches = moe_launches()
+    peaks = {"kernel": torch.cuda.max_memory_allocated()}
+    per = cfg.n_layers * steps
+    if launches != dict.fromkeys(launches, per):
+        raise AssertionError(f"kernel launches {launches} != {cfg.n_layers} "
+                             f"per step x {steps} steps")
+    if n_params["n"] != MO_PARAMS_8:
+        raise AssertionError(f"{n_params['n']} parameters != {MO_PARAMS_8}")
+    sched = scheds[0]
+    mb_of = microbatch_assignment(B, n_mb)
+    bounds = live_slice_bounds(sched, mb_of)
+    mirror = {k: int(sum(int(v) for v in sums[k])) for k in sums}
+    want_f, want_b, total = schedule_tiles(sched, mb_of, cfg, steps, S)
+    if counts["moe_fwd"] != mirror["fwd"] or \
+            counts["moe_bwd"] != mirror["bwd"] or \
+            (counts["fwd"], counts["bwd_dkdv"], counts["bwd_dq"]) != \
+            (want_f, want_b, want_b):
+        raise AssertionError(f"executed tiles {counts} != the masks' "
+                             f"{mirror} / the schedule's attention "
+                             f"{want_f} / {want_b}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = moe_launches()
+    log_m = run("masked")
+    peaks["masked"] = torch.cuda.max_memory_allocated()
+    if moe_launches() != before:
+        raise AssertionError("the masked path launched a kernel")
+    diff = check_losses(np, log_k, log_m)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p50, per_round = in_turns(np, run, {"kernel": log_k, "masked": log_m})
+    peaks["timed rounds (full fine-tuning included)"] = \
+        torch.cuda.max_memory_allocated()
+    n_tiles = cfg.n_layers * steps * cfg.moe.n_experts * 3
+    frac = {k: counts[f"moe_{k}"] / n_tiles for k in ("fwd", "bwd")}
+    print(f"[olmoe fine-tune] olmoe-1b-7b at full width, {cfg.n_layers} of "
+          f"16 layers ({n_params['n']} parameters, f32, seed 0) through "
+          f"the launcher's loop (train/loop.py::finetune, the launcher's "
+          f"settings), batch {B} x seq {S} in {n_mb} micro-batches, n_pf "
+          f"{MO_D2FT['n_pf']} n_po {MO_D2FT['n_po']}, G {sched.n_groups}, "
+          f"SGD lr {MO_LR}, {steps} steps: launches {launches}, executed "
+          f"MoE tiles fwd {counts['moe_fwd']} bwd {counts['moe_bwd']} (= the "
+          f"launched masks'; {frac['fwd']:.3f} / {frac['bwd']:.3f} of the "
+          f"{n_tiles} tiles), attention tiles = the schedule's "
+          f"({want_f} / {want_b} of {total}), live (sample, group) bounds "
+          f"{bounds}", flush=True)
+    print(f"[olmoe fine-tune] losses kernel "
+          f"{[round(float(x), 6) for x in log_k.losses]} | masked "
+          f"{[round(x, 6) for x in log_m.losses]} | max diff {diff:.3e}",
+          flush=True)
+    print(f"[olmoe fine-tune] p50 step ms over 2 x {steps} steps: kernel "
+          f"path {p50['kernel']:.3f}, masked path {p50['masked']:.3f}, "
+          f"standard full fine-tuning (d2ft off, einsum experts) "
+          f"{p50['full']:.3f}; per round " + ", ".join(
+              f"{k} {r[0]:.3f} / {r[1]:.3f}" for k, r in per_round.items())
+          + f" {tag}")
+    print(f"[olmoe fine-tune] tokens/s: kernel path "
+          f"{B * S / p50['kernel'] * 1e3:.1f}, masked "
+          f"{B * S / p50['masked'] * 1e3:.1f}, full "
+          f"{B * S / p50['full'] * 1e3:.1f} {tag}")
+    print("[olmoe fine-tune] max_memory_allocated, scoring included: " +
+          ", ".join(f"{k} {v} bytes ({v / 2**30:.2f} GiB)"
+                    for k, v in peaks.items()) + f" {tag}", flush=True)
+    # where a kernel-path step's time goes
+    torch.cuda.empty_cache()
+    g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")
+    model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = sgd(MO_LR)
+    state = opt.init(dict(model.named_parameters()))
+    step = loop.make_train_step(cfg, opt, use_gates=True, use_kernel=True,
+                                live_bounds=bounds)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(0, cfg.vocab_size, B, S, 1)).items()}
+    gates = (g_f.cuda(), g_b.cuda())
+    print_profile("3 kernel-path olmoe-1b-7b fine-tune steps (8 layers)",
+                  profile_steps(torch, lambda: step(model, state, batch,
+                                                    gates), "moe_"),
+                  "d2ft MoE kernels", tag)
+    del model, state, batch, opt, step
+    torch.cuda.empty_cache()
+    return {"launches": launches, "gates": (g_f[0].cuda(), g_b[0].cuda()),
+            "bounds": bounds}
+
+
+def moe_timing(torch, mo, tag):
+    """Phase 22. Returns {"fwd"|"bwd": (ms, plain_ms, library_ms, bound_ms,
+    bound_by)} at phase 21's layer-0 operands, gates and bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import d2ft_moe as d2m
+    from repro_torch.kernels import ops
+    xb, wu, wg, wd, fs, bs, live, live_b = moe_operands(
+        torch, mo["gates"], mo["bounds"])
+    calls = []
+    with torch.no_grad(), capture(d2m, "gated_moe_ffn", calls):
+        ops._gated_moe_impl(xb, wu, wg, wd, fs, bs, act="silu",
+                            block_c=MO_BLOCK_C, live_slots=live,
+                            live_bwd_slots=live_b)
+    (xs, _, _, _, fm, bm), kw = calls[0]
+    xs, fm, bm = (t.contiguous() for t in (xs, fm, bm))
+    bc, nb = kw["block_c"], kw["bwd_blocks"]
+    E, Cr, D = xs.shape
+    Fd = wu.shape[2]
+    cb = nb * bc
+    dy = torch.randn(xs.shape, generator=torch.Generator(
+        device="cuda").manual_seed(22), device="cuda")
+    refs = [t.clone().requires_grad_() for t in (xs, wu, wg, wd)]
+    ref = d2m.gated_moe_ffn_ref(*refs, fm, bm, act="silu", block_c=bc)
+    lib_in = [t.clone().requires_grad_() for t in (xs[:, :cb], wu, wg, wd)]
+
+    def library(x, u, g, d):
+        return torch.bmm(F.silu(torch.bmm(x, g)) * torch.bmm(x, u), d)
+    lib_out = library(*lib_in)
+    fl = d2m.gated_moe_flops(fm.cpu().numpy(), bm[:, :nb].cpu().numpy(),
+                             bc, D, Fd)
+    by = d2m.needed_bytes(fm.cpu().numpy(), bm[:, :nb].cpu().numpy(), bc, D,
+                          Fd)
+    out = {
+        "fwd": (time_ms(torch, lambda: d2m.moe_fwd(
+                    xs, wu, wg, wd, fm, act="silu", block_c=bc), iters=20),
+                time_ms(torch, lambda: d2m.gated_moe_ffn_ref(
+                    xs, wu, wg, wd, fm, bm, act="silu", block_c=bc),
+                    iters=20),
+                time_ms(torch, lambda: library(xs, wu, wg, wd), iters=20),
+                *roofline(by[0], fl[0])),
+        "bwd": (time_ms(torch, lambda: d2m.moe_bwd(
+                    xs, wu, wg, wd, bm, dy, act="silu", block_c=bc,
+                    bwd_blocks=nb), iters=20),
+                time_ms(torch, lambda: torch.autograd.grad(
+                    ref, refs, dy, retain_graph=True), iters=20),
+                time_ms(torch, lambda: torch.autograd.grad(
+                    lib_out, lib_in, dy[:, :cb], retain_graph=True),
+                    iters=20),
+                *roofline(by[1], fl[1]))}
+    # the kernels alone: outputs, scratch and the work list allocated once,
+    # outside the timed window
+    y, mid = torch.empty_like(xs), torch.empty((E, Cr, Fd), device="cuda")
+    work_f = torch.empty((E * (Cr // bc) + 1,), dtype=torch.int32,
+                         device="cuda")
+    dx = torch.zeros_like(xs)
+    dws = [torch.empty_like(w) for w in (wu, wg, wd)]
+    dhg = torch.empty((E, cb, 2 * Fd), device="cuda")
+    ah = torch.empty((E, cb, Fd), device="cuda")
+    work_b = torch.empty((E * nb + 1,), dtype=torch.int32, device="cuda")
+    alone = {
+        "fwd": time_ms(torch, lambda: d2m._fwd_call(
+            xs, wu, wg, wd, fm, y, mid, work_f, bc, "silu"), iters=20),
+        "bwd": time_ms(torch, lambda: d2m._bwd_call(
+            xs, wu, wg, wd, bm, dy, dx, *dws, dhg, ah, work_b, nb, bc,
+            "silu"), iters=20)}
+    live_t = {"fwd": int((fm != 0).sum()), "bwd": int((bm[:, :nb] != 0).sum())}
+    for kind, (k_ms, p_ms, l_ms, b_ms, bb) in out.items():
+        i = 0 if kind == "fwd" else 1
+        print(f"[moe timing] d2ft_moe_{kind} E {E} C {xb.shape[1]} -> "
+              f"{Cr} D {D} F {Fd} block_c {bc}, phase 21's layer-0 operands "
+              f"and gates, slot bounds ({live}, {live_b}): grid "
+              f"{tuple(fm.shape) if kind == 'fwd' else (E, nb)}, "
+              f"{live_t[kind]} live tiles: launcher call {k_ms:.4f} ms "
+              f"(kernels alone, buffers allocated outside the window, "
+              f"{alone[kind]:.4f} ms), plain {p_ms:.4f} ms, library (three "
+              f"torch.bmm and silu on the truncated buffer"
+              f"{'' if kind == 'fwd' else ', autograd backward'}) "
+              f"{l_ms:.4f} ms, bound {b_ms:.4f} ms by {bb} "
+              f"({fl[i] / 1e9:.1f} GFLOP, {by[i] / 1e6:.1f} MB), "
+              f"{b_ms / k_ms:.1%} of bound ({b_ms / alone[kind]:.1%} "
+              f"alone) {tag}", flush=True)
+    del xb, wu, wg, wd, xs, refs, ref, lib_in, lib_out, y, mid, dx, dws
+    del dhg, ah, dy
     torch.cuda.empty_cache()
     return out
 
@@ -2207,6 +2855,20 @@ def main() -> int:
 
     # 18. RG-LRU kernel timing --------------------------------------------
     rg_t = rglru_timing(torch, rg_operands, rg, tag)
+    del rg_operands
+    torch.cuda.empty_cache()
+
+    # 19. MoE kernels vs plain --------------------------------------------
+    moe_errs = moe_vs_plain(torch)
+
+    # 20. D2FT-LoRA on olmoe-1b-7b at full width and depth -----------------
+    olmoe_lora(torch, np, tag)
+
+    # 21. the launcher's loop on olmoe-1b-7b, full width, 8 of 16 layers ---
+    mo = olmoe_finetune(torch, np, tag)
+
+    # 22. MoE kernel timing -----------------------------------------------
+    mo_t = moe_timing(torch, mo, tag)
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{
@@ -2260,6 +2922,17 @@ def main() -> int:
             "launches": rg["launches"][kind], "max_abs_err": rg_errs[kind],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": None})
+    for kind, line in (("fwd", 90), ("bwd", 137)):
+        k_ms, p_ms, l_ms, b_ms, by = mo_t[kind]
+        kernels.append({
+            "name": f"d2ft_moe_{kind}", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/d2ft_moe_{kind}.cu",
+            "replaces": f"src/repro/kernels/d2ft_moe.py:{line}",
+            "launches": mo["launches"][kind], "max_abs_err": moe_errs[kind],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": l_ms})
+    if len(kernels) != 12:
+        raise AssertionError(f"{len(kernels)} kernel records, not 12")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ from repro_torch.configs.base import ModelConfig
 ARCH_MODULES: Dict[str, str] = {
     "gemma3-1b": "gemma3_1b",
     "mamba2-130m": "mamba2_130m",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
 

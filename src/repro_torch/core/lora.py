@@ -8,11 +8,12 @@ paper's "subnet = frozen head + its LoRA matrices").
 
 Parameters are the flat name -> tensor dict of
 ``dict(model.named_parameters())``; the adapters are keyed by the same
-names (``layers.<i>.attn.wq`` ...), one ``{"a": [in, r], "b": [r, out]}``
-per target. The JAX package stacks adapters over scan cycles;
-``interop.lora_from_jax`` unstacks them as ``params_from_jax`` unstacks the
-layers. The model runs on the merged weights through
-``torch.func.functional_call`` (``call_with_weights``).
+names (``layers.<i>.attn.wq`` ...), one ``{"a": [..., in, r], "b": [...,
+r, out]}`` per target, keeping the target's leading dims (an MoE
+``moe.w_up`` [E, d, F] gets one adapter per expert). The JAX package
+stacks adapters over scan cycles; ``interop.lora_from_jax`` unstacks them
+as ``params_from_jax`` unstacks the layers. The model runs on the merged
+weights through ``torch.func.functional_call`` (``call_with_weights``).
 """
 from __future__ import annotations
 
@@ -30,18 +31,21 @@ Lora = Dict[str, Dict[str, torch.Tensor]]
 
 def init_lora(gen: torch.Generator, params: Mapping[str, torch.Tensor],
               rank: int, targets: Sequence[str] = LORA_TARGETS) -> Lora:
-    """{name: {"a": [in, r], "b": [r, out]}} for every 2-D target weight,
-    in the params' order, float32 on ``gen.device``: a ~ N(0, 1/in), b = 0,
-    so the merged model starts as the base model. The adapters are leaves
-    that require grad; their numbers differ from ``jax.random``'s."""
+    """{name: {"a": [..., in, r], "b": [..., r, out]}} for every target
+    weight of 2 or more dims, in the params' order, float32 on
+    ``gen.device``: the leading dims kept (one adapter per expert of an
+    [E, in, out] weight, as the JAX package's ``lead + (din, rank)``),
+    a ~ N(0, 1/in), b = 0, so the merged model starts as the base model.
+    The adapters are leaves that require grad; their numbers differ from
+    ``jax.random``'s."""
     lora: Lora = {}
     for name, w in params.items():
         if name.rsplit(".", 1)[-1] not in targets or w.ndim < 2:
             continue
-        din, dout = w.shape[-2:]
-        a = torch.randn((din, rank), generator=gen,
+        lead, (din, dout) = tuple(w.shape[:-2]), w.shape[-2:]
+        a = torch.randn(lead + (din, rank), generator=gen,
                         device=gen.device) / din ** 0.5
-        b = torch.zeros((rank, dout), device=gen.device)
+        b = torch.zeros(lead + (rank, dout), device=gen.device)
         lora[name] = {"a": a.requires_grad_(), "b": b.requires_grad_()}
     return lora
 
@@ -55,9 +59,10 @@ def lora_params(lora: Lora) -> Dict[str, torch.Tensor]:
 
 def merge_lora(params: Mapping[str, torch.Tensor], lora: Lora,
                scale: float = 1.0) -> Dict[str, torch.Tensor]:
-    """name -> W.detach() + scale * A @ B for the targets and t.detach()
-    for every other tensor (the JAX ``stop_gradient(params)``): gradients
-    flow only through the adapters."""
+    """name -> W.detach() + scale * A @ B (batched over the leading dims)
+    for the targets and t.detach() for every other tensor (the JAX
+    ``stop_gradient(params)``): gradients flow only through the
+    adapters."""
     merged = {n: t.detach() for n, t in params.items()}
     for name, ab in lora.items():
         w = merged[name]

@@ -11,14 +11,18 @@ position ``j`` becomes flat layer ``c*P + j``, remainder layer ``i`` becomes
 ``n_cycles*P + i``. Every block's leaves cross the same way, an attention
 block's (``attn.wq`` ...) as an SSD block's (``ssd.w_in``, ``conv_w``,
 ``conv_b``, ``A_log``, ``dt_bias``, ``D``, ``norm_scale``, ``w_out``;
-mamba2-130m stacks its 24 layers in one pattern cycle). Tests use it so
+mamba2-130m stacks its 24 layers in one pattern cycle) and an MoE FFN's
+(``moe.router`` [d, E], ``moe.w_up`` / ``moe.w_gate`` [E, d, F],
+``moe.w_down`` [E, F, d] and the ``moe.shared_*`` leaves, in JAX's
+layouts). Tests use it so
 both packages compute with the same weights; the serving path never does.
 
 ``lora_from_jax(lora, cfg)`` carries the JAX package's LoRA adapters
 (``repro.core.lora.init_lora``: ``{"cycles/<j>/attn/wq": {"a": [n_cycles,
 in, r], "b": [n_cycles, r, out]}, "rest/<i>/attn/wq": {"a": [in, r], ...}}``,
 numpy leaves) into the port's ``{"layers.<l>.attn.wq": {"a", "b"}}`` with
-the same cycle and remainder rule.
+the same cycle and remainder rule; a target's other leading dims stay
+(``moe.w_up``'s adapters are [E, in, r] / [E, r, out], one per expert).
 
 ``vit_params_from_jax(tree)`` does the same for ``repro.models.vit.
 init_vit``'s tree (``patch_proj``, ``patch_bias``, ``cls``, ``pos``, a

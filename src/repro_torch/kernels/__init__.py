@@ -8,6 +8,8 @@ version.
 (``csrc/d2ft_ssd_{fwd,bwd}.cu``);
 ``d2ft_rglru`` — gated RG-LRU scan, forward and gate-aware backward
 (``csrc/d2ft_rglru_{fwd,bwd}.cu``);
+``d2ft_moe`` — gated MoE expert FFN, forward and gate-aware backward
+(``csrc/d2ft_moe_{fwd,bwd}.cu``);
 ``lora_matmul`` — fused LoRA matmul, forward only (``csrc/lora_matmul.cu``);
 ``contract`` — the gate contract: compaction tables, the executed-work
 counter, the fallback hook;

@@ -16,9 +16,10 @@ Every gated kernel speaks one interface:
 * **executed-work counter** — in place of the JAX package's
   ``on_backward_block`` debug callback. Inside ``count_tiles(device)``,
   every attention kernel launch adds the number of (q tile, k tile) pairs
-  it executed, and every SSD and RG-LRU kernel launch the number of
-  (slice, chunk) steps it executed, to a device int64 counter, one atomic
-  per block.
+  it executed, every SSD and RG-LRU kernel launch the number of (slice,
+  chunk) steps it executed, and every MoE kernel launch the number of
+  (expert, capacity-block) tiles it executed, to a device int64 counter,
+  one atomic per block.
   Reading the counter synchronises, so it is off on the normal path.
 * **fallback hook** — a route that takes no kernel despite
   ``use_kernel=True`` reports itself through ``on_fallback``.
@@ -63,10 +64,12 @@ class TileCounter:
     and ``bwd_dq`` (the two backward kernels, each of which executes every
     live tile once); (slice, chunk) steps of the SSD kernels, ``ssd_fwd``
     and ``ssd_bwd``, and of the RG-LRU kernels, ``rglru_fwd`` and
-    ``rglru_bwd``."""
+    ``rglru_bwd``; (expert, capacity-block) tiles of the MoE kernels,
+    ``moe_fwd`` (one per tile with a live forward slot) and ``moe_bwd``
+    (one per tile with a live backward slot inside the truncated grid)."""
 
     KINDS = ("fwd", "bwd_dkdv", "bwd_dq", "ssd_fwd", "ssd_bwd", "rglru_fwd",
-             "rglru_bwd")
+             "rglru_bwd", "moe_fwd", "moe_bwd")
 
     def __init__(self, device):
         self.counts = torch.zeros(len(self.KINDS), dtype=torch.int64,

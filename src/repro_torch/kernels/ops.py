@@ -1,7 +1,7 @@
 """Public kernel entries with the JAX package's argument checks (port of the
 ``gated_attention``, ``gated_ssd_scan``, ``gated_rglru_scan``,
-``paged_decode_attention`` and ``lora_linear`` entries of
-``repro/kernels/ops.py``).
+``gated_moe_ffn``, ``paged_decode_attention`` and ``lora_linear`` entries
+of ``repro/kernels/ops.py``).
 
 Each entry dispatches on where its tensors lie: CPU tensors go to the
 kernel's plain PyTorch version, CUDA tensors to the hand-written kernel,
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import d2ft_rglru, d2ft_ssd
+from repro_torch.kernels import d2ft_moe, d2ft_rglru, d2ft_ssd
 from repro_torch.kernels.d2ft_attention import gated_flash_attention
 from repro_torch.kernels.lora_matmul import lora_matmul, lora_matmul_ref
 from repro_torch.kernels.paged_decode import (paged_decode_ref,
@@ -232,6 +232,108 @@ def gated_rglru_scan(la, b, g_f, g_b=None, *, chunk: int = 128,
     _validate_gates(g_f, g_b, la.shape[0], g_f.shape[1], live_fwd, live_bwd)
     return _gated_rglru_impl(la, b, g_f, g_b, chunk=chunk,
                              live_fwd=live_fwd, live_bwd=live_bwd)
+
+
+# ------------------------------------------------------------ gated MoE FFN
+def _gated_moe_impl(xb, w_up, w_gate, w_down, fwd_slots, bwd_slots, *,
+                    act: str, block_c: int, live_slots=None,
+                    live_bwd_slots=None):
+    """The slot -> block reduction, the capacity pad and the two
+    truncations, then ``d2ft_moe.gated_moe_ffn``; no value checks, so the
+    model path (``models/moe.apply_moe``) pays no host sync per layer.
+
+    bc = min(block_c, C); C pads to a multiple of bc. The forward grid
+    stops at ceil(live_slots / bc) blocks: trailing blocks past the
+    schedule's live-slot bound are provably empty, so they are neither
+    launched nor read. The backward stops at ceil(live_bwd_slots / bc),
+    on its own: the dispatch packs backward-live slots into a capacity
+    prefix per expert, so a g_b < g_f mix shrinks the backward grid below
+    the forward's."""
+    E, C, D = xb.shape
+    bc = min(block_c, C)
+    Cp = -(-C // bc) * bc
+    n_cb = Cp // bc
+    if live_slots is not None and live_slots < Cp:
+        n_cb = min(n_cb, -(-max(1, int(live_slots)) // bc))
+    n_cb_b = n_cb
+    if live_bwd_slots is not None:
+        n_cb_b = min(n_cb, -(-max(1, int(live_bwd_slots)) // bc))
+    Cr = n_cb * bc
+
+    def fit(t):
+        """[E, C, ...] padded or cut to Cr rows."""
+        if Cr > C:
+            return F.pad(t, (0, 0) * (t.dim() - 2) + (0, Cr - C))
+        return t[:, :Cr]
+
+    xs = fit(xb)
+    fm = (fit(fwd_slots).reshape(E, n_cb, bc).sum(-1) > 0).float()
+    bm = (fit(bwd_slots).reshape(E, n_cb, bc).sum(-1) > 0).float()
+    y = d2ft_moe.gated_moe_ffn(xs, w_up, w_gate, w_down, fm, bm, act=act,
+                               block_c=bc, bwd_blocks=n_cb_b)
+    if Cr < C:
+        y = F.pad(y, (0, 0, 0, C - Cr))
+    return y[:, :C]
+
+
+def _top_slot(slots) -> int:
+    """One past the highest occupied slot of an [E, C] mask (0 if none)."""
+    occupied = np.argwhere(slots != 0)
+    return int(occupied[:, 1].max()) + 1 if occupied.size else 0
+
+
+def gated_moe_ffn(xb, w_up, w_gate, w_down, fwd_slots, bwd_slots=None, *,
+                  act: str = "silu", block_c: int = 128,
+                  live_slots: Optional[int] = None,
+                  live_bwd_slots: Optional[int] = None):
+    """Doubly-sparse MoE expert FFN over a capacity buffer, with a
+    gate-aware backward.
+
+    xb: [E, C, D] front-packed capacity buffer (see ``models/moe.py``'s
+    gate-aware dispatch), w_up / w_gate: [E, D, F], w_down: [E, F, D];
+    fwd_slots / bwd_slots: [E, C] float {0, 1} slot-occupancy masks with
+    bwd <= fwd elementwise (checked). Slots group into capacity blocks of
+    ``block_c``; a block computes only when it holds a live slot.
+    ``live_slots`` bounds the live slots per expert (schedule live-sample
+    bound x top_k): blocks past it are not launched. ``live_bwd_slots``
+    bounds the backward-live slots apart (g_b bound x top_k); omitting it
+    shares the forward's bound. Both must cover the highest occupied slot
+    of their mask (checked), or live outputs or gradients would be zeroed.
+    Omitting bwd_slots uses bwd = fwd.
+
+    The value checks read the masks on the host (a device synchronisation
+    for CUDA tensors), so they run on a direct call only; the model path
+    calls ``_gated_moe_impl``. CPU tensors take the plain version, CUDA
+    tensors the kernels.
+    """
+    if bwd_slots is None:
+        bwd_slots = fwd_slots
+    E, C, D = xb.shape
+    if tuple(fwd_slots.shape) != (E, C) or tuple(bwd_slots.shape) != (E, C):
+        raise ValueError(
+            f"slot masks must be [E={E}, C={C}], got "
+            f"{tuple(fwd_slots.shape)} / {tuple(bwd_slots.shape)}")
+    cf = fwd_slots.detach().cpu().numpy()
+    cb = bwd_slots.detach().cpu().numpy()
+    if np.any(cb > cf):
+        raise ValueError("bwd_slots <= fwd_slots violated: a slot with no "
+                         "live forward cannot have a live backward")
+    top = _top_slot(cf)
+    if live_slots is not None and live_slots < top:
+        raise ValueError(
+            f"live_slots={live_slots} is below the highest occupied slot "
+            f"{top}: the capacity-truncation bound must cover every live "
+            "slot or their outputs would be zeroed")
+    top_b = _top_slot(cb)
+    if live_bwd_slots is not None and live_bwd_slots < top_b:
+        raise ValueError(
+            f"live_bwd_slots={live_bwd_slots} is below the highest occupied "
+            f"backward slot {top_b}: the backward truncation bound must "
+            "cover every backward-live slot or their gradients would be "
+            "zeroed")
+    return _gated_moe_impl(xb, w_up, w_gate, w_down, fwd_slots, bwd_slots,
+                           act=act, block_c=block_c, live_slots=live_slots,
+                           live_bwd_slots=live_bwd_slots)
 
 
 # ------------------------------------------------------------- fused LoRA

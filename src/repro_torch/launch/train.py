@@ -10,6 +10,10 @@ On one CUDA card, the main paths of the LLM fine-tune:
   python -m repro_torch.launch.train --arch recurrentgemma-2b --full \
       --d2ft --kernel --optimizer sgd --batch 4 --seq 512 --steps 8
 
+(olmoe-1b-7b's 27.7 GB of weights leave no room on one 80 GB card for
+the full fine-tune's gradients and optimizer state: ``chip_smoke.py`` runs
+this loop on 8 of its 16 layers, and the full depth as D2FT-LoRA.)
+
 It runs on the card unless ``--device cpu`` is given, with a reduced
 (smoke) config unless ``--full`` is passed. The weights are random, from
 seed 0. The distributed, elastic, packed, mesh, fault-injection, resume
@@ -52,7 +56,7 @@ def parse_args(argv=None):
                     help="data-parallel D2FT (not ported yet)")
     ap.add_argument("--kernel", action="store_true",
                     help="route the attention (any head_dim the kernels "
-                         "take, 256 included), SSD and RG-LRU blocks "
+                         "take, 256 included), SSD, RG-LRU and MoE blocks "
                          "through the gated CUDA kernels (their plain "
                          "versions on the CPU)")
     ap.add_argument("--mesh", default=None, metavar="data=D,stage=S,tensor=T",

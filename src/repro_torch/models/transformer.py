@@ -7,10 +7,11 @@ The JAX package stacks layers per pattern cycle for ``lax.scan``;
 gain from the stacked layout here.
 
 Ported so far: dense attention blocks (global and sliding-window) with a
-dense FFN, SSD blocks (mamba2: no FFN), RG-LRU blocks with a dense FFN (and
-so the hybrid recurrentgemma pattern), the batched serving prefill of the
-attention blocks, the D2FT-gated block forward (``apply_block``), the
-text-only ``forward`` and the LLM loss (``fused_xent``, ``lm_loss``).
+dense or an MoE FFN, SSD blocks (mamba2: no FFN), RG-LRU blocks with a
+dense FFN (and so the hybrid recurrentgemma pattern), the batched serving
+prefill of the dense attention blocks, the D2FT-gated block forward
+(``apply_block``), the text-only ``forward`` with the MoE aux losses and
+the LLM loss (``fused_xent``, ``lm_loss``).
 Gating: ``gates = (g_f, g_b)`` of shape [n_layers, B, G]; per block, the
 residual contribution is split into G head/width groups c_g and mixed as
 
@@ -20,9 +21,11 @@ which is p_f (1, 1), p_o (1, 0) and p_s (0, ·) exactly: p_o keeps the
 forward value but no gradient flows through the subnet for that sample;
 p_s removes the contribution. An SSD block gates its scan per (sample,
 head) instead (``models/ssm.apply_ssd``), an RG-LRU block per (sample,
-channel band) (``models/rglru.apply_rglru``). MoE blocks, the frontends
-and the decode caches come with later slices; the tensor-parallel and
-sharding-policy branches with the distributed slice.
+channel band) (``models/rglru.apply_rglru``), and an MoE FFN is one group
+whose gates also drive its dispatch (``models/moe.apply_moe``). Serving an
+MoE model, the frontends and the decode caches come with later slices; the
+tensor-parallel, sharding-policy and expert-parallel branches with the
+distributed slice.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.kernels import contract as kernel_contract
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSD,
                                       ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (_act, _param, apply_embedding,
@@ -75,10 +79,11 @@ def _group_project(heads_out, wo, G):
 # ============================================================== block params
 class Block(nn.Module):
     """Pre-norm residual block: norm1 + a mixer (``attn``, ``ssd`` or
-    ``rglru``), then, where the config has an FFN, norm2 + mlp."""
+    ``rglru``), then, where the config has an FFN, norm2 + ``mlp`` (dense)
+    or ``moe``."""
 
     def __init__(self, norm1, attn_mod=None, norm2=None, mlp=None, ssd=None,
-                 rglru=None):
+                 rglru=None, moe=None):
         super().__init__()
         self.norm1 = norm1
         if attn_mod is not None:
@@ -87,9 +92,12 @@ class Block(nn.Module):
             self.ssd = ssd
         if rglru is not None:
             self.rglru = rglru
-        if mlp is not None:
+        if mlp is not None or moe is not None:
             self.norm2 = norm2
+        if mlp is not None:
             self.mlp = mlp
+        if moe is not None:
+            self.moe = moe
 
 
 def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
@@ -105,8 +113,6 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
         return Block(norm1, None, init_norm(cfg.norm, cfg.d_model, dtype, dev),
                      init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated,
                               dtype), ssd=s)
-    if cfg.moe is not None:
-        raise _not_ported("the MoE FFN")
     a = r = None
     if kind == RGLRU:
         r = rglru_mod.init_rglru(gen, cfg.d_model, cfg.rglru, dtype)
@@ -114,6 +120,10 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
         a = attn.init_attention(gen, cfg.d_model, cfg.n_heads,
                                 cfg.n_kv_heads, cfg.resolved_head_dim,
                                 cfg.qkv_bias, dtype)
+    if cfg.moe is not None:
+        return Block(norm1, a, init_norm(cfg.norm, cfg.d_model, dtype, dev),
+                     rglru=r, moe=moe_mod.init_moe(gen, cfg.d_model,
+                                                   cfg.moe, dtype))
     if cfg.d_ff <= 0:
         return Block(norm1, a, rglru=r)
     return Block(norm1, a, init_norm(cfg.norm, cfg.d_model, dtype, dev),
@@ -121,10 +131,34 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
                  rglru=r)
 
 
-def _apply_ffn(p: Block, h, cfg: ModelConfig, layer_gates=None):
-    """Dense FFN branch of the JAX ``_apply_ffn`` (unsharded): plain, or
-    split into G column groups of w_down and mixed by ``gate_mix``.
-    Returns y (the JAX function's aux is always None for a dense FFN)."""
+def _apply_ffn(p: Block, h, cfg: ModelConfig, layer_gates=None,
+               use_kernel: bool = False, live_bounds=None):
+    """The unsharded branches of the JAX ``_apply_ffn``. Returns (y, aux).
+
+    MoE: one D2FT group, so the block's gates are those of group 0
+    (``g_f[:, 0]``, ``g_b[:, 0]`` per sample), which also drive the
+    dispatch; use_kernel runs the experts through the MoE kernels, whose
+    grids stop at the live-token bounds ``min(B, live_bounds[k]) · S``
+    (backward apart). ``gate_mix`` on group 0 mixes the output. Dense:
+    plain, or split into G column groups of w_down and mixed by
+    ``gate_mix``; aux is None."""
+    if hasattr(p, "moe"):
+        moe_gates = live_toks = bwd_toks = None
+        if layer_gates is not None:
+            g_f, g_b = layer_gates
+            moe_gates = (g_f[:, 0], g_b[:, 0])
+            if live_bounds is not None:
+                B, S = h.shape[:2]
+                live_toks = min(B, live_bounds[0]) * S
+                bwd_toks = min(B, live_bounds[1]) * S
+        y, aux = moe_mod.apply_moe(p.moe, h, cfg.moe, act=cfg.mlp_act,
+                                   gates=moe_gates, use_kernel=use_kernel,
+                                   live_tokens=live_toks,
+                                   live_bwd_tokens=bwd_toks)
+        if layer_gates is not None:
+            g_f, g_b = layer_gates
+            y = gate_mix(y[:, :, None, :], g_f[:, :1], g_b[:, :1])[:, :, 0]
+        return y, aux
     mlp = p.mlp
     up = h @ mlp.w_up
     if cfg.mlp_gated:
@@ -132,14 +166,14 @@ def _apply_ffn(p: Block, h, cfg: ModelConfig, layer_gates=None):
     else:
         hid = _act(cfg.mlp_act)(up)
     if layer_gates is None:
-        return hid @ mlp.w_down
+        return hid @ mlp.w_down, None
     g_f, g_b = layer_gates
     G = g_f.shape[-1]
     B, S, F = hid.shape
     D = mlp.w_down.shape[-1]
     wd = mlp.w_down.reshape(G, F // G, D)
     c_g = torch.einsum("bsgf,gfD->bsgD", hid.reshape(B, S, G, F // G), wd)
-    return gate_mix(c_g, g_f, g_b).sum(dim=2)
+    return gate_mix(c_g, g_f, g_b).sum(dim=2), None
 
 
 def _apply_attn_inner(p, h, kind: str, cfg: ModelConfig, layer_gates,
@@ -266,10 +300,10 @@ def _apply_rglru_inner(p: rglru_mod.RGLRU, h, cfg: ModelConfig, layer_gates,
 def apply_block(p: Block, x, kind: str, cfg: ModelConfig, layer_gates=None,
                 policy=None, use_kernel: bool = False, live_bounds=None,
                 tp=None):
-    """Pre-norm residual block. Returns (x, None): the JAX function's aux
-    losses come only from MoE blocks, not ported yet. ``policy`` and ``tp``
-    (sharding policy, tensor parallelism) raise until the distributed
-    slice ports them."""
+    """Pre-norm residual block. Returns (x, aux): the MoE block's aux
+    losses, None for every other block. ``policy`` and ``tp`` (sharding
+    policy, tensor parallelism) raise until the distributed slice ports
+    them."""
     if policy is not None:
         raise _not_ported_dist("the sharding-policy branch of apply_block")
     if tp is not None:
@@ -287,10 +321,12 @@ def apply_block(p: Block, x, kind: str, cfg: ModelConfig, layer_gates=None,
     else:
         raise ValueError(kind)
     x = x + c
-    if hasattr(p, "mlp"):
+    aux = None
+    if hasattr(p, "norm2"):
         h2 = apply_norm(p.norm2, x, cfg.norm)
-        x = x + _apply_ffn(p, h2, cfg, layer_gates)
-    return x, None
+        y, aux = _apply_ffn(p, h2, cfg, layer_gates, use_kernel, live_bounds)
+        x = x + y
+    return x, aux
 
 
 # ========================================================== layer grouping
@@ -351,12 +387,15 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, features=None,
     """Returns (logits, aux) — logits [B, S, vocab], aux {"aux_loss"}.
 
     tokens: [B, S] int. gates: optional (g_f, g_b) of shape [n_layers, B,
-    G]. use_kernel routes attention, SSD and RG-LRU blocks through the
-    gated kernels; live_bounds: optional (live_fwd, live_bwd) per-layer max live
-    (sample, group) slice counts (``core.schedule.live_slice_bounds``), one
-    bound shared by every layer, for the kernels' compaction. The layers
-    run as a plain loop over the flat layer list. Frontend features, remat
-    and the sharding branches (policy, tp) are not ported yet.
+    G]. use_kernel routes attention, SSD, RG-LRU and MoE blocks through
+    the gated kernels; live_bounds: optional (live_fwd, live_bwd)
+    per-layer max live (sample, group) slice counts
+    (``core.schedule.live_slice_bounds``), one bound shared by every
+    layer, for the kernels' compaction. The layers
+    run as a plain loop over the flat layer list; the MoE blocks'
+    load-balance and router-z losses sum into aux_loss in layer order.
+    Frontend features, remat and the sharding branches (policy, tp) are
+    not ported yet.
     """
     if features is not None:
         raise _not_ported("the frontend (features) path of forward")
@@ -369,8 +408,10 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, features=None,
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (p, kind) in enumerate(zip(model.layers, cfg.layer_kinds)):
         lg = None if gates is None else (gates[0][i], gates[1][i])
-        x, _ = apply_block(p, x, kind, cfg, lg, use_kernel=use_kernel,
+        x, a = apply_block(p, x, kind, cfg, lg, use_kernel=use_kernel,
                            live_bounds=live_bounds)
+        if a is not None:
+            aux_sum = aux_sum + a["load_balance"] + a["router_z"]
     return logits_from_hidden(model, cfg, x), {"aux_loss": aux_sum}
 
 
@@ -434,6 +475,8 @@ def _prefill_block(p: Block, x, kind: str, cfg: ModelConfig):
     h = apply_norm(p.norm1, x, cfg.norm)
     if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
         raise _not_ported(f"block kind {kind!r}")
+    if hasattr(p, "moe"):
+        raise _not_ported("the MoE FFN in serving")
     window = cfg.window if kind == ATTN_LOCAL else 0
     c, k, v = attn.apply_attention(
         p.attn, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -442,7 +485,7 @@ def _prefill_block(p: Block, x, kind: str, cfg: ModelConfig):
     x = x + c
     if hasattr(p, "mlp"):
         h2 = apply_norm(p.norm2, x, cfg.norm)
-        x = x + _apply_ffn(p, h2, cfg)
+        x = x + _apply_ffn(p, h2, cfg)[0]
     return x, {"k": k, "v": v}
 
 

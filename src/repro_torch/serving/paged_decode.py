@@ -126,6 +126,8 @@ def paged_decode_step(model: Transformer, pools: Pools, cfg: ModelConfig,
         p = model.layers[i]
         if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
             raise _not_ported(f"decode of block kind {kind!r}")
+        if hasattr(p, "moe"):
+            raise _not_ported("the MoE FFN in serving")
         h = apply_norm(p.norm1, x, cfg.norm)
         window = cfg.window if kind == ATTN_LOCAL else 0
         q, k, v = attn._project_qkv(p.attn, h, cfg.n_heads, cfg.n_kv_heads,

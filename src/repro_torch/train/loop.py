@@ -58,8 +58,8 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, use_gates: bool,
 
     batch: {"tokens", "labels"} tensors on the model's device; sched_args:
     the (g_f, g_b) gates [n_layers, B, G] when ``use_gates``. use_kernel
-    routes the attention, SSD and RG-LRU blocks through the gated kernels,
-    whose backward skips the p_o / p_s slices. live_bounds: the
+    routes the attention, SSD, RG-LRU and MoE blocks through the gated
+    kernels, whose backward skips the p_o / p_s slices. live_bounds: the
     (live_fwd, live_bwd) (sample, group) compaction bounds
     (``core.schedule.live_slice_bounds``) of the gates this step gets. The
     packed path and the sharding policy are not ported yet."""

@@ -13,13 +13,15 @@ gradients; 1e-5 x max(1, max |plain|) for the fused LoRA matmul (sums of
 up to 1152 products of values of ~1, where float32 rounds at ~1e-7 of
 the sum); 1e-5 (h) and 1e-4 (dla, db) x max(1, max |plain|) for the gated
 RG-LRU scan (a sequential float32 recurrence against the plain version's
-chunked log-space sums)."""
+chunked log-space sums); 1e-5 (y) and 1e-4 (dx, dW) x max(1, max |plain|)
+for the gated MoE expert FFN (sums of up to 2048 products in another
+order than cuBLAS's)."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import (gemma3_1b, mamba2_130m, recurrentgemma_2b,
-                                 vit_small_paper)
+from repro_torch.configs import (gemma3_1b, mamba2_130m, olmoe_1b_7b,
+                                 recurrentgemma_2b, vit_small_paper)
 from repro_torch.configs.base import D2FTConfig
 from repro_torch.configs.gemma3_1b import smoke_config
 from repro_torch.configs.mamba2_130m import smoke_config as mamba2_smoke
@@ -29,6 +31,7 @@ from repro_torch.data.synthetic import (image_batches, lm_batches,
                                         make_image_task)
 from repro_torch.kernels import contract, ops
 from repro_torch.kernels import d2ft_attention as d2a
+from repro_torch.kernels import d2ft_moe as d2m
 from repro_torch.kernels import d2ft_rglru as d2r
 from repro_torch.kernels import d2ft_ssd as d2s
 from repro_torch.kernels import lora_matmul as lm
@@ -223,7 +226,8 @@ def test_d2ft_kernels_match_plain(hd, S, causal, window):
     tiles = d2a.kernel_live_tiles(S, causal, window, hd)
     assert counts == {"fwd": n_f * tiles, "bwd_dkdv": n_b * tiles,
                       "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0,
-                      "rglru_fwd": 0, "rglru_bwd": 0}
+                      "rglru_fwd": 0, "rglru_bwd": 0, "moe_fwd": 0,
+                      "moe_bwd": 0}
 
 
 @pytest.mark.gpu
@@ -678,3 +682,165 @@ def test_lora_example_kernel_path_matches_masked_path_on_card():
     _, _, _, _, log_m = ex.run(device="cuda", steps=3, sched=sched)
     assert d2a.flash_fwd.launches - f0 == 3 * ex.CFG.n_layers
     np.testing.assert_allclose(log_k.losses, log_m.losses, atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------------- d2ft gated MoE FFN
+def _moe_case(seed, E, C, D, F, live_blocks=None, bc=16):
+    """N(0, 1) buffer and cotangent, weights scaled by 1/sqrt(fan-in), and
+    front-packed slot masks as the dispatch makes them: per expert a random
+    count of forward-live slots (zero for expert 0: an expert with no live
+    slot), the first of them backward-live, none past ``live_blocks``
+    capacity blocks."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xb = torch.randn((E, C, D), generator=gen, device="cuda")
+    wu = torch.randn((E, D, F), generator=gen, device="cuda") / D ** 0.5
+    wg = torch.randn((E, D, F), generator=gen, device="cuda") / D ** 0.5
+    wd = torch.randn((E, F, D), generator=gen, device="cuda") / F ** 0.5
+    dy = torch.randn((E, C, D), generator=gen, device="cuda")
+    top = C if live_blocks is None else min(C, live_blocks * bc)
+    n_f = torch.randint(0, top + 1, (E,), generator=gen, device="cuda")
+    n_f[0] = 0
+    n_b = (n_f.float() * torch.rand((E,), generator=gen,
+                                    device="cuda")).long()
+    slot = torch.arange(C, device="cuda")[None, :]
+    return (xb, wu, wg, wd, dy, (slot < n_f[:, None]).float(),
+            (slot < n_b[:, None]).float())
+
+
+def _moe_vs_plain(xb, wu, wg, wd, dy, fs, bs, *, act, block_c, live=None,
+                  live_b=None):
+    """Kernels through ``ops.gated_moe_ffn`` against the plain version's
+    autograd; returns (errors, scales, outputs, counts, masks)."""
+    masks = {}
+    d2m.dispatch = lambda kind, grid, m: masks.__setitem__(kind, m.clone())
+    try:
+        with contract.count_tiles("cuda") as tc:
+            ins = [t.clone().requires_grad_() for t in (xb, wu, wg, wd)]
+            y = ops.gated_moe_ffn(*ins, fs, bs, act=act, block_c=block_c,
+                                  live_slots=live, live_bwd_slots=live_b)
+            y.backward(dy)
+            counts = tc.read()
+    finally:
+        d2m.dispatch = None
+    E, C, _ = xb.shape
+    fm, bm = _moe_block_masks(fs, bs, block_c)
+    bc = min(block_c, C)
+    refs = [t.clone().requires_grad_() for t in (xb, wu, wg, wd)]
+    Cp = fm.shape[1] * bc
+    pad = [torch.nn.functional.pad(refs[0], (0, 0, 0, Cp - C))] + refs[1:]
+    ref = d2m.gated_moe_ffn_ref(*pad, fm, bm, act=act, block_c=bc)[:, :C]
+    ref.backward(dy)
+    mine = [y.detach()] + [t.grad for t in ins]
+    theirs = [ref.detach()] + [t.grad for t in refs]
+    errs = [float((a - b).abs().max()) for a, b in zip(mine, theirs)]
+    scales = [max(1.0, float(t.abs().max())) for t in theirs]
+    return errs, scales, mine, counts, masks
+
+
+def _moe_block_masks(fs, bs, block_c):
+    """The wrapper's slot -> block reduction, for the plain version."""
+    C = fs.shape[1]
+    bc = min(block_c, C)
+    Cp = -(-C // bc) * bc
+    f = torch.nn.functional.pad(fs, (0, Cp - C)).reshape(fs.shape[0], -1, bc)
+    b = torch.nn.functional.pad(bs, (0, Cp - C)).reshape(bs.shape[0], -1, bc)
+    return (f.sum(-1) > 0).float(), (b.sum(-1) > 0).float()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,D,F,block_c,act,bounds", [
+    (4, 64, 16, 32, 16, "silu", None),
+    (4, 57, 40, 72, 16, "gelu", None),
+    (3, 300, 96, 200, 128, "relu", None),
+    (8, 384, 256, 128, 128, "silu", "live"),
+    (6, 64, 48, 80, 16, "gelu", "live"),
+    (2, 20, 24, 40, 7, "silu", None)])
+def test_moe_kernels_match_plain(E, C, D, F, block_c, act, bounds):
+    """Forward and backward kernels against the plain version and its
+    autograd gradients: y <= 1e-5, dx / dW <= 1e-4, each x max(1, max
+    |plain|); exact zeros on dead tiles and for the expert with no live
+    slot; executed tiles = the launched block masks' sums; one launch
+    each. The shapes take ragged C (the pad path), D and F off the tiles,
+    block sizes 7, 16 and 128, and both truncation bounds (the live slots
+    of at most 3 of 6 blocks forward)."""
+    _need_card()
+    bc = min(block_c, C)
+    live_blocks = 3 if bounds else None
+    xb, wu, wg, wd, dy, fs, bs = _moe_case(E * C + D, E, C, D, F,
+                                           live_blocks, bc)
+    live = live_b = None
+    if bounds:
+        live = int(fs.sum(1).max())
+        live_b = int(bs.sum(1).max())
+    f0, b0 = d2m.moe_fwd.launches, d2m.moe_bwd.launches
+    errs, scales, mine, counts, masks = _moe_vs_plain(
+        xb, wu, wg, wd, dy, fs, bs, act=act, block_c=block_c, live=live,
+        live_b=live_b)
+    assert d2m.moe_fwd.launches == f0 + 1 and d2m.moe_bwd.launches == b0 + 1
+    tols = [TOL] + [GRAD_TOL] * 4
+    for name, e, s, tol in zip(("y", "dx", "dwu", "dwg", "dwd"), errs,
+                               scales, tols):
+        assert e <= tol * s, (name, e, s)
+    y, dx, dwu, dwg, dwd = mine
+    slot_f = torch.nn.functional.pad(
+        fs, (0, -C % bc)).reshape(E, -1, bc).sum(-1) > 0
+    rows_f = slot_f.repeat_interleave(bc, 1)[:, :C]
+    rows_b = (torch.nn.functional.pad(bs, (0, -C % bc)).reshape(
+        E, -1, bc).sum(-1) > 0).repeat_interleave(bc, 1)[:, :C]
+    assert float(y[~rows_f].abs().max()) == 0.0
+    assert float(dx[~rows_b].abs().max()) == 0.0
+    for g in (dwu, dwg, dwd):
+        assert float(g[0].abs().max()) == 0.0           # expert 0: no slot
+    assert counts["moe_fwd"] == int(masks["fwd"].sum())
+    assert counts["moe_bwd"] == int(masks["bwd"].sum())
+    assert counts["moe_bwd"] == int(rows_b[:, ::bc].sum())
+    assert counts["fwd"] == counts["rglru_fwd"] == 0
+    if bounds:
+        assert masks["fwd"].shape[1] <= 3
+
+
+@pytest.mark.gpu
+def test_moe_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    xb, wu, wg, wd, dy, fs, bs = _moe_case(0, 2, 32, 16, 24)
+    fm = torch.ones((2, 2), device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        d2m.moe_fwd(xb.double(), wu, wg, wd, fm, act="silu", block_c=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        d2m.moe_fwd(xb.transpose(1, 2).contiguous().transpose(1, 2), wu, wg,
+                    wd, fm, act="silu", block_c=16)
+    with pytest.raises(ValueError, match="multiple of"):
+        d2m.moe_fwd(xb, wu, wg, wd, fm, act="silu", block_c=24)
+    with pytest.raises(ValueError, match="unknown activation"):
+        d2m.moe_fwd(xb, wu, wg, wd, fm, act="tanh", block_c=16)
+    with pytest.raises(ValueError, match="w_down must be"):
+        d2m.moe_fwd(xb, wu, wg, wu, fm, act="silu", block_c=16)
+    with pytest.raises(ValueError, match="is on cpu"):
+        d2m.moe_bwd(xb, wu, wg, wd, fm, dy.cpu(), act="silu", block_c=16)
+    with pytest.raises(ValueError, match="bwd_slots <= fwd_slots"):
+        ops.gated_moe_ffn(xb, wu, wg, wd, bs, fs)
+
+
+@pytest.mark.gpu
+def test_olmoe_kernel_path_matches_masked_path_on_card():
+    """Two D2FT steps of the launcher's loop on olmoe-1b-7b's smoke config
+    at S 40, G 4: one forward and one backward MoE launch per layer per
+    step beside the attention kernels; losses equal to the masked path's
+    from the same weights and schedule."""
+    _need_card()
+    cfg = olmoe_1b_7b.smoke_config()
+    d2 = D2FTConfig(n_microbatches=4, n_pf=2, n_po=1, head_groups=4)
+    losses = {}
+    for use_kernel in (True, False):
+        m0, a0 = d2m.moe_bwd.launches, d2a.flash_bwd.launches
+        model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+        _, _, log = finetune(model, cfg, d2, sgd(1e-2),
+                             lm_batches(0, cfg.vocab_size, 8, 40, 2),
+                             steps=2, use_kernel=use_kernel)
+        n = 2 * cfg.n_layers if use_kernel else 0
+        assert d2m.moe_bwd.launches - m0 == n
+        assert d2a.flash_bwd.launches - a0 == n
+        losses[use_kernel] = log.losses
+    assert np.isfinite(losses[True]).all()
+    np.testing.assert_allclose(losses[True], losses[False], atol=1e-4,
+                               rtol=0)

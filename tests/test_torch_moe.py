@@ -1,0 +1,651 @@
+"""The MoE slice of the PyTorch port against the JAX package on the CPU.
+
+* The MoE expert FFN core: ``ops.gated_moe_ffn`` (its CPU route: the plain
+  version on the kernels' own grids) against JAX's ``ops.gated_moe_ffn``
+  (Pallas, interpret mode) and ``gated_moe_ffn_ref``, outputs and the four
+  gradients within JAX's own kernel tolerance 1e-4
+  (``tests/test_block_kernels.py``), at E 4, D 16, F 32, C 64 and 57 (the
+  pad path), block_c 16, silu and gelu; exact zeros on dead blocks; the
+  value checks; the launched grids under the two truncation bounds equal
+  JAX's ``on_dispatch`` grids.
+* ``apply_moe`` against JAX's: the dispatch (order, positions, kept slots,
+  the capacity buffer and both slot masks) exactly, y within 1e-5 and the
+  aux losses within 1e-6, without gates and under a p_f / p_o / p_s mix,
+  at a capacity factor that drops slots, with a zero router (all ties)
+  and with one shared expert.
+* olmoe-1b-7b's smoke config (2 layers, d 128, 4 heads of 32, 4 experts
+  top-2 of d_ff 64, vocab 512): ``forward`` and ``lm_loss`` at G 1 and 4,
+  gated or not, on the masked and the kernel path, within 1e-5; the
+  scores and the schedule they give; a 3-step SGD ``finetune`` within
+  1e-4; ``params_from_jax``; the launcher on the CPU.
+* Per-expert LoRA adapters (``init_lora`` keeps the leading dims): the
+  adapter counts at the smoke config and, by shapes, at full olmoe
+  (26,738,688 at rank 8 on wq/wk/wv/w_up), and a 3-step D2FT-LoRA
+  trajectory within 1e-4 of the JAX step of ``tests/test_parity_matrix.py``.
+* Serving refuses MoE blocks instead of skipping their FFN.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import olmoe_1b_7b as jax_olmoe
+from repro.configs.base import D2FTConfig as JaxD2FTConfig
+from repro.configs.base import MoEConfig as JaxMoEConfig
+from repro.core import lora as jax_lora
+from repro.core.d2ft import plan_schedule as jax_plan_schedule
+from repro.core.scores import compute_scores as jax_compute_scores
+from repro.core.scores import transformer_blocks as jax_transformer_blocks
+from repro.kernels import d2ft_moe as jax_d2m
+from repro.kernels import ops as jax_ops
+from repro.kernels.ref import gated_moe_ffn_ref as jax_moe_ref
+from repro.models import moe as jax_moe
+from repro.models.layers import _act as jax_act
+from repro.models.transformer import forward as jax_forward
+from repro.models.transformer import init_model as jax_init_model
+from repro.models.transformer import lm_loss as jax_lm_loss
+from repro.optim.optimizers import sgd as jax_sgd
+from repro.train.loop import finetune as jax_finetune
+from repro_torch.configs import get_config, olmoe_1b_7b
+from repro_torch.configs.base import D2FTConfig, MoEConfig
+from repro_torch.core.lora import init_lora, lora_param_count
+from repro_torch.core.scores import compute_scores, transformer_blocks
+from repro_torch.data.synthetic import lm_batches, split_microbatches
+from repro_torch.examples import lora_finetune as example
+from repro_torch.interop import lora_from_jax, params_from_jax
+from repro_torch.kernels import d2ft_moe, ops
+from repro_torch.launch import train as launcher
+from repro_torch.models import moe
+from repro_torch.models.transformer import (forward, init_model, lm_loss,
+                                            prefill_forward)
+from repro_torch.optim.optimizers import sgd
+from repro_torch.serving.engine import Request, make_engine
+from repro_torch.serving.paged_decode import (init_paged_pools,
+                                              paged_decode_step)
+from repro_torch.train.loop import finetune, plan_from_scores
+
+TOL = 1e-4             # JAX's MoE kernel tolerance
+STEP_TOL = 1e-5
+AUX_TOL = 1e-6
+TRAJ_TOL = 1e-4
+B, S = 4, 21
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+# ============================================================ the FFN core
+def _core_operands(seed, E, C, D, F):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((E, C, D)).astype(np.float32),
+            (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32),
+            (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32),
+            (rng.standard_normal((E, F, D)) / np.sqrt(F)).astype(np.float32),
+            rng.standard_normal((E, C, D)).astype(np.float32))
+
+
+def _slot_masks(rng, E, C):
+    """Random slot masks with bwd <= fwd (float {0, 1})."""
+    op = rng.integers(0, 3, (E, C))
+    return ((op != 2).astype(np.float32), (op == 0).astype(np.float32))
+
+
+def _block_masks(fs, bs, C, block_c):
+    bc = min(block_c, C)
+    Cp = -(-C // bc) * bc
+    pad = ((0, 0), (0, Cp - C))
+    fm = np.pad(fs, pad).reshape(fs.shape[0], -1, bc)
+    bm = np.pad(bs, pad).reshape(bs.shape[0], -1, bc)
+    return ((fm.sum(-1) > 0).astype(np.float32),
+            (bm.sum(-1) > 0).astype(np.float32), bc)
+
+
+def _port_core(ops_args, fs, bs, dy, **kw):
+    """Output and (dx, dw_up, dw_gate, dw_down) of ``ops.gated_moe_ffn``."""
+    ins = [_t(a).requires_grad_() for a in ops_args]
+    y = ops.gated_moe_ffn(*ins, _t(fs), _t(bs), **kw)
+    y.backward(_t(dy))
+    return y.detach().numpy(), [t.grad.numpy() for t in ins]
+
+
+@pytest.mark.parametrize("C,block_c", [(64, 16), (57, 16)])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_moe_core_matches_jax_kernel_and_reference(C, block_c, act):
+    E, D, F = 4, 16, 32
+    xb, wu, wg, wd, dy = _core_operands(C, E, C, D, F)
+    fs, bs = _slot_masks(np.random.default_rng(C + 1), E, C)
+    fm, bm, bc = _block_masks(fs, bs, C, block_c)
+    w = tuple(map(jnp.asarray, (xb, wu, wg, wd)))
+    out_k, vjp_k = jax.vjp(
+        lambda *a: jax_ops.gated_moe_ffn(*a, jnp.asarray(fs),
+                                         jnp.asarray(bs), act=act,
+                                         block_c=block_c, interpret=True),
+        *w)
+    out_r, vjp_r = jax.vjp(
+        lambda *a: jax_moe_ref(*a, jnp.asarray(fm), jnp.asarray(bm),
+                               act=jax_act(act), block_c=bc), *w)
+    y, grads = _port_core((xb, wu, wg, wd), fs, bs, dy, act=act,
+                          block_c=block_c)
+    ins = [_t(a).requires_grad_() for a in (xb, wu, wg, wd)]
+    y_ref = d2ft_moe.gated_moe_ffn_ref(*ins, _t(fm), _t(bm), act=act,
+                                       block_c=bc)
+    y_ref.backward(_t(dy))
+    for theirs, gs in ((out_k, vjp_k(jnp.asarray(dy))),
+                       (out_r, vjp_r(jnp.asarray(dy)))):
+        np.testing.assert_allclose(y, np.asarray(theirs), atol=TOL, rtol=TOL)
+        for name, a, b in zip(("dx", "dwu", "dwg", "dwd"), grads, gs):
+            np.testing.assert_allclose(a, np.asarray(b), atol=TOL, rtol=TOL,
+                                       err_msg=name)
+    np.testing.assert_allclose(y_ref.detach().numpy(), np.asarray(out_r),
+                               atol=TOL, rtol=TOL)
+    for name, a, b in zip(("dx", "dwu", "dwg", "dwd"), ins,
+                          vjp_r(jnp.asarray(dy))):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), atol=TOL,
+                                   rtol=TOL, err_msg=name)
+
+
+def test_moe_dead_blocks_are_exact_zeros():
+    """Expert 0: only its first block backward-live, its third forward-dead;
+    expert 1: forward-live, backward-dead throughout."""
+    E, C, D, F, bc = 2, 32, 8, 16, 8
+    xb, wu, wg, wd, dy = _core_operands(1, E, C, D, F)
+    fs = np.ones((E, C), np.float32)
+    fs[0, 2 * bc:3 * bc] = 0.0
+    bs = np.zeros((E, C), np.float32)
+    bs[0, :bc] = 1.0
+    y, (dx, dwu, dwg, dwd) = _port_core((xb, wu, wg, wd), fs, bs, dy,
+                                        block_c=bc)
+    assert np.all(y[0, 2 * bc:3 * bc] == 0.0)
+    assert float(np.abs(y[1]).max()) > 0.0
+    assert np.all(dx[1] == 0.0) and np.all(dx[0, bc:] == 0.0)
+    assert float(np.abs(dx[0, :bc]).max()) > 0.0
+    for g in (dwu, dwg, dwd):
+        assert np.all(g[1] == 0.0) and float(np.abs(g[0]).max()) > 0.0
+
+
+def test_moe_value_checks():
+    E, C, D, F = 2, 16, 4, 8
+    args = tuple(map(_t, _core_operands(0, E, C, D, F)[:4]))
+    ones, zeros = torch.ones((E, C)), torch.zeros((E, C))
+    with pytest.raises(ValueError, match="bwd_slots <= fwd_slots"):
+        ops.gated_moe_ffn(*args, zeros, ones)
+    with pytest.raises(ValueError, match="live_slots=4 is below"):
+        ops.gated_moe_ffn(*args, ones, ones, live_slots=4)
+    with pytest.raises(ValueError, match="live_bwd_slots=4 is below"):
+        ops.gated_moe_ffn(*args, ones, ones, live_bwd_slots=4)
+    with pytest.raises(ValueError, match="slot masks must be"):
+        ops.gated_moe_ffn(*args, ones[:, :8])
+
+
+def test_moe_truncated_grids_match_jax_dispatch():
+    """40 forward-live and 18 backward-live slots of 64, block_c 16: the
+    forward launches ceil(40/16) = 3 capacity blocks and the backward
+    ceil(18/16) = 2, as JAX's ``on_dispatch`` reports; the result equals
+    the untruncated call's and JAX's, and the masks handed over cover the
+    launched grids."""
+    E, C, D, F, bc = 2, 64, 4, 8, 16
+    xb, wu, wg, wd, dy = _core_operands(11, E, C, D, F)
+    fs = np.zeros((E, C), np.float32)
+    fs[:, :40] = 1.0
+    bs = np.zeros((E, C), np.float32)
+    bs[:, :18] = 1.0
+
+    def jax_run(bwd_slots):
+        grids = {}
+        jax_d2m.on_dispatch = lambda kind, grid: grids.__setitem__(kind,
+                                                                   grid)
+        jax.clear_caches()
+        try:
+            _, vjp = jax.vjp(
+                lambda *w: jax_ops.gated_moe_ffn(
+                    *w, jnp.asarray(fs), jnp.asarray(bs), block_c=bc,
+                    live_slots=40, live_bwd_slots=bwd_slots,
+                    interpret=True),
+                *map(jnp.asarray, (xb, wu, wg, wd)))
+            grads = vjp(jnp.asarray(dy))
+        finally:
+            jax_d2m.on_dispatch = None
+        return grids, grads
+
+    def port_run(bwd_slots):
+        seen = {}
+        d2ft_moe.dispatch = lambda kind, grid, mask: seen.__setitem__(
+            kind, (grid, mask.clone()))
+        try:
+            y, grads = _port_core((xb, wu, wg, wd), fs, bs, dy, block_c=bc,
+                                  live_slots=40, live_bwd_slots=bwd_slots)
+        finally:
+            d2ft_moe.dispatch = None
+        return seen, y, grads
+
+    for bound, want in ((18, ((E, 3), (E, 2))), (None, ((E, 3), (E, 3)))):
+        jgrids, jgrads = jax_run(bound)
+        seen, y, grads = port_run(bound)
+        assert (jgrids["fwd"], jgrids["bwd"]) == want
+        assert (seen["fwd"][0], seen["bwd"][0]) == want
+        assert torch.equal(seen["fwd"][1], torch.ones(want[0]))
+        assert float(seen["bwd"][1].sum()) == E * 2
+        for a, b in zip(grads, jgrads):
+            np.testing.assert_allclose(a, np.asarray(b), atol=TOL, rtol=TOL)
+        if bound is None:
+            for a, b in zip(grads, grads_t):
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+        grads_t = grads
+
+
+def test_moe_accounting_matches_jax():
+    """The FLOP and dispatched-byte mirrors equal the JAX package's; the
+    bytes the function needs count each live tile's x (and dy) once."""
+    rng = np.random.default_rng(2)
+    fm = (rng.random((64, 3)) < 0.7).astype(np.float32)
+    bm = fm * (rng.random((64, 3)) < 0.6)
+    assert d2ft_moe.gated_moe_flops(fm, bm, 128, 2048, 1024) == \
+        jax_d2m.gated_moe_flops(fm, bm, 128, 2048, 1024)
+    assert d2ft_moe.gated_moe_dispatched_bytes(64, 3, 128, 2048, 1024,
+                                               n_cb_bwd=2) == \
+        jax_d2m.gated_moe_dispatched_bytes(64, 3, 128, 2048, 1024,
+                                           n_cb_bwd=2)
+    fwd, bwd = d2ft_moe.needed_bytes(fm, bm, 128, 16, 8)
+    tile, w = 128 * 16, 3 * 16 * 8
+    assert fwd == 4 * (fm.any(1).sum() * w + fm.sum() * tile + 192 * tile)
+    assert bwd == 4 * (bm.any(1).sum() * w + 2 * bm.sum() * tile
+                       + 192 * tile + 64 * w)
+
+
+# ========================================================= the MoE layer
+def _jax_route(x, p, cfg, gates):
+    """JAX's dispatch, line for line from ``repro/models/moe.py``: the
+    sorted order, positions, kept slots (and their backward-live part)."""
+    Bn, Sn, D = x.shape
+    T, E, K = Bn * Sn, cfg.n_experts, cfg.top_k
+    logits = (x.reshape(T, D) @ p["router"]).astype(jnp.float32)
+    top_w, top_e = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), K)
+    e_flat = top_e.reshape(T * K)
+    tok_flat = jnp.repeat(jnp.arange(T), K)
+    if gates is None:
+        order = jnp.argsort(e_flat, stable=True)
+        counts = jnp.bincount(e_flat, length=E)
+        live_a = bwd_a = jnp.ones((T * K,), bool)
+    else:
+        gf_t = jnp.repeat(gates[0].reshape(Bn), Sn)
+        gb_t = jnp.repeat(gates[1].reshape(Bn), Sn)
+        live_a, bwd_a = gf_t[tok_flat] > 0, gb_t[tok_flat] > 0
+        key = jnp.where(live_a, 2 * e_flat + (1 - bwd_a.astype(e_flat.dtype)),
+                        2 * E)
+        order = jnp.argsort(key, stable=True)
+        counts = jnp.bincount(jnp.where(live_a, e_flat, E),
+                              length=E + 1)[:E]
+    e_s = e_flat[order]
+    pos = jnp.arange(T * K) - (jnp.cumsum(counts) - counts)[e_s]
+    keep = (pos < int(max(1, round(T * K / E * cfg.capacity_factor)))) & \
+        live_a[order]
+    return (np.asarray(order), np.asarray(pos), np.asarray(keep),
+            np.asarray(keep & bwd_a[order]))
+
+
+MOE_CASES = {
+    # name: (MoEConfig kwargs, gated, zero router)
+    "ungated": (dict(), False, False),
+    "gated": (dict(), True, False),
+    "drops": (dict(capacity_factor=0.5), True, False),
+    "ties": (dict(), True, True),
+    "shared": (dict(n_shared_experts=1), True, False),
+}
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_apply_moe_matches_jax(case, monkeypatch):
+    kw, gated, zero_router = MOE_CASES[case]
+    Bn, Sn, D, E, K, F = 4, 13, 16, 4, 2, 32
+    jcfg = JaxMoEConfig(n_experts=E, top_k=K, d_ff=F, **kw)
+    cfg = MoEConfig(n_experts=E, top_k=K, d_ff=F, **kw)
+    jp = jax_moe.init_moe(jax.random.PRNGKey(7), D, jcfg, jnp.float32)
+    if zero_router:
+        jp = dict(jp, router=jnp.zeros_like(jp["router"]))
+    tree = jax.tree.map(np.asarray, jp)
+    p = moe.MoE(*(_t(tree[k]) for k in ("router", "w_up", "w_gate",
+                                        "w_down")),
+                shared=None if "shared_up" not in tree else tuple(
+                    _t(tree[k]) for k in ("shared_up", "shared_gate",
+                                          "shared_down")))
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((Bn, Sn, D)).astype(np.float32)
+    gates = None
+    if gated:
+        op = np.array([0, 1, 2, 0])          # p_f, p_o, p_s, p_f samples
+        gates = ((op != 2).astype(np.float32), (op == 0).astype(np.float32))
+
+    # JAX's own kernel call records its capacity buffer and slot masks
+    calls = {}
+    orig = jax_ops.gated_moe_ffn
+
+    def record(buf, *a, **k):
+        calls["jax"] = (np.asarray(buf), np.asarray(a[3]), np.asarray(a[4]),
+                        k["live_slots"], k["live_bwd_slots"])
+        return orig(buf, *a, **k)
+    monkeypatch.setattr(jax_ops, "gated_moe_ffn", record)
+    jg = None if gates is None else tuple(map(jnp.asarray, gates))
+    live = (3 * Sn, 2 * Sn) if gated else (None, None)
+    jy, jaux = jax_moe.apply_moe(jp, jnp.asarray(x), jcfg, gates=jg,
+                                 use_kernel=gated, live_tokens=live[0],
+                                 live_bwd_tokens=live[1], block_c=16)
+
+    orig_impl = ops._gated_moe_impl
+
+    def record_port(buf, *a, **k):
+        calls["port"] = (buf.detach().numpy(), a[3].numpy(), a[4].numpy(),
+                         k["live_slots"], k["live_bwd_slots"])
+        return orig_impl(buf, *a, **k)
+    monkeypatch.setattr(ops, "_gated_moe_impl", record_port)
+    tg = None if gates is None else tuple(map(_t, gates))
+    y, aux = moe.apply_moe(p, _t(x), cfg, gates=tg, use_kernel=gated,
+                           live_tokens=live[0], live_bwd_tokens=live[1],
+                           block_c=16)
+
+    # the dispatch, exactly
+    xt = _t(x).reshape(Bn * Sn, D)
+    probs = torch.softmax(xt @ p.router, dim=-1)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    d = moe.route(top_e[:, :K], top_w[:, :K], cfg, tg, Sn)
+    order, pos, keep, keep_b = _jax_route(jnp.asarray(x), jp, jcfg, jg)
+    np.testing.assert_array_equal(d.order.numpy(), order)
+    np.testing.assert_array_equal(d.pos.numpy(), pos)
+    np.testing.assert_array_equal(d.keep.numpy(), keep)
+    if gated:
+        np.testing.assert_array_equal(d.keep_b.numpy(), keep_b)
+        for mine, theirs in zip(calls["port"], calls["jax"]):
+            np.testing.assert_array_equal(mine, theirs)
+    if case == "drops":
+        assert 0.0 < float(aux["drop_frac"]) < 1.0
+    if case == "ties":
+        assert set(top_e[:, :K].flatten().tolist()) == {0, 1}
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy),
+                               atol=STEP_TOL, rtol=0)
+    for k in ("load_balance", "router_z", "drop_frac"):
+        np.testing.assert_allclose(float(aux[k].detach()), float(jaux[k]),
+                                   atol=AUX_TOL, rtol=0, err_msg=k)
+
+
+# ================================================ olmoe-1b-7b smoke model
+@functools.lru_cache(maxsize=None)
+def _carried():
+    params = jax.jit(jax_init_model, static_argnums=1)(
+        jax.random.PRNGKey(0), jax_olmoe.smoke_config())
+    return params, jax.tree.map(np.asarray, params)
+
+
+def _port(tree):
+    model = init_model(torch.Generator().manual_seed(0),
+                       olmoe_1b_7b.smoke_config())
+    model.load_state_dict(params_from_jax(tree))
+    return model
+
+
+def _flat(tree):
+    return {k: v.numpy() for k, v in params_from_jax(tree).items()}
+
+
+def test_params_from_jax_carries_moe_leaves():
+    _, tree = _carried()
+    state = params_from_jax(tree)
+    model = init_model(torch.Generator().manual_seed(0),
+                       olmoe_1b_7b.smoke_config())
+    assert set(state) == set(model.state_dict())
+    model.load_state_dict(state)
+    for i in range(2):
+        for leaf in ("router", "w_up", "w_gate", "w_down"):
+            np.testing.assert_array_equal(
+                getattr(model.layers[i].moe, leaf).detach().numpy(),
+                tree["cycles"][0]["moe"][leaf][i])
+    assert tuple(model.layers[0].moe.w_up.shape) == (4, 128, 64)
+    assert not hasattr(model.layers[0], "mlp")
+
+
+@pytest.mark.parametrize("G,gated,use_kernel", [
+    (1, False, False), (1, True, False), (1, True, True), (4, True, False),
+    (4, True, True)])
+def test_forward_and_lm_loss_match_jax(G, gated, use_kernel):
+    params, tree = _carried()
+    cfg, jcfg = olmoe_1b_7b.smoke_config(), jax_olmoe.smoke_config()
+    rng = np.random.default_rng(G * 10 + gated + 2 * use_kernel)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    gates = bounds = None
+    if gated:
+        op = rng.integers(0, 3, (cfg.n_layers, B, G))
+        op[:, 0, 0] = 0                        # a backward-live sample
+        gates = ((op != 2).astype(np.float32), (op == 0).astype(np.float32))
+        if use_kernel:
+            bounds = (int((gates[0] != 0).sum(axis=(1, 2)).max()),
+                      int((gates[1] != 0).sum(axis=(1, 2)).max()))
+    jg = None if gates is None else tuple(map(jnp.asarray, gates))
+    jlogits, jaux = jax.jit(
+        lambda p: jax_forward(p, jcfg, tokens=jnp.asarray(tokens), gates=jg,
+                              use_kernel=use_kernel, live_bounds=bounds)
+    )(params)
+    (jl, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jax_lm_loss(p, jcfg, jnp.asarray(tokens),
+                              jnp.asarray(labels), gates=jg,
+                              use_kernel=use_kernel, live_bounds=bounds),
+        has_aux=True))(params)
+
+    model = _port(tree)
+    tg = None if gates is None else tuple(map(_t, gates))
+    with torch.no_grad():
+        logits, aux = forward(model, cfg, _t(tokens), gates=tg,
+                              use_kernel=use_kernel, live_bounds=bounds)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               atol=STEP_TOL, rtol=0)
+    np.testing.assert_allclose(float(aux["aux_loss"]),
+                               float(jaux["aux_loss"]), atol=AUX_TOL, rtol=0)
+    assert float(aux["aux_loss"]) > 0.0
+    loss, metrics = lm_loss(model, cfg, _t(tokens), _t(labels), gates=tg,
+                            use_kernel=use_kernel, live_bounds=bounds)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl),
+                               atol=STEP_TOL, rtol=0)
+    np.testing.assert_allclose(float(metrics["aux"]),
+                               float(jaux["aux_loss"]), atol=AUX_TOL, rtol=0)
+    theirs = _flat(jax.tree.map(np.asarray, jgrads))
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), theirs[name],
+                                   atol=STEP_TOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("G", [1, 4])
+def test_scores_give_the_jax_schedule(G):
+    params, tree = _carried()
+    cfg, jcfg = olmoe_1b_7b.smoke_config(), jax_olmoe.smoke_config()
+    d2 = dict(n_microbatches=4, n_pf=2, n_po=1, head_groups=G)
+    batch = next(lm_batches(3, cfg.vocab_size, 8, 16, 1))
+    jmbs = split_microbatches({k: jnp.asarray(v) for k, v in batch.items()},
+                              4)
+    jscores = jax_compute_scores(
+        lambda p, mb: jax_lm_loss(p, jcfg, mb["tokens"], mb["labels"])[0],
+        params, lambda t: jax_transformer_blocks(t, jcfg), jmbs, G)
+    jsched = jax_plan_schedule(JaxD2FTConfig(**d2), *jscores, cfg.n_layers,
+                               G)
+    model = _port(tree)
+    params_t = dict(model.named_parameters())
+    mbs = split_microbatches({k: _t(v) for k, v in batch.items()}, 4)
+
+    def loss(p, mb):
+        return lm_loss(model, cfg, mb["tokens"], mb["labels"])[0]
+
+    scores = compute_scores(loss, params_t, transformer_blocks, mbs, G)
+    for mine, theirs in zip(scores, jscores):
+        np.testing.assert_allclose(mine, theirs, rtol=1e-4)
+    sched = plan_from_scores(cfg, D2FTConfig(**d2), params_t, mbs, loss)
+    np.testing.assert_array_equal(sched.table, jsched.table)
+
+
+@pytest.mark.parametrize("G,use_kernel", [(1, True), (4, False), (4, True)])
+def test_finetune_trajectory_matches_jax(G, use_kernel):
+    """3 SGD steps of the launcher's loop: scores and knapsack on the first
+    batch, then the gates (and on the kernel path the bounds) per batch,
+    clipping; losses (aux included), metrics and parameters."""
+    params, tree = _carried()
+    cfg = olmoe_1b_7b.smoke_config()
+    d2 = dict(n_microbatches=4, n_pf=2, n_po=1, head_groups=G)
+    jp, _, jlog = jax_finetune(
+        params, jax_olmoe.smoke_config(), JaxD2FTConfig(**d2),
+        jax_sgd(0.1), lm_batches(0, cfg.vocab_size, 8, 16, 3), steps=3,
+        use_kernel=use_kernel)
+    model, state, log = finetune(
+        _port(tree), cfg, D2FTConfig(**d2), sgd(0.1),
+        lm_batches(0, cfg.vocab_size, 8, 16, 3), steps=3,
+        use_kernel=use_kernel)
+    np.testing.assert_allclose(log.losses, jlog.losses, atol=TRAJ_TOL,
+                               rtol=0)
+    for k in ("ce", "aux", "grad_norm"):
+        np.testing.assert_allclose([m[k] for m in log.metrics],
+                                   [m[k] for m in jlog.metrics],
+                                   atol=TRAJ_TOL, rtol=0, err_msg=k)
+    theirs = _flat(jax.tree.map(np.asarray, jp))
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), theirs[name],
+                                   atol=TRAJ_TOL, rtol=0, err_msg=name)
+
+
+def test_launcher_runs_olmoe_on_the_cpu(capsys):
+    log = launcher.main(["--arch", "olmoe-1b-7b", "--d2ft", "--kernel",
+                         "--batch", "8", "--seq", "16", "--steps", "2",
+                         "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "arch=olmoe-1b-7b layers=2 d_model=128 device=cpu"
+    assert len(log.losses) == 2 and np.isfinite(log.losses).all()
+
+
+# ============================================================ per-expert LoRA
+TARGETS = ("wq", "wk", "wv", "w_up")
+
+
+def _meta_params(shapes):
+    """The port's parameter names for a JAX shape tree (the unstacking rule
+    of ``params_from_jax``), as meta tensors: shapes without memory."""
+    out = {}
+    for path, s in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        keys = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
+        if keys[0] == "cycles":
+            for c in range(s.shape[0]):
+                out[".".join(map(str, ["layers", c] + keys[2:]))] = \
+                    torch.empty(s.shape[1:], device="meta")
+        else:
+            out[".".join(map(str, keys))] = torch.empty(s.shape,
+                                                        device="meta")
+    return out
+
+
+def test_lora_adapters_are_per_expert():
+    """Smoke: one adapter per expert of w_up, the same names, shapes and
+    count as JAX's; full olmoe-1b-7b (by shapes): 26,738,688 parameters at
+    rank 8 on wq/wk/wv/w_up, as ``jax.eval_shape`` of JAX's init_lora."""
+    params, tree = _carried()
+    cfg = olmoe_1b_7b.smoke_config()
+    jl = jax_lora.init_lora(jax.random.PRNGKey(3), params, rank=2,
+                            targets=TARGETS)
+    mine = init_lora(torch.Generator().manual_seed(3),
+                     dict(_port(tree).named_parameters()), rank=2,
+                     targets=TARGETS)
+    carried = lora_from_jax(jax.tree.map(np.asarray, jl), cfg)
+    assert {n: {k: tuple(t.shape) for k, t in ab.items()}
+            for n, ab in mine.items()} == \
+        {n: {k: tuple(t.shape) for k, t in ab.items()}
+         for n, ab in carried.items()}
+    assert mine["layers.1.moe.w_up"]["a"].shape == (4, 128, 2)
+    assert lora_param_count(mine) == jax_lora.lora_param_count(jl)
+
+    jcfg = jax_olmoe.CONFIG
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(
+        functools.partial(jax_init_model, cfg=jcfg), key)
+    want = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(
+        jax.eval_shape(lambda k: jax_lora.init_lora(k, shapes, rank=8,
+                                                    targets=TARGETS), key)))
+    full = init_lora(torch.Generator().manual_seed(0),
+                     _meta_params(shapes), rank=8, targets=TARGETS)
+    assert lora_param_count(full) == want == 26_738_688
+    assert sum(t.numel() for t in _meta_params(shapes).values()) == \
+        6_919_096_320 == sum(t.numel() for t in (
+            torch.empty(s.shape, device="meta")
+            for s in jax.tree.leaves(shapes)))
+    assert get_config("olmoe-1b-7b").moe.n_experts == 64
+
+
+def _jax_lora_step(base, opt, use_kernel, cfg):
+    """``tests/test_parity_matrix.py``'s ``_make_lora_step``."""
+    def step(lora_p, st, batch, gates):
+        def loss(lp):
+            merged = jax_lora.merge_lora(base, lp, 1.0)
+            return jax_lm_loss(merged, cfg, batch["tokens"], batch["labels"],
+                               gates=gates, use_kernel=use_kernel)[0]
+        return opt.update(jax.grad(loss)(lora_p), st, lora_p)
+    return jax.jit(step)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_lora_trajectory_matches_jax(use_kernel):
+    """3 SGD steps of D2FT-LoRA with per-expert w_up adapters (rank 2),
+    gates from a p_f / p_o / p_s mix, JAX's adapters carried over: the
+    port's ``make_lora_step`` against the JAX parity matrix's step."""
+    params, tree = _carried()
+    cfg, jcfg = olmoe_1b_7b.smoke_config(), jax_olmoe.smoke_config()
+    rng = np.random.default_rng(13)
+    op = rng.integers(0, 3, (cfg.n_layers, 8, 4))
+    op[0, 0, 0] = 0
+    gates = ((op != 2).astype(np.float32), (op == 0).astype(np.float32))
+    batch = next(lm_batches(0, cfg.vocab_size, 8, 16, 1))
+    jl = jax_lora.init_lora(jax.random.PRNGKey(3), params, rank=2,
+                            targets=TARGETS)
+    jl = jax.tree.map(lambda a: a + 0.01, jl)      # non-zero B: live deltas
+    opt = jax_sgd(1e-2)
+    jstep = _jax_lora_step(params, opt, use_kernel, jcfg)
+    p, st = jl, opt.init(jl)
+    for _ in range(3):
+        p, st = jstep(p, st, {k: jnp.asarray(v) for k, v in batch.items()},
+                      tuple(map(jnp.asarray, gates)))
+
+    model = _port(tree)
+    lora = lora_from_jax(jax.tree.map(np.asarray, jl), cfg)
+    port_opt = sgd(1e-2)
+    state = port_opt.init({f"{n}.{k}": ab[k] for n, ab in lora.items()
+                           for k in ("a", "b")})
+    step = example.make_lora_step(model, cfg, port_opt,
+                                  use_kernel=use_kernel)
+    tb = {k: _t(v) for k, v in batch.items()}
+    for _ in range(3):
+        step(lora, state, tb, tuple(map(_t, gates)))
+    theirs = lora_from_jax(jax.tree.map(np.asarray, p), cfg)
+    assert set(lora) == set(theirs)
+    for n, ab in lora.items():
+        for k in ("a", "b"):
+            np.testing.assert_allclose(ab[k].detach().numpy(),
+                                       theirs[n][k].detach().numpy(),
+                                       atol=TRAJ_TOL, rtol=0,
+                                       err_msg=f"{n}.{k}")
+
+
+# ================================================================ serving
+def test_serving_refuses_moe_blocks():
+    """Prefill and the paged decode step raise on an MoE block rather than
+    skip its FFN."""
+    cfg = olmoe_1b_7b.smoke_config()
+    model = init_model(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.zeros((1, 5), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="the MoE FFN in serving"):
+        prefill_forward(model, cfg, tokens)
+    pools = init_paged_pools(cfg, n_pages=4, page_size=4, max_slots=1,
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="the MoE FFN in serving"):
+        paged_decode_step(model, pools, cfg, tokens[:, :1],
+                          torch.zeros((1, 2), dtype=torch.int32),
+                          torch.zeros((1,), dtype=torch.int32), page_size=4)
+    engine = make_engine(cfg, seed=0, device="cpu", page_size=4, n_pages=9,
+                         max_slots=2, max_seq_len=16)
+    with pytest.raises(NotImplementedError, match="the MoE FFN in serving"):
+        engine.run([Request(uid=0, prompt=np.zeros(5, np.int32),
+                            max_new_tokens=2)])

@@ -13,10 +13,11 @@ import torch
 
 from repro.configs import gemma3_1b as jax_gemma
 from repro.configs import mamba2_130m as jax_mamba
+from repro.configs import olmoe_1b_7b as jax_olmoe
 from repro.configs import recurrentgemma_2b as jax_rg
 from repro.models.transformer import init_model as jax_init_model
 from repro_torch.configs import (gemma3_1b, get_config, get_smoke_config,
-                                 mamba2_130m, recurrentgemma_2b)
+                                 mamba2_130m, olmoe_1b_7b, recurrentgemma_2b)
 from repro_torch.interop import params_from_jax
 from repro_torch.models.transformer import init_model
 from repro_torch.serving.engine import make_engine
@@ -27,14 +28,17 @@ SLICE_MODULES = [
     "repro_torch.configs.base",
     "repro_torch.configs.gemma3_1b",
     "repro_torch.configs.mamba2_130m",
+    "repro_torch.configs.olmoe_1b_7b",
     "repro_torch.configs.recurrentgemma_2b",
     "repro_torch.configs.vit_small_paper",
     "repro_torch.core.cost_model",
     "repro_torch.core.d2ft",
     "repro_torch.core.knapsack",
+    "repro_torch.core.lora",
     "repro_torch.core.schedule",
     "repro_torch.core.scores",
     "repro_torch.data.synthetic",
+    "repro_torch.examples.lora_finetune",
     "repro_torch.interop",
     "repro_torch.launch",
     "repro_torch.launch.train",
@@ -42,12 +46,15 @@ SLICE_MODULES = [
     "repro_torch.kernels.build",
     "repro_torch.kernels.contract",
     "repro_torch.kernels.d2ft_attention",
+    "repro_torch.kernels.d2ft_moe",
     "repro_torch.kernels.d2ft_rglru",
     "repro_torch.kernels.d2ft_ssd",
+    "repro_torch.kernels.lora_matmul",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.paged_decode",
     "repro_torch.models.attention",
     "repro_torch.models.layers",
+    "repro_torch.models.moe",
     "repro_torch.models.rglru",
     "repro_torch.models.ssm",
     "repro_torch.models.transformer",
@@ -79,7 +86,8 @@ def test_port_imports_no_jax_triton_or_reference_package():
 @pytest.mark.parametrize("arch,mod,ref_mod", [
     ("gemma3-1b", gemma3_1b, jax_gemma),
     ("mamba2-130m", mamba2_130m, jax_mamba),
-    ("recurrentgemma-2b", recurrentgemma_2b, jax_rg)])
+    ("recurrentgemma-2b", recurrentgemma_2b, jax_rg),
+    ("olmoe-1b-7b", olmoe_1b_7b, jax_olmoe)])
 @pytest.mark.parametrize("which", ["full", "smoke"])
 def test_config_copy_matches_reference(which, arch, mod, ref_mod):
     mine = mod.CONFIG if which == "full" else mod.smoke_config()

@@ -188,4 +188,4 @@ def test_counter_kinds_include_ssd_steps():
     tc = contract.TileCounter("cpu")
     assert tc.read() == {"fwd": 0, "bwd_dkdv": 0, "bwd_dq": 0,
                          "ssd_fwd": 0, "ssd_bwd": 0, "rglru_fwd": 0,
-                         "rglru_bwd": 0}
+                         "rglru_bwd": 0, "moe_fwd": 0, "moe_bwd": 0}
