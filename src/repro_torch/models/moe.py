@@ -10,15 +10,16 @@ router here: assignments of g_f == 0 samples never take a slot, and in
 each expert's segment the g_b == 1 ones sort first, so backward-live slots
 fill a capacity prefix (which the kernel's backward truncation relies on).
 
-Three places differ in form, not in value, from the JAX function:
+Two places differ in form, not in value, from the JAX function:
 
 * top-k is a stable descending sort: ``jax.lax.top_k`` breaks ties toward
   the lower index, which ``torch.sort(stable=True)`` does too and
   ``torch.topk`` does not promise;
 * the combine gathers each token's K contributions through the inverse
   of the sort and sums them over k (a fixed order on every device), where
-  JAX scatter-adds them in sorted order;
-* the expert-parallel ``apply_moe_ep`` comes with the distributed slice.
+  JAX scatter-adds them in sorted order.
+
+The expert-parallel ``apply_moe_ep`` comes with the distributed slice.
 """
 from __future__ import annotations
 
