@@ -42,10 +42,13 @@ Phases, one line each (any failure raises and exits non-zero):
    (each run twice, in turns), images/s, peak memory; then a profiler
    window over 3 kernel-path steps.
 8. attention kernel timing — CUDA-event times of the forward and backward
-   kernels at the fine-tune's shapes and (192, 144) bounds, L2 flushed,
-   beside their plain version's, the bound, and the library yardstick
+   kernels at the fine-tune's shapes and (192, 144) bounds, L2 flushed
+   (the backward through its launcher and its kernels alone), beside
+   their plain version's, both bounds (float32 FMA; 3xTF32 on the tensor
+   cores, which the backward is held to), the library yardstick
    (scaled_dot_product_attention forward and its autograd backward on the
-   live slices, which the port never calls).
+   live slices, which the port never calls) and the backward's registers
+   and spills from the -Xptxas -v logs.
 9. SSD kernels vs plain — the gated SSD chunked-scan forward and backward
    kernels against their plain version and its autograd gradients, on the
    operands the main path gives them (mamba2-130m's first SSD layer,
@@ -76,7 +79,8 @@ Phases, one line each (any failure raises and exits non-zero):
    version's and the bound; no single PyTorch call computes the scan, so
    there is no library yardstick.
 12. hd-256 attention kernels vs plain — the gated flash-attention kernels
-   at gemma3-1b's shapes (B 4, H 4, S 1024, hd 256: 32-row tiles), causal
+   at gemma3-1b's shapes (B 4, H 4, S 1024, hd 256: 32-row forward tiles,
+   64 x 32 backward ones), causal
    with its 512 window and global, on the operands the main path gives
    them (layers 0 and 5 of phase 13's model on its batch) and on N(0, 1)
    ones, under a p_f / p_o / p_s mix, without, at and above compaction
@@ -105,9 +109,11 @@ Phases, one line each (any failure raises and exits non-zero):
    |plain|).
 15. LoRA and hd-256 attention timing — CUDA-event times, L2 flushed, of
    the LoRA kernel at phase 14's wq (M 4096, K 1152, N 1024, r 8) and of
-   the hd-256 attention kernels at phase 13's shapes, gates and bounds,
-   beside their plain versions, the bound and a library yardstick the
-   port never calls (addmm + two matmuls; SDPA on the live slices).
+   the hd-256 attention kernels at phase 13's shapes, gates and bounds
+   (the backward also alone), beside their plain versions, both bounds
+   (float32 FMA; 3xTF32, which the LoRA kernel and the backward are held
+   to), a library yardstick the port never calls (addmm + two matmuls;
+   SDPA on the live slices) and the LoRA kernel's registers and spills.
 16. RG-LRU kernels vs plain — the gated RG-LRU scan forward and backward
    kernels against their plain version and its autograd gradients, on the
    operands the main path gives them (la and b of recurrentgemma-2b's
@@ -203,6 +209,7 @@ PAGE_SIZE = 16
 MAX_SLOTS = 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, non-tensor-core float32
+TF32_FLOP_PER_S = 495e12           # H100 SXM, dense TF32 tensor cores
 KERNEL_TOL = 1e-5
 GRAD_TOL = 1e-4                    # gated attention dq/dk/dv, float32
 
@@ -328,6 +335,39 @@ def roofline(nbytes, flops):
                                        else "operations")
 
 
+def tc_roofline(nbytes, flops):
+    """(ms, by) for a kernel whose float32 products run on the tensor
+    cores as 3xTF32 (csrc/tf32x3.cuh): three TF32 products for each, so
+    3 x flops over the TF32 peak (165 TFLOP/s of float32-accurate work),
+    against the bytes over HBM bandwidth."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def attention_bwd_alone(torch, q, k, v, o, lse, do, g_b, *, causal, window,
+                        live):
+    """CUDA-event ms of the attention backward's kernels alone: the
+    compaction table and the zero-filled outputs that each launcher call
+    builds on the card are made once, outside the timed window (as phases
+    18 and 22 do)."""
+    from repro_torch.kernels import d2ft_attention as d2a
+    _, _, n_disp, idx = d2a._prepare(q, k, v, g_b, live)
+    bufs = [torch.zeros_like(q) for _ in range(3)] + [
+        torch.empty(q.shape[:3], device="cuda")]
+    return time_ms(torch, lambda: d2a._bwd_call(
+        q, k, v, o, do, lse, g_b, idx, *bufs, n_disp, causal=causal,
+        window=window))
+
+
+def print_resources(name, tag):
+    """The -Xptxas -v registers and spills of each kernel of a source."""
+    from repro_torch.kernels import build
+    print(f"[{tag}] {name}.cu registers / spill stores / spill loads: "
+          + "; ".join(f"{k} {r} / {st} B / {ld} B"
+                      for k, r, st, ld in build.resources(name)), flush=True)
+
+
 def time_ms(torch, fn, *, iters=50, warmup=5):
     """Median CUDA-event time of one call, with L2 flushed before each
     (decode finds a layer's pages cold: 26 layers of pools and 4 GB of
@@ -347,6 +387,14 @@ def time_ms(torch, fn, *, iters=50, warmup=5):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def attn_tiles(S, causal, window, hd):
+    """Live tiles per live slice of each attention kernel with a counter
+    (the forward's square tiles, the backward's dQ and dK/dV ones)."""
+    from repro_torch.kernels import d2ft_attention as d2a
+    return {kind: d2a.kernel_live_tiles(S, causal, window, hd, kind)
+            for kind in d2a.KERNEL_KINDS}
 
 
 def attention_case(torch, q, k, v, do, g_f, g_b, *, causal, window, live):
@@ -388,9 +436,9 @@ def attention_case(torch, q, k, v, do, g_f, g_b, *, causal, window, live):
              and all(float(t.grad[g_b == 0].abs().max()) == 0.0
                      for t in (qk, kk, vk))
              and bool(torch.isfinite(out).all()))
-    tiles = d2a.kernel_live_tiles(q.shape[2], causal, window, q.shape[3])
-    want = {"fwd": 2 * n_f * tiles, "bwd_dkdv": n_b * tiles,
-            "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0,
+    tiles = attn_tiles(q.shape[2], causal, window, q.shape[3])
+    want = {"fwd": 2 * n_f * tiles["fwd"], "bwd_dkdv": n_b * tiles["bwd_dkdv"],
+            "bwd_dq": n_b * tiles["bwd_dq"], "ssd_fwd": 0, "ssd_bwd": 0,
             "rglru_fwd": 0, "rglru_bwd": 0, "moe_fwd": 0, "moe_bwd": 0}
     return e_f, e_b, s_f, s_b, zeros, counts, want
 
@@ -526,10 +574,10 @@ def finetune(torch, np, tag):
     mb_of = microbatch_assignment(FT_BATCH, n_mb)
     bounds = live_slice_bounds(sched, mb_of)
     N = FT_BATCH * cfg.n_heads
-    tiles = d2a.kernel_live_tiles(cfg.n_patches + 1, False, 0,
-                                  cfg.d_model // cfg.n_heads)
-    total = FT_STEPS * cfg.n_layers * N * tiles
-    frac = {k: counts[k] / total for k in ("fwd", "bwd_dkdv", "bwd_dq")}
+    tiles = attn_tiles(cfg.n_patches + 1, False, 0,
+                       cfg.d_model // cfg.n_heads)
+    frac = {k: counts[k] / (FT_STEPS * cfg.n_layers * N * t)
+            for k, t in tiles.items()}
     per_step = cfg.n_layers * FT_STEPS
     if launches != {"fwd": per_step, "bwd": per_step}:
         raise AssertionError(f"kernel launches {launches} != {cfg.n_layers} "
@@ -640,6 +688,7 @@ def attention_timing(torch, gen, tag):
     # dv written for every slice; 5 products per live slice (s recomputed)
     bwd_bytes = 4 * (5 * n_b * S * hd + n_b * S + 3 * B * H * S * hd)
     bwd_flops = n_b * 5 * 2 * S * S * hd
+    # the backward runs 3xTF32 on the tensor cores: held to that bound
     out["bwd"] = (
         time_ms(torch, lambda: d2a.flash_bwd(q, k, v, g_b, o, lse, do,
                                              causal=False, live=n_b)),
@@ -647,14 +696,24 @@ def attention_timing(torch, gen, tag):
             ref, (qr, kr, vr), do, retain_graph=True)),
         time_ms(torch, lambda: torch.autograd.grad(
             lib_o, (bq, bk, bv), ldo, retain_graph=True)),
-        *roofline(bwd_bytes, bwd_flops))
+        *tc_roofline(bwd_bytes, bwd_flops))
+    work = {"fwd": (fwd_bytes, fwd_flops), "bwd": (bwd_bytes, bwd_flops)}
+    alone = attention_bwd_alone(torch, q, k, v, o, lse, do, g_b,
+                                causal=False, window=0, live=n_b)
     for kind, (k_ms, p_ms, l_ms, b_ms, by) in out.items():
         print(f"[attention timing] d2ft_attention_{kind} B {B} H {H} S {S} "
               f"hd {hd}, live {n_f if kind == 'fwd' else n_b} of {B * H}: "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library (sdpa "
+              f"kernel {k_ms:.4f} ms" + ("" if kind == "fwd" else
+              f" (kernels alone, table and zeroed outputs built outside the "
+              f"window, {alone:.4f} ms)")
+              + f", plain {p_ms:.4f} ms, library (sdpa "
               f"{'forward' if kind == 'fwd' else 'autograd backward'} on "
-              f"the live slices) {l_ms:.4f} ms, bound {b_ms:.5f} ms by "
-              f"{by}, {b_ms / k_ms:.1%} of bound {tag}", flush=True)
+              f"the live slices) {l_ms:.4f} ms; bounds: float32 FMA "
+              f"{roofline(*work[kind])[0]:.5f} ms, 3xTF32 tensor cores "
+              f"{tc_roofline(*work[kind])[0]:.5f} ms; held to the "
+              f"{'FMA' if kind == 'fwd' else '3xTF32'} one, {b_ms:.5f} ms by "
+              f"{by}, {b_ms / k_ms:.1%} of it {tag}", flush=True)
+    print_resources("d2ft_attention_bwd", "attention timing")
     return out
 
 
@@ -1134,24 +1193,24 @@ def gemma_attention_vs_plain(torch, gen):
 
 
 def schedule_tiles(sched, mb_of, cfg, steps, seq=GM_SEQ):
-    """Attention tiles the schedule makes the kernels execute in ``steps``
-    steps at length ``seq``, forward and backward, and those full
+    """Attention tiles the schedule makes each kernel (forward, dK/dV, dQ)
+    execute in ``steps`` steps at length ``seq``, and those full
     fine-tuning would: per layer, the live (sample, head) slices times the
     kernel's live tiles per slice under that layer's causal or window
-    mask."""
+    mask. Returns two {kind: tiles}: the schedule's and full's."""
     from repro_torch.core.schedule import gates_from_schedule
-    from repro_torch.kernels import d2ft_attention as d2a
     g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")       # [L, B, G]
     rep = cfg.n_heads // sched.n_groups
-    fwd = bwd = full = 0
+    want = dict.fromkeys(("fwd", "bwd_dkdv", "bwd_dq"), 0)
+    full = dict.fromkeys(want, 0)
     for layer, kind in enumerate(cfg.layer_kinds):
         window = cfg.window if kind == "attn_local" else 0
-        tiles = d2a.kernel_live_tiles(seq, True, window,
-                                      cfg.resolved_head_dim)
-        fwd += int(g_f[layer].sum()) * rep * tiles
-        bwd += int(g_b[layer].sum()) * rep * tiles
-        full += g_f.shape[1] * cfg.n_heads * tiles
-    return steps * fwd, steps * bwd, steps * full
+        tiles = attn_tiles(seq, True, window, cfg.resolved_head_dim)
+        for k in want:
+            g = g_f if k == "fwd" else g_b
+            want[k] += steps * int(g[layer].sum()) * rep * tiles[k]
+            full[k] += steps * g_f.shape[1] * cfg.n_heads * tiles[k]
+    return want, full
 
 
 def gemma_finetune(torch, np, tag):
@@ -1187,17 +1246,16 @@ def gemma_finetune(torch, np, tag):
     mb_of = microbatch_assignment(B, n_mb)
     bounds = live_slice_bounds(sched, mb_of)
     rep = cfg.n_heads // sched.n_groups
-    want_f, want_b, total = schedule_tiles(sched, mb_of, cfg, GM_STEPS)
-    frac = {k: counts[k] / total for k in ("fwd", "bwd_dkdv", "bwd_dq")}
+    want, full = schedule_tiles(sched, mb_of, cfg, GM_STEPS)
+    frac = {k: counts[k] / full[k] for k in want}
     per_step = cfg.n_layers * GM_STEPS
     if launches != {"fwd": per_step, "bwd": per_step}:
         raise AssertionError(f"attention kernel launches {launches} != "
                              f"{cfg.n_layers} per step x {GM_STEPS} steps")
-    if counts != {"fwd": want_f, "bwd_dkdv": want_b, "bwd_dq": want_b,
-                  "ssd_fwd": 0, "ssd_bwd": 0, "rglru_fwd": 0,
+    if counts != {**want, "ssd_fwd": 0, "ssd_bwd": 0, "rglru_fwd": 0,
                   "rglru_bwd": 0, "moe_fwd": 0, "moe_bwd": 0}:
         raise AssertionError(f"executed tiles {counts} != the schedule's "
-                             f"{want_f} forward, {want_b} backward")
+                             f"{want}")
     torch.cuda.reset_peak_memory_stats()
     log_m = run("masked")
     peak_m = torch.cuda.max_memory_allocated()
@@ -1217,7 +1275,7 @@ def gemma_finetune(torch, np, tag):
           f"kernel launches {launches}, live (sample, group) bounds {bounds} "
           f"x {rep} heads per group, executed tile fractions fwd "
           f"{frac['fwd']:.3f} bwd {frac['bwd_dkdv']:.3f}/{frac['bwd_dq']:.3f}"
-          f" (= the schedule's: {want_f} / {want_b} of {total} tiles)",
+          f" (= the schedule's: {want} of {full} tiles)",
           flush=True)
     print(f"[gemma fine-tune] losses kernel "
           f"{[round(float(x), 6) for x in log_k.losses]} | masked "
@@ -1331,13 +1389,12 @@ def gemma_lora(torch, np, tag):
                              f"call and {cfg.n_layers} attention launches "
                              f"per step x {GM_STEPS} steps")
     mb_of = microbatch_assignment(B, ex.D2.n_microbatches)
-    want_f, want_b, total = schedule_tiles(sched, mb_of, cfg, GM_STEPS)
-    if counts != {"fwd": want_f, "bwd_dkdv": want_b, "bwd_dq": want_b,
-                  "ssd_fwd": 0, "ssd_bwd": 0, "rglru_fwd": 0,
+    want, full = schedule_tiles(sched, mb_of, cfg, GM_STEPS)
+    if counts != {**want, "ssd_fwd": 0, "ssd_bwd": 0, "rglru_fwd": 0,
                   "rglru_bwd": 0, "moe_fwd": 0, "moe_bwd": 0}:
         raise AssertionError(f"executed tiles {counts} != the schedule's "
-                             f"{want_f} forward, {want_b} backward")
-    frac = {k: counts[k] / total for k in ("fwd", "bwd_dkdv", "bwd_dq")}
+                             f"{want}")
+    frac = {k: counts[k] / full[k] for k in want}
     n_adapters = lora_param_count(lora)
     want_n = cfg.n_layers * (
         cfg.d_model * ex.RANK + ex.RANK * cfg.n_heads * cfg.resolved_head_dim
@@ -1426,7 +1483,7 @@ def gemma_lora(torch, np, tag):
           f"groups, batch {B} x seq {S}, {GM_STEPS} steps: kernel launches "
           f"{launches}, executed tile fractions fwd {frac['fwd']:.3f} bwd "
           f"{frac['bwd_dkdv']:.3f}/{frac['bwd_dq']:.3f} (= the schedule's: "
-          f"{want_f} / {want_b} of {total} tiles), base bit-identical, "
+          f"{want} of {full} tiles), base bit-identical, "
           f"adapters moved, fused call err {e_y:.3e}", flush=True)
     print(f"[lora fine-tune] losses kernel "
           f"{[round(float(v), 6) for v in log_k.losses]} | masked "
@@ -1462,19 +1519,22 @@ def gemma_timing(torch, gm, lo, tag):
     x, w, a, b = lo["wq"]
     M, K = x.shape
     N, r = w.shape[1], a.shape[1]
+    work = (lm.needed_bytes(M, K, N, r), lm.needed_flops(M, K, N, r))
     out = {"lora": (
         time_ms(torch, lambda: lm.lora_matmul(x, w, a, b, 1.0)),
         time_ms(torch, lambda: lm.lora_matmul_ref(x, w, a, b, 1.0)),
         time_ms(torch, lambda: torch.addmm(torch.matmul(x, w),
                                            torch.matmul(x, a), b)),
-        *roofline(lm.needed_bytes(M, K, N, r), lm.needed_flops(M, K, N, r)))}
+        *tc_roofline(*work))}
     k_ms, p_ms, l_ms, b_ms, by = out["lora"]
     print(f"[lora timing] lora_matmul M {M} K {K} N {N} r {r} (layer 0's wq, "
           f"trained adapter): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-          f"library (addmm + two matmuls, cuBLAS) {l_ms:.4f} ms, bound "
-          f"{b_ms:.5f} ms by {by} ({lm.needed_flops(M, K, N, r) / 1e9:.3f} "
-          f"GFLOP, {lm.needed_bytes(M, K, N, r) / 1e6:.1f} MB), "
-          f"{b_ms / k_ms:.1%} of bound {tag}", flush=True)
+          f"library (addmm + two matmuls, cuBLAS) {l_ms:.4f} ms; bounds "
+          f"({work[1] / 1e9:.3f} GFLOP, {work[0] / 1e6:.1f} MB): float32 "
+          f"FMA {roofline(*work)[0]:.5f} ms, 3xTF32 tensor cores "
+          f"{b_ms:.5f} ms by {by}; held to the 3xTF32 one, "
+          f"{b_ms / k_ms:.1%} of it {tag}", flush=True)
+    print_resources("lora_matmul", "lora timing")
 
     gen = torch.Generator(device="cuda").manual_seed(15)
     B, H, S, hd = GM_BATCH, 4, GM_SEQ, 256
@@ -1503,18 +1563,21 @@ def gemma_timing(torch, gm, lo, tag):
         lib_o = sdpa(bq, bk, bv)
         ldo = flat(do, g_b)
         n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+        # q, k, v, o, do and lse of each live slice read once, dq, dk, dv
+        # written for every slice; 5 products over the unmasked (q, k)
+        # pairs of each live slice (s recomputed)
+        work = {"fwd": (4 * (3 * n_f * S * hd + B * H * S * hd + B * H * S),
+                        n_f * 2 * 2 * pairs * hd),
+                "bwd": (4 * (5 * n_b * S * hd + n_b * S + 3 * B * H * S * hd),
+                        n_b * 5 * 2 * pairs * hd)}
         res = {
             "fwd": (time_ms(torch, lambda: d2a.flash_fwd(
                         q, k, v, g_f, causal=True, window=window, live=lf)),
                     time_ms(torch, lambda: d2a.gated_attention_ref(
                         q, k, v, g_f, g_b, causal=True, window=window)),
                     time_ms(torch, lambda: sdpa(lq, lk, lv)),
-                    *roofline(4 * (3 * n_f * S * hd + B * H * S * hd
-                                   + B * H * S),
-                              n_f * 2 * 2 * pairs * hd)),
-            # q, k, v, o, do and lse of each live slice read once, dq, dk,
-            # dv written for every slice; 5 products over the unmasked
-            # (q, k) pairs of each live slice (s recomputed)
+                    *roofline(*work["fwd"])),
+            # the backward runs 3xTF32 on the tensor cores: held to that
             "bwd": (time_ms(torch, lambda: d2a.flash_bwd(
                         q, k, v, g_b, o, lse, do, causal=True, window=window,
                         live=lb)),
@@ -1522,19 +1585,25 @@ def gemma_timing(torch, gm, lo, tag):
                         ref, (qr, kr, vr), do, retain_graph=True)),
                     time_ms(torch, lambda: torch.autograd.grad(
                         lib_o, (bq, bk, bv), ldo, retain_graph=True)),
-                    *roofline(4 * (5 * n_b * S * hd + n_b * S
-                                   + 3 * B * H * S * hd),
-                              n_b * 5 * 2 * pairs * hd))}
+                    *tc_roofline(*work["bwd"]))}
+        alone = attention_bwd_alone(torch, q, k, v, o, lse, do, g_b,
+                                    causal=True, window=window, live=lb)
         for kind, (k_ms, p_ms, l_ms, b_ms, by) in res.items():
             print(f"[hd-256 attention timing] d2ft_attention_{kind} layer "
                   f"{layer} ({'window ' + str(window) if window else 'global'}"
                   f", causal) B {B} H {H} S {S} hd {hd}, live "
                   f"{n_f if kind == 'fwd' else n_b} of {B * H} (bound "
-                  f"{lf if kind == 'fwd' else lb}): kernel {k_ms:.4f} ms, "
+                  f"{lf if kind == 'fwd' else lb}): kernel {k_ms:.4f} ms"
+                  + ("" if kind == "fwd" else
+                     f" (kernels alone, table and zeroed outputs built "
+                     f"outside the window, {alone:.4f} ms)") + f", "
                   f"plain {p_ms:.4f} ms, library (sdpa "
                   f"{'forward' if kind == 'fwd' else 'autograd backward'} on "
-                  f"the live slices) {l_ms:.4f} ms, bound {b_ms:.5f} ms by "
-                  f"{by}, {b_ms / k_ms:.1%} of bound {tag}", flush=True)
+                  f"the live slices) {l_ms:.4f} ms; bounds: float32 FMA "
+                  f"{roofline(*work[kind])[0]:.5f} ms, 3xTF32 tensor cores "
+                  f"{tc_roofline(*work[kind])[0]:.5f} ms; held to the "
+                  f"{'FMA' if kind == 'fwd' else '3xTF32'} one, {b_ms:.5f} "
+                  f"ms by {by}, {b_ms / k_ms:.1%} of it {tag}", flush=True)
         del q, k, v, do, o, lse, qr, kr, vr, ref, lib_o
     out.update(res)
     torch.cuda.empty_cache()
@@ -1737,7 +1806,7 @@ def rg_schedule_counts(sched, mb_of, cfg, steps):
     rep = cfg.n_heads // sched.n_groups
     want = dict.fromkeys(("fwd", "bwd_dkdv", "bwd_dq", "ssd_fwd", "ssd_bwd",
                           "rglru_fwd", "rglru_bwd", "moe_fwd", "moe_bwd"), 0)
-    full = {"rglru": 0, "attn": 0}
+    full = {"rglru": 0, "attn fwd": 0, "attn bwd": 0}
     for layer, kind in enumerate(cfg.layer_kinds):
         nf, nb = int(g_f[layer].sum()), int(g_b[layer].sum())
         if kind == "rglru":
@@ -1745,12 +1814,15 @@ def rg_schedule_counts(sched, mb_of, cfg, steps):
             want["rglru_bwd"] += steps * nb * nc
             full["rglru"] += steps * g_f.shape[1] * g_f.shape[2] * nc
         else:
-            tiles = d2a.kernel_live_tiles(RG_SEQ, True, cfg.window,
-                                          cfg.resolved_head_dim)
-            want["fwd"] += steps * nf * rep * tiles
-            want["bwd_dkdv"] += steps * nb * rep * tiles
-            want["bwd_dq"] += steps * nb * rep * tiles
-            full["attn"] += steps * g_f.shape[1] * cfg.n_heads * tiles
+            tiles = attn_tiles(RG_SEQ, True, cfg.window,
+                               cfg.resolved_head_dim)
+            want["fwd"] += steps * nf * rep * tiles["fwd"]
+            want["bwd_dkdv"] += steps * nb * rep * tiles["bwd_dkdv"]
+            want["bwd_dq"] += steps * nb * rep * tiles["bwd_dq"]
+            full["attn fwd"] += steps * g_f.shape[1] * cfg.n_heads \
+                * tiles["fwd"]
+            full["attn bwd"] += steps * g_f.shape[1] * cfg.n_heads \
+                * tiles["bwd_dkdv"]
     return want, full
 
 
@@ -1810,8 +1882,8 @@ def rg_finetune(torch, np, tag):
                              f"{want}")
     frac = {"rglru fwd": counts["rglru_fwd"] / full["rglru"],
             "rglru bwd": counts["rglru_bwd"] / full["rglru"],
-            "attention fwd": counts["fwd"] / full["attn"],
-            "attention bwd": counts["bwd_dkdv"] / full["attn"]}
+            "attention fwd": counts["fwd"] / full["attn fwd"],
+            "attention bwd": counts["bwd_dkdv"] / full["attn bwd"]}
     if not np.isfinite(log_k.losses).all():
         raise AssertionError(f"non-finite losses {log_k.losses}")
 
@@ -2254,14 +2326,12 @@ def olmoe_lora(torch, np, tag):
         raise AssertionError(f"kernel launches {launches} != {cfg.n_layers} "
                              f"per step x {steps} steps")
     mirror = {k: int(sum(int(v) for v in sums[k])) for k in sums}
-    want_f, want_b, total = schedule_tiles(sched, mb_of, cfg, steps, S)
+    want, full = schedule_tiles(sched, mb_of, cfg, steps, S)
     if counts["moe_fwd"] != mirror["fwd"] or \
             counts["moe_bwd"] != mirror["bwd"] or \
-            (counts["fwd"], counts["bwd_dkdv"], counts["bwd_dq"]) != \
-            (want_f, want_b, want_b):
+            any(counts[k] != want[k] for k in want):
         raise AssertionError(f"executed tiles {counts} != the masks' "
-                             f"{mirror} / the schedule's attention "
-                             f"{want_f} / {want_b}")
+                             f"{mirror} / the schedule's attention {want}")
     # the frozen base is the seed-0 model bit for bit; the adapters moved
     fresh = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
     same = all(torch.equal(p, q) for p, q in zip(model.parameters(),
@@ -2311,7 +2381,7 @@ def olmoe_lora(torch, np, tag):
           f"{launches}, executed MoE tiles fwd {counts['moe_fwd']} bwd "
           f"{counts['moe_bwd']} (= the launched masks'; {frac['fwd']:.3f} / "
           f"{frac['bwd']:.3f} of the {n_tiles} tiles), attention "
-          f"tiles = the schedule's ({want_f} / {want_b} of {total}), live "
+          f"tiles = the schedule's ({want} of {full}), live "
           f"(sample, group) bounds {live_slice_bounds(sched, mb_of)}, base "
           f"bit-identical, adapters moved; scoring and knapsack "
           f"{plan_s:.1f} s", flush=True)
@@ -2412,14 +2482,12 @@ def olmoe_finetune(torch, np, tag):
     mb_of = microbatch_assignment(B, n_mb)
     bounds = live_slice_bounds(sched, mb_of)
     mirror = {k: int(sum(int(v) for v in sums[k])) for k in sums}
-    want_f, want_b, total = schedule_tiles(sched, mb_of, cfg, steps, S)
+    want, full = schedule_tiles(sched, mb_of, cfg, steps, S)
     if counts["moe_fwd"] != mirror["fwd"] or \
             counts["moe_bwd"] != mirror["bwd"] or \
-            (counts["fwd"], counts["bwd_dkdv"], counts["bwd_dq"]) != \
-            (want_f, want_b, want_b):
+            any(counts[k] != want[k] for k in want):
         raise AssertionError(f"executed tiles {counts} != the masks' "
-                             f"{mirror} / the schedule's attention "
-                             f"{want_f} / {want_b}")
+                             f"{mirror} / the schedule's attention {want}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = moe_launches()
@@ -2444,7 +2512,7 @@ def olmoe_finetune(torch, np, tag):
           f"MoE tiles fwd {counts['moe_fwd']} bwd {counts['moe_bwd']} (= the "
           f"launched masks'; {frac['fwd']:.3f} / {frac['bwd']:.3f} of the "
           f"{n_tiles} tiles), attention tiles = the schedule's "
-          f"({want_f} / {want_b} of {total}), live (sample, group) bounds "
+          f"({want} of {full}), live (sample, group) bounds "
           f"{bounds}", flush=True)
     print(f"[olmoe fine-tune] losses kernel "
           f"{[round(float(x), 6) for x in log_k.losses]} | masked "

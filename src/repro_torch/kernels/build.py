@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -87,6 +88,42 @@ def ptxas_report() -> str:
     return "\n".join(f"== {name}.cu\n{(out_dir / f'{name}.log').read_text()}"
                      for name in _sources()
                      if (out_dir / f"{name}.log").exists())
+
+
+def _demangle(sym: str) -> str:
+    """``foo_kernel<64, 256>`` from a mangled kernel symbol (the name
+    that ends in ``_kernel`` and its integer template arguments)."""
+    pos = 3 if sym.startswith("_ZN") else 2          # <length><name>...
+    while (m := re.match(r"\d+", sym[pos:])):
+        start = pos + m.end()
+        name, pos = sym[start:start + int(m.group())], start + int(m.group())
+        if name.endswith("_kernel"):
+            rest = sym[pos:]
+            args = (re.findall(r"Li(\d+)E", rest[:rest.find("EEv")])
+                    if rest.startswith("I") else [])
+            return name + (f"<{', '.join(args)}>" if args else "")
+    return sym
+
+
+def resources(name: str):
+    """Each kernel of ``csrc/<name>.cu`` with the registers a thread uses
+    and its spill stores and loads in bytes, from the build's ``-Xptxas
+    -v`` report: [(kernel, registers, spill stores, spill loads)], the
+    kernel as its name and template arguments (``foo_kernel<64, 256>``)."""
+    out, entry, spills = [], None, (0, 0)
+    for line in (build_dir() / f"{name}.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = _demangle(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out.append((entry, int(m.group(1)), *spills))
+            entry, spills = None, (0, 0)
+    return out
 
 
 @functools.cache

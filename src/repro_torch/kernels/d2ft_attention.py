@@ -11,8 +11,10 @@ Four groups of things live here:
 
 * accounting identical to the JAX package's (``select_blocks``,
   ``pad_to_blocks``, ``live_block_count``, ``gated_attention_flops``), plus
-  the CUDA kernels' own tiling (``kernel_block``, a function of head_dim;
-  ``kernel_live_tiles``, ``kernel_flops``, ``kernel_bytes``);
+  the CUDA kernels' own tiling (``kernel_block``, a function of head_dim
+  and of the kernel: the forward's square tiles, the backward's
+  rectangular ones; ``kernel_live_tiles``, ``kernel_flops``,
+  ``kernel_bytes``);
 * the plain PyTorch version ``gated_attention_ref`` (with
   ``attention_ref``, ``d2ft_attention_ref`` and the forward's logsumexp
   ``gated_attention_lse_ref``), which the CPU path, the CPU tests and the
@@ -28,12 +30,13 @@ Four groups of things live here:
 What bounds the kernels on an H100: operations. A live slice of S = 197,
 hd = 64 does 4·S²·hd FLOP forward against about 4·S·hd·4 bytes, far above
 the ~20 FLOP/byte where float32 FMA becomes the limit, so the least time is
-the live tiles' FLOPs over 67 TFLOP/s (no tensor cores in float32 with TF32
-off). The design (one block per (dispatched slice, tile) that walks the
-other axis itself; slice ids from the compaction table instead of
-gather/scatter copies; the ragged edge masked in-kernel instead of padded
-copies; FA2's deterministic dQ / dK-dV split) is set out in the sources'
-headers.
+the live tiles' FLOPs over 67 TFLOP/s of float32 FMA, the rate the forward
+runs at. The backward runs its products on the tensor cores in 3xTF32
+(``csrc/tf32x3.cuh``: float32 accuracy, 165 TFLOP/s of such work). The
+design (one block per (dispatched slice, tile) that walks the other axis
+itself; slice ids from the compaction table instead of gather/scatter
+copies; the ragged edge masked in-kernel instead of padded copies; FA2's
+deterministic dQ / dK-dV split) is set out in the sources' headers.
 """
 from __future__ import annotations
 
@@ -53,13 +56,23 @@ NEG_INF = -2.0 ** 30
 LSE_MASKED = 2.0 ** 30
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)   # 16: the smoke ViT's
+# the kernels with a tile counter: the forward, and the backward's dQ and
+# dK/dV roles (one launch, a counter cell each)
+KERNEL_KINDS = ("fwd", "bwd_dq", "bwd_dkdv")
 
 
-def kernel_block(hd: int) -> int:
-    """The CUDA kernels' tile (queries and keys alike) at head_dim hd, fixed
-    at compile time: 64, or 32 at hd 256, where the backward's 64-row
-    tiles would take more shared memory than a block may have."""
-    return 32 if hd > 128 else 64
+def kernel_block(hd: int, kind: str = "fwd"):
+    """(block_q, block_k): the tiles of one CUDA kernel at head_dim hd,
+    fixed at compile time. The forward's are square, 64 or 32 at hd 256.
+    The backward's hold 64 rows resident (queries in the dQ role, keys in
+    the dK/dV role) against a walked tile of 64 rows, or 32 at hd 256,
+    where a 64-row walked tile would take more shared memory than a block
+    may have."""
+    b = 32 if hd > 128 else 64        # the forward's tile, the walked one
+    blocks = {"fwd": (b, b), "bwd_dq": (64, b), "bwd_dkdv": (b, 64)}
+    if kind not in blocks:
+        raise ValueError(f"unknown kernel {kind!r}; one of {KERNEL_KINDS}")
+    return blocks[kind]
 
 
 # ======================================================= tile selection
@@ -124,9 +137,10 @@ def live_block_count(S: int, block_q: int, block_k: int, causal: bool,
 
 FWD_MATMULS_PER_TILE = 2   # qk^T, pv
 BWD_MATMULS_PER_TILE = 5   # the TPU's fused one-pass backward
-# The CUDA backward (FA2's split): the dQ kernel computes s, dp and ds·k
-# (3 products per tile), the dK/dV kernel s, p^T·do, dp and ds^T·q (4).
-KERNEL_BWD_MATMULS_PER_TILE = 7
+# products per tile of each CUDA kernel: the forward's qk^T and pv; the
+# backward (FA2's split) 3 in the dQ role (s, dp, ds·k) and 4 in the
+# dK/dV role (s^T, dp^T, p^T·do, ds^T·q)
+KERNEL_MATMULS_PER_TILE = {"fwd": 2, "bwd_dq": 3, "bwd_dkdv": 4}
 
 
 def gated_attention_flops(g_f, g_b, S: int, hd: int, *, causal: bool = True,
@@ -144,24 +158,37 @@ def gated_attention_flops(g_f, g_b, S: int, hd: int, *, causal: bool = True,
     return fwd, bwd
 
 
-def kernel_live_tiles(S: int, causal: bool, window: int, hd: int) -> int:
-    """(q tile, k tile) pairs each CUDA kernel executes per live slice:
-    ``kernel_block(hd)`` tiles over S, the last one ragged and masked
-    in-kernel."""
-    blk = kernel_block(hd)
-    Sp = -(-S // blk) * blk
-    return live_block_count(Sp, blk, blk, causal, window, seq_len=S)
+def _live_pairs(S: int, causal: bool, window: int, hd: int, kind: str):
+    """The live (q tile, k tile) index pairs of one kernel over S, and the
+    real rows of each q tile and each k tile (the last ones ragged)."""
+    bq, bk = kernel_block(hd, kind)
+    q_rows = [min(bq, S - i) for i in range(0, S, bq)]
+    k_rows = [min(bk, S - i) for i in range(0, S, bk)]
+    pairs = [(iq, ik) for iq in range(len(q_rows))
+             for ik in range(len(k_rows))
+             if _block_live(iq * bq, ik * bk, bq, bk, causal, window, S)]
+    return pairs, q_rows, k_rows
+
+
+def kernel_live_tiles(S: int, causal: bool, window: int, hd: int,
+                      kind: str = "fwd") -> int:
+    """(q tile, k tile) pairs one CUDA kernel (``KERNEL_KINDS``) executes
+    per live slice: ``kernel_block(hd, kind)`` tiles over S, the last ones
+    ragged and masked in-kernel. Its tile counter counts the same."""
+    return len(_live_pairs(S, causal, window, hd, kind)[0])
 
 
 def kernel_flops(n_live_fwd: int, n_live_bwd: int, S: int, hd: int, *,
                  causal: bool, window: int):
     """FLOPs (fwd, bwd) the CUDA kernels execute for the given live slice
-    counts: whole ``kernel_block(hd)``-square tiles, the ragged edge
-    included."""
-    per_matmul = 2 * kernel_block(hd) ** 2 * hd
-    tiles = kernel_live_tiles(S, causal, window, hd)
-    return (n_live_fwd * tiles * FWD_MATMULS_PER_TILE * per_matmul,
-            n_live_bwd * tiles * KERNEL_BWD_MATMULS_PER_TILE * per_matmul)
+    counts: whole tiles of each kernel, the ragged edge included; the
+    backward's are the dQ and dK/dV roles' together."""
+    def per_slice(kind):
+        bq, bk = kernel_block(hd, kind)
+        return (kernel_live_tiles(S, causal, window, hd, kind)
+                * KERNEL_MATMULS_PER_TILE[kind] * 2 * bq * bk * hd)
+    return (n_live_fwd * per_slice("fwd"),
+            n_live_bwd * (per_slice("bwd_dq") + per_slice("bwd_dkdv")))
 
 
 def kernel_bytes(n_live_fwd: int, n_live_bwd: int, n_fwd_disp: int,
@@ -170,22 +197,24 @@ def kernel_bytes(n_live_fwd: int, n_live_bwd: int, n_fwd_disp: int,
     """Device-memory bytes (fwd, bwd) the CUDA kernels load and store, in
     place of the JAX package's BlockSpec DMA count. Per live slice: the
     forward reads q once and the k and v rows of every live (q tile, k
-    tile) pair, and writes o and lse; the dQ kernel reads q, do and o once
-    and k, v per live pair, and writes dq and delta; the dK/dV kernel reads
-    k and v once and q, do, lse and delta per live pair, and writes dk and
-    dv. A dispatched dead slice only writes its zeros (o and lse; dq, dk
-    and dv). Ragged tiles count their real rows only."""
-    B = kernel_block(hd)
-    n_t = -(-S // B)
-    rows = [min(B, S - t * B) for t in range(n_t)]
-    live = [(iq, ik) for iq in range(n_t) for ik in range(n_t)
-            if _block_live(iq * B, ik * B, B, B, causal, window, S)]
-    k_rows = sum(rows[ik] for _, ik in live)       # k/v rows per slice
-    q_rows = sum(rows[iq] for iq, _ in live)       # q/do rows per slice
+    tile) pair, and writes o and lse; the backward's delta kernel reads do
+    and o and writes delta; its dQ role reads q, do, lse and delta once and
+    k, v per live pair, and writes dq; its dK/dV role reads k and v once
+    and q, do, lse and delta per live pair, and writes dk and dv. A
+    dispatched dead slice only writes its zeros (o and lse; dq, dk and
+    dv). Ragged tiles count their real rows only; each kernel's own
+    tiles (``kernel_block(hd, kind)``)."""
+    def walked(kind, axis):            # rows of the walked axis per slice
+        pairs, q_rows, k_rows = _live_pairs(S, causal, window, hd, kind)
+        return sum(k_rows[ik] if axis == "k" else q_rows[iq]
+                   for iq, ik in pairs)
     row = hd * itemsize
-    fwd_live = S * row + 2 * k_rows * row + S * row + S * 4
-    bwd_live = (3 * S * row + 2 * k_rows * row + S * row + S * 4
-                + 2 * S * row + q_rows * (2 * row + 2 * 4) + 2 * S * row)
+    fwd_live = S * row + 2 * walked("fwd", "k") * row + S * row + S * 4
+    bwd_live = (2 * S * row + S * 4                          # delta
+                + 2 * S * row + 2 * S * 4 + 2 * walked("bwd_dq", "k") * row
+                + S * row                                       # dQ
+                + 2 * S * row + walked("bwd_dkdv", "q") * (2 * row + 2 * 4)
+                + 2 * S * row)                                  # dK/dV
     return (n_live_fwd * fwd_live + (n_fwd_disp - n_live_fwd) * (S * row
                                                                  + S * 4),
             n_live_bwd * bwd_live + (n_bwd_disp - n_live_bwd) * 3 * S * row)
@@ -359,20 +388,35 @@ flash_fwd.launches = 0
 
 def flash_bwd(q, k, v, g_b, o, lse, do, *, causal: bool, window: int = 0,
               live=None):
-    """Launch the backward (the dQ kernel then the dK/dV kernel, one
-    launcher call counted in ``flash_bwd.launches``). Arguments as
-    ``flash_fwd`` plus the forward's o and lse and the cotangent do; ``live``
-    bounds the g_b != 0 slice count. Returns (dq, dk, dv), exact zeros on
-    g_b == 0 slices."""
+    """Launch the backward (the delta kernel, then the dQ and dK/dV roles
+    in one launch; one launcher call counted in ``flash_bwd.launches``).
+    Arguments as ``flash_fwd`` plus the forward's o and lse and the
+    cotangent do; ``live`` bounds the g_b != 0 slice count. Returns (dq,
+    dk, dv), exact zeros on g_b == 0 slices."""
     S, hd, n_disp, idx = _prepare(
         q, k, v, g_b, live, (("o", o), ("lse", lse), ("do", do)))
     if o.shape != q.shape or do.shape != q.shape or \
             lse.shape != q.shape[:3]:
         raise ValueError("o, do must be [B, H, S, hd] and lse [B, H, S]")
+    # the kernels stream rows with 16-byte cp.async: a view that starts
+    # off a 16-byte boundary is copied
+    q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (q, k, v, o, do))
     alloc = torch.empty_like if idx is None else torch.zeros_like
-    dq, dk, dv = alloc(q), alloc(k), alloc(v)
+    grads = alloc(q), alloc(k), alloc(v)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _bwd_call(q, k, v, o, do, lse, g_b, idx, *grads, delta, n_disp,
+              causal=causal, window=window)
+    flash_bwd.launches += 1
+    return grads
+
+
+def _bwd_call(q, k, v, o, do, lse, g_b, idx, dq, dk, dv, delta, n_disp, *,
+              causal: bool, window: int):
+    """The backward kernels on buffers ``flash_bwd`` checked and allocated
+    (dq, dk, dv zero-filled where idx compacts the slices); uncounted."""
     lib = _bwd_lib()
+    S, hd = q.shape[2:]
     t_dkdv, t_dq = _counter_slots("bwd_dkdv", "bwd_dq")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -385,8 +429,6 @@ def flash_bwd(q, k, v, g_b, o, lse, do, *, causal: bool, window: int = 0,
     if err != 0:
         raise RuntimeError("d2ft attention backward launch failed: "
                            + lib.d2ft_attn_bwd_error_string(err).decode())
-    flash_bwd.launches += 1
-    return dq, dk, dv
 
 
 flash_bwd.launches = 0

@@ -118,9 +118,10 @@ def gated_attention(q, k, v, g_f, g_b=None, *, causal: bool = True,
 
     block_q, block_k: the JAX package's TPU tile request, accepted so one
     call site serves both packages. The CUDA kernels' tiles are fixed per
-    head_dim (``d2ft_attention.kernel_block``) and they mask odd lengths
-    themselves, and the plain version has no tiles, so neither is read
-    here.
+    head_dim and kernel (``d2ft_attention.kernel_block(hd, kind)``: square
+    in the forward, 64 resident rows against 64 or, at hd 256, 32 walked
+    rows in the backward) and they mask odd lengths themselves, and the
+    plain version has no tiles, so neither is read here.
 
     CPU tensors take the plain version, CUDA tensors the kernels.
     """

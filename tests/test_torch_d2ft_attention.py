@@ -101,22 +101,40 @@ def test_tile_accounting_equals_jax(S, bq, bk):
 
 
 def test_kernel_tiling_accounting():
-    """The CUDA kernels' tiles, 64 up to hd 128 and 32 at hd 256: ViT-small's
-    S = 197 is 4 x 4 tiles, the last ragged; a causal or windowed mask
-    skips whole tiles as JAX's predicate does (gemma3-1b's S 1024: 32 x 33
-    / 2 causal tiles, 408 under its 512 window); FLOPs and bytes scale with
-    the live slices only."""
+    """The CUDA kernels' tiles: the forward's square, 64 up to hd 128 and
+    32 at hd 256; the backward's 64 resident rows (queries in dQ, keys in
+    dK/dV) against 64 walked rows, or 32 at hd 256. ViT-small's S = 197 is
+    4 x 4 tiles in every kernel, the last ragged; a causal or windowed
+    mask skips whole tiles as JAX's predicate does (gemma3-1b's S 1024:
+    32 x 33 / 2 causal forward tiles, 408 under its 512 window; 272 and
+    216 of the backward's 64 x 32 ones); FLOPs and bytes scale with the
+    live slices only."""
     assert [d2a.kernel_block(hd) for hd in d2a.KERNEL_HEAD_DIMS] == \
-        [64, 64, 64, 64, 32]
+        [(64, 64)] * 4 + [(32, 32)]
+    assert [d2a.kernel_block(hd, "bwd_dq") for hd in d2a.KERNEL_HEAD_DIMS] \
+        == [(64, 64)] * 4 + [(64, 32)]
+    assert [d2a.kernel_block(hd, "bwd_dkdv")
+            for hd in d2a.KERNEL_HEAD_DIMS] == [(64, 64)] * 4 + [(32, 64)]
+    with pytest.raises(ValueError, match="unknown kernel"):
+        d2a.kernel_block(64, "bwd")
     assert d2a.kernel_live_tiles(197, False, 0, 64) == 16
     assert d2a.kernel_live_tiles(256, True, 0, 128) == 10
     assert d2a.kernel_live_tiles(512, True, 128, 64) == 21
     assert d2a.kernel_live_tiles(1, False, 0, 16) == 1
     assert d2a.kernel_live_tiles(1024, True, 0, 256) == 528
     assert d2a.kernel_live_tiles(1024, True, 512, 256) == 408
+    for kind in ("bwd_dq", "bwd_dkdv"):
+        assert d2a.kernel_live_tiles(197, False, 0, 64, kind) == 16
+        assert d2a.kernel_live_tiles(1024, True, 0, 256, kind) == 272
+        assert d2a.kernel_live_tiles(1024, True, 512, 256, kind) == 216
+        assert d2a.kernel_live_tiles(512, True, 2048, 256, kind) == 72
+    # the two backward kernels' counts differ where the ragged edge meets
+    # the window
+    assert d2a.kernel_live_tiles(197, True, 40, 256, "bwd_dq") == 13
+    assert d2a.kernel_live_tiles(197, True, 40, 256, "bwd_dkdv") == 12
     f, b = d2a.kernel_flops(8, 4, 1024, 256, causal=True, window=512)
     assert (f, b) == (8 * 408 * 2 * 2 * 32 * 32 * 256,
-                      4 * 408 * 7 * 2 * 32 * 32 * 256)
+                      4 * 216 * (3 + 4) * 2 * 64 * 32 * 256)
     f, b = d2a.kernel_flops(192, 144, 197, 64, causal=False, window=0)
     assert f == 192 * 16 * 2 * 2 * 64 * 64 * 64
     assert b == 144 * 16 * 7 * 2 * 64 * 64 * 64
@@ -126,6 +144,29 @@ def test_kernel_tiling_accounting():
                             window=0)
     assert part[0] == pytest.approx(full[0] * 0.8)
     assert part[1] == pytest.approx(full[1] * 0.6)
+    full = d2a.kernel_bytes(16, 16, 16, 16, 1024, 256, causal=True,
+                            window=512)
+    part = d2a.kernel_bytes(16, 12, 16, 12, 1024, 256, causal=True,
+                            window=512)
+    assert part[1] == pytest.approx(full[1] * 0.75)
+
+
+@pytest.mark.parametrize("hd", d2a.KERNEL_HEAD_DIMS)
+def test_kernel_live_tiles_hold_a_live_element(hd):
+    """At each head dim, every kernel's live tile count equals the number
+    of its (q tile, k tile) pairs that hold an unmasked in-bounds entry,
+    counted from the element mask (the kernels' elem_live) under
+    bidirectional, causal and windowed masks at ragged and whole S."""
+    for S in (1, 63, 197, 256):
+        for causal, window in ((False, 0), (True, 0), (True, 40)):
+            mask = d2a._mask(S, causal, window, "cpu")
+            for kind in d2a.KERNEL_KINDS:
+                bq, bk = d2a.kernel_block(hd, kind)
+                want = sum(bool(mask[i:i + bq, j:j + bk].any())
+                           for i in range(0, S, bq)
+                           for j in range(0, S, bk))
+                assert d2a.kernel_live_tiles(S, causal, window, hd,
+                                             kind) == want, (S, kind)
 
 
 @pytest.mark.parametrize("live", [None, 0, 3, 7, 8, 20])

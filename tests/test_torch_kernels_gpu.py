@@ -190,8 +190,9 @@ def test_d2ft_kernels_match_plain(hd, S, causal, window):
     """Forward and backward kernels against the plain version and its
     autograd gradients, with compaction bounds above the live counts;
     exact zeros on gated slices, LSE_MASKED on dead ones, and executed
-    tiles = live slices x live tiles per slice. hd 256 takes 32-row tiles
-    (ragged at S 63 and 197); S 1024 is gemma3-1b's fine-tune length, with
+    tiles = live slices x live tiles per slice of each kernel. hd 256
+    takes 32-row forward tiles and 64 x 32 backward ones (ragged at S 63
+    and 197); S 1024 is gemma3-1b's fine-tune length, with
     its 512 window and without."""
     _need_card()
     B, H = 3, 4
@@ -223,11 +224,35 @@ def test_d2ft_kernels_match_plain(hd, S, causal, window):
         assert float(a.grad[g_b == 0].abs().max()) == 0.0
     assert float(out[g_f == 0].abs().max()) == 0.0
     assert bool((lse[g_f == 0] == d2a.LSE_MASKED).all())
-    tiles = d2a.kernel_live_tiles(S, causal, window, hd)
-    assert counts == {"fwd": n_f * tiles, "bwd_dkdv": n_b * tiles,
-                      "bwd_dq": n_b * tiles, "ssd_fwd": 0, "ssd_bwd": 0,
-                      "rglru_fwd": 0, "rglru_bwd": 0, "moe_fwd": 0,
-                      "moe_bwd": 0}
+    tiles = {kind: d2a.kernel_live_tiles(S, causal, window, hd, kind)
+             for kind in d2a.KERNEL_KINDS}
+    assert counts == {"fwd": n_f * tiles["fwd"],
+                      "bwd_dkdv": n_b * tiles["bwd_dkdv"],
+                      "bwd_dq": n_b * tiles["bwd_dq"], "ssd_fwd": 0,
+                      "ssd_bwd": 0, "rglru_fwd": 0, "rglru_bwd": 0,
+                      "moe_fwd": 0, "moe_bwd": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,S,causal,window", [
+    (64, 197, False, 0), (256, 1024, True, 512), (256, 197, True, 40)])
+def test_d2ft_backward_is_bitwise_deterministic(hd, S, causal, window):
+    """Two backward launches on the same inputs give bitwise-equal dq, dk
+    and dv: FA2's split sums every gradient in one block, in a fixed order,
+    with no float atomics (the fine-tunes compare trajectories)."""
+    _need_card()
+    q, k, v, do, g_f, g_b = _attn_case(hd + S, 3, 4, S, hd)
+    n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+    o, lse = d2a.flash_fwd(q, k, v, g_f, causal=causal, window=window,
+                           live=n_f)
+    first = d2a.flash_bwd(q, k, v, g_b, o, lse, do, causal=causal,
+                          window=window, live=n_b)
+    second = d2a.flash_bwd(q, k, v, g_b, o, lse, do, causal=causal,
+                           window=window, live=n_b)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -607,11 +632,12 @@ def test_lora_matmul_refuses_cpu_tensors():
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N", [(4096, 1152, 256), (4095, 1152, 1000),
                                    (130, 97, 70), (1, 33, 5)])
-@pytest.mark.parametrize("r", [1, 8, 64, 240])
+@pytest.mark.parametrize("r", [1, 8, 64, 240, 256])
 def test_lora_matmul_matches_plain(M, K, N, r):
     """The kernel against ``lora_matmul_ref`` and against the merged product
     x @ (W + s·A@B): gemma3-1b's wk shape, ragged M, N and K (4095 x 1000,
-    odd sizes, a single row), the paper's ranks. Through ``ops.lora_linear``
+    odd sizes, a single row), the paper's ranks and the kernel's largest
+    (256, its third width). Through ``ops.lora_linear``
     once, 2-D and 3-D."""
     _need_card()
     x, w, a, b = _lora_case(M + N + r, M, K, N, r)

@@ -1,0 +1,149 @@
+"""The 3xTF32 arithmetic of ``kernels/csrc/tf32x3.cuh``, emulated on the
+CPU: the precision argument for running the port's float32 products on the
+tensor cores, made before any run on a card.
+
+A tf32 value is the top 19 bits of a float32 (sign, exponent, 10 mantissa
+bits). The kernels split each operand as a = big + small, big = a rounded
+to tf32 to nearest with ties away from zero (``cvt.rna.tf32.f32``'s
+rounding), small = a - big, which the tensor core reads truncated to tf32,
+and take each product as small·big + big·small + big·big. The products of
+two tf32 values are exact in float32, so float32 matmuls of the split
+operands emulate the tensor core's products. The emulation sums in IEEE
+float32; the tensor core's own sums truncate, and the kernels keep them to
+one or two k-steps' products before an IEEE add (``csrc/tf32x3.cuh``).
+
+At small slices of the main path's shapes (ViT-small's hd 64 at S 197,
+gemma3-1b's hd 256 causal and windowed, D2FT-LoRA's wq at K 1152) the
+emulated 3xTF32 attention backward and LoRA matmul stay within the limits
+the kernels are held to on the card (gradients 1e-4 absolute; LoRA 1e-5 x
+max(1, max |y|)) of the float64 result with a tenfold margin, and one TF32
+product a step does not.
+"""
+import numpy as np
+import pytest
+import torch
+
+KERNEL_TOL = 1e-5
+GRAD_TOL = 1e-4
+
+
+def tf32(x):
+    """``cvt.rna.tf32.f32``: round a float32 tensor to 10 mantissa bits,
+    to nearest with ties away from zero (on the magnitude's bits), as the
+    kernels' split does with an integer add and mask."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_read(x):
+    """A float32 as the tensor core reads a tf32 operand: its low 13 bits
+    dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mm(a, b, terms):
+    """a @ b of float32 tensors the way the kernels' mma steps take it:
+    terms 3 is 3xTF32 (small·big + big·small + big·big), 1 one TF32
+    product."""
+    a_big, b_big = tf32(a), tf32(b)
+    if terms == 1:
+        return a_big @ b_big
+    a_small, b_small = tf32_read(a - a_big), tf32_read(b - b_big)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def test_rounding_and_split():
+    x = torch.tensor([1 + 2 ** -11, 1 + 2 ** -12, -(1 + 2 ** -11),
+                      1 + 3 * 2 ** -11, 3.0, 0.0], dtype=torch.float32)
+    assert tf32(x).tolist() == [1 + 2 ** -10, 1.0, -(1 + 2 ** -10),
+                                1 + 2 ** -9, 3.0, 0.0]
+    assert tf32_read(x).tolist() == [1.0, 1.0, -1.0, 1 + 2 ** -10, 3.0,
+                                     0.0]
+    a = torch.from_numpy(np.random.default_rng(0).normal(
+        size=4096).astype(np.float32))
+    big = tf32(a)
+    small = tf32_read(a - big)
+    # big within 2^-11 of a; small, read with 10 mantissa bits, leaves
+    # big + small within 2^-21
+    assert float(((a - big) / a).abs().max()) <= 2 ** -11
+    rest = (a.double() - big.double() - small.double()) / a.double()
+    assert float(rest.abs().max()) <= 2 ** -21
+
+
+def _attention_backward(q, k, v, do, causal, window, terms):
+    """The backward kernels' arithmetic on one slice: s = (q k^T) scale,
+    p = exp(s - lse), dp = do v^T, ds = p (dp - delta), dq = ds k scale,
+    dk = ds^T q scale, dv = p^T do, with the five products taken by
+    ``mm`` (terms 3 or 1) or, terms 0, in float64. lse and delta come from
+    float64, as the forward's lse and the exact delta, so only the
+    products differ."""
+    S, hd = q.shape
+    scale = hd ** -0.5
+    pos = torch.arange(S)
+    mask = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    s64 = torch.where(mask, q64 @ k64.T * scale, -torch.inf)
+    lse = torch.logsumexp(s64, dim=-1, keepdim=True)
+    p64 = torch.exp(s64 - lse)
+    delta = ((p64 @ v64) * do64).sum(-1, keepdim=True)
+    if terms == 0:
+        dp = do64 @ v64.T
+        ds = p64 * (dp - delta)
+        return {"dq": ds @ k64 * scale, "dk": ds.T @ q64 * scale,
+                "dv": p64.T @ do64}
+    s = mm(q, k.T, terms) * scale
+    p = torch.where(mask, torch.exp(s - lse.float()), 0.0)
+    ds = p * (mm(do, v.T, terms) - delta.float())
+    return {"dq": mm(ds, k, terms) * scale,
+            "dk": mm(ds.T.contiguous(), q, terms) * scale,
+            "dv": mm(p.T.contiguous(), do, terms)}
+
+
+# ViT-small's slice (S 197, hd 64, bidirectional); gemma3-1b's hd 256 on a
+# 128-row slice, causal and under a window
+@pytest.mark.parametrize("S,hd,causal,window", [
+    (197, 64, False, 0), (128, 256, True, 0), (128, 256, True, 40)])
+def test_attention_backward_products_hold_the_kernel_limits(S, hd, causal,
+                                                            window):
+    rng = np.random.default_rng(S + hd + window)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(S, hd)).astype(
+        np.float32)) for _ in range(4))
+    exact = _attention_backward(q, k, v, do, causal, window, 0)
+    errs = {}
+    for terms in (3, 1):
+        got = _attention_backward(q, k, v, do, causal, window, terms)
+        errs[terms] = {name: float((got[name].double() - exact[name])
+                                   .abs().max()) for name in got}
+    # within the limit with a tenfold margin, where one TF32 product
+    # misses it
+    for name in ("dq", "dk", "dv"):
+        assert errs[3][name] <= GRAD_TOL / 10, (name, errs[3][name])
+        assert errs[1][name] > GRAD_TOL, (name, errs[1][name])
+
+
+# D2FT-LoRA's wq (K 1152, N 1024) on 256 rows and 128 columns, at the run's
+# rank 8 and the paper's largest rank-matched 240
+@pytest.mark.parametrize("r", [8, 240])
+def test_lora_products_hold_the_kernel_limit(r):
+    M, K, N, scale = 256, 1152, 128, 0.7
+    rng = np.random.default_rng(r)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = (rng.normal(size=(K, N)) / K ** 0.5).astype(np.float32)
+    a = (rng.normal(size=(K, r)) / K ** 0.5).astype(np.float32)
+    b = (rng.normal(size=(r, N)) / r ** 0.5).astype(np.float32)
+    exact = x.astype(np.float64) @ w + scale * (
+        (x.astype(np.float64) @ a) @ b)
+    lim = KERNEL_TOL * max(1.0, float(np.abs(exact).max()))
+    xt, wt, at, bt = (torch.from_numpy(t) for t in (x, w, a, b))
+    errs = {}
+    for terms in (3, 1):
+        # the kernel: u = x A beside x W, then scale u added through B
+        u = mm(xt, at, terms)
+        y = mm(xt, wt, terms) + mm(scale * u, bt, terms)
+        errs[terms] = float(np.abs(y.double().numpy() - exact).max())
+    assert errs[3] <= lim / 10, errs
+    assert errs[1] > lim, errs
