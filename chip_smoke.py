@@ -12,18 +12,26 @@ Phases, one line each (any failure raises and exits non-zero):
 2. build — every ``src/repro_torch/kernels/csrc/*.cu`` compiled with nvcc
    for sm_90a (one nvcc per source, all started together), the build
    seconds and the ``-Xptxas -v`` report.
-3. kernel vs plain — the paged flash-decode kernel against its plain
-   PyTorch version at gemma3-1b decode shapes, <= 1e-5 in float32.
+3. kernel vs plain — the paged flash-decode kernels (split-KV, then the
+   merge) against their plain PyTorch version at gemma3-1b decode shapes,
+   <= 1e-5 in float32, exact zeros on gated heads and bitwise equal across
+   two calls: lengths at page and 64-position run boundaries, tables
+   null-padded over whole runs, windows 0, 512 and 40.
 4. serve — the paged serving engine on gemma3-1b at full width (random
    weights from seed 0) answers 8 requests through 4 slots with the kernel
    on; launches == 26 x decode steps, every request finishes, every page
    returns, and the greedy tokens equal those of the plain gather path.
    Then a profiler window over five decode steps of the four longest
-   requests: device busy and idle share per step, top kernels.
-5. kernel timing — CUDA-event times of the decode kernel, its plain
-   version and one PyTorch library call (gather +
+   requests: device busy and idle share per step, top kernels; and the
+   host time per step that ``ops.paged_decode_attention`` spends outside
+   the kernel launcher (its checks and the page-id range check's device
+   sync), over five more steps without the profiler.
+5. kernel timing — CUDA-event times of the decode launcher call and of its
+   kernels alone (output and workspace allocated outside the window), its
+   plain version and one PyTorch library call (gather +
    scaled_dot_product_attention, a yardstick the port never calls) at the
-   trace's final lengths, beside the bytes bound.
+   trace's final lengths, beside the bytes bound; the split grid and the
+   kernels' registers and spills from the -Xptxas -v logs.
 6. attention kernels vs plain — the gated flash-attention forward and
    backward kernels against their plain version and its autograd
    gradients: ViT-small shapes (B 40, H 6, S 197, hd 64, bidirectional)
@@ -43,12 +51,12 @@ Phases, one line each (any failure raises and exits non-zero):
    window over 3 kernel-path steps.
 8. attention kernel timing — CUDA-event times of the forward and backward
    kernels at the fine-tune's shapes and (192, 144) bounds, L2 flushed
-   (the backward through its launcher and its kernels alone), beside
-   their plain version's, both bounds (float32 FMA; 3xTF32 on the tensor
-   cores, which the backward is held to), the library yardstick
-   (scaled_dot_product_attention forward and its autograd backward on the
-   live slices, which the port never calls) and the backward's registers
-   and spills from the -Xptxas -v logs.
+   (each through its launcher and its kernels alone), beside their plain
+   version's, both bounds (float32 FMA; 3xTF32 on the tensor cores, which
+   both are held to), the library yardstick (scaled_dot_product_attention
+   forward and its autograd backward on the live slices, which the port
+   never calls) and both sources' registers and spills from the
+   -Xptxas -v logs.
 9. SSD kernels vs plain — the gated SSD chunked-scan forward and backward
    kernels against their plain version and its autograd gradients, on the
    operands the main path gives them (mamba2-130m's first SSD layer,
@@ -110,10 +118,10 @@ Phases, one line each (any failure raises and exits non-zero):
 15. LoRA and hd-256 attention timing — CUDA-event times, L2 flushed, of
    the LoRA kernel at phase 14's wq (M 4096, K 1152, N 1024, r 8) and of
    the hd-256 attention kernels at phase 13's shapes, gates and bounds
-   (the backward also alone), beside their plain versions, both bounds
-   (float32 FMA; 3xTF32, which the LoRA kernel and the backward are held
-   to), a library yardstick the port never calls (addmm + two matmuls;
-   SDPA on the live slices) and the LoRA kernel's registers and spills.
+   (each also alone), beside their plain versions, both bounds (float32
+   FMA; 3xTF32, which all three are held to), a library yardstick the
+   port never calls (addmm + two matmuls; SDPA on the live slices) and the
+   LoRA kernel's registers and spills.
 16. RG-LRU kernels vs plain — the gated RG-LRU scan forward and backward
    kernels against their plain version and its autograd gradients, on the
    operands the main path gives them (la and b of recurrentgemma-2b's
@@ -315,6 +323,49 @@ def bound(lengths, window, *, H, n_kv, hd, n_pmax, itemsize=4):
                                        else "operations")
 
 
+def page_check_host_time(torch, engine, reqs, n_steps):
+    """Host ms per decode step that ``ops.paged_decode_attention`` spends
+    outside ``paged_flash_decode``: its shape checks and the page-id range
+    check, whose ``.tolist()`` waits for the device once a call (the time
+    the host then blocks is part of it). Measured by wrapping the entry
+    where the decode step calls it and the launcher where the entry calls
+    it, over n_steps decode steps of ``reqs``; returns (ms per step,
+    calls per step, wall ms per step)."""
+    import repro_torch.kernels.ops as kops
+    import repro_torch.serving.paged_decode as spd
+    outer, inner = [], []
+
+    def timed(fn, sink):
+        def call(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            sink.append(time.perf_counter() - t)
+            return out
+        return call
+
+    for r in reqs:
+        engine.submit(r)
+    engine.step()                                  # admits all of them
+    torch.cuda.synchronize()
+    entry, launcher = spd.paged_decode_attention, kops.paged_flash_decode
+    spd.paged_decode_attention = timed(entry, outer)
+    kops.paged_flash_decode = timed(launcher, inner)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        spd.paged_decode_attention = entry
+        kops.paged_flash_decode = launcher
+    if len(outer) != len(inner) or not outer:
+        raise AssertionError(f"{len(outer)} entry calls, {len(inner)} "
+                             "launcher calls")
+    return (1e3 * (sum(outer) - sum(inner)) / n_steps,
+            len(outer) // n_steps, 1e3 * wall / n_steps)
+
+
 def attn_inputs(torch, gen, B, H, S, hd):
     """q, k, v, a cotangent and a p_f / p_o / p_s gate mix in the
     fine-tune's 3 : 1 : 1 proportions (slice op = random permutation mod
@@ -358,6 +409,17 @@ def attention_bwd_alone(torch, q, k, v, o, lse, do, g_b, *, causal, window,
     return time_ms(torch, lambda: d2a._bwd_call(
         q, k, v, o, do, lse, g_b, idx, *bufs, n_disp, causal=causal,
         window=window))
+
+
+def attention_fwd_alone(torch, q, k, v, g_f, *, causal, window, live):
+    """CUDA-event ms of the attention forward's kernel alone: the
+    compaction table and the outputs that each launcher call makes are
+    made once, outside the timed window."""
+    from repro_torch.kernels import d2ft_attention as d2a
+    _, _, n_disp, idx = d2a._prepare(q, k, v, g_f, live)
+    o, lse = d2a._fwd_outputs(q)
+    return time_ms(torch, lambda: d2a._fwd_call(
+        q, k, v, g_f, idx, o, lse, n_disp, causal=causal, window=window))
 
 
 def print_resources(name, tag):
@@ -677,18 +739,18 @@ def attention_timing(torch, gen, tag):
     out = {}
     fwd_bytes = 4 * (3 * n_f * S * hd + B * H * S * hd + B * H * S)
     fwd_flops = n_f * 2 * 2 * S * S * hd
+    # both kernels run 3xTF32 on the tensor cores: held to that bound
     out["fwd"] = (
         time_ms(torch, lambda: d2a.flash_fwd(q, k, v, g_f, causal=False,
                                              live=n_f)),
         time_ms(torch, lambda: d2a.gated_attention_ref(q, k, v, g_f, g_b,
                                                        causal=False)),
         time_ms(torch, lambda: F.scaled_dot_product_attention(lq, lk, lv)),
-        *roofline(fwd_bytes, fwd_flops))
+        *tc_roofline(fwd_bytes, fwd_flops))
     # backward: q, k, v, o, do and lse of each live slice read once, dq, dk,
     # dv written for every slice; 5 products per live slice (s recomputed)
     bwd_bytes = 4 * (5 * n_b * S * hd + n_b * S + 3 * B * H * S * hd)
     bwd_flops = n_b * 5 * 2 * S * S * hd
-    # the backward runs 3xTF32 on the tensor cores: held to that bound
     out["bwd"] = (
         time_ms(torch, lambda: d2a.flash_bwd(q, k, v, g_b, o, lse, do,
                                              causal=False, live=n_b)),
@@ -698,22 +760,24 @@ def attention_timing(torch, gen, tag):
             lib_o, (bq, bk, bv), ldo, retain_graph=True)),
         *tc_roofline(bwd_bytes, bwd_flops))
     work = {"fwd": (fwd_bytes, fwd_flops), "bwd": (bwd_bytes, bwd_flops)}
-    alone = attention_bwd_alone(torch, q, k, v, o, lse, do, g_b,
-                                causal=False, window=0, live=n_b)
+    alone = {"fwd": attention_fwd_alone(torch, q, k, v, g_f, causal=False,
+                                        window=0, live=n_f),
+             "bwd": attention_bwd_alone(torch, q, k, v, o, lse, do, g_b,
+                                        causal=False, window=0, live=n_b)}
     for kind, (k_ms, p_ms, l_ms, b_ms, by) in out.items():
         print(f"[attention timing] d2ft_attention_{kind} B {B} H {H} S {S} "
               f"hd {hd}, live {n_f if kind == 'fwd' else n_b} of {B * H}: "
-              f"kernel {k_ms:.4f} ms" + ("" if kind == "fwd" else
-              f" (kernels alone, table and zeroed outputs built outside the "
-              f"window, {alone:.4f} ms)")
-              + f", plain {p_ms:.4f} ms, library (sdpa "
+              f"launcher call {k_ms:.4f} ms (kernels alone, table and "
+              f"outputs built outside the window, "
+              f"{alone[kind]:.4f} ms), plain {p_ms:.4f} ms, library (sdpa "
               f"{'forward' if kind == 'fwd' else 'autograd backward'} on "
               f"the live slices) {l_ms:.4f} ms; bounds: float32 FMA "
               f"{roofline(*work[kind])[0]:.5f} ms, 3xTF32 tensor cores "
-              f"{tc_roofline(*work[kind])[0]:.5f} ms; held to the "
-              f"{'FMA' if kind == 'fwd' else '3xTF32'} one, {b_ms:.5f} ms by "
-              f"{by}, {b_ms / k_ms:.1%} of it {tag}", flush=True)
-    print_resources("d2ft_attention_bwd", "attention timing")
+              f"{b_ms:.5f} ms by {by}; held to the 3xTF32 one, "
+              f"{b_ms / k_ms:.1%} of it ({b_ms / alone[kind]:.1%} alone) "
+              f"{tag}", flush=True)
+    for name in ("d2ft_attention_fwd", "d2ft_attention_bwd"):
+        print_resources(name, "attention timing")
     return out
 
 
@@ -1576,8 +1640,8 @@ def gemma_timing(torch, gm, lo, tag):
                     time_ms(torch, lambda: d2a.gated_attention_ref(
                         q, k, v, g_f, g_b, causal=True, window=window)),
                     time_ms(torch, lambda: sdpa(lq, lk, lv)),
-                    *roofline(*work["fwd"])),
-            # the backward runs 3xTF32 on the tensor cores: held to that
+                    *tc_roofline(*work["fwd"])),
+            # both run 3xTF32 on the tensor cores: held to that bound
             "bwd": (time_ms(torch, lambda: d2a.flash_bwd(
                         q, k, v, g_b, o, lse, do, causal=True, window=window,
                         live=lb)),
@@ -1586,24 +1650,26 @@ def gemma_timing(torch, gm, lo, tag):
                     time_ms(torch, lambda: torch.autograd.grad(
                         lib_o, (bq, bk, bv), ldo, retain_graph=True)),
                     *tc_roofline(*work["bwd"]))}
-        alone = attention_bwd_alone(torch, q, k, v, o, lse, do, g_b,
-                                    causal=True, window=window, live=lb)
+        alone = {
+            "fwd": attention_fwd_alone(torch, q, k, v, g_f, causal=True,
+                                       window=window, live=lf),
+            "bwd": attention_bwd_alone(torch, q, k, v, o, lse, do, g_b,
+                                       causal=True, window=window, live=lb)}
         for kind, (k_ms, p_ms, l_ms, b_ms, by) in res.items():
             print(f"[hd-256 attention timing] d2ft_attention_{kind} layer "
                   f"{layer} ({'window ' + str(window) if window else 'global'}"
                   f", causal) B {B} H {H} S {S} hd {hd}, live "
                   f"{n_f if kind == 'fwd' else n_b} of {B * H} (bound "
-                  f"{lf if kind == 'fwd' else lb}): kernel {k_ms:.4f} ms"
-                  + ("" if kind == "fwd" else
-                     f" (kernels alone, table and zeroed outputs built "
-                     f"outside the window, {alone:.4f} ms)") + f", "
-                  f"plain {p_ms:.4f} ms, library (sdpa "
+                  f"{lf if kind == 'fwd' else lb}): launcher call "
+                  f"{k_ms:.4f} ms (kernels alone, table and outputs built "
+                  f"outside the window, {alone[kind]:.4f} "
+                  f"ms), plain {p_ms:.4f} ms, library (sdpa "
                   f"{'forward' if kind == 'fwd' else 'autograd backward'} on "
                   f"the live slices) {l_ms:.4f} ms; bounds: float32 FMA "
                   f"{roofline(*work[kind])[0]:.5f} ms, 3xTF32 tensor cores "
-                  f"{tc_roofline(*work[kind])[0]:.5f} ms; held to the "
-                  f"{'FMA' if kind == 'fwd' else '3xTF32'} one, {b_ms:.5f} "
-                  f"ms by {by}, {b_ms / k_ms:.1%} of it {tag}", flush=True)
+                  f"{b_ms:.5f} ms by {by}; held to the 3xTF32 one, "
+                  f"{b_ms / k_ms:.1%} of it ({b_ms / alone[kind]:.1%} "
+                  f"alone) {tag}", flush=True)
         del q, k, v, do, o, lse, qr, kr, vr, ref, lib_o
     out.update(res)
     torch.cuda.empty_cache()
@@ -2654,8 +2720,10 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.ops import paged_decode_attention
-    from repro_torch.kernels.paged_decode import (paged_decode_ref,
-                                                  paged_flash_decode)
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels.paged_decode import (n_splits, paged_decode_ref,
+                                                  paged_flash_decode,
+                                                  split_len)
     from repro_torch.serving.engine import (PagedServingEngine, Request,
                                             make_engine)
     from repro_torch.serving.pages import pages_needed
@@ -2681,30 +2749,41 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_pmax = 130
     max_err = 0.0
+    # lengths at and around page boundaries; at a 64-position run's end
+    # and one past it; tables null-padded over whole runs (10 and 5 of
+    # 130 pages' 33 runs); gated heads and a slot with every head gated
     for lengths, gated in (
             ([15, 16, 17, 700], ((1, 0), (1, 1), (1, 2), (1, 3), (2, 2))),
             ([511, 512, 1500, 2063], ((0, 1), (3, 0), (3, 1), (3, 2),
-                                      (3, 3)))):
-        for window in (0, 512):
+                                      (3, 3))),
+            ([63, 64, 127, 128], ((2, 1),)),
+            ([10, 700, 5, 2070], ((1, 3),))):
+        for window in (0, 512, 40):
             args = paged_inputs(torch, gen, lengths, n_pages=600,
                                 n_pmax=n_pmax, gated=gated)
             out = paged_decode_attention(*args[:5], g_f=args[5],
                                          window=window)
+            again = paged_decode_attention(*args[:5], g_f=args[5],
+                                           window=window)
             torch.cuda.synchronize()
             ref = paged_decode_ref(*args, window=window)
             err = float((out - ref).abs().max())
             dead = args[5] == 0
             if err > KERNEL_TOL or not torch.isfinite(out).all() or \
-                    float(out[dead].abs().max()) != 0.0:
+                    float(out[dead].abs().max()) != 0.0 or \
+                    not torch.equal(out, again):
                 raise AssertionError(
                     f"kernel vs plain: lengths {lengths} window {window}: "
                     f"max abs err {err} (tol {KERNEL_TOL}), dead heads "
-                    f"{float(out[dead].abs().max())}")
+                    f"{float(out[dead].abs().max())}, bitwise equal on a "
+                    f"second call {torch.equal(out, again)}")
             max_err = max(max_err, err)
     print(f"[kernel vs plain] paged_decode f32 B=4 H=4 n_kv=1 hd=256 "
-          f"ps={PAGE_SIZE} n_pmax={n_pmax}, windows 0/512, null-padded "
-          f"tables, gated heads: max abs err {max_err:.3e} <= {KERNEL_TOL}",
-          flush=True)
+          f"ps={PAGE_SIZE} n_pmax={n_pmax} ({n_splits(n_pmax, PAGE_SIZE)} "
+          f"runs of {split_len(PAGE_SIZE)}), windows 0/512/40, lengths at "
+          f"page and run boundaries, tables null-padded over whole runs, "
+          f"gated heads: max abs err {max_err:.3e} <= {KERNEL_TOL}, "
+          f"bitwise equal across two calls", flush=True)
 
     # 4. serve ------------------------------------------------------------
     cfg = get_config("gemma3-1b")
@@ -2831,6 +2910,15 @@ def main() -> int:
     print("[profile] top device time per step: " + "; ".join(
         f"{k[:60]} x{c // n_prof}: {t / 1e3 / n_prof:.3f} ms"
         for t, c, k in dev[:6]), flush=True)
+    check_ms, calls, chk_wall = page_check_host_time(
+        torch, PagedServingEngine(eng.model, cfg, use_kernel=True, **kw),
+        reqs[-MAX_SLOTS:], n_prof)
+    print(f"[profile] ops.paged_decode_attention outside its kernel "
+          f"launcher (shape checks and the page-id range check, whose "
+          f".tolist() is the call's one device sync): {check_ms:.3f} ms of "
+          f"host time per decode step over {calls} calls a step, "
+          f"{check_ms / chk_wall:.1%} of the {chk_wall:.3f} ms step (no "
+          f"profiler) {tag}", flush=True)
 
     # 5. kernel timing ----------------------------------------------------
     final = sorted(s + m - 1 for s, m in zip(PROMPT_LENS, MAX_NEW))[-4:]
@@ -2854,20 +2942,33 @@ def main() -> int:
             enable_gqa=True)[:, :, 0]
 
     records = {}
+    # the kernels alone: output and workspace allocated outside the window
+    ws = torch.empty(pd.workspace_floats(B, H, hd, npm, PAGE_SIZE),
+                     device="cuda")
+    dec_out = torch.empty_like(args[0])
+    grid = (1, B, n_splits(npm, PAGE_SIZE))
     for window in (0, cfg.window):
         ref = paged_decode_ref(*args, window=window)
         lib_err = float((library(window) - ref).abs().max())
         k_ms = time_ms(torch, lambda: paged_flash_decode(
             *args, window=window))
+        alone = time_ms(torch, lambda: pd._decode_call(
+            *args, dec_out, ws, window=window))
         p_ms = time_ms(torch, lambda: paged_decode_ref(*args, window=window))
         l_ms = time_ms(torch, lambda: library(window))
         b_ms, by = bound(final, window, H=H, n_kv=1, hd=hd, n_pmax=npm)
         records[window] = (k_ms, p_ms, l_ms, b_ms, by)
         print(f"[kernel timing] paged_decode window={window} lengths "
-              f"{final}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"library (gather+sdpa) {l_ms:.4f} ms (max abs diff "
-              f"{lib_err:.1e}), bound {b_ms:.5f} ms by {by}, "
-              f"{b_ms / k_ms:.1%} of bound {tag}", flush=True)
+              f"{final}, split grid (n_kv, B, n_split) = {grid} of "
+              f"{split_len(PAGE_SIZE)}-position runs, then the merge: "
+              f"launcher call {k_ms:.4f} ms (kernels alone, output and "
+              f"workspace allocated outside the window, {alone:.4f} ms), "
+              f"plain {p_ms:.4f} ms, library (gather+sdpa) {l_ms:.4f} ms "
+              f"(max abs diff {lib_err:.1e}), bound {b_ms:.5f} ms by {by}, "
+              f"{b_ms / k_ms:.1%} of bound ({b_ms / alone:.1%} alone) "
+              f"{tag}", flush=True)
+    print_resources("paged_decode", "kernel timing")
+    del ws, dec_out
 
     paged = records[0]
     del eng, plain, prof_eng, args

@@ -1,4 +1,4 @@
-// Paged flash decode for Hopper (sm_90a), float32.
+// Paged flash decode for Hopper (sm_90a), float32: a split-KV decode.
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_decode.py::
 // _paged_decode_kernel (launcher paged_flash_decode). One query token per
@@ -7,39 +7,68 @@
 // addressed through the page table [B, n_pmax] (int32, null-padded with
 // page 0). Output [B, H, hd].
 //
-// What bounds it on this card: bytes. Each K/V element is used for
-// 2*rep flops per (slot, kv head), far below the ~20 flop/byte the H100
-// needs in fp32 before compute matters, so the least time is the K/V bytes
-// of the positions each sequence must read, once, over 3.35 TB/s. At small
-// batch there are only B * n_kv blocks, so latency bounds it well above that.
+// What bounds it on this card: bytes, and at decode's small batch the
+// latency of reading them. Each K/V element is used for 2*rep flops per
+// (slot, kv head), far below the ~20 flop/byte the H100 needs in float32
+// before compute matters, so the least time is the K/V bytes of the
+// positions each sequence must read, once, over 3.35 TB/s: ~3 us for
+// gemma3-1b's 4 slots of ~1.4k tokens. That is below what two launches
+// take, so the launches and one tile's load latency are the real floor.
 //
 // What the design does about it:
-//  * One thread block per (slot b, kv head g) serves all rep = H / n_kv
-//    query heads of the group, so each K/V row is read from device memory
-//    once, not rep times (the Pallas grid (B, H, n_pmax) re-reads a kv
-//    head's pages for every query head).
-//  * The block reads lengths[b] and page_table[b, :] itself and walks only
-//    the positions it needs, [max(0, t - window + 1), t], in tiles of
-//    kTile positions that may span pages: pages past the length (table
-//    padding included) and pages wholly left of the window are never
-//    touched, and neither are masked rows inside a live page.
-//  * Per tile: each warp loads the K rows of its kTile / kWarps positions
-//    at once (their latencies overlap), computes the rep scores of each
-//    with warp reductions (lanes split hd); one warp per head updates the
-//    f32 online-softmax state; then every thread owns hd / blockDim output
-//    dims, loads kVBatch V rows at a time and accumulates P.V for all rep
-//    heads in registers.
-//  * g_f == 0 heads write exact zeros and skip their dot products; a block
-//    whose whole group is gated off writes zeros and loads no K/V.
-//  * No wgmma, TMA or split-K across pages yet: speed is later work.
+//  * Split-KV. The history of each (slot b, kv head g) is cut into runs of
+//    `split` positions (a multiple of the page size and of kTile; the
+//    launcher names it, kernels/paged_decode.py KV_SPLIT). The grid is
+//    (n_kv, B, n_split), n_split = ceil(n_pmax * page_size / split) from
+//    the table's width, so no host sync sizes it: gemma3-1b's 129-page
+//    table at page size 16 gives 33 runs of 64, 132 blocks for 4 slots,
+//    one per SM, where one block per (slot, kv head) gave 4 blocks that
+//    each walked 33 tiles in turn.
+//  * Each block serves all rep = H / n_kv query heads of its group, so
+//    each K/V row is read from device memory once, not rep times (the
+//    Pallas grid (B, H, n_pmax) re-reads a kv head's pages per query
+//    head). It reads lengths[b] and page_table[b, :] itself and touches
+//    only positions the mask keeps ([max(0, t - window + 1), t]) inside
+//    its run: a run wholly past the length (table padding included) or
+//    wholly left of the window writes an empty partial (m = -2^30, l = 0)
+//    and loads no K/V; so does a group whose heads are all gated off.
+//  * Loads: the page indirection is resolved once a tile, one row offset
+//    per position in shared memory; then the whole tile's K rows and V
+//    rows (up to 64 + 64 rows, 128 KB at hd 256) are put in flight at once
+//    with 16-byte cp.async, neighbouring threads on neighbouring 16 bytes
+//    of one row, as two groups: the scores wait only for K, and V lands
+//    meanwhile. cp.async rather than TMA: a row's address depends on the
+//    page table, so a tile is 64 gathers of one row each, which a TMA
+//    tensor map would issue one row per copy anyway; cp.async issues them
+//    from all 256 threads at once with no descriptor.
+//  * Scores: warp w takes positions w, w + 8, ...; each lane holds its
+//    16-byte slices of the rep queries in registers, reads the K row's
+//    matching slices from shared memory and the rep dot products are
+//    finished with warp reductions. One warp per head then takes the
+//    tile's max and exp-sums (float32 online softmax across the run's
+//    tiles). P.V: thread (group, column) owns one 16-byte column of V and
+//    sums the rep heads over every (256 / (hd / 4))-th position; the
+//    groups' sums are added in a fixed order through shared memory.
+//  * Partials: each block writes, for its rep heads, the unnormalised
+//    accumulator [hd], its running max m and sum l into a float32
+//    workspace [B, H, n_split, hd] + [B, H, n_split] x 2 that the launcher
+//    allocates. A second kernel, in the same launcher call, merges the
+//    partials of each (slot, head) in split order: rescale to the global
+//    max, sum, divide by l, multiply by the gate. The order is fixed, so
+//    results are bitwise the same on every call; no float atomics.
+//  * g_f == 0 heads write exact zeros and skip their dot products; so do
+//    slots with no live position.
 //
 // Launch contract: the caller (repro_torch/kernels/paged_decode.py)
-// checks devices, dtypes, shapes, contiguity and page-id range, allocates
-// the output, and passes PyTorch's current stream. The kernel allocates
-// nothing. The entry returns cudaGetLastError() after the launch.
+// checks devices, dtypes, shapes, contiguity, alignment and page-id range,
+// allocates the output and the workspace, and passes PyTorch's current
+// stream. The kernels allocate nothing. The entry launches the split
+// kernel, then the merge, and returns the first cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -48,7 +77,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxRep = 8;      // query heads per kv head a block serves
 constexpr int kTile = 64;       // positions per online-softmax step
 constexpr int kPosPerWarp = kTile / kWarps;
-constexpr int kVBatch = 16;     // V rows each thread loads before using
 constexpr float kNegInf = -1073741824.0f;  // -2^30, the JAX package's NEG_INF
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -64,115 +92,200 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k_pages,
-                        const float* __restrict__ v_pages,
-                        const int32_t* __restrict__ page_table,
-                        const int32_t* __restrict__ lengths,
-                        const float* __restrict__ gates,
-                        float* __restrict__ out,
-                        int H, int n_kv, int page_size, int n_pmax,
-                        int window, float scale) {
-  constexpr int kPerLane = HD / 32;                          // score phase
-  constexpr int kPerThread = (HD + kThreads - 1) / kThreads;  // P.V phase
-  __shared__ float q_s[kMaxRep * HD];        // pre-scaled queries of the group
-  __shared__ float p_s[kMaxRep][kTile];      // scores, then probabilities
-  __shared__ long long off_s[kTile];         // pool offset of each K/V row
-  __shared__ float m_s[kMaxRep], l_s[kMaxRep], corr_s[kMaxRep];
-  __shared__ float gate_s[kMaxRep];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// P.V layout: kCols threads cover a row in 16-byte columns, kGroups groups
+// of them take every kGroups-th position
+template <int HD>
+struct Pv {
+  static constexpr int kCols = HD / 4;
+  static constexpr int kGroups = kThreads / kCols;
+  static_assert(kThreads % kCols == 0 && kTile % kGroups == 0 &&
+                kTile * kCols % kThreads == 0 && kTile <= kThreads,
+                "layout");
+};
+
+template <int HD, int REP>
+constexpr size_t split_smem_bytes() {
+  return sizeof(float) * (2 * kTile * HD + kThreads * 4 * REP);
+}
+
+// q, pools, gates, lengths and table as paged_decode_f32; acc [B, H,
+// n_split, HD], m and l [B, H, n_split] the partials. REP (1, 2, 4 or 8)
+// is rep rounded up to a power of two: heads r >= rep of a block are
+// phantoms with a zero query, so the unrolled loops over heads carry no
+// per-head branch, and their results are never written. (A first version
+// with a runtime head bound in those loops, runtime-bounded staging loops
+// and the run bounds below visible to the optimizer did not compile in
+// minutes; this one takes seconds.)
+template <int HD, int REP>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_split_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k_pages,
+                          const float* __restrict__ v_pages,
+                          const int32_t* __restrict__ page_table,
+                          const int32_t* __restrict__ lengths,
+                          const float* __restrict__ gates,
+                          float* __restrict__ ws_acc,
+                          float* __restrict__ ws_m, float* __restrict__ ws_l,
+                          int H, int n_kv, int page_size, int n_pmax,
+                          int split, int window, float scale) {
+  constexpr int kChunks = HD / 4;                  // 16-byte slices a row
+  constexpr int kPerLane = (kChunks + 31) / 32;    // of them a lane scores
+  constexpr int kCols = Pv<HD>::kCols, kGroups = Pv<HD>::kGroups;
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;                         // [kTile][HD]
+  float* v_s = k_s + kTile * HD;             // [kTile][HD]
+  float* red_s = v_s + kTile * HD;           // [kGroups][REP][HD]
+  __shared__ float p_s[REP][kTile];          // scores, then probabilities
+  __shared__ long long off_s[kTile];         // pool offset of each K/V row
+  __shared__ float m_s[REP], l_s[REP], corr_s[REP];
+  __shared__ float gate_s[REP];
+
+  const int g = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int n_split = gridDim.z;
   const int rep = H / n_kv;
   const int h0 = g * rep;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float* o = out + ((size_t)b * H + h0) * HD;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t part0 = ((size_t)b * H + h0) * n_split + sp;  // head h0's
 
-  if (tid < rep) {
-    gate_s[tid] = gates[(size_t)b * H + h0 + tid];
+  // positions [lo, hi] are exactly those the mask keeps inside this run:
+  // pos <= t, pos > t - window on local layers, and the table's extent
+  const int t = lengths[b];
+  int lo = max(sp * split, window > 0 ? max(0, t - window + 1) : 0);
+  int hi = min(min(t, n_pmax * page_size - 1), sp * split + split - 1);
+  // opaque to the optimizer, which need not reason about the loops below
+  // through these nested min / max (see the note above the kernel)
+  asm("" : "+r"(lo), "+r"(hi));
+  if (tid < REP) {
+    gate_s[tid] = tid < rep ? gates[(size_t)b * H + h0 + tid] : 0.f;
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
   __syncthreads();
   bool any_live = false;
   for (int r = 0; r < rep; ++r) any_live |= gate_s[r] != 0.f;
-  if (!any_live) {
-    for (int i = tid; i < rep * HD; i += kThreads) o[i] = 0.f;
+  if (!any_live || lo > hi) {                // an empty partial, no loads
+    if (tid < rep) {
+      ws_m[part0 + (size_t)tid * n_split] = kNegInf;
+      ws_l[part0 + (size_t)tid * n_split] = 0.f;
+    }
     return;
   }
-  const float* qb = q + ((size_t)b * H + h0) * HD;
-  for (int i = tid; i < rep * HD; i += kThreads) q_s[i] = qb[i] * scale;
 
-  // positions [lo, hi] are exactly those the mask keeps: pos <= t and, on
-  // local layers, pos > t - window; hi also stops at the table's end
-  const int t = lengths[b];
-  const int lo = window > 0 ? max(0, t - window + 1) : 0;
-  const int hi = min(t, n_pmax * page_size - 1);
+  // this lane's 16-byte slices of the rep pre-scaled queries
+  float4 qr[REP][kPerLane];
+  const float* qb = q + ((size_t)b * H + h0) * HD;
+#pragma unroll
+  for (int r = 0; r < REP; ++r)
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int c = lane + 32 * i;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rep && c < kChunks) {
+        x = reinterpret_cast<const float4*>(qb + r * HD)[c];
+        x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
+      }
+      qr[r][i] = x;
+    }
+
   const int32_t* row = page_table + (size_t)b * n_pmax;
   const long long row_stride = (long long)n_kv * HD;
-
-  float acc[kMaxRep][kPerThread];
+  const int col = tid % kCols, grp = tid / kCols;
+  float4 acc[REP];
 #pragma unroll
-  for (int r = 0; r < kMaxRep; ++r)
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) acc[r][i] = 0.f;
-  __syncthreads();  // q_s complete
+  for (int r = 0; r < REP; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   for (int tile0 = lo; tile0 <= hi; tile0 += kTile) {
     const int n = min(kTile, hi - tile0 + 1);
-    // scores: warp w takes positions w, w + kWarps, ...; all its K rows
-    // are loaded before the first is used, so their latencies overlap
-    float kv[kPosPerWarp][kPerLane];
-#pragma unroll
-    for (int jj = 0; jj < kPosPerWarp; ++jj) {
-      const int j = warp + jj * kWarps;
-      if (j < n) {
-        const int pos = tile0 + j;
-        const long long page = row[pos / page_size];
-        const long long off = (page * page_size + pos % page_size) *
-                                  row_stride + (long long)g * HD;
-        if (lane == 0) off_s[j] = off;
-        const float* kr = k_pages + off;
-#pragma unroll
-        for (int i = 0; i < kPerLane; ++i) kv[jj][i] = kr[lane + 32 * i];
-      }
+    if (tid < n) {                            // kTile <= kThreads
+      const int pos = tile0 + tid;
+      const long long page = row[pos / page_size];
+      off_s[tid] = (page * page_size + pos % page_size) * row_stride +
+                   (long long)g * HD;
     }
+    __syncthreads();                          // off_s; last tile's reads
+    // every loop of the tile has a fixed trip count and a guard
+#pragma unroll
+    for (int u = 0; u < kTile * kChunks / kThreads; ++u) {
+      const int i = tid + u * kThreads, j = i / kChunks;
+      const int c = (i % kChunks) * 4;
+      if (j < n) cp_async16(k_s + j * HD + c, k_pages + off_s[j] + c);
+    }
+    commit();
+#pragma unroll
+    for (int u = 0; u < kTile * kChunks / kThreads; ++u) {
+      const int i = tid + u * kThreads, j = i / kChunks;
+      const int c = (i % kChunks) * 4;
+      if (j < n) cp_async16(v_s + j * HD + c, v_pages + off_s[j] + c);
+    }
+    commit();
+    wait<1>();                                // K landed (this thread's)
+    __syncthreads();                          // everyone's
+
+    // scores: warp w takes positions w, w + kWarps, ...
 #pragma unroll
     for (int jj = 0; jj < kPosPerWarp; ++jj) {
       const int j = warp + jj * kWarps;
       if (j < n) {
+        float4 kv[kPerLane];
 #pragma unroll
-        for (int r = 0; r < kMaxRep; ++r) {
-          if (r < rep) {
-            float s = 0.f;
-            if (gate_s[r] != 0.f) {
+        for (int i = 0; i < kPerLane; ++i) {
+          const int c = lane + 32 * i;
+          kv[i] = c < kChunks
+                      ? reinterpret_cast<const float4*>(k_s + j * HD)[c]
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
 #pragma unroll
-              for (int i = 0; i < kPerLane; ++i)
-                s = fmaf(q_s[r * HD + lane + 32 * i], kv[jj][i], s);
-              s = warp_sum(s);
-            }
-            if (lane == 0) p_s[r][j] = s;
+        for (int r = 0; r < REP; ++r) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < kPerLane; ++i) {
+            s = fmaf(qr[r][i].x, kv[i].x, s);
+            s = fmaf(qr[r][i].y, kv[i].y, s);
+            s = fmaf(qr[r][i].z, kv[i].z, s);
+            s = fmaf(qr[r][i].w, kv[i].w, s);
           }
+          s = warp_sum(s);
+          if (lane == 0) p_s[r][j] = s;
         }
       }
     }
     __syncthreads();
     // online softmax: warp r owns head r
-    if (warp < rep) {
+    if (warp < REP) {
       const int r = warp;
       const float m_prev = m_s[r];
       float mx = kNegInf;
-      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, p_s[r][j]);
+#pragma unroll
+      for (int u = 0; u < kTile / 32; ++u)
+        if (lane + 32 * u < n) mx = fmaxf(mx, p_s[r][lane + 32 * u]);
       const float m_new = fmaxf(m_prev, warp_max(mx));
       float sum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float e = expf(p_s[r][j] - m_new);
-        p_s[r][j] = e;
-        sum += e;
+#pragma unroll
+      for (int u = 0; u < kTile / 32; ++u) {
+        const int j = lane + 32 * u;
+        if (j < n) {
+          const float e = expf(p_s[r][j] - m_new);
+          p_s[r][j] = e;
+          sum += e;
+        }
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -182,68 +295,152 @@ paged_decode_f32_kernel(const float* __restrict__ q,
         m_s[r] = m_new;
       }
     }
-    __syncthreads();
-    // P.V: thread owns dims tid, tid + kThreads, ...
+    wait<0>();                                // V landed (this thread's)
+    __syncthreads();                          // everyone's; p_s, corr_s
+
+    // P.V: thread (grp, col) sums positions grp, grp + kGroups, ...
 #pragma unroll
-    for (int r = 0; r < kMaxRep; ++r)
-      if (r < rep)
+    for (int r = 0; r < REP; ++r) {
+      const float c = corr_s[r];
+      acc[r].x *= c; acc[r].y *= c; acc[r].z *= c; acc[r].w *= c;
+    }
+#pragma unroll 4
+    for (int u = 0; u < kTile / kGroups; ++u) {
+      const int j = grp + u * kGroups;
+      if (j >= n) break;
+      const float4 vv = reinterpret_cast<const float4*>(v_s + j * HD)[col];
 #pragma unroll
-        for (int i = 0; i < kPerThread; ++i) acc[r][i] *= corr_s[r];
-    for (int j0 = 0; j0 < n; j0 += kVBatch) {
-      float vv[kVBatch][kPerThread];      // kVBatch V loads in flight
-#pragma unroll
-      for (int u = 0; u < kVBatch; ++u) {
-        const int j = j0 + u;
-#pragma unroll
-        for (int i = 0; i < kPerThread; ++i) {
-          const int d = tid + i * kThreads;
-          vv[u][i] = (j < n && d < HD) ? v_pages[off_s[j] + d] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kVBatch; ++u) {
-        const int j = j0 + u;
-        if (j < n) {
-#pragma unroll
-          for (int r = 0; r < kMaxRep; ++r)
-            if (r < rep)
-#pragma unroll
-              for (int i = 0; i < kPerThread; ++i)
-                acc[r][i] = fmaf(p_s[r][j], vv[u][i], acc[r][i]);
-        }
+      for (int r = 0; r < REP; ++r) {
+        const float p = p_s[r][j];
+        acc[r].x = fmaf(p, vv.x, acc[r].x);
+        acc[r].y = fmaf(p, vv.y, acc[r].y);
+        acc[r].z = fmaf(p, vv.z, acc[r].z);
+        acc[r].w = fmaf(p, vv.w, acc[r].w);
       }
     }
-    __syncthreads();  // p_s / off_s are rewritten by the next tile
   }
 
+  // the groups' sums, added in group order; then the partials out
 #pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    if (r < rep) {
-      const float l = l_s[r];
-      const float gate = gate_s[r];
+  for (int r = 0; r < REP; ++r)
+    reinterpret_cast<float4*>(red_s + (grp * REP + r) * HD)[col] = acc[r];
+  __syncthreads();
+  for (int i = tid; i < rep * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    if (gate_s[r] == 0.f) continue;
+    float s = 0.f;
+    for (int gg = 0; gg < kGroups; ++gg) s += red_s[(gg * REP + r) * HD + d];
+    ws_acc[(part0 + (size_t)r * n_split) * HD + d] = s;
+  }
+  if (tid < rep) {
+    const bool live = gate_s[tid] != 0.f;
+    ws_m[part0 + (size_t)tid * n_split] = live ? m_s[tid] : kNegInf;
+    ws_l[part0 + (size_t)tid * n_split] = live ? l_s[tid] : 0.f;
+  }
+}
+
+// One block per (head, slot), one thread per output dim: the partials of
+// every run merged in split order.
+template <int HD>
+__global__ void __launch_bounds__(HD)
+paged_decode_merge_kernel(const float* __restrict__ ws_acc,
+                          const float* __restrict__ ws_m,
+                          const float* __restrict__ ws_l,
+                          const float* __restrict__ gates,
+                          float* __restrict__ out, int H, int n_split) {
+  extern __shared__ float w_s[];     // [2][n_split]: weights, weights * l
+  __shared__ float red[HD / 32];
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const size_t bh = (size_t)b * H + h;
+  const float gate = gates[bh];
+  float* o = out + bh * HD;
+  if (gate == 0.f) {
+    o[d] = 0.f;
+    return;
+  }
+  const float* m = ws_m + bh * n_split;
+  const float* l = ws_l + bh * n_split;
+  // the global max over live runs
+  float mx = kNegInf;
+  for (int s = d; s < n_split; s += HD)
+    if (l[s] > 0.f) mx = fmaxf(mx, m[s]);
+  mx = warp_max(mx);
+  if ((d & 31) == 0) red[d >> 5] = mx;
+  __syncthreads();
+  mx = red[0];
 #pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const int d = tid + i * kThreads;
-        if (d < HD)
-          o[r * HD + d] = (gate != 0.f && l > 0.f) ? acc[r][i] / l * gate : 0.f;
-      }
+  for (int w = 1; w < HD / 32; ++w) mx = fmaxf(mx, red[w]);
+  float* wl_s = w_s + n_split;
+  for (int s = d; s < n_split; s += HD) {
+    const float w = l[s] > 0.f ? expf(m[s] - mx) : 0.f;
+    w_s[s] = w;
+    wl_s[s] = w * l[s];
+  }
+  __syncthreads();
+  // in split order: sum = sum_s w_s l_s, acc = sum_s w_s acc_s; runs with
+  // no live position (w = 0) are skipped, their acc never written
+  float sum = 0.f, acc = 0.f;
+  const float* a = ws_acc + bh * n_split * HD + d;
+#pragma unroll 8
+  for (int s = 0; s < n_split; ++s) {
+    const float w = w_s[s];
+    if (w != 0.f) {
+      sum += wl_s[s];
+      acc = fmaf(w, a[(size_t)s * HD], acc);
     }
   }
+  o[d] = sum > 0.f ? acc / sum * gate : 0.f;
+}
+
+template <int HD, int REP>
+cudaError_t launch_split(const void* q, const void* k_pages,
+                         const void* v_pages, const void* page_table,
+                         const void* lengths, const float* gates, float* acc,
+                         float* m, float* l, int B, int H, int n_kv,
+                         int page_size, int n_pmax, int split, int n_split,
+                         int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = split_smem_bytes<HD, REP>();
+  static_assert(smem <= 232448, "shared memory exceeds what a block may take");
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_decode_split_kernel<HD, REP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  paged_decode_split_kernel<HD, REP><<<dim3(n_kv, B, n_split), kThreads,
+                                       smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k_pages),
+      static_cast<const float*>(v_pages),
+      static_cast<const int32_t*>(page_table),
+      static_cast<const int32_t*>(lengths), gates, acc, m, l, H, n_kv,
+      page_size, n_pmax, split, window, scale);
+  return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* page_table, const void* lengths,
-                   const void* gates, void* out, int B, int H, int n_kv,
-                   int page_size, int n_pmax, int window, float scale,
+                   const void* gates, void* out, void* ws, int B, int H,
+                   int n_kv, int page_size, int n_pmax, int split,
+                   int n_split, int window, float scale,
                    cudaStream_t stream) {
-  const dim3 grid(n_kv, B);
-  paged_decode_f32_kernel<HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_pages),
-      static_cast<const float*>(v_pages),
-      static_cast<const int32_t*>(page_table),
-      static_cast<const int32_t*>(lengths), static_cast<const float*>(gates),
-      static_cast<float*>(out), H, n_kv, page_size, n_pmax, window, scale);
+  float* acc = static_cast<float*>(ws);
+  float* m = acc + (size_t)B * H * n_split * HD;
+  float* l = m + (size_t)B * H * n_split;
+  const float* gf = static_cast<const float*>(gates);
+  const int rep = H / n_kv;
+  auto split_with = [&](auto rep_pow2) {
+    return launch_split<HD, decltype(rep_pow2)::value>(
+        q, k_pages, v_pages, page_table, lengths, gf, acc, m, l, B, H, n_kv,
+        page_size, n_pmax, split, n_split, window, scale, stream);
+  };
+  cudaError_t err =
+      rep <= 1   ? split_with(std::integral_constant<int, 1>())
+      : rep <= 2 ? split_with(std::integral_constant<int, 2>())
+      : rep <= 4 ? split_with(std::integral_constant<int, 4>())
+                 : split_with(std::integral_constant<int, kMaxRep>());
+  if (err != cudaSuccess) return err;
+  paged_decode_merge_kernel<HD><<<dim3(H, B), HD,
+                                  2 * sizeof(float) * n_split, stream>>>(
+      acc, m, l, gf, static_cast<float*>(out), H, n_split);
   return cudaGetLastError();
 }
 
@@ -257,29 +454,33 @@ int paged_decode_supports_head_dim(int hd) {
   return hd == 32 || hd == 64 || hd == 128 || hd == 256;
 }
 
-// Returns a cudaError_t: 0 on a successful launch.
+// Returns a cudaError_t: 0 when both launches succeeded. ws holds B * H *
+// n_split * (hd + 2) floats; n_split = ceil(n_pmax * page_size / split).
 int paged_decode_f32(const void* q, const void* k_pages, const void* v_pages,
                      const void* page_table, const void* lengths,
-                     const void* gates, void* out, int B, int H, int n_kv,
-                     int hd, int page_size, int n_pmax, int window,
-                     float scale, void* stream) {
+                     const void* gates, void* out, void* ws, int B, int H,
+                     int n_kv, int hd, int page_size, int n_pmax, int split,
+                     int window, float scale, void* stream) {
   if (B <= 0 || n_kv <= 0 || H % n_kv != 0 || H / n_kv > kMaxRep ||
-      page_size <= 0 || n_pmax <= 0)
+      page_size <= 0 || n_pmax <= 0 || split <= 0 || split % kTile != 0 ||
+      split % page_size != 0)
     return cudaErrorInvalidValue;
+  auto bits = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  if ((bits(q) | bits(k_pages) | bits(v_pages) | bits(ws)) & 15)
+    return cudaErrorMisalignedAddress;
+  const int n_split = (n_pmax * page_size + split - 1) / split;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32:
-      return launch<32>(q, k_pages, v_pages, page_table, lengths, gates, out,
-                        B, H, n_kv, page_size, n_pmax, window, scale, s);
-    case 64:
-      return launch<64>(q, k_pages, v_pages, page_table, lengths, gates, out,
-                        B, H, n_kv, page_size, n_pmax, window, scale, s);
-    case 128:
-      return launch<128>(q, k_pages, v_pages, page_table, lengths, gates, out,
-                         B, H, n_kv, page_size, n_pmax, window, scale, s);
-    case 256:
-      return launch<256>(q, k_pages, v_pages, page_table, lengths, gates, out,
-                         B, H, n_kv, page_size, n_pmax, window, scale, s);
+#define PAGED_DECODE_CASE(HD)                                                 \
+  case HD:                                                                    \
+    return launch<HD>(q, k_pages, v_pages, page_table, lengths, gates, out,   \
+                      ws, B, H, n_kv, page_size, n_pmax, split, n_split,      \
+                      window, scale, s);
+    PAGED_DECODE_CASE(32)
+    PAGED_DECODE_CASE(64)
+    PAGED_DECODE_CASE(128)
+    PAGED_DECODE_CASE(256)
+#undef PAGED_DECODE_CASE
     default:
       return cudaErrorInvalidValue;
   }

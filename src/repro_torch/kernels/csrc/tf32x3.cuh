@@ -1,5 +1,6 @@
 // Float32-accurate products on Hopper's tensor cores (3xTF32), shared by
-// the kernels that include it (lora_matmul.cu, d2ft_attention_bwd.cu).
+// the kernels that include it (lora_matmul.cu, d2ft_attention_fwd.cu,
+// d2ft_attention_bwd.cu).
 //
 // The port runs float32 with TF32 off, so that it matches the JAX package.
 // One TF32 product keeps 11 significant bits of each operand (about three
@@ -24,6 +25,9 @@
 //    and its 4 lanes on 4 rows. swz(row) = ((row & 3) << 3) | (row & 4)
 //    puts both on distinct banks, and keeps every 16-byte chunk whole, so
 //    cp.async can fill the tile;
+//  * an accumulator read back as the A fragment of a following product
+//    (acc_as_a), in registers, for the attention forward's P.V, with the
+//    row order its B operand is staged in (kpair_row);
 //  * cp.async staging (16-byte with zero fill past the valid bytes, and
 //    4-byte for sources that are not 16-byte aligned) and commit / wait.
 //
@@ -90,6 +94,25 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
   mma3_into(t, a, b);
 #pragma unroll
   for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// The 16 x 8 accumulator c of a product (rows g, g + 8; columns 2t, 2t + 1)
+// as the A fragment of a following product over those 8 columns, with no
+// value moved between lanes: that product takes its k in the order
+// k = t <-> column 2t, k = t + 4 <-> column 2t + 1, so its B operand's
+// rows are stored in the same order (kpair_row).
+__device__ __forceinline__ void acc_as_a(FragA& f, const float (&c)[4]) {
+  split(c[0], f.big[0], f.small[0]);      // (g, k t): column 2t
+  split(c[2], f.big[1], f.small[1]);      // (g + 8, k t)
+  split(c[1], f.big[2], f.small[2]);      // (g, k t + 4): column 2t + 1
+  split(c[3], f.big[3], f.small[3]);      // (g + 8, k t + 4)
+}
+
+// the tile row at which row r of acc_as_a's B operand is stored: within
+// each 8-row group, row 2i goes to i and row 2i + 1 to i + 4, so that
+// load_b_kn's rows k0 + t and k0 + t + 4 are columns 2t and 2t + 1
+__device__ __forceinline__ int kpair_row(int r) {
+  return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
 }
 
 // ------------------------------------------------- swizzled shared tiles
@@ -216,6 +239,25 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int ld,
       cp_async4(dst + at(PITCH, r, c), in ? src + (size_t)r * ld + c : src,
                 in ? 4 : 0);
     }
+  }
+}
+
+// stage's 16-byte path with each source row r stored at tile row
+// kpair_row(r): the B operand of a product whose A is acc_as_a's
+template <int ROWS, int COLS, int PITCH, int NTHREADS>
+__device__ __forceinline__ void stage_kpairs(float* dst, const float* src,
+                                             int ld, int rows_valid) {
+  static_assert(COLS % 4 == 0 && PITCH % 32 == 0 && COLS <= PITCH &&
+                ROWS % 8 == 0, "tile");
+  constexpr int kChunks = ROWS * COLS / 4;
+#pragma unroll
+  for (int j = 0; j < (kChunks + NTHREADS - 1) / NTHREADS; ++j) {
+    const int i = threadIdx.x + j * NTHREADS;
+    if (kChunks % NTHREADS != 0 && i >= kChunks) break;
+    const int r = i / (COLS / 4), c = (i % (COLS / 4)) * 4;
+    const bool in = r < rows_valid;
+    cp_async16(dst + at(PITCH, kpair_row(r), c),
+               in ? src + (size_t)r * ld + c : src, in ? 16 : 0);
   }
 }
 

@@ -12,16 +12,18 @@ Four groups of things live here:
 * accounting identical to the JAX package's (``select_blocks``,
   ``pad_to_blocks``, ``live_block_count``, ``gated_attention_flops``), plus
   the CUDA kernels' own tiling (``kernel_block``, a function of head_dim
-  and of the kernel: the forward's square tiles, the backward's
-  rectangular ones; ``kernel_live_tiles``, ``kernel_flops``,
-  ``kernel_bytes``);
+  and of the kernel: the forward's 64 query rows against 64 or 32 key
+  rows, the backward's rectangular ones; ``kernel_live_tiles``,
+  ``kernel_flops``, ``kernel_bytes``);
 * the plain PyTorch version ``gated_attention_ref`` (with
   ``attention_ref``, ``d2ft_attention_ref`` and the forward's logsumexp
   ``gated_attention_lse_ref``), which the CPU path, the CPU tests and the
   on-card comparison use;
 * the launchers of the CUDA kernels, ``flash_fwd`` (``csrc/
   d2ft_attention_fwd.cu``) and ``flash_bwd`` (``csrc/
-  d2ft_attention_bwd.cu``), each with a ``.launches`` counter;
+  d2ft_attention_bwd.cu``), each with a ``.launches`` counter, and their
+  uncounted C calls on buffers they checked and allocated (``_fwd_call``,
+  ``_bwd_call``: the kernels alone, for timing);
 * ``gated_flash_attention``, an autograd function whose forward is the
   forward kernel and whose backward is the backward kernels. On CPU
   tensors it takes the plain version; on CUDA tensors it launches the
@@ -29,14 +31,16 @@ Four groups of things live here:
 
 What bounds the kernels on an H100: operations. A live slice of S = 197,
 hd = 64 does 4·S²·hd FLOP forward against about 4·S·hd·4 bytes, far above
-the ~20 FLOP/byte where float32 FMA becomes the limit, so the least time is
-the live tiles' FLOPs over 67 TFLOP/s of float32 FMA, the rate the forward
-runs at. The backward runs its products on the tensor cores in 3xTF32
-(``csrc/tf32x3.cuh``: float32 accuracy, 165 TFLOP/s of such work). The
-design (one block per (dispatched slice, tile) that walks the other axis
-itself; slice ids from the compaction table instead of gather/scatter
-copies; the ragged edge masked in-kernel instead of padded copies; FA2's
-deterministic dQ / dK-dV split) is set out in the sources' headers.
+the ~20 FLOP/byte where float32 arithmetic becomes the limit. Both kernels
+run their products on the tensor cores in 3xTF32 (``csrc/tf32x3.cuh``:
+float32 accuracy, three TF32 products a step, 165 TFLOP/s of such work
+against 67 TFLOP/s of float32 FMA), so the least time is the live tiles'
+FLOPs over that rate. The design (one block per (dispatched slice, tile)
+that walks the other axis itself: FlashAttention-2's forward with the
+scores, softmax state and output in registers, and its deterministic dQ /
+dK-dV split of the backward; slice ids from the compaction table instead
+of gather/scatter copies; the ragged edge masked in-kernel instead of
+padded copies) is set out in the sources' headers.
 """
 from __future__ import annotations
 
@@ -63,13 +67,16 @@ KERNEL_KINDS = ("fwd", "bwd_dq", "bwd_dkdv")
 
 def kernel_block(hd: int, kind: str = "fwd"):
     """(block_q, block_k): the tiles of one CUDA kernel at head_dim hd,
-    fixed at compile time. The forward's are square, 64 or 32 at hd 256.
-    The backward's hold 64 rows resident (queries in the dQ role, keys in
-    the dK/dV role) against a walked tile of 64 rows, or 32 at hd 256,
-    where a 64-row walked tile would take more shared memory than a block
-    may have."""
-    b = 32 if hd > 128 else 64        # the forward's tile, the walked one
-    blocks = {"fwd": (b, b), "bwd_dq": (64, b), "bwd_dkdv": (b, 64)}
+    fixed at compile time. The forward's hold 64 query rows (4 warps of
+    16) against key tiles of 64 rows, or 32 from hd 128, so that two
+    cp.async stages fit beside q (two blocks an SM up to hd 128). The
+    backward's hold 64 rows resident (queries in the dQ role, keys in the
+    dK/dV role) against a walked tile of 64 rows, or 32 at hd 256, where a
+    64-row walked tile would take more shared memory than a block may
+    have."""
+    fk = 32 if hd > 64 else 64        # the forward's key tile
+    b = 32 if hd > 128 else 64        # the backward's walked tile
+    blocks = {"fwd": (64, fk), "bwd_dq": (64, b), "bwd_dkdv": (b, 64)}
     if kind not in blocks:
         raise ValueError(f"unknown kernel {kind!r}; one of {KERNEL_KINDS}")
     return blocks[kind]
@@ -296,7 +303,7 @@ def _check(name, x, device):
 def _fwd_lib():
     lib = build.load("d2ft_attention_fwd")
     lib.d2ft_attn_fwd_f32.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p])
     lib.d2ft_attn_fwd_f32.restype = ctypes.c_int
     lib.d2ft_attn_fwd_error_string.argtypes = [ctypes.c_int]
@@ -318,7 +325,8 @@ def _bwd_lib():
 
 def _prepare(q, k, v, gate, live, tensors=()):
     """Checks shared by both launchers; returns (S, hd, n_disp, idx) with
-    idx the int32 compaction table (None when every slice runs)."""
+    idx the int32 compaction table (None when every slice runs): every
+    slice, live ones first; the kernels dispatch its first n_disp."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the d2ft attention kernels need CUDA tensors, "
@@ -342,9 +350,23 @@ def _prepare(q, k, v, gate, live, tensors=()):
     n_disp = contract.dispatch_count(live, N)
     idx = None
     if n_disp < N:
-        idx = contract.live_permutation(gate.reshape(N), n_disp).to(
-            torch.int32)
+        idx = contract.live_permutation(gate.reshape(N), N).to(torch.int32)
     return S, hd, n_disp, idx
+
+
+def _fwd_outputs(q):
+    """o and lse for a forward launch, unfilled: the kernel writes every
+    slice's rows, the ones the compaction table leaves out as zeros and
+    LSE_MASKED."""
+    B, H, S, _ = q.shape
+    return (torch.empty_like(q),
+            torch.empty((B, H, S), dtype=torch.float32, device=q.device))
+
+
+def _aligned(*tensors):
+    """The kernels stream rows with 16-byte cp.async: a view that starts
+    off a 16-byte boundary is copied."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
 
 
 def _counter_slots(*kinds):
@@ -359,28 +381,32 @@ def flash_fwd(q, k, v, g_f, *, causal: bool, window: int = 0, live=None):
     optional upper bound on the g_f != 0 slice count. Returns (o [B, H, S,
     hd], lse [B, H, S]); slices not dispatched are zeros / LSE_MASKED."""
     S, hd, n_disp, idx = _prepare(q, k, v, g_f, live)
-    B, H = g_f.shape
-    if idx is None:              # every slice runs and writes its own rows
-        o = torch.empty_like(q)
-        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    else:
-        o = torch.zeros_like(q)
-        lse = torch.full((B, H, S), LSE_MASKED, dtype=torch.float32,
-                         device=q.device)
+    q, k, v = _aligned(q, k, v)
+    o, lse = _fwd_outputs(q)
+    _fwd_call(q, k, v, g_f, idx, o, lse, n_disp, causal=causal,
+              window=window)
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def _fwd_call(q, k, v, g_f, idx, o, lse, n_disp, *, causal: bool,
+              window: int):
+    """The forward kernel on buffers ``flash_fwd`` checked and allocated;
+    uncounted."""
     lib = _fwd_lib()
+    S, hd = q.shape[2:]
+    n_slices = n_disp if idx is None else idx.numel()
     (tiles,) = _counter_slots("fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.d2ft_attn_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g_f.data_ptr(),
             None if idx is None else idx.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), tiles, n_disp, S, hd, int(causal), int(window),
-            1.0 / hd ** 0.5, stream)
+            lse.data_ptr(), tiles, n_disp, n_slices, S, hd, int(causal),
+            int(window), 1.0 / hd ** 0.5, stream)
     if err != 0:
         raise RuntimeError("d2ft attention forward launch failed: "
                            + lib.d2ft_attn_fwd_error_string(err).decode())
-    flash_fwd.launches += 1
-    return o, lse
 
 
 flash_fwd.launches = 0
@@ -398,10 +424,7 @@ def flash_bwd(q, k, v, g_b, o, lse, do, *, causal: bool, window: int = 0,
     if o.shape != q.shape or do.shape != q.shape or \
             lse.shape != q.shape[:3]:
         raise ValueError("o, do must be [B, H, S, hd] and lse [B, H, S]")
-    # the kernels stream rows with 16-byte cp.async: a view that starts
-    # off a 16-byte boundary is copied
-    q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
-                      for t in (q, k, v, o, do))
+    q, k, v, o, do = _aligned(q, k, v, o, do)
     alloc = torch.empty_like if idx is None else torch.zeros_like
     grads = alloc(q), alloc(k), alloc(v)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)

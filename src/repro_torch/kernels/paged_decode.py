@@ -6,20 +6,30 @@ Single-token decode against a paged KV cache: each sequence's history lives
 in fixed-size pages of a shared pool ``[n_pages, page_size, n_kv, hd]``,
 addressed through a per-sequence page table. Two versions of one function:
 
-* ``paged_flash_decode`` launches the hand-written CUDA kernel
+* ``paged_flash_decode`` launches the hand-written CUDA kernels
   (``csrc/paged_decode.cu``, built by ``kernels/build.py`` at first use) on
-  CUDA tensors, on PyTorch's current stream. It checks what the kernel
-  takes and raises on anything else: there is no fallback.
+  CUDA tensors, on PyTorch's current stream. It checks what the kernels
+  take and raises on anything else: there is no fallback.
 * ``paged_decode_ref`` is the plain PyTorch version: gather the pages into
   a contiguous view, mask, softmax in f32. The CPU path and the on-card
   comparison use it.
 
-What bounds the kernel on an H100: bytes — the K/V rows of the positions
-each (slot, kv head) must read, once, over 3.35 TB/s; at small batch the
-B * n_kv blocks leave the card latency-bound above that. Its design (one
-block per (slot, kv head) serving all query heads of the group, so each
-K/V row is read once; the block walks only the positions the mask keeps,
-never the table padding) is set out in the source's header.
+The kernel is a split-KV decode. Each (slot, kv head)'s history is cut
+into runs of ``split_len(page_size)`` positions (``KV_SPLIT``, 64, or its
+least common multiple with the page size); the grid is (n_kv, B, n_split)
+with ``n_split = n_splits(n_pmax, page_size)`` from the table's width, so
+no host sync sizes it. Each block writes its run's unnormalised
+accumulator, max and exp-sum into a float32 workspace this launcher
+allocates (``workspace_floats``), and a second kernel of the same call
+merges the runs of each (slot, head) in split order: bitwise the same on
+every call. At gemma3-1b's 129-page tables (page size 16) that is 33 runs
+and 132 blocks for 4 slots, where one block per (slot, kv head) left 128
+of the 132 SMs idle.
+
+What bounds the kernel on an H100: bytes, the K/V rows of the positions
+each (slot, kv head) must read, once, over 3.35 TB/s; at decode's batch
+that is ~3 us, under two launches' latency. The design is set out in the
+source's header.
 
 The public entry with the JAX package's checks is
 ``repro_torch.kernels.ops.paged_decode_attention``.
@@ -28,12 +38,36 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from repro_torch.kernels import build
 
 NEG_INF = -2.0 ** 30
+# positions of a slot's history one block of the split kernel walks: a
+# multiple of the kernel's 64-position tile (csrc/paged_decode.cu kTile)
+KV_SPLIT = 64
+
+
+def split_len(page_size: int) -> int:
+    """The run length at a page size: KV_SPLIT, or its least common
+    multiple with the page size, so that runs hold whole pages."""
+    return math.lcm(KV_SPLIT, page_size)
+
+
+def n_splits(n_pmax: int, page_size: int) -> int:
+    """Runs a table of n_pmax pages covers: the split kernel's third grid
+    dimension, from the table's width alone."""
+    return -(-n_pmax * page_size // split_len(page_size))
+
+
+def workspace_floats(B: int, H: int, hd: int, n_pmax: int,
+                     page_size: int) -> int:
+    """Floats of the partials' workspace: the unnormalised accumulators
+    [B, H, n_split, hd], then the runs' max and exp-sum [B, H, n_split]
+    each."""
+    return B * H * n_splits(n_pmax, page_size) * (hd + 2)
 
 
 def paged_decode_ref(q, k_pages, v_pages, page_table, lengths, g_f, *,
@@ -85,7 +119,7 @@ def _check(name, x, dtype, device):
 def _lib():
     lib = build.load("paged_decode")
     lib.paged_decode_f32.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_void_p])
     lib.paged_decode_f32.restype = ctypes.c_int
     lib.paged_decode_error_string.argtypes = [ctypes.c_int]
@@ -96,12 +130,9 @@ def _lib():
     return lib
 
 
-def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, g_f, *,
-                       window: int = 0):
-    """Launch the CUDA kernel (one launch, counted in
-    ``paged_flash_decode.launches``). Arguments as ``paged_decode_ref``;
-    q, pools and g_f float32, page_table and lengths int32, all contiguous
-    on one CUDA device. Raises on anything else and on a launch error."""
+def _prepare(q, k_pages, v_pages, page_table, lengths, g_f):
+    """The launcher's checks; returns q (copied when it is not 16-byte
+    aligned)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_flash_decode needs CUDA tensors, got {dev}")
@@ -113,27 +144,57 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, g_f, *,
                         ("g_f", g_f, torch.float32)):
         _check(name, x, dt, dev)
     B, H, hd = q.shape
-    _, ps, n_kv, _ = k_pages.shape
-    n_pmax = page_table.shape[1]
+    n_kv = k_pages.shape[2]
     lib = _lib()
     if not lib.paged_decode_supports_head_dim(hd):
         raise ValueError(f"head_dim {hd} has no kernel instantiation")
     if H % n_kv or H // n_kv > lib.paged_decode_max_rep():
         raise ValueError(f"H={H}, n_kv={n_kv}: rep must divide H and be <= "
                          f"{lib.paged_decode_max_rep()}")
+    # the kernels copy rows in 16 bytes: the pools are too large to copy
+    for name, x in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    return q if q.data_ptr() % 16 == 0 else q.clone()
+
+
+def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, g_f, *,
+                       window: int = 0):
+    """Launch the CUDA kernels (the split kernel and the merge: one
+    launcher call, counted in ``paged_flash_decode.launches``). Arguments
+    as ``paged_decode_ref``; q, pools and g_f float32, page_table and
+    lengths int32, all contiguous on one CUDA device, the pools 16-byte
+    aligned. Raises on anything else and on a launch error."""
+    q = _prepare(q, k_pages, v_pages, page_table, lengths, g_f)
+    B, H, hd = q.shape
+    _, ps, _, _ = k_pages.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = torch.empty(workspace_floats(B, H, hd, page_table.shape[1], ps),
+                     dtype=torch.float32, device=q.device)
+    _decode_call(q, k_pages, v_pages, page_table, lengths, g_f, out, ws,
+                 window=window)
+    paged_flash_decode.launches += 1
+    return out
+
+
+def _decode_call(q, k_pages, v_pages, page_table, lengths, g_f, out, ws, *,
+                 window: int):
+    """The kernels on buffers ``paged_flash_decode`` checked and allocated
+    (out and the workspace); uncounted."""
+    lib = _lib()
+    B, H, hd = q.shape
+    _, ps, n_kv, _ = k_pages.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_decode_f32(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), g_f.data_ptr(),
-            out.data_ptr(), B, H, n_kv, hd, ps, n_pmax, int(window),
+            out.data_ptr(), ws.data_ptr(), B, H, n_kv, hd, ps,
+            page_table.shape[1], split_len(ps), int(window),
             1.0 / hd ** 0.5, stream)
     if err != 0:
         raise RuntimeError("paged_decode kernel launch failed: "
                            + lib.paged_decode_error_string(err).decode())
-    paged_flash_decode.launches += 1
-    return out
 
 
 paged_flash_decode.launches = 0

@@ -101,16 +101,16 @@ def test_tile_accounting_equals_jax(S, bq, bk):
 
 
 def test_kernel_tiling_accounting():
-    """The CUDA kernels' tiles: the forward's square, 64 up to hd 128 and
-    32 at hd 256; the backward's 64 resident rows (queries in dQ, keys in
-    dK/dV) against 64 walked rows, or 32 at hd 256. ViT-small's S = 197 is
-    4 x 4 tiles in every kernel, the last ragged; a causal or windowed
-    mask skips whole tiles as JAX's predicate does (gemma3-1b's S 1024:
-    32 x 33 / 2 causal forward tiles, 408 under its 512 window; 272 and
-    216 of the backward's 64 x 32 ones); FLOPs and bytes scale with the
-    live slices only."""
+    """The CUDA kernels' tiles: the forward's 64 query rows against 64
+    key rows up to hd 64 and 32 from hd 128; the backward's 64 resident
+    rows (queries in dQ, keys in dK/dV) against 64 walked rows, or 32 at
+    hd 256. ViT-small's S = 197 is 4 x 4 tiles in every kernel, the last
+    ragged; a causal or windowed mask skips whole tiles as JAX's predicate
+    does (gemma3-1b's S 1024: 272 causal 64 x 32 tiles in the forward and
+    in each backward role, 216 under its 512 window); FLOPs and bytes
+    scale with the live slices only."""
     assert [d2a.kernel_block(hd) for hd in d2a.KERNEL_HEAD_DIMS] == \
-        [(64, 64)] * 4 + [(32, 32)]
+        [(64, 64)] * 3 + [(64, 32)] * 2
     assert [d2a.kernel_block(hd, "bwd_dq") for hd in d2a.KERNEL_HEAD_DIMS] \
         == [(64, 64)] * 4 + [(64, 32)]
     assert [d2a.kernel_block(hd, "bwd_dkdv")
@@ -118,11 +118,12 @@ def test_kernel_tiling_accounting():
     with pytest.raises(ValueError, match="unknown kernel"):
         d2a.kernel_block(64, "bwd")
     assert d2a.kernel_live_tiles(197, False, 0, 64) == 16
-    assert d2a.kernel_live_tiles(256, True, 0, 128) == 10
+    assert d2a.kernel_live_tiles(256, True, 0, 128) == 20
+    assert d2a.kernel_live_tiles(197, False, 0, 128) == 28
     assert d2a.kernel_live_tiles(512, True, 128, 64) == 21
     assert d2a.kernel_live_tiles(1, False, 0, 16) == 1
-    assert d2a.kernel_live_tiles(1024, True, 0, 256) == 528
-    assert d2a.kernel_live_tiles(1024, True, 512, 256) == 408
+    assert d2a.kernel_live_tiles(1024, True, 0, 256) == 272
+    assert d2a.kernel_live_tiles(1024, True, 512, 256) == 216
     for kind in ("bwd_dq", "bwd_dkdv"):
         assert d2a.kernel_live_tiles(197, False, 0, 64, kind) == 16
         assert d2a.kernel_live_tiles(1024, True, 0, 256, kind) == 272
@@ -133,7 +134,7 @@ def test_kernel_tiling_accounting():
     assert d2a.kernel_live_tiles(197, True, 40, 256, "bwd_dq") == 13
     assert d2a.kernel_live_tiles(197, True, 40, 256, "bwd_dkdv") == 12
     f, b = d2a.kernel_flops(8, 4, 1024, 256, causal=True, window=512)
-    assert (f, b) == (8 * 408 * 2 * 2 * 32 * 32 * 256,
+    assert (f, b) == (8 * 216 * 2 * 2 * 64 * 32 * 256,
                       4 * 216 * (3 + 4) * 2 * 64 * 32 * 256)
     f, b = d2a.kernel_flops(192, 144, 197, 64, causal=False, window=0)
     assert f == 192 * 16 * 2 * 2 * 64 * 64 * 64

@@ -7,15 +7,16 @@ JAX, so they run on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerance 1e-5 abs in float32 for outputs: the same softmax over the same
-positions, summed in another order; 1e-4 for the gated attention's
-gradients; 1e-5 for the gated SSD scan's y and prevs and 1e-4 for its
-gradients; 1e-5 x max(1, max |plain|) for the fused LoRA matmul (sums of
-up to 1152 products of values of ~1, where float32 rounds at ~1e-7 of
-the sum); 1e-5 (h) and 1e-4 (dla, db) x max(1, max |plain|) for the gated
-RG-LRU scan (a sequential float32 recurrence against the plain version's
-chunked log-space sums); 1e-5 (y) and 1e-4 (dx, dW) x max(1, max |plain|)
-for the gated MoE expert FFN (sums of up to 2048 products in another
-order than cuBLAS's)."""
+positions, summed in another order (the attention forward's products in
+3xTF32 on the tensor cores, at float32 accuracy); 1e-4 for the gated
+attention's gradients; 1e-5 for the gated SSD scan's y and prevs and 1e-4
+for its gradients; 1e-5 x max(1, max |plain|) for the fused LoRA matmul
+(sums of up to 1152 products of values of ~1, where float32 rounds at
+~1e-7 of the sum); 1e-5 (h) and 1e-4 (dla, db) x max(1, max |plain|) for
+the gated RG-LRU scan (a sequential float32 recurrence against the plain
+version's chunked log-space sums); 1e-5 (y) and 1e-4 (dx, dW) x max(1,
+max |plain|) for the gated MoE expert FFN (sums of up to 2048 products in
+another order than cuBLAS's)."""
 import numpy as np
 import pytest
 import torch
@@ -130,6 +131,62 @@ def test_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="head_dim"):
         paged_flash_decode(q[..., :24].contiguous(), kp[..., :24].contiguous(),
                            vp[..., :24].contiguous(), table, ln, g)
+
+
+# the CPU emulation's cases (tests/test_torch_paged_decode.py), three runs
+# of 64 positions a table, and gemma3-1b's decode at phase 5's lengths:
+# (B, H, n_kv, hd, ps, n_pages, n_pmax, lengths, gated heads, window)
+SPLIT_CASES = {
+    "run_boundaries": (4, 4, 1, 32, 8, 100, 24, [63, 64, 127, 128], (), 0),
+    "window_cuts_runs": (3, 4, 2, 32, 8, 80, 24, [100, 150, 191], (), 40),
+    "padded_past_runs": (3, 4, 1, 32, 16, 48, 12, [10, 70, 5], ((1, 1),),
+                         0),
+    "slot_gated": (3, 4, 1, 32, 8, 80, 24, [90, 130, 20],
+                   ((1, 0), (1, 1), (1, 2), (1, 3)), 64),
+    "rep8": (2, 8, 1, 32, 8, 64, 24, [77, 140], ((0, 5),), 0),
+    "batch1": (1, 4, 2, 64, 4, 64, 40, [129], (), 100),
+    "gemma_global": (4, 4, 1, 256, 16, 600, 129, [731, 1131, 1551, 2063],
+                     ((2, 1),), 0),
+    "gemma_window": (4, 4, 1, 256, 16, 600, 129, [731, 1131, 1551, 2063],
+                     ((0, 0), (0, 1), (0, 2), (0, 3)), 512),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_kv_decode_matches_plain_and_is_bitwise_deterministic(name):
+    """The split-KV kernel and its merge against the plain version at run
+    boundaries, a window that cuts a run, tables null-padded over whole
+    runs, a slot with every head gated, rep 8, B 1 and gemma3-1b's
+    shapes; two calls give bitwise-equal outputs (the runs are merged in
+    a fixed order, no float atomics), each call one launch."""
+    _need_card()
+    *shape, window = SPLIT_CASES[name]
+    args = _case(7, *shape)
+    before = paged_flash_decode.launches
+    out = paged_flash_decode(*args, window=window)
+    again = paged_flash_decode(*args, window=window)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == before + 2
+    ref = paged_decode_ref(*args, window=window)
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= TOL
+    assert torch.equal(out, again)
+    dead = args[5] == 0
+    if dead.any():
+        assert float(out[dead].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_unaligned_pools():
+    """The kernels copy K/V rows in 16 bytes; pools too large to copy that
+    start off a 16-byte boundary are refused."""
+    _need_card()
+    q, kp, vp, table, ln, g = _case(2, 2, 4, 1, 32, 4, 16, 3, [3, 9])
+    off = torch.empty(kp.numel() + 1, device="cuda")[1:].view_as(kp)
+    off.copy_(kp)
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_flash_decode(q, off, vp, table, ln, g)
 
 
 @pytest.mark.gpu
@@ -253,6 +310,53 @@ def test_d2ft_backward_is_bitwise_deterministic(hd, S, causal, window):
     for a, b in zip(first, second):
         assert torch.isfinite(a).all()
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", d2a.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("S,causal,window", [
+    (197, False, 0), (197, True, 0), (197, True, 40), (1024, False, 0),
+    (1024, True, 0), (1024, True, 512)])
+def test_d2ft_forward_matches_plain_and_is_bitwise_deterministic(hd, S,
+                                                                 causal,
+                                                                 window):
+    """The forward kernel (3xTF32 on the tensor cores) against the plain
+    version's o and lse at every head dim, bidirectional, causal and
+    windowed, at ViT-small's S 197 and gemma3-1b's S 1024; two launches
+    give bitwise-equal o and lse (every sum in one block, in a fixed
+    order)."""
+    _need_card()
+    q, k, v, _, g_f, g_b = _attn_case(3 * hd + S + window, 2, 4, S, hd)
+    n_f = int((g_f != 0).sum())
+    o, lse = d2a.flash_fwd(q, k, v, g_f, causal=causal, window=window,
+                           live=n_f)
+    o2, lse2 = d2a.flash_fwd(q, k, v, g_f, causal=causal, window=window,
+                             live=n_f)
+    torch.cuda.synchronize()
+    ref = d2a.gated_attention_ref(q, k, v, g_f, g_b, causal=causal,
+                                  window=window)
+    lse_ref = d2a.gated_attention_lse_ref(q, k, g_f, causal=causal,
+                                          window=window)
+    assert float((o - ref).abs().max()) <= TOL
+    assert float((lse - lse_ref).abs().max()) <= TOL
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert float(o[g_f == 0].abs().max()) == 0.0
+    assert bool((lse[g_f == 0] == d2a.LSE_MASKED).all())
+
+
+@pytest.mark.gpu
+def test_d2ft_forward_copies_unaligned_views():
+    """The forward streams rows with 16-byte cp.async: a view that starts
+    off a 16-byte boundary is copied by the launcher, with the same
+    result."""
+    _need_card()
+    q, k, v, _, g_f, _ = _attn_case(5, 2, 3, 37, 64)
+    off = torch.empty(q.numel() + 1, device="cuda")[1:].view_as(q)
+    off.copy_(q)
+    assert off.data_ptr() % 16
+    o, lse = d2a.flash_fwd(q, k, v, g_f, causal=True)
+    o2, lse2 = d2a.flash_fwd(off, k, v, g_f, causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.gpu

@@ -1,7 +1,8 @@
 """Paged flash decode: the port's plain version vs the JAX package's Pallas
 kernel (interpret mode on the CPU, as ``tests/test_serving.py`` runs it)
-and vs its gather reference, and the JAX wrapper's argument errors. The CUDA
-kernel itself is held against the plain version on a card, in
+and vs its gather reference, the CUDA kernel's split-KV arithmetic emulated
+on the CPU, and the JAX wrapper's argument errors. The CUDA kernel itself
+is held against the plain version on a card, in
 ``tests/test_torch_kernels_gpu.py``.
 
 Tolerance 1e-5 abs in float32: the same softmax over the same positions,
@@ -15,7 +16,8 @@ import torch
 from repro.kernels.ops import paged_decode_attention as jax_paged_decode
 from repro.serving.paged_decode import paged_attention_ref as jax_gather_ref
 from repro_torch.kernels.ops import paged_decode_attention
-from repro_torch.kernels.paged_decode import paged_decode_ref
+from repro_torch.kernels.paged_decode import (NEG_INF, KV_SPLIT, n_splits,
+                                              paged_decode_ref, split_len)
 from repro_torch.serving.paged_decode import paged_attention_ref
 
 TOL = 1e-5
@@ -83,6 +85,109 @@ def test_gather_refs_match_jax(window):
                              window=window).numpy()
     np.testing.assert_allclose(gathered, ref, atol=TOL, rtol=TOL)
     np.testing.assert_allclose(plain, ref, atol=TOL, rtol=TOL)
+
+
+def split_kv_emulation(q, kp, vp, table, lengths, g_f, *, window=0,
+                       tile=64):
+    """The arithmetic of ``csrc/paged_decode.cu`` in float32: each (slot,
+    head)'s history in runs of the launcher's ``split_len(page_size)``
+    positions; inside a run, tiles of 64 positions with an online softmax
+    (the run's max m, exp-sum l and unnormalised accumulator); a run with
+    no live position is the empty partial (m = -2^30, l = 0); then the runs
+    merged in split order (rescaled to the global max, summed, divided by
+    the sum, times the gate). Gated heads and slots with no live position
+    are exact zeros."""
+    B, H, hd = q.shape
+    _, ps, n_kv, _ = kp.shape
+    n_pmax = table.shape[1]
+    run, n_split = split_len(ps), n_splits(n_pmax, ps)
+    rep = H // n_kv
+    qs = q * torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32)
+    out = torch.zeros_like(q)
+    for b in range(B):
+        t = int(lengths[b])
+        for h in range(H):
+            if float(g_f[b, h]) == 0.0:
+                continue
+            parts = []
+            for sp in range(n_split):
+                lo = max(sp * run, max(0, t - window + 1) if window else 0)
+                hi = min(t, n_pmax * ps - 1, sp * run + run - 1)
+                m = torch.tensor(NEG_INF, dtype=torch.float32)
+                l = torch.tensor(0.0, dtype=torch.float32)
+                acc = torch.zeros(hd)
+                for tile0 in range(lo, hi + 1, tile):
+                    pos = torch.arange(tile0, min(tile0 + tile, hi + 1))
+                    pages = table[b, pos // ps].long()
+                    keys = kp[pages, pos % ps, h // rep]
+                    vals = vp[pages, pos % ps, h // rep]
+                    s_ = keys @ qs[b, h]
+                    m_new = torch.maximum(m, s_.max())
+                    p = torch.exp(s_ - m_new)
+                    corr = torch.exp(m - m_new)
+                    l = l * corr + p.sum()
+                    acc = acc * corr + p @ vals
+                    m = m_new
+                parts.append((m, l, acc))
+            live = [(m, l, acc) for m, l, acc in parts if float(l) > 0]
+            if not live:
+                continue
+            mx = max(float(m) for m, _, _ in live)
+            mx = torch.tensor(mx, dtype=torch.float32)
+            tot = torch.tensor(0.0, dtype=torch.float32)
+            num = torch.zeros(hd)
+            for m, l, acc in live:             # in split order
+                w = torch.exp(m - mx)
+                tot = tot + w * l
+                num = num + w * acc
+            out[b, h] = num / tot * g_f[b, h]
+    return out
+
+
+SPLIT_CASES = {
+    # name: (B, H, n_kv, hd, ps, n_pages, n_pmax, lengths, gated heads,
+    # window); three runs of KV_SPLIT = 64 positions a table
+    "run_boundaries": (4, 4, 1, 32, 8, 100, 24, [63, 64, 127, 128], None, 0),
+    "window_cuts_runs": (3, 4, 2, 32, 8, 80, 24, [100, 150, 191], None, 40),
+    "padded_past_runs": (3, 4, 1, 32, 16, 48, 12, [10, 70, 5],
+                         [(1, 1)], 0),
+    "slot_gated": (3, 4, 1, 32, 8, 80, 24, [90, 130, 20],
+                   [(1, 0), (1, 1), (1, 2), (1, 3)], 64),
+    "rep8": (2, 8, 1, 32, 8, 64, 24, [77, 140], [(0, 5)], 0),
+    "batch1": (1, 4, 2, 64, 4, 64, 40, [129], None, 100),
+}
+
+
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_kv_arithmetic_matches_plain_and_jax(name):
+    """The split-KV kernel's arithmetic at the launcher's run length
+    against the plain version and the JAX Pallas kernel: lengths exactly at
+    a run's end (63, 127) and one past (64, 128), a window that cuts a run,
+    tables null-padded over whole runs, a slot whose heads are all gated,
+    rep 8 and B 1. Gated heads are exact zeros."""
+    *shape, window = SPLIT_CASES[name]
+    q, kp, vp, table, lengths, g = _case(3, *shape)
+    assert split_len(shape[4]) == KV_SPLIT
+    tq, tk, tv, tt, tln, tg = map(torch.from_numpy,
+                                  (q, kp, vp, table, lengths, g))
+    emu = split_kv_emulation(tq, tk, tv, tt, tln, tg, window=window).numpy()
+    plain = paged_decode_ref(tq, tk, tv, tt, tln, tg, window=window).numpy()
+    ref = np.asarray(jax_paged_decode(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
+        jnp.asarray(lengths), g_f=jnp.asarray(g), window=window))
+    np.testing.assert_allclose(emu, plain, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(emu, ref, atol=TOL, rtol=TOL)
+    assert np.all(emu[g == 0] == 0.0), "gated-off heads must be exact zeros"
+
+
+def test_split_geometry():
+    """Runs hold whole pages and whole kernel tiles; their count comes from
+    the table's width (gemma3-1b serving: 129 pages of 16, 33 runs)."""
+    assert [split_len(ps) for ps in (1, 4, 16, 64, 5, 128)] == \
+        [64, 64, 64, 64, 320, 128]
+    assert n_splits(129, 16) == 33
+    assert n_splits(24, 8) == 3
+    assert n_splits(1, 4) == 1
 
 
 def test_rejects_bad_tables():

@@ -14,14 +14,16 @@ one or two k-steps' products before an IEEE add (``csrc/tf32x3.cuh``).
 
 At small slices of the main path's shapes (ViT-small's hd 64 at S 197,
 gemma3-1b's hd 256 causal and windowed, D2FT-LoRA's wq at K 1152) the
-emulated 3xTF32 attention backward and LoRA matmul stay within the limits
-the kernels are held to on the card (gradients 1e-4 absolute; LoRA 1e-5 x
-max(1, max |y|)) of the float64 result with a tenfold margin, and one TF32
-product a step does not.
+emulated 3xTF32 attention forward and backward and LoRA matmul stay within
+the limits the kernels are held to on the card (o and lse 1e-5 absolute,
+gradients 1e-4; LoRA 1e-5 x max(1, max |y|)) of the float64 result with a
+tenfold margin, and one TF32 product a step does not.
 """
 import numpy as np
 import pytest
 import torch
+
+from repro_torch.kernels.d2ft_attention import NEG_INF, kernel_block
 
 KERNEL_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -52,6 +54,16 @@ def mm(a, b, terms):
     return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
 
 
+def mm_ksteps(a, b, terms):
+    """``mm`` one k-step (8 of the inner dimension) at a time, each step's
+    products added to the sum in IEEE float32, as ``tf32x3::mma3`` adds
+    each step's fresh tensor-core accumulator."""
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k8 in range(0, a.shape[1], 8):
+        out = out + mm(a[:, k8:k8 + 8], b[k8:k8 + 8], terms)
+    return out
+
+
 def test_rounding_and_split():
     x = torch.tensor([1 + 2 ** -11, 1 + 2 ** -12, -(1 + 2 ** -11),
                       1 + 3 * 2 ** -11, 3.0, 0.0], dtype=torch.float32)
@@ -79,12 +91,7 @@ def _attention_backward(q, k, v, do, causal, window, terms):
     products differ."""
     S, hd = q.shape
     scale = hd ** -0.5
-    pos = torch.arange(S)
-    mask = torch.ones((S, S), dtype=torch.bool)
-    if causal:
-        mask &= pos[None, :] <= pos[:, None]
-    if window:
-        mask &= pos[None, :] > pos[:, None] - window
+    mask = _mask(S, causal, window)
     q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
     s64 = torch.where(mask, q64 @ k64.T * scale, -torch.inf)
     lse = torch.logsumexp(s64, dim=-1, keepdim=True)
@@ -103,8 +110,73 @@ def _attention_backward(q, k, v, do, causal, window, terms):
             "dv": mm(p.T.contiguous(), do, terms)}
 
 
+def _mask(S, causal, window):
+    pos = torch.arange(S)
+    mask = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    return mask
+
+
+def _attention_forward(q, k, v, causal, window, terms):
+    """The forward kernel's arithmetic on one slice: its key tiles
+    (``kernel_block(hd, "fwd")``) walked in order with an online softmax in
+    float32, s = (q k^T) scale with NEG_INF where masked, p = exp(s - m),
+    acc = acc corr + p v, then o = acc / l and lse = m + log(l); both
+    products by ``mm_ksteps`` (terms 3 or 1). terms 0: float64, in one
+    pass. Returns (o, lse)."""
+    S, hd = q.shape
+    scale = hd ** -0.5
+    mask = _mask(S, causal, window)
+    if terms == 0:
+        q64, k64, v64 = (t.double() for t in (q, k, v))
+        s = torch.where(mask, q64 @ k64.T * scale, -torch.inf)
+        lse = torch.logsumexp(s, dim=-1)
+        return torch.exp(s - lse[:, None]) @ v64, lse
+    bk = kernel_block(hd, "fwd")[1]
+    m = torch.full((S, 1), NEG_INF, dtype=torch.float32)
+    l = torch.zeros((S, 1), dtype=torch.float32)
+    acc = torch.zeros((S, hd), dtype=torch.float32)
+    for k0 in range(0, S, bk):
+        kt, vt = k[k0:k0 + bk], v[k0:k0 + bk]
+        live = mask[:, k0:k0 + bk]
+        if not live.any():
+            continue
+        s = mm_ksteps(q, kt.T.contiguous(), terms) * scale
+        s = torch.where(live, s, torch.tensor(NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + mm_ksteps(p, vt, terms)
+        m = m_new
+    return acc / l, (m + torch.log(l))[:, 0]
+
+
 # ViT-small's slice (S 197, hd 64, bidirectional); gemma3-1b's hd 256 on a
 # 128-row slice, causal and under a window
+@pytest.mark.parametrize("S,hd,causal,window", [
+    (197, 64, False, 0), (128, 256, True, 0), (128, 256, True, 40)])
+def test_attention_forward_products_hold_the_kernel_limits(S, hd, causal,
+                                                           window):
+    rng = np.random.default_rng(2 * S + hd + window)
+    q, k, v = (torch.from_numpy(rng.normal(size=(S, hd)).astype(np.float32))
+               for _ in range(3))
+    exact = _attention_forward(q, k, v, causal, window, 0)
+    errs = {}
+    for terms in (3, 1):
+        got = _attention_forward(q, k, v, causal, window, terms)
+        errs[terms] = [float((a.double() - b).abs().max())
+                       for a, b in zip(got, exact)]
+    # o and lse within the limit with a tenfold margin, where one TF32
+    # product misses it
+    for i, name in enumerate(("o", "lse")):
+        assert errs[3][i] <= KERNEL_TOL / 10, (name, errs[3][i])
+        assert errs[1][i] > KERNEL_TOL, (name, errs[1][i])
+
+
 @pytest.mark.parametrize("S,hd,causal,window", [
     (197, 64, False, 0), (128, 256, True, 0), (128, 256, True, 40)])
 def test_attention_backward_products_hold_the_kernel_limits(S, hd, causal,
