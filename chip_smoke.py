@@ -165,7 +165,11 @@ Phases, one line each (any failure raises and exits non-zero):
    y <= 1e-5 and dx / dW <= 1e-4, each
    x max(1, max |plain|) (printed beside the errors), exact zeros on dead
    tiles and for dead experts, executed tiles from the device counter =
-   the launched block masks' sums.
+   the launched block masks' sums, the backward's dW kernels launched as
+   the wanted dW ask (a profiler window around it). The main path's case
+   without bounds runs again as D2FT-LoRA's step asks for the backward
+   (w_up alone requiring grad): dW_gate and dW_down None and their kernel
+   not launched, dx and dW_up bitwise equal to the all-three call's.
 20. D2FT-LoRA on olmoe-1b-7b — full width and depth (16 layers, 64
    experts top-8, 6,919,096,320 parameters, seed 0) through
    ``repro_torch.examples.lora_finetune``'s ``plan_lora`` and
@@ -177,7 +181,9 @@ Phases, one line each (any failure raises and exits non-zero):
    moved, losses within 1e-4 x max(1, |loss|) of the masked path; p50 step
    ms and tokens/s of the kernel path, the masked path and plain LoRA
    (each twice, in turns), peak memory after scoring and after the steps,
-   a profiler window.
+   a profiler window with the MoE kernels' time by name, in which the
+   backward's dW kernel runs once a layer for dW_up alone (no dW_gate or
+   dW_down work: the merged w_gate and w_down are frozen).
 21. olmoe-1b-7b fine-tune — the launcher's loop (``train/loop.py::
    finetune`` with ``repro_torch.launch.train``'s settings: --optimizer
    sgd, lr 1e-3, n_pf 3 / n_po 1 of 4, G 16) at full width on 8 of the 16
@@ -185,15 +191,22 @@ Phases, one line each (any failure raises and exits non-zero):
    MoE and attention launches per step, device tile counts = the masks'
    and the schedule's, losses within tolerance of the masked path; p50
    step ms of the kernel, masked and full fine-tuning paths (each twice,
-   in turns), tokens/s, peak memory, a profiler window.
+   in turns), tokens/s, peak memory, a profiler window with the MoE
+   kernels' time by name (all three dW: both dW kernels once a layer).
 22. MoE kernel timing — CUDA-event times, L2 flushed, of both kernels at
-   phase 21's layer-0 operands, gates and bounds, through the launcher
-   call (the record's ms) and alone (buffers allocated outside the
-   window), beside their plain version's, the operations bound and a
+   phase 21's layer-0 operands, gates and bounds, and of the backward with
+   dW_up alone (D2FT-LoRA's), through the launcher call (the record's ms)
+   and alone (buffers allocated outside the window), beside their plain
+   version's, both bounds (float32 FMA; 3xTF32, which they are held to), a
    library yardstick the port never calls (three torch.bmm and silu on
-   the truncated buffer; its autograd backward).
+   the truncated buffer; its autograd backward, with every input or with
+   x and w_up alone requiring grad) and both sources' registers and
+   spills. Then the hd-128 attention kernels at olmoe-1b-7b's shapes (B 4,
+   H 16, S 512, causal) under phase 21's layer-0 gates and bounds, through
+   the launcher and alone, beside their plain version, SDPA and both
+   bounds.
 
-Then one JSON line of the 12 kernel records, the card line again, and as
+Then one JSON line of the 13 kernel records, the card line again, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a card or without the repo's sources beside this file.
 """
@@ -540,11 +553,27 @@ def attention_vs_plain(torch, gen):
     return worst
 
 
+def kernel_name(key):
+    """A profiler kernel name cut to the kernel and its integer template
+    arguments (``moe_bwd_dw_kernel<1>``), mangled or not, whichever way the
+    demangler writes the arguments (``<1>``, ``<(int)1>``)."""
+    import re
+    from repro_torch.kernels import build
+    if key.startswith("_Z"):
+        return build._demangle(key)
+    m = re.search(r"(\w+_kernel)(?:<([^<>]*)>)?", key)
+    if not m:
+        return key
+    args = re.findall(r"\d+", m.group(2) or "")
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+
 def profile_steps(torch, step, key, n_prof=3):
     """One warm-up call of step(), then a profiler window over n_prof calls.
     Returns (device busy ms per step, wall ms per step under the profiler,
     idle share, ms per step in kernels whose name holds ``key``, its share
-    of busy, the top-8 (ms per step, calls per step, name))."""
+    of busy, the top-8 (ms per step, calls per step, name), and those
+    kernels by ``kernel_name``: {name: (ms per step, calls per step)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -564,19 +593,36 @@ def profile_steps(torch, step, key, n_prof=3):
         raise AssertionError("the profiler saw no device time")
     key_us = sum(t for t, _, k in dev if key in k)
     top = [(t / 1e3 / n_prof, c // n_prof, k) for t, c, k in dev[:8]]
+    named = {}
+    for t, c, k in dev:
+        if key in k:
+            ms, n = named.get(kernel_name(k), (0.0, 0))
+            named[kernel_name(k)] = (ms + t / 1e3 / n_prof, n + c / n_prof)
     return (busy_us / 1e3 / n_prof, 1e3 * wall / n_prof,
             1 - busy_us / 1e6 / wall, key_us / 1e3 / n_prof,
-            key_us / busy_us, top)
+            key_us / busy_us, top, named)
 
 
-def print_profile(what, prof, key_name, tag):
-    busy, wall, idle, key_ms, share, top = prof
+def print_profile(what, prof, key_name, tag, breakdown=False):
+    busy, wall, idle, key_ms, share, top, named = prof
     print(f"[profile] {what}: device busy {busy:.3f} ms per step, wall "
           f"{wall:.3f} ms per step under the profiler, idle share "
           f"{idle:.1%}; {key_name} {key_ms:.3f} ms per step ({share:.1%} of "
           f"busy) {tag}")
     print("[profile] top device time per step: " + "; ".join(
         f"{k[:60]} x{c}: {t:.3f} ms" for t, c, k in top), flush=True)
+    if breakdown:
+        print(f"[profile] {key_name} per step: " + "; ".join(
+            f"{k} x{n:g}: {ms:.3f} ms ({ms / busy:.1%} of busy)"
+            for k, (ms, n) in sorted(named.items(), key=lambda kv: -kv[1][0])
+        ) + f" {tag}", flush=True)
+
+
+def dw_launches(named):
+    """Calls per step of the MoE backward's dW kernels, by template
+    argument: <2> dW_up with dW_gate, <1> one of them or dW_down."""
+    return {nb: sum(n for k, (_, n) in named.items()
+                    if k == f"moe_bwd_dw_kernel<{nb}>") for nb in (1, 2)}
 
 
 def finetune(torch, np, tag):
@@ -1572,13 +1618,90 @@ def gemma_lora(torch, np, tag):
     return {"launches": launches, "err": err, "wq": wq}
 
 
+def attention_timing_case(torch, gen, label, what, B, H, S, hd, window,
+                          g_f, g_b, lf, lb, tag):
+    """CUDA-event times, L2 flushed, of both attention kernels on N(0, 1)
+    q, k, v, do [B, H, S, hd], causal under ``window``, gates [B, H] and
+    bounds (lf, lb): through the launcher and alone, beside the plain
+    version, SDPA on the live slices (its forward; its autograd backward)
+    and both bounds. Returns {"fwd"|"bwd": (ms, plain_ms, library_ms,
+    bound_ms, bound_by)}, the bound the 3xTF32 one."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import d2ft_attention as d2a
+    q, k, v, do = (torch.randn((B, H, S, hd), generator=gen,
+                               device="cuda") for _ in range(4))
+    o, lse = d2a.flash_fwd(q, k, v, g_f, causal=True, window=window,
+                           live=lf)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = d2a.gated_attention_ref(qr, kr, vr, g_f, g_b, causal=True,
+                                  window=window)
+    mask = d2a._mask(S, True, window, "cuda")
+    pairs = int(mask.sum())                # unmasked (q, k) pairs
+
+    def flat(t, gate):                 # [live, S, hd], gathered once
+        return t.reshape(B * H, S, hd)[gate.reshape(-1) != 0] \
+            .contiguous()
+
+    def sdpa(qq, kk, vv):
+        return F.scaled_dot_product_attention(qq, kk, vv,
+                                              attn_mask=mask)
+    lq, lk, lv = (flat(t, g_f) for t in (q, k, v))
+    bq, bk, bv = (flat(t, g_b).requires_grad_() for t in (q, k, v))
+    lib_o = sdpa(bq, bk, bv)
+    ldo = flat(do, g_b)
+    n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+    # q, k, v, o, do and lse of each live slice read once, dq, dk, dv
+    # written for every slice; 5 products over the unmasked (q, k)
+    # pairs of each live slice (s recomputed)
+    work = {"fwd": (4 * (3 * n_f * S * hd + B * H * S * hd + B * H * S),
+                    n_f * 2 * 2 * pairs * hd),
+            "bwd": (4 * (5 * n_b * S * hd + n_b * S + 3 * B * H * S * hd),
+                    n_b * 5 * 2 * pairs * hd)}
+    res = {
+        "fwd": (time_ms(torch, lambda: d2a.flash_fwd(
+                    q, k, v, g_f, causal=True, window=window, live=lf)),
+                time_ms(torch, lambda: d2a.gated_attention_ref(
+                    q, k, v, g_f, g_b, causal=True, window=window)),
+                time_ms(torch, lambda: sdpa(lq, lk, lv)),
+                *tc_roofline(*work["fwd"])),
+        # both run 3xTF32 on the tensor cores: held to that bound
+        "bwd": (time_ms(torch, lambda: d2a.flash_bwd(
+                    q, k, v, g_b, o, lse, do, causal=True, window=window,
+                    live=lb)),
+                time_ms(torch, lambda: torch.autograd.grad(
+                    ref, (qr, kr, vr), do, retain_graph=True)),
+                time_ms(torch, lambda: torch.autograd.grad(
+                    lib_o, (bq, bk, bv), ldo, retain_graph=True)),
+                *tc_roofline(*work["bwd"]))}
+    alone = {
+        "fwd": attention_fwd_alone(torch, q, k, v, g_f, causal=True,
+                                   window=window, live=lf),
+        "bwd": attention_bwd_alone(torch, q, k, v, o, lse, do, g_b,
+                                   causal=True, window=window, live=lb)}
+    for kind, (k_ms, p_ms, l_ms, b_ms, by) in res.items():
+        print(f"[{label}] d2ft_attention_{kind} {what} B {B} H {H} S {S} "
+              f"hd {hd}, live "
+              f"{n_f if kind == 'fwd' else n_b} of {B * H} (bound "
+              f"{lf if kind == 'fwd' else lb}): launcher call "
+              f"{k_ms:.4f} ms (kernels alone, table and outputs built "
+              f"outside the window, {alone[kind]:.4f} "
+              f"ms), plain {p_ms:.4f} ms, library (sdpa "
+              f"{'forward' if kind == 'fwd' else 'autograd backward'} on "
+              f"the live slices) {l_ms:.4f} ms; bounds: float32 FMA "
+              f"{roofline(*work[kind])[0]:.5f} ms, 3xTF32 tensor cores "
+              f"{b_ms:.5f} ms by {by}; held to the 3xTF32 one, "
+              f"{b_ms / k_ms:.1%} of it ({b_ms / alone[kind]:.1%} "
+              f"alone) {tag}", flush=True)
+    del q, k, v, do, o, lse, qr, kr, vr, ref, lib_o
+    torch.cuda.empty_cache()
+    return res
+
+
 def gemma_timing(torch, gm, lo, tag):
     """Phase 15. Returns {"lora"|"fwd"|"bwd": (ms, plain_ms, library_ms,
     bound_ms, bound_by)}: B3 at phase 14's wq operands, the hd-256
     attention kernels at phase 13's shapes, layer 0's gates and the
     per-head bounds (printed for layer 5, global, too)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import d2ft_attention as d2a
     from repro_torch.kernels import lora_matmul as lm
     x, w, a, b = lo["wq"]
     M, K = x.shape
@@ -1601,76 +1724,14 @@ def gemma_timing(torch, gm, lo, tag):
     print_resources("lora_matmul", "lora timing")
 
     gen = torch.Generator(device="cuda").manual_seed(15)
-    B, H, S, hd = GM_BATCH, 4, GM_SEQ, 256
     lf, lb = gm["bounds"]
     for layer, window in ((5, 0), (0, 512)):        # layer 0's last: kept
         g_f, g_b = gm["heads"][layer]
-        q, k, v, do = (torch.randn((B, H, S, hd), generator=gen,
-                                   device="cuda") for _ in range(4))
-        o, lse = d2a.flash_fwd(q, k, v, g_f, causal=True, window=window,
-                               live=lf)
-        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
-        ref = d2a.gated_attention_ref(qr, kr, vr, g_f, g_b, causal=True,
-                                      window=window)
-        mask = d2a._mask(S, True, window, "cuda")
-        pairs = int(mask.sum())                # unmasked (q, k) pairs
-
-        def flat(t, gate):                 # [live, S, hd], gathered once
-            return t.reshape(B * H, S, hd)[gate.reshape(-1) != 0] \
-                .contiguous()
-
-        def sdpa(qq, kk, vv):
-            return F.scaled_dot_product_attention(qq, kk, vv,
-                                                  attn_mask=mask)
-        lq, lk, lv = (flat(t, g_f) for t in (q, k, v))
-        bq, bk, bv = (flat(t, g_b).requires_grad_() for t in (q, k, v))
-        lib_o = sdpa(bq, bk, bv)
-        ldo = flat(do, g_b)
-        n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
-        # q, k, v, o, do and lse of each live slice read once, dq, dk, dv
-        # written for every slice; 5 products over the unmasked (q, k)
-        # pairs of each live slice (s recomputed)
-        work = {"fwd": (4 * (3 * n_f * S * hd + B * H * S * hd + B * H * S),
-                        n_f * 2 * 2 * pairs * hd),
-                "bwd": (4 * (5 * n_b * S * hd + n_b * S + 3 * B * H * S * hd),
-                        n_b * 5 * 2 * pairs * hd)}
-        res = {
-            "fwd": (time_ms(torch, lambda: d2a.flash_fwd(
-                        q, k, v, g_f, causal=True, window=window, live=lf)),
-                    time_ms(torch, lambda: d2a.gated_attention_ref(
-                        q, k, v, g_f, g_b, causal=True, window=window)),
-                    time_ms(torch, lambda: sdpa(lq, lk, lv)),
-                    *tc_roofline(*work["fwd"])),
-            # both run 3xTF32 on the tensor cores: held to that bound
-            "bwd": (time_ms(torch, lambda: d2a.flash_bwd(
-                        q, k, v, g_b, o, lse, do, causal=True, window=window,
-                        live=lb)),
-                    time_ms(torch, lambda: torch.autograd.grad(
-                        ref, (qr, kr, vr), do, retain_graph=True)),
-                    time_ms(torch, lambda: torch.autograd.grad(
-                        lib_o, (bq, bk, bv), ldo, retain_graph=True)),
-                    *tc_roofline(*work["bwd"]))}
-        alone = {
-            "fwd": attention_fwd_alone(torch, q, k, v, g_f, causal=True,
-                                       window=window, live=lf),
-            "bwd": attention_bwd_alone(torch, q, k, v, o, lse, do, g_b,
-                                       causal=True, window=window, live=lb)}
-        for kind, (k_ms, p_ms, l_ms, b_ms, by) in res.items():
-            print(f"[hd-256 attention timing] d2ft_attention_{kind} layer "
-                  f"{layer} ({'window ' + str(window) if window else 'global'}"
-                  f", causal) B {B} H {H} S {S} hd {hd}, live "
-                  f"{n_f if kind == 'fwd' else n_b} of {B * H} (bound "
-                  f"{lf if kind == 'fwd' else lb}): launcher call "
-                  f"{k_ms:.4f} ms (kernels alone, table and outputs built "
-                  f"outside the window, {alone[kind]:.4f} "
-                  f"ms), plain {p_ms:.4f} ms, library (sdpa "
-                  f"{'forward' if kind == 'fwd' else 'autograd backward'} on "
-                  f"the live slices) {l_ms:.4f} ms; bounds: float32 FMA "
-                  f"{roofline(*work[kind])[0]:.5f} ms, 3xTF32 tensor cores "
-                  f"{b_ms:.5f} ms by {by}; held to the 3xTF32 one, "
-                  f"{b_ms / k_ms:.1%} of it ({b_ms / alone[kind]:.1%} "
-                  f"alone) {tag}", flush=True)
-        del q, k, v, do, o, lse, qr, kr, vr, ref, lib_o
+        res = attention_timing_case(
+            torch, gen, "hd-256 attention timing",
+            f"layer {layer} ({'window ' + str(window) if window else 'global'}"
+            ", causal)", GM_BATCH, 4, GM_SEQ, 256, window, g_f, g_b, lf, lb,
+            tag)
     out.update(res)
     torch.cuda.empty_cache()
     return out
@@ -2180,13 +2241,17 @@ def _top(slots):
     return int(idx.max()) + 1 if idx.numel() else 0
 
 
-def moe_case(torch, xb, wu, wg, wd, dy, fs, bs, *, act, live, live_b):
+def moe_case(torch, xb, wu, wg, wd, dy, fs, bs, *, act, live, live_b,
+             need=(True, True, True)):
     """One comparison of the MoE kernels with their plain version: the
     kernels through ``ops.gated_moe_ffn`` (forward, backward, executed
-    tiles, the launched block masks) against the plain version on the same
-    grid and its autograd gradients. Returns errors and max |plain| of
-    [y, dx, dw_up, dw_gate, dw_down], the exact-zero flag, the counts and
-    the tiles the launched masks hold."""
+    tiles, the launched block masks), with requires_grad on xb and on the
+    weights ``need`` names, against the plain version on the same grid and
+    its autograd gradients. Returns errors and max |plain| of [y, dx,
+    dw_up, dw_gate, dw_down] (0.0 for a weight gradient not needed), the
+    exact-zero flag (None where a gradient is not needed, and nowhere
+    else), the counts, the tiles the launched masks hold and the
+    outputs."""
     import torch.nn.functional as F
     from repro_torch.kernels import contract, ops
     from repro_torch.kernels import d2ft_moe as d2m
@@ -2194,7 +2259,9 @@ def moe_case(torch, xb, wu, wg, wd, dy, fs, bs, *, act, live, live_b):
     d2m.dispatch = lambda kind, grid, m: masks.__setitem__(kind, m.clone())
     try:
         with contract.count_tiles("cuda") as tc:
-            ins = [t.clone().requires_grad_() for t in (xb, wu, wg, wd)]
+            ins = [xb.clone().requires_grad_()] + [
+                w.clone().requires_grad_(n)
+                for w, n in zip((wu, wg, wd), need)]
             y = ops.gated_moe_ffn(*ins, fs, bs, act=act, block_c=MO_BLOCK_C,
                                   live_slots=live, live_bwd_slots=live_b)
             y.backward(dy)
@@ -2217,20 +2284,40 @@ def moe_case(torch, xb, wu, wg, wd, dy, fs, bs, *, act, live, live_b):
     ref.backward(dy)
     mine = [y.detach()] + [t.grad for t in ins]
     theirs = [ref.detach()] + [t.grad for t in refs]
-    errs = [float((a - b).abs().max()) for a, b in zip(mine, theirs)]
+    errs = [0.0 if a is None else float((a - b).abs().max())
+            for a, b in zip(mine, theirs)]
     scale = [float(t.abs().max()) for t in theirs]
     rows_f = fm.repeat_interleave(bc, 1)[:, :C] == 0
     rows_b = bm.repeat_interleave(bc, 1)[:, :C] == 0
     dead_e = bm.sum(1) == 0
+    got = [g for g in mine[2:] if g is not None]
     zeros = (_dead_max(mine[0], rows_f) == 0.0
              and _dead_max(mine[1], rows_b) == 0.0
-             and all(_dead_max(g, dead_e) == 0.0 for g in mine[2:])
-             and all(bool(torch.isfinite(t).all()) for t in mine))
+             and all(_dead_max(g, dead_e) == 0.0 for g in got)
+             and all(bool(torch.isfinite(t).all()) for t in mine[:2] + got)
+             and [g is None for g in mine[2:]] == [not n for n in need])
     mirror = {"moe_fwd": int(masks["fwd"].sum()),
               "moe_bwd": int(masks["bwd"].sum())}
     grids = (tuple(masks["fwd"].shape), tuple(masks["bwd"].shape))
-    del ins, refs, ref, mine, theirs
-    return errs, scale, zeros, counts, mirror, grids
+    del ins, refs, ref, theirs
+    return errs, scale, zeros, counts, mirror, grids, mine
+
+
+def moe_dw_launches(torch, xb, wu, wg, wd, dy, fs, bs, *, act, live, live_b,
+                    need):
+    """The MoE kernels a forward and backward through ``ops.gated_moe_ffn``
+    launches, with requires_grad on xb and on the weights ``need`` names,
+    from a profiler window over one call: ({1: <1>, 2: <2>} launches of
+    the backward's dW kernels, every moe_ kernel's launches by name)."""
+    from repro_torch.kernels import ops
+
+    def step():
+        ins = [xb.clone().requires_grad_()] + [
+            w.clone().requires_grad_(n) for w, n in zip((wu, wg, wd), need)]
+        ops.gated_moe_ffn(*ins, fs, bs, act=act, block_c=MO_BLOCK_C,
+                          live_slots=live, live_bwd_slots=live_b).backward(dy)
+    named = profile_steps(torch, step, "moe_", n_prof=1)[-1]
+    return dw_launches(named), {k: n for k, (_, n) in named.items()}
 
 
 def moe_vs_plain(torch):
@@ -2255,8 +2342,12 @@ def moe_vs_plain(torch):
              for mode in modes]
     cases += [("N(0, 1) operands", act, mode)
               for act, mode in zip(ACTS_ALL, ("at", "above", None))]
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    worst = {"fwd": 0.0, "bwd": 0.0, "bwd_dw_up": 0.0}
     for what, act, mode in cases:
+        # the main path's first case also as D2FT-LoRA's step asks for it:
+        # dW_up alone, on the same cotangent
+        needs = [(True, True, True)] + (
+            [(True, False, False)] if mode == "model" else [])
         if what.startswith("N"):
             e, c = 4, 300
             xs = torch.randn((e, c, D), generator=gen, device="cuda")
@@ -2278,35 +2369,58 @@ def moe_vs_plain(torch):
                         "above": (min(C, top_f + 50),
                                   min(C, top_b + 50))}[mode]
         dy = torch.randn(xs.shape, generator=gen, device="cuda")
-        errs, scale, zeros, counts, mirror, grids = moe_case(
-            torch, xs, *ws, dy, fs, bs, act=act, live=live, live_b=live_b)
-        lims = [KERNEL_TOL * max(1.0, scale[0])] + \
-            [GRAD_TOL * max(1.0, r) for r in scale[1:]]
-        got = {k: counts[k] for k in ("moe_fwd", "moe_bwd")}
-        desc = (f"{what}, E {xs.shape[0]} C {C} D {D} F {Fd} block_c "
-                f"{MO_BLOCK_C} {act}, slot bounds ({live}, {live_b}) of "
-                f"occupied ({top_f}, {top_b}), launched grids {grids}")
-        errs_s = (f"y {errs[0]:.3e}, dx/dw_up/dw_gate/dw_down "
-                  + "/".join(f"{v:.3e}" for v in errs[1:])
-                  + " (max |plain| " + " / ".join(f"{v:.3g}" for v in scale)
-                  + ")")
-        if any(e > m for e, m in zip(errs, lims)) or not zeros or \
-                got != mirror or any(counts[k] for k in counts
-                                     if not k.startswith("moe")):
-            raise AssertionError(
-                f"MoE kernels vs plain, {desc}: {errs_s}, limits {lims}, "
-                f"exact zeros {zeros}, tiles {counts} != {mirror}")
-        if not what.startswith("N"):
-            worst = {"fwd": max(worst["fwd"], errs[0]),
-                     "bwd": max(worst["bwd"], *errs[1:])}
-        print(f"[moe vs plain] {desc}: {errs_s}, within tol x max(1, max "
-              f"|plain|), zeros exact, executed tiles fwd "
-              f"{got['moe_fwd']} bwd {got['moe_bwd']} (= the launched "
-              f"masks')", flush=True)
-        del xs, ws, dy
+        first = None
+        for need in needs:
+            errs, scale, zeros, counts, mirror, grids, outs = moe_case(
+                torch, xs, *ws, dy, fs, bs, act=act, live=live,
+                live_b=live_b, need=need)
+            dw, seen = moe_dw_launches(torch, xs, *ws, dy, fs, bs, act=act,
+                                       live=live, live_b=live_b, need=need)
+            lims = [KERNEL_TOL * max(1.0, scale[0])] + \
+                [GRAD_TOL * max(1.0, r) for r in scale[1:]]
+            got = {k: counts[k] for k in ("moe_fwd", "moe_bwd")}
+            # <2>: dW_up with dW_gate; <1>: one of them, and dW_down
+            want_dw = {1: int(need[0] != need[1]) + int(need[2]),
+                       2: int(need[0] and need[1])}
+            first = first or outs
+            same = all(a is None or torch.equal(a, b)
+                       for a, b in zip(outs, first))
+            desc = (f"{what}, E {xs.shape[0]} C {C} D {D} F {Fd} block_c "
+                    f"{MO_BLOCK_C} {act}, dW wanted (up, gate, down) "
+                    f"{need}, slot bounds ({live}, {live_b}) of occupied "
+                    f"({top_f}, {top_b}), launched grids {grids}")
+            errs_s = (f"y {errs[0]:.3e}, dx/dw_up/dw_gate/dw_down "
+                      + "/".join(f"{v:.3e}" for v in errs[1:])
+                      + " (max |plain| "
+                      + " / ".join(f"{v:.3g}" for v in scale) + ")")
+            # the window saw the backward: its dx kernel, once
+            if any(e > m for e, m in zip(errs, lims)) or not zeros or \
+                    got != mirror or dw != want_dw or not same or \
+                    seen.get("moe_bwd_dx_kernel") != 1 or \
+                    any(counts[k] for k in counts if not k.startswith("moe")):
+                raise AssertionError(
+                    f"MoE kernels vs plain, {desc}: {errs_s}, limits "
+                    f"{lims}, exact zeros and None where not wanted "
+                    f"{zeros}, tiles {counts} != {mirror}, dW kernel "
+                    f"launches {dw} != {want_dw} (the moe_ kernels in the "
+                    f"profile: {seen}), bitwise = all-three {same}")
+            if not what.startswith("N"):
+                key = "bwd" if all(need) else "bwd_dw_up"
+                worst["fwd"] = max(worst["fwd"], errs[0])
+                worst[key] = max(worst[key], *errs[1:])
+            print(f"[moe vs plain] {desc}: {errs_s}, within tol x max(1, "
+                  f"max |plain|), zeros exact, executed tiles fwd "
+                  f"{got['moe_fwd']} bwd {got['moe_bwd']} (= the launched "
+                  f"masks'), dW kernel launches <1> {dw[1]:g} <2> "
+                  f"{dw[2]:g}"
+                  + ("" if all(need) else ", skipped dW None, the others "
+                     "bitwise equal to the all-three call's"), flush=True)
+            del outs
+        del xs, ws, dy, first
         torch.cuda.empty_cache()
     print(f"[moe vs plain] max abs err on the main path's operands fwd "
-          f"{worst['fwd']:.3e}, bwd {worst['bwd']:.3e}", flush=True)
+          f"{worst['fwd']:.3e}, bwd {worst['bwd']:.3e}, bwd with dW_up "
+          f"alone {worst['bwd_dw_up']:.3e}", flush=True)
     del operands
     torch.cuda.empty_cache()
     return worst
@@ -2480,9 +2594,20 @@ def olmoe_lora(torch, np, tag):
     bt = {k: torch.as_tensor(v, device="cuda") for k, v in batches[0].items()}
     gates = (g_f.cuda(), g_b.cuda())
     bounds = live_slice_bounds(sched, mb_of)
-    print_profile("3 kernel-path olmoe-1b-7b D2FT-LoRA steps", profile_steps(
-        torch, lambda: step(lora, state, bt, gates, bounds), "moe_"),
-        "d2ft MoE kernels", tag)
+    prof = profile_steps(torch, lambda: step(lora, state, bt, gates, bounds),
+                         "moe_")
+    print_profile("3 kernel-path olmoe-1b-7b D2FT-LoRA steps", prof,
+                  "d2ft MoE kernels", tag, breakdown=True)
+    # the merged w_gate and w_down are frozen: dW_up alone, one <1> launch
+    # a layer and no dW_gate or dW_down work
+    dw = dw_launches(prof[-1])
+    if dw != {1: cfg.n_layers, 2: 0}:
+        raise AssertionError(f"D2FT-LoRA step's dW kernel launches per step "
+                             f"{dw}, not {cfg.n_layers} <1> (dW_up alone) "
+                             f"and no <2>")
+    print(f"[olmoe lora] dW kernel launches per step: <1> {dw[1]:g} (dW_up "
+          f"alone, one a layer), <2> {dw[2]:g}: no dW_gate or dW_down work",
+          flush=True)
     del model, params, lora, state, step, bt
     torch.cuda.empty_cache()
     return {"launches": launches}
@@ -2608,10 +2733,17 @@ def olmoe_finetune(torch, np, tag):
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in next(lm_batches(0, cfg.vocab_size, B, S, 1)).items()}
     gates = (g_f.cuda(), g_b.cuda())
+    prof = profile_steps(torch, lambda: step(model, state, batch, gates),
+                         "moe_")
     print_profile("3 kernel-path olmoe-1b-7b fine-tune steps (8 layers)",
-                  profile_steps(torch, lambda: step(model, state, batch,
-                                                    gates), "moe_"),
-                  "d2ft MoE kernels", tag)
+                  prof, "d2ft MoE kernels", tag, breakdown=True)
+    # full fine-tuning: all three dW, <2> and <1> once a layer each
+    dw = dw_launches(prof[-1])
+    if dw != {1: cfg.n_layers, 2: cfg.n_layers}:
+        raise AssertionError(f"full fine-tune's dW kernel launches per step "
+                             f"{dw}, not {cfg.n_layers} of each")
+    print(f"[olmoe fine-tune] dW kernel launches per step: <2> {dw[2]:g} "
+          f"(dW_up and dW_gate), <1> {dw[1]:g} (dW_down)", flush=True)
     del model, state, batch, opt, step
     torch.cuda.empty_cache()
     return {"launches": launches, "gates": (g_f[0].cuda(), g_b[0].cuda()),
@@ -2619,8 +2751,11 @@ def olmoe_finetune(torch, np, tag):
 
 
 def moe_timing(torch, mo, tag):
-    """Phase 22. Returns {"fwd"|"bwd": (ms, plain_ms, library_ms, bound_ms,
-    bound_by)} at phase 21's layer-0 operands, gates and bounds."""
+    """Phase 22. Returns {"fwd"|"bwd"|"bwd_dw_up": (ms, plain_ms,
+    library_ms, bound_ms, bound_by)} at phase 21's layer-0 operands, gates
+    and bounds; "bwd_dw_up" is the backward as D2FT-LoRA's step asks for
+    it (dW_up alone). Then the hd-128 attention kernels at olmoe-1b-7b's
+    shapes under phase 21's gates and bounds."""
     import torch.nn.functional as F
     from repro_torch.kernels import d2ft_moe as d2m
     from repro_torch.kernels import ops
@@ -2637,19 +2772,31 @@ def moe_timing(torch, mo, tag):
     E, Cr, D = xs.shape
     Fd = wu.shape[2]
     cb = nb * bc
+    up = (True, False, False)
     dy = torch.randn(xs.shape, generator=torch.Generator(
         device="cuda").manual_seed(22), device="cuda")
     refs = [t.clone().requires_grad_() for t in (xs, wu, wg, wd)]
     ref = d2m.gated_moe_ffn_ref(*refs, fm, bm, act="silu", block_c=bc)
-    lib_in = [t.clone().requires_grad_() for t in (xs[:, :cb], wu, wg, wd)]
+    # the plain version and the library with w_up alone requiring grad
+    refs_u = [xs.clone().requires_grad_(), wu.clone().requires_grad_(), wg,
+              wd]
+    ref_u = d2m.gated_moe_ffn_ref(*refs_u, fm, bm, act="silu", block_c=bc)
 
     def library(x, u, g, d):
         return torch.bmm(F.silu(torch.bmm(x, g)) * torch.bmm(x, u), d)
+    lib_in = [t.clone().requires_grad_() for t in (xs[:, :cb], wu, wg, wd)]
     lib_out = library(*lib_in)
-    fl = d2m.gated_moe_flops(fm.cpu().numpy(), bm[:, :nb].cpu().numpy(),
-                             bc, D, Fd)
-    by = d2m.needed_bytes(fm.cpu().numpy(), bm[:, :nb].cpu().numpy(), bc, D,
-                          Fd)
+    lib_u = [xs[:, :cb].clone().requires_grad_(),
+             wu.clone().requires_grad_(), wg, wd]
+    lib_out_u = library(*lib_u)
+    fmn, bmn = fm.cpu().numpy(), bm[:, :nb].cpu().numpy()
+    fl = {"fwd": d2m.gated_moe_flops(fmn, bmn, bc, D, Fd)[0],
+          "bwd": d2m.bwd_flops(bmn, bc, D, Fd),
+          "bwd_dw_up": d2m.bwd_flops(bmn, bc, D, Fd, up)}
+    by = {"fwd": d2m.needed_bytes(fmn, bmn, bc, D, Fd)[0],
+          "bwd": d2m.needed_bytes(fmn, bmn, bc, D, Fd)[1],
+          "bwd_dw_up": d2m.needed_bytes(fmn, bmn, bc, D, Fd, need=up)[1]}
+    # every product runs 3xTF32 on the tensor cores: held to that bound
     out = {
         "fwd": (time_ms(torch, lambda: d2m.moe_fwd(
                     xs, wu, wg, wd, fm, act="silu", block_c=bc), iters=20),
@@ -2657,7 +2804,7 @@ def moe_timing(torch, mo, tag):
                     xs, wu, wg, wd, fm, bm, act="silu", block_c=bc),
                     iters=20),
                 time_ms(torch, lambda: library(xs, wu, wg, wd), iters=20),
-                *roofline(by[0], fl[0])),
+                *tc_roofline(by["fwd"], fl["fwd"])),
         "bwd": (time_ms(torch, lambda: d2m.moe_bwd(
                     xs, wu, wg, wd, bm, dy, act="silu", block_c=bc,
                     bwd_blocks=nb), iters=20),
@@ -2666,7 +2813,17 @@ def moe_timing(torch, mo, tag):
                 time_ms(torch, lambda: torch.autograd.grad(
                     lib_out, lib_in, dy[:, :cb], retain_graph=True),
                     iters=20),
-                *roofline(by[1], fl[1]))}
+                *tc_roofline(by["bwd"], fl["bwd"])),
+        "bwd_dw_up": (
+                time_ms(torch, lambda: d2m.moe_bwd(
+                    xs, wu, wg, wd, bm, dy, act="silu", block_c=bc,
+                    bwd_blocks=nb, need=up), iters=20),
+                time_ms(torch, lambda: torch.autograd.grad(
+                    ref_u, refs_u[:2], dy, retain_graph=True), iters=20),
+                time_ms(torch, lambda: torch.autograd.grad(
+                    lib_out_u, lib_u[:2], dy[:, :cb], retain_graph=True),
+                    iters=20),
+                *tc_roofline(by["bwd_dw_up"], fl["bwd_dw_up"]))}
     # the kernels alone: outputs, scratch and the work list allocated once,
     # outside the timed window
     y, mid = torch.empty_like(xs), torch.empty((E, Cr, Fd), device="cuda")
@@ -2682,27 +2839,45 @@ def moe_timing(torch, mo, tag):
             xs, wu, wg, wd, fm, y, mid, work_f, bc, "silu"), iters=20),
         "bwd": time_ms(torch, lambda: d2m._bwd_call(
             xs, wu, wg, wd, bm, dy, dx, *dws, dhg, ah, work_b, nb, bc,
-            "silu"), iters=20)}
+            "silu"), iters=20),
+        "bwd_dw_up": time_ms(torch, lambda: d2m._bwd_call(
+            xs, wu, wg, wd, bm, dy, dx, dws[0], None, None, dhg, None,
+            work_b, nb, bc, "silu"), iters=20)}
     live_t = {"fwd": int((fm != 0).sum()), "bwd": int((bm[:, :nb] != 0).sum())}
+    what = {"fwd": "three torch.bmm and silu on the truncated buffer",
+            "bwd": "their autograd backward, every input requiring grad",
+            "bwd_dw_up": "their autograd backward, x and w_up alone "
+                         "requiring grad"}
     for kind, (k_ms, p_ms, l_ms, b_ms, bb) in out.items():
-        i = 0 if kind == "fwd" else 1
+        grid = tuple(fm.shape) if kind == "fwd" else (E, nb)
         print(f"[moe timing] d2ft_moe_{kind} E {E} C {xb.shape[1]} -> "
               f"{Cr} D {D} F {Fd} block_c {bc}, phase 21's layer-0 operands "
-              f"and gates, slot bounds ({live}, {live_b}): grid "
-              f"{tuple(fm.shape) if kind == 'fwd' else (E, nb)}, "
-              f"{live_t[kind]} live tiles: launcher call {k_ms:.4f} ms "
+              f"and gates, slot bounds ({live}, {live_b}): grid {grid}, "
+              f"{live_t[kind[:3]]} live tiles: launcher call {k_ms:.4f} ms "
               f"(kernels alone, buffers allocated outside the window, "
-              f"{alone[kind]:.4f} ms), plain {p_ms:.4f} ms, library (three "
-              f"torch.bmm and silu on the truncated buffer"
-              f"{'' if kind == 'fwd' else ', autograd backward'}) "
-              f"{l_ms:.4f} ms, bound {b_ms:.4f} ms by {bb} "
-              f"({fl[i] / 1e9:.1f} GFLOP, {by[i] / 1e6:.1f} MB), "
-              f"{b_ms / k_ms:.1%} of bound ({b_ms / alone[kind]:.1%} "
-              f"alone) {tag}", flush=True)
-    del xb, wu, wg, wd, xs, refs, ref, lib_in, lib_out, y, mid, dx, dws
-    del dhg, ah, dy
+              f"{alone[kind]:.4f} ms), plain {p_ms:.4f} ms, library "
+              f"({what[kind]}) {l_ms:.4f} ms; bounds ({fl[kind] / 1e9:.1f} "
+              f"GFLOP, {by[kind] / 1e6:.1f} MB): float32 FMA "
+              f"{roofline(by[kind], fl[kind])[0]:.4f} ms, 3xTF32 tensor "
+              f"cores {b_ms:.4f} ms by {bb}; held to the 3xTF32 one, "
+              f"{b_ms / k_ms:.1%} of it ({b_ms / alone[kind]:.1%} alone); "
+              f"{fl[kind] / k_ms / 1e9:.1f} TFLOP/s of float32 work through "
+              f"the launcher {tag}", flush=True)
+    print_resources("d2ft_moe_fwd", "moe timing")
+    print_resources("d2ft_moe_bwd", "moe timing")
+    del xb, wu, wg, wd, xs, refs, ref, refs_u, ref_u, lib_in, lib_out
+    del lib_u, lib_out_u, y, mid, dx, dws, dhg, ah, dy
     torch.cuda.empty_cache()
-    return out
+
+    # olmoe-1b-7b's attention: hd 128, 16 heads, one gate per head (G 16)
+    cfg_h, cfg_hd = 16, 128
+    g_f, g_b = mo["gates"]
+    lf, lb = mo["bounds"]
+    res = attention_timing_case(
+        torch, torch.Generator(device="cuda").manual_seed(22),
+        "hd-128 attention timing", "phase 21's layer-0 gates (causal)",
+        MO_BATCH, cfg_h, MO_SEQ, cfg_hd, 0, g_f, g_b, lf, lb, tag)
+    return out, res
 
 
 def main() -> int:
@@ -3031,13 +3206,13 @@ def main() -> int:
     moe_errs = moe_vs_plain(torch)
 
     # 20. D2FT-LoRA on olmoe-1b-7b at full width and depth -----------------
-    olmoe_lora(torch, np, tag)
+    ol = olmoe_lora(torch, np, tag)
 
     # 21. the launcher's loop on olmoe-1b-7b, full width, 8 of 16 layers ---
     mo = olmoe_finetune(torch, np, tag)
 
     # 22. MoE kernel timing -----------------------------------------------
-    mo_t = moe_timing(torch, mo, tag)
+    mo_t, _ = moe_timing(torch, mo, tag)
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{
@@ -3091,17 +3266,20 @@ def main() -> int:
             "launches": rg["launches"][kind], "max_abs_err": rg_errs[kind],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": None})
-    for kind, line in (("fwd", 90), ("bwd", 137)):
+    # the backward as the launcher's full fine-tune asks for it (every dW)
+    # and as D2FT-LoRA's step does (dW_up alone)
+    for kind, line, runs in (("fwd", 90, mo), ("bwd", 137, mo),
+                             ("bwd_dw_up", 137, ol)):
         k_ms, p_ms, l_ms, b_ms, by = mo_t[kind]
         kernels.append({
             "name": f"d2ft_moe_{kind}", "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/d2ft_moe_{kind}.cu",
+            "source": f"src/repro_torch/kernels/csrc/d2ft_moe_{kind[:3]}.cu",
             "replaces": f"src/repro/kernels/d2ft_moe.py:{line}",
-            "launches": mo["launches"][kind], "max_abs_err": moe_errs[kind],
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": l_ms})
-    if len(kernels) != 12:
-        raise AssertionError(f"{len(kernels)} kernel records, not 12")
+            "launches": runs["launches"][kind[:3]],
+            "max_abs_err": moe_errs[kind], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": l_ms})
+    if len(kernels) != 13:
+        raise AssertionError(f"{len(kernels)} kernel records, not 13")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 // Float32-accurate products on Hopper's tensor cores (3xTF32), shared by
 // the kernels that include it (lora_matmul.cu, d2ft_attention_fwd.cu,
-// d2ft_attention_bwd.cu).
+// d2ft_attention_bwd.cu, and d2ft_moe_fwd.cu / d2ft_moe_bwd.cu through
+// d2ft_moe_common.cuh).
 //
 // The port runs float32 with TF32 off, so that it matches the JAX package.
 // One TF32 product keeps 11 significant bits of each operand (about three
@@ -21,10 +22,11 @@
 //    read the kernels make: rows of a multiple of 32 floats, each row's
 //    16-byte chunks permuted by an XOR of swz(row). A (and B stored [n][k])
 //    is read with ldmatrix, 8 rows of one 16-byte chunk column at a time;
-//    B stored [k][n] float by float, the 8 lanes of a group on 8 columns
-//    and its 4 lanes on 4 rows. swz(row) = ((row & 3) << 3) | (row & 4)
-//    puts both on distinct banks, and keeps every 16-byte chunk whole, so
-//    cp.async can fill the tile;
+//    B stored [k][n], and A stored [k][m] (a transposed operand read in
+//    place), float by float, the 8 lanes of a group on 8 columns and its
+//    4 lanes on 4 rows. swz(row) = ((row & 3) << 3) | (row & 4) puts both
+//    on distinct banks, and keeps every 16-byte chunk whole, so cp.async
+//    can fill the tile;
 //  * an accumulator read back as the A fragment of a following product
 //    (acc_as_a), in registers, for the attention forward's P.V, with the
 //    row order its B operand is staged in (kpair_row);
@@ -180,6 +182,22 @@ __device__ __forceinline__ void load_b_kn(FragB& f, const float* s,
   const int g = lane_id() >> 2, t = lane_id() & 3;
   split(s[at(pitch, k0 + t, n0 + g)], f.big[0], f.small[0]);
   split(s[at(pitch, k0 + t + 4, n0 + g)], f.big[1], f.small[1]);
+}
+
+// A = tile[k0 : k0 + 8, m0 : m0 + 16]^T, stored [k][m]: a transposed A
+// read in place (ldmatrix's .trans moves 16-bit values, not floats). As
+// load_b_kn, float by float: a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4),
+// a[3] (g + 8, t + 4). With m0 a multiple of 8, each of the four reads
+// puts the warp's 32 lanes on 32 distinct banks: the 8 lanes of a group
+// on 8 consecutive columns, its 4 lanes on rows whose swz differ in bits
+// 3-4.
+__device__ __forceinline__ void load_a_km(FragA& f, const float* s,
+                                          int pitch, int k0, int m0) {
+  const int g = lane_id() >> 2, t = lane_id() & 3;
+  split(s[at(pitch, k0 + t, m0 + g)], f.big[0], f.small[0]);
+  split(s[at(pitch, k0 + t, m0 + g + 8)], f.big[1], f.small[1]);
+  split(s[at(pitch, k0 + t + 4, m0 + g)], f.big[2], f.small[2]);
+  split(s[at(pitch, k0 + t + 4, m0 + g + 8)], f.big[3], f.small[3]);
 }
 
 // ------------------------------------------------------------- cp.async

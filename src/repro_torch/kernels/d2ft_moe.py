@@ -28,9 +28,12 @@ Four groups of things live here:
   ``dispatch`` hook (JAX's ``on_dispatch``). On CUDA tensors they launch
   the kernels or raise; on CPU tensors they compute the plain version on
   the same grid (forward: the masked dense MLP; backward: its autograd
-  gradients on the truncated grid), without counting a launch;
+  gradients on the truncated grid), without counting a launch. The
+  backward computes only the weight gradients it is asked for (``need``);
 * ``gated_moe_ffn``, an autograd function whose forward is ``moe_fwd`` and
-  whose backward is ``moe_bwd``; the masks get no gradient.
+  whose backward is ``moe_bwd``, asked for the weight gradients autograd
+  needs (D2FT-LoRA's merged w_gate and w_down are frozen: dW_up alone);
+  the masks get no gradient.
 """
 from __future__ import annotations
 
@@ -108,6 +111,7 @@ def gated_moe_ffn_ref(xb, w_up, w_gate, w_down, fwd_mask, bwd_mask, *,
 # ======================================================== analytic accounting
 FWD_MATMULS_PER_TILE = 3   # x·w_up, x·w_gate, (act·h)·w_down
 BWD_MATMULS_PER_TILE = 8   # h, g recompute; dmid; dwd; dx (2); dwu; dwg
+ALL_DW = (True, True, True)   # (dW_up, dW_gate, dW_down) wanted
 
 
 def gated_moe_flops(fm, bm, block_c: int, D: int, F: int):
@@ -118,6 +122,16 @@ def gated_moe_flops(fm, bm, block_c: int, D: int, F: int):
     per = 2 * block_c * D * F
     return (float(np.sum(np.asarray(fm) != 0)) * FWD_MATMULS_PER_TILE * per,
             float(np.sum(np.asarray(bm) != 0)) * BWD_MATMULS_PER_TILE * per)
+
+
+def bwd_flops(bm, block_c: int, D: int, F: int, need=ALL_DW):
+    """Executed backward FLOPs under a block mask when only the weight
+    gradients in ``need`` are computed: the recompute of h and g, dmid and
+    dx's two products (5 matmuls a live tile) and one matmul per wanted dW.
+    With every dW wanted, ``gated_moe_flops``' backward."""
+    per = 2 * block_c * D * F
+    return float(np.sum(np.asarray(bm) != 0)) * (5 + sum(map(bool, need))) \
+        * per
 
 
 def gated_moe_dispatched_bytes(E: int, n_cb: int, block_c: int, D: int,
@@ -136,19 +150,21 @@ def gated_moe_dispatched_bytes(E: int, n_cb: int, block_c: int, D: int,
 
 
 def needed_bytes(fm, bm, block_c: int, D: int, F: int, *,
-                 itemsize: int = 4):
+                 itemsize: int = 4, need=ALL_DW):
     """Bytes (fwd, bwd) the gated function must move on these masks, each
     input read once and each output written once: forward, the weights of
     experts with a live tile and x of live tiles read, y written for every
     launched tile; backward, the weights of experts with a live backward
-    tile and x, dy of live tiles read, dx of every launched tile and all
-    three dW of every expert written."""
+    tile and x, dy of live tiles read, dx of every launched tile and the
+    wanted dW (``need``: dW_up, dW_gate, dW_down) of every expert
+    written."""
     fm, bm = np.asarray(fm) != 0, np.asarray(bm) != 0
     E = fm.shape[0]
     w = 3 * D * F
     tile = block_c * D
     fwd = fm.any(1).sum() * w + fm.sum() * tile + fm.size * tile
-    bwd = bm.any(1).sum() * w + 2 * bm.sum() * tile + bm.size * tile + E * w
+    bwd = bm.any(1).sum() * w + 2 * bm.sum() * tile + bm.size * tile + \
+        E * sum(map(bool, need)) * D * F
     return float(fwd * itemsize), float(bwd * itemsize)
 
 
@@ -208,7 +224,7 @@ def _fwd_lib():
 def _bwd_lib():
     lib = build.load("d2ft_moe_bwd")
     lib.d2ft_moe_bwd_f32.argtypes = (
-        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.d2ft_moe_bwd_f32.restype = ctypes.c_int
     lib.d2ft_moe_bwd_error_string.argtypes = [ctypes.c_int]
     lib.d2ft_moe_bwd_error_string.restype = ctypes.c_char_p
@@ -258,60 +274,75 @@ moe_fwd.launches = 0
 
 
 def moe_bwd(xb, w_up, w_gate, w_down, bm, dy, *, act: str, block_c: int,
-            bwd_blocks: Optional[int] = None):
+            bwd_blocks: Optional[int] = None, need=ALL_DW):
     """The backward over the (E, nb) grid, nb = min(bwd_blocks, C /
     block_c) (None: every block). Operands as ``moe_fwd``'s, bm [E, C /
     block_c] {0, 1} with every bit past nb zero, dy [E, C, D] the
-    cotangent of y. Returns (dx, dw_up, dw_gate, dw_down): dx exact zeros
-    on bm == 0 tiles and past nb, dW summed over each expert's live tiles
-    in ascending block order (exact zeros for an expert with none). On CUDA
+    cotangent of y; ``need`` says which of (dw_up, dw_gate, dw_down) to
+    compute. Returns (dx, dw_up, dw_gate, dw_down), None for each dW not
+    needed: dx exact zeros on bm == 0 tiles and past nb, dW summed over
+    each expert's live tiles in ascending block order (exact zeros for an
+    expert with none), the same bits whichever others are needed. On CUDA
     tensors: one launcher call of the kernels, counted in
     ``moe_bwd.launches``; on CPU tensors the plain version's autograd
     gradients on the same grid."""
     E, C, D, F_, n_cb = _prepare(xb, w_up, w_gate, w_down, bm, block_c, act,
                                  (("dy", dy, xb.shape),))
+    need = tuple(bool(n) for n in need)
+    if len(need) != 3:
+        raise ValueError(f"need must name (dw_up, dw_gate, dw_down), got "
+                         f"{need}")
     nb = n_cb if bwd_blocks is None else max(1, min(int(bwd_blocks), n_cb))
     cr = nb * block_c
     _report("bwd", (E, nb), bm[:, :nb])
     if xb.device.type == "cpu":
         with torch.enable_grad():
-            ins = [t.detach().requires_grad_()
-                   for t in (xb[:, :cr], w_up, w_gate, w_down)]
+            ins = [xb[:, :cr].detach().requires_grad_()] + [
+                w.detach().requires_grad_(n)
+                for w, n in zip((w_up, w_gate, w_down), need)]
             y = gated_moe_ffn_ref(*ins, bm[:, :nb], bm[:, :nb], act=act,
                                   block_c=block_c)
-            dx, dwu, dwg, dwd = torch.autograd.grad(y, ins, dy[:, :cr])
-        return F.pad(dx, (0, 0, 0, C - cr)), dwu, dwg, dwd
+            wanted = [ins[0]] + [w for w, n in zip(ins[1:], need) if n]
+            got = iter(torch.autograd.grad(y, wanted, dy[:, :cr]))
+            dx = next(got)
+            dws = [next(got) if n else None for n in need]
+        return (F.pad(dx, (0, 0, 0, C - cr)), *dws)
     dx = torch.empty_like(xb)
     if cr < C:
         dx[:, cr:].zero_()
-    dwu = torch.empty_like(w_up)
-    dwg = torch.empty_like(w_gate)
-    dwd = torch.empty_like(w_down)
+    dws = [torch.empty_like(w) if n else None
+           for w, n in zip((w_up, w_gate, w_down), need)]
     dhg = torch.empty((E, cr, 2 * F_), dtype=torch.float32,
                       device=xb.device)
-    ah = torch.empty((E, cr, F_), dtype=torch.float32, device=xb.device)
+    ah = torch.empty((E, cr, F_), dtype=torch.float32,
+                     device=xb.device) if need[2] else None
     work = torch.empty((E * nb + 1,), dtype=torch.int32, device=xb.device)
-    _bwd_call(xb, w_up, w_gate, w_down, bm, dy, dx, dwu, dwg, dwd, dhg, ah,
-              work, nb, block_c, act)
+    _bwd_call(xb, w_up, w_gate, w_down, bm, dy, dx, *dws, dhg, ah, work, nb,
+              block_c, act)
     moe_bwd.launches += 1
-    return dx, dwu, dwg, dwd
+    return (dx, *dws)
 
 
 def _bwd_call(xb, w_up, w_gate, w_down, bm, dy, dx, dwu, dwg, dwd, dhg, ah,
               work, nb, block_c, act):
     """The backward kernels on buffers ``moe_bwd`` checked and allocated
-    (dx zeroed past nb·block_c); uncounted."""
+    (dx zeroed past nb·block_c); a dW output that is None is not computed
+    (and ah, None, is needed only for dW_down); uncounted."""
     lib = _bwd_lib()
     E, C, D = xb.shape
     F_ = w_up.shape[-1]
+    want = sum(1 << i for i, t in enumerate((dwu, dwg, dwd)) if t is not None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         err = lib.d2ft_moe_bwd_f32(
             xb.data_ptr(), w_up.data_ptr(), w_gate.data_ptr(),
             w_down.data_ptr(), bm.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            dwu.data_ptr(), dwg.data_ptr(), dwd.data_ptr(), dhg.data_ptr(),
-            ah.data_ptr(), work.data_ptr(), _counter_slot("moe_bwd"),
-            E, C, C // block_c, nb, block_c, D, F_, ACTS.index(act), stream)
+            ptr(dwu), ptr(dwg), ptr(dwd), dhg.data_ptr(), ptr(ah),
+            work.data_ptr(), _counter_slot("moe_bwd"), E, C, C // block_c,
+            nb, block_c, D, F_, ACTS.index(act), want, stream)
     if err != 0:
         raise RuntimeError("d2ft MoE backward launch failed: "
                            + lib.d2ft_moe_bwd_error_string(err).decode())
@@ -334,9 +365,12 @@ class _GatedMoE(torch.autograd.Function):
     def backward(ctx, dy):
         xb, w_up, w_gate, w_down, bm = ctx.saved_tensors
         act, block_c, bwd_blocks = ctx.args
+        # only the weight gradients autograd asks for: D2FT-LoRA's merged
+        # w_gate and w_down are frozen
         dx, dwu, dwg, dwd = moe_bwd(xb, w_up, w_gate, w_down, bm,
                                     dy.contiguous(), act=act,
-                                    block_c=block_c, bwd_blocks=bwd_blocks)
+                                    block_c=block_c, bwd_blocks=bwd_blocks,
+                                    need=ctx.needs_input_grad[1:4])
         return dx, dwu, dwg, dwd, None, None, None, None, None
 
 
@@ -347,8 +381,9 @@ def gated_moe_ffn(xb, w_up, w_gate, w_down, fm, bm, *, act: str,
     multiple of block_c (``kernels.ops.gated_moe_ffn`` pads and truncates);
     w_up / w_gate: [E, D, F]; w_down: [E, F, D]; fm / bm: [E, C / block_c]
     float {0, 1} block masks with bm <= fm. The forward skips fm == 0
-    tiles, the backward bm == 0 tiles and every block past ``bwd_blocks``;
-    the masks get no gradient. Only shapes are checked, so the model path
+    tiles, the backward bm == 0 tiles and every block past ``bwd_blocks``,
+    and computes the gradient of a weight only when it requires one; the
+    masks get no gradient. Only shapes are checked, so the model path
     pays no host sync."""
     return _GatedMoE.apply(xb.contiguous(), w_up.contiguous(),
                            w_gate.contiguous(), w_down.contiguous(),

@@ -838,14 +838,18 @@ def _moe_case(seed, E, C, D, F, live_blocks=None, bc=16):
 
 
 def _moe_vs_plain(xb, wu, wg, wd, dy, fs, bs, *, act, block_c, live=None,
-                  live_b=None):
-    """Kernels through ``ops.gated_moe_ffn`` against the plain version's
-    autograd; returns (errors, scales, outputs, counts, masks)."""
+                  live_b=None, need=(True, True, True)):
+    """Kernels through ``ops.gated_moe_ffn``, with requires_grad on xb and
+    the weights ``need`` names, against the plain version's autograd;
+    returns (errors, scales, outputs, counts, masks), a weight gradient
+    not needed as None in outputs and as 0.0 in errors."""
     masks = {}
     d2m.dispatch = lambda kind, grid, m: masks.__setitem__(kind, m.clone())
     try:
         with contract.count_tiles("cuda") as tc:
-            ins = [t.clone().requires_grad_() for t in (xb, wu, wg, wd)]
+            ins = [xb.clone().requires_grad_()] + [
+                w.clone().requires_grad_(n)
+                for w, n in zip((wu, wg, wd), need)]
             y = ops.gated_moe_ffn(*ins, fs, bs, act=act, block_c=block_c,
                                   live_slots=live, live_bwd_slots=live_b)
             y.backward(dy)
@@ -862,7 +866,8 @@ def _moe_vs_plain(xb, wu, wg, wd, dy, fs, bs, *, act, block_c, live=None,
     ref.backward(dy)
     mine = [y.detach()] + [t.grad for t in ins]
     theirs = [ref.detach()] + [t.grad for t in refs]
-    errs = [float((a - b).abs().max()) for a, b in zip(mine, theirs)]
+    errs = [0.0 if a is None else float((a - b).abs().max())
+            for a, b in zip(mine, theirs)]
     scales = [max(1.0, float(t.abs().max())) for t in theirs]
     return errs, scales, mine, counts, masks
 
@@ -877,22 +882,35 @@ def _moe_block_masks(fs, bs, block_c):
     return (f.sum(-1) > 0).float(), (b.sum(-1) > 0).float()
 
 
+# which of (dW_up, dW_gate, dW_down) autograd asks for: all (scoring, full
+# fine-tuning), dW_up alone (D2FT-LoRA), dW_gate with dW_down (the dW
+# kernel's one-output case on dg), none
+MOE_NEEDS = [(True, True, True), (True, False, False), (False, True, True),
+             (False, False, False)]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("need", MOE_NEEDS, ids=lambda n: "".join(
+    "ugd"[i] if w else "-" for i, w in enumerate(n)))
 @pytest.mark.parametrize("E,C,D,F,block_c,act,bounds", [
     (4, 64, 16, 32, 16, "silu", None),
     (4, 57, 40, 72, 16, "gelu", None),
     (3, 300, 96, 200, 128, "relu", None),
     (8, 384, 256, 128, 128, "silu", "live"),
     (6, 64, 48, 80, 16, "gelu", "live"),
-    (2, 20, 24, 40, 7, "silu", None)])
-def test_moe_kernels_match_plain(E, C, D, F, block_c, act, bounds):
+    (2, 20, 24, 40, 7, "silu", None),
+    (3, 128, 34, 70, 128, "silu", None)])
+def test_moe_kernels_match_plain(E, C, D, F, block_c, act, bounds, need):
     """Forward and backward kernels against the plain version and its
     autograd gradients: y <= 1e-5, dx / dW <= 1e-4, each x max(1, max
     |plain|); exact zeros on dead tiles and for the expert with no live
     slot; executed tiles = the launched block masks' sums; one launch
-    each. The shapes take ragged C (the pad path), D and F off the tiles,
-    block sizes 7, 16 and 128, and both truncation bounds (the live slots
-    of at most 3 of 6 blocks forward)."""
+    each. The shapes take ragged C (the pad path), D and F off the tiles
+    (D 34 and F 70: rows not a multiple of 4 floats, copied a float at a
+    time), block sizes 7, 16 and 128, and both truncation bounds (the live
+    slots of at most 3 of 6 blocks forward). Only the weight gradients in
+    ``need`` require grad: the others come back None, and those that do
+    equal the all-three call's bit for bit."""
     _need_card()
     bc = min(block_c, C)
     live_blocks = 3 if bounds else None
@@ -905,12 +923,18 @@ def test_moe_kernels_match_plain(E, C, D, F, block_c, act, bounds):
     f0, b0 = d2m.moe_fwd.launches, d2m.moe_bwd.launches
     errs, scales, mine, counts, masks = _moe_vs_plain(
         xb, wu, wg, wd, dy, fs, bs, act=act, block_c=block_c, live=live,
-        live_b=live_b)
+        live_b=live_b, need=need)
     assert d2m.moe_fwd.launches == f0 + 1 and d2m.moe_bwd.launches == b0 + 1
     tols = [TOL] + [GRAD_TOL] * 4
     for name, e, s, tol in zip(("y", "dx", "dwu", "dwg", "dwd"), errs,
                                scales, tols):
         assert e <= tol * s, (name, e, s)
+    if not all(need):
+        full = _moe_vs_plain(xb, wu, wg, wd, dy, fs, bs, act=act,
+                             block_c=block_c, live=live, live_b=live_b)[2]
+        for a, b in zip(mine, full):
+            assert a is None or torch.equal(a, b)
+    assert [g is None for g in mine[2:]] == [not n for n in need]
     y, dx, dwu, dwg, dwd = mine
     slot_f = torch.nn.functional.pad(
         fs, (0, -C % bc)).reshape(E, -1, bc).sum(-1) > 0
@@ -920,13 +944,42 @@ def test_moe_kernels_match_plain(E, C, D, F, block_c, act, bounds):
     assert float(y[~rows_f].abs().max()) == 0.0
     assert float(dx[~rows_b].abs().max()) == 0.0
     for g in (dwu, dwg, dwd):
-        assert float(g[0].abs().max()) == 0.0           # expert 0: no slot
+        if g is not None:                               # expert 0: no slot
+            assert float(g[0].abs().max()) == 0.0
     assert counts["moe_fwd"] == int(masks["fwd"].sum())
     assert counts["moe_bwd"] == int(masks["bwd"].sum())
     assert counts["moe_bwd"] == int(rows_b[:, ::bc].sum())
     assert counts["fwd"] == counts["rglru_fwd"] == 0
     if bounds:
         assert masks["fwd"].shape[1] <= 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,D,F,block_c,nb", [
+    (4, 384, 256, 128, 128, 3), (6, 64, 48, 80, 16, 3),
+    (3, 128, 34, 70, 128, 1)])
+def test_moe_kernels_are_bitwise_deterministic(E, C, D, F, block_c, nb):
+    """Two launches of each launcher on the same inputs give bitwise-equal
+    outputs: dW sums each expert's live rows in ascending order in one
+    block, with no float atomics (the fine-tunes compare trajectories);
+    with every dW and with dW_up alone."""
+    _need_card()
+    xb, wu, wg, wd, dy, fs, bs = _moe_case(E * D + F, E, C, D, F)
+    fm, bm = _moe_block_masks(fs, bs, block_c)
+    bm[:, nb:] = 0.0
+    kw = dict(act="silu", block_c=block_c)
+    first = d2m.moe_fwd(xb, wu, wg, wd, fm, **kw)
+    assert torch.equal(first, d2m.moe_fwd(xb, wu, wg, wd, fm, **kw))
+    for need in ((True, True, True), (True, False, False)):
+        first = d2m.moe_bwd(xb, wu, wg, wd, bm, dy, bwd_blocks=nb,
+                            need=need, **kw)
+        second = d2m.moe_bwd(xb, wu, wg, wd, bm, dy, bwd_blocks=nb,
+                             need=need, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -8,6 +8,11 @@
   pad path), block_c 16, silu and gelu; exact zeros on dead blocks; the
   value checks; the launched grids under the two truncation bounds equal
   JAX's ``on_dispatch`` grids.
+* The backward computes only the weight gradients autograd asks for: for
+  each pattern of ``requires_grad`` on (w_up, w_gate, w_down), ``moe_bwd``
+  is asked for exactly those and returns None for the others, and the
+  gradients returned equal the all-three call's bit for bit and the
+  jitted JAX reference's within 1e-4.
 * ``apply_moe`` against JAX's: the dispatch (order, positions, kept slots,
   the capacity buffer and both slot masks) exactly, y within 1e-5 and the
   aux losses within 1e-6, without gates and under a p_f / p_o / p_s mix,
@@ -25,6 +30,7 @@
 * Serving refuses MoE blocks instead of skipping their FFN.
 """
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -146,6 +152,76 @@ def test_moe_core_matches_jax_kernel_and_reference(C, block_c, act):
                           vjp_r(jnp.asarray(dy))):
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), atol=TOL,
                                    rtol=TOL, err_msg=name)
+
+
+# D2FT-LoRA's step wants dW_up alone (its merged w_gate and w_down are
+# frozen); scoring and full fine-tuning want all three
+NEEDS = list(itertools.product((False, True), repeat=3))
+
+
+@functools.cache
+def _need_case():
+    """Operands, slot masks and the jitted JAX reference's (y, dx, dw_up,
+    dw_gate, dw_down) at E 4, C 57 (the pad path), D 16, F 32, block_c
+    16."""
+    E, C, D, F = 4, 57, 16, 32
+    xb, wu, wg, wd, dy = _core_operands(19, E, C, D, F)
+    fs, bs = _slot_masks(np.random.default_rng(19), E, C)
+    fm, bm, bc = _block_masks(fs, bs, C, 16)
+
+    @jax.jit
+    def ref(*a):
+        y, vjp = jax.vjp(lambda *w: jax_moe_ref(
+            *w, jnp.asarray(fm), jnp.asarray(bm), act=jax_act("silu"),
+            block_c=bc), *a)
+        return (y, *vjp(jnp.asarray(dy)))
+    return (xb, wu, wg, wd, dy, fs, bs,
+            [np.asarray(t) for t in ref(*map(jnp.asarray,
+                                             (xb, wu, wg, wd)))])
+
+
+def _grads_with_need(need):
+    """(y, [dx, dw_up, dw_gate, dw_down] as .grad, the ``need`` each
+    ``moe_bwd`` call got) of ``ops.gated_moe_ffn`` with requires_grad on
+    xb and on the weights ``need`` names."""
+    xb, wu, wg, wd, dy, fs, bs, _ = _need_case()
+    asked = []
+    orig = d2ft_moe.moe_bwd
+
+    def spy(*a, **k):
+        out = orig(*a, **k)
+        asked.append((k["need"], [g is None for g in out[1:]]))
+        return out
+    ins = [_t(xb).requires_grad_()] + [
+        _t(w).requires_grad_(n) for w, n in zip((wu, wg, wd), need)]
+    d2ft_moe.moe_bwd = spy
+    try:
+        y = ops.gated_moe_ffn(*ins, _t(fs), _t(bs), act="silu", block_c=16)
+        y.backward(_t(dy))
+    finally:
+        d2ft_moe.moe_bwd = orig
+    return y.detach(), [t.grad for t in ins], asked
+
+
+@pytest.mark.parametrize("need", NEEDS, ids=lambda n: "".join(
+    "ugd"[i] if w else "-" for i, w in enumerate(n)))
+def test_moe_backward_computes_only_the_wanted_weight_gradients(need):
+    y, grads, asked = _grads_with_need(need)
+    _, full, _ = _grads_with_need((True, True, True))
+    ref = _need_case()[-1]
+    assert asked == [(tuple(need), [not n for n in need])]
+    np.testing.assert_allclose(y.numpy(), ref[0], atol=TOL, rtol=TOL)
+    assert torch.equal(grads[0], full[0])
+    np.testing.assert_allclose(grads[0].numpy(), ref[1], atol=TOL, rtol=TOL)
+    for name, n, got, all3, theirs in zip(("dw_up", "dw_gate", "dw_down"),
+                                          need, grads[1:], full[1:],
+                                          ref[2:]):
+        if not n:
+            assert got is None, name
+            continue
+        assert torch.equal(got, all3), name
+        np.testing.assert_allclose(got.numpy(), theirs, atol=TOL, rtol=TOL,
+                                   err_msg=name)
 
 
 def test_moe_dead_blocks_are_exact_zeros():

@@ -13,12 +13,21 @@ float32; the tensor core's own sums truncate, and the kernels keep them to
 one or two k-steps' products before an IEEE add (``csrc/tf32x3.cuh``).
 
 At small slices of the main path's shapes (ViT-small's hd 64 at S 197,
-gemma3-1b's hd 256 causal and windowed, D2FT-LoRA's wq at K 1152) the
-emulated 3xTF32 attention forward and backward and LoRA matmul stay within
-the limits the kernels are held to on the card (o and lse 1e-5 absolute,
-gradients 1e-4; LoRA 1e-5 x max(1, max |y|)) of the float64 result with a
-tenfold margin, and one TF32 product a step does not.
+gemma3-1b's hd 256 causal and windowed, D2FT-LoRA's wq at K 1152,
+olmoe-1b-7b's expert FFN at D 2048, F 1024 over 384 capacity rows) the
+emulated 3xTF32 attention forward and backward, LoRA matmul and MoE expert
+FFN products stay within the limits the kernels are held to on the card
+(o and lse 1e-5 absolute, gradients 1e-4; LoRA and the MoE's y 1e-5, the
+MoE's dx and dW 1e-4, each x max(1, max |plain|)) of the float64 result
+with a tenfold margin, and one TF32 product a step does not.
+
+The swizzled tiles' index arithmetic is checked apart: the transposed A
+loader of the MoE weight gradients (``tf32x3::load_a_km``) reads each
+element of its tile from a slot of its own, and each of its four reads
+puts a warp's 32 lanes on 32 distinct banks.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -219,3 +228,103 @@ def test_lora_products_hold_the_kernel_limit(r):
         errs[terms] = float(np.abs(y.double().numpy() - exact).max())
     assert errs[3] <= lim / 10, errs
     assert errs[1] > lim, errs
+
+
+# ------------------------------------------------------- MoE expert FFN
+# olmoe-1b-7b's expert widths (D 2048, F 1024, silu) on slices: 128 rows
+# of a capacity tile through h and g at K 2048 and y at depth F on 64
+# columns of D; dx at depth 2F on 64 columns of D; the dW of 128 rows x 64
+# columns over 384 capacity rows (three blocks of 128)
+MOE_D, MOE_F, MOE_ROWS = 2048, 1024, 384
+MOE_TOL = {"y": KERNEL_TOL, "dx": GRAD_TOL, "dw_up": GRAD_TOL,
+           "dw_gate": GRAD_TOL, "dw_down": GRAD_TOL}
+
+
+@functools.cache
+def _moe_operands():
+    rng = np.random.default_rng(19)
+    D, F, R = MOE_D, MOE_F, MOE_ROWS
+    return (rng.normal(size=(R, D)).astype(np.float32),
+            (rng.normal(size=(D, F)) / D ** 0.5).astype(np.float32),
+            (rng.normal(size=(D, F)) / D ** 0.5).astype(np.float32),
+            (rng.normal(size=(F, D)) / F ** 0.5).astype(np.float32),
+            rng.normal(size=(R, D)).astype(np.float32))
+
+
+def _silu_pair(g):
+    s = 1.0 / (1.0 + np.exp(-g)) if isinstance(g, np.ndarray) \
+        else torch.sigmoid(g)
+    return g * s, s * (1.0 + g * (1.0 - s))
+
+
+@functools.cache
+def _moe_products(terms):
+    """The MoE kernels' products on the slices, each by ``mm_ksteps`` in
+    the kernels' k order (terms 3 or 1), or in float64 (terms 0): y (the
+    forward's mid then down kernel), dx (the backward's mid kernel: h, g
+    and dmid = dy W_down^T, then dx = [dh | dg] [W_up | W_gate]^T at depth
+    2F), dW_up = x^T dh, dW_gate = x^T dg, dW_down = (a h)^T dy over the
+    capacity rows in ascending order."""
+    x, wu, wg, wd, dy = _moe_operands()
+    n = 64
+    if terms == 0:
+        x, wu, wg, wd, dy = (t.astype(np.float64) for t in (x, wu, wg, wd,
+                                                           dy))
+
+        def mmk(a, b):
+            return a @ b
+    else:
+        x, wu, wg, wd, dy = map(torch.from_numpy, (x, wu, wg, wd, dy))
+
+        def mmk(a, b):
+            return mm_ksteps(a.contiguous(), b.contiguous(), terms)
+    cat = np.concatenate if terms == 0 else torch.cat
+    # a tile's 128 rows over all of F
+    t = slice(0, 128)
+    h, g = mmk(x[t], wu), mmk(x[t], wg)
+    a, da = _silu_pair(g)
+    y = mmk(a * h, wd[:, :n])
+    dm = mmk(dy[t], wd.T)
+    dx = mmk(cat([dm * a, dm * h * da], 1), cat([wu[:n].T, wg[:n].T], 0))
+    # every capacity row over F's first n columns
+    h, g = mmk(x, wu[:, :n]), mmk(x, wg[:, :n])
+    a, da = _silu_pair(g)
+    dm = mmk(dy, wd[:n].T)
+    xt = x[:, :128].T
+    return {"y": y, "dx": dx, "dw_up": mmk(xt, dm * a),
+            "dw_gate": mmk(xt, dm * h * da),
+            "dw_down": mmk((a * h).T, dy[:, :n])}
+
+
+@pytest.mark.parametrize("name", list(MOE_TOL))
+def test_moe_products_hold_the_kernel_limits(name):
+    exact = _moe_products(0)[name]
+    lim = MOE_TOL[name] * max(1.0, float(np.abs(exact).max()))
+    errs = {terms: float(np.abs(_moe_products(terms)[name].double().numpy()
+                                - exact).max()) for terms in (3, 1)}
+    assert errs[3] <= lim / 10, (lim, errs)
+    assert errs[1] > lim, (lim, errs)
+
+
+def _swz(row):
+    return ((row & 3) << 3) | (row & 4)
+
+
+def _at(pitch, row, col):
+    return row * pitch + (col ^ _swz(row))
+
+
+# the dW kernels' A^T slab [32 k][128 m]; 64-wide as a check of the rule
+@pytest.mark.parametrize("pitch", [64, 128])
+def test_transposed_a_loader_reads_distinct_slots_and_banks(pitch):
+    rows = 32
+    slots = [_at(pitch, r, c) for r in range(rows) for c in range(pitch)]
+    assert sorted(slots) == list(range(rows * pitch))
+    # load_a_km's reads (k0 + t, m0 + g), (k0 + t, m0 + g + 8),
+    # (k0 + t + 4, m0 + g), (k0 + t + 4, m0 + g + 8), lane = 4 g + t
+    for k0 in range(0, rows, 8):
+        for m0 in range(0, pitch, 16):
+            for dk, dm in ((0, 0), (0, 8), (4, 0), (4, 8)):
+                banks = {_at(pitch, k0 + t + dk, m0 + g + dm) % 32
+                         for g in range(8) for t in range(4)}
+                assert len(banks) == 32, (k0, m0, dk, dm)
