@@ -16,7 +16,10 @@ Phases, one line each (any failure raises and exits non-zero):
    merge) against their plain PyTorch version at gemma3-1b decode shapes,
    <= 1e-5 in float32, exact zeros on gated heads and bitwise equal across
    two calls: lengths at page and 64-position run boundaries, tables
-   null-padded over whole runs, windows 0, 512 and 40.
+   null-padded over whole runs, windows 0, 512 and 40. The same checks at
+   decode shapes no ported path serves yet: recurrentgemma-2b's (10 query
+   heads on 1 KV head of 256, window 2048: two head groups of 5 a block),
+   stablelm-3b's (32 heads of 80) and phi3-vision-42b's (32 heads of 96).
 4. serve — the paged serving engine on gemma3-1b at full width (random
    weights from seed 0) answers 8 requests through 4 slots with the kernel
    on; launches == 26 x decode steps, every request finishes, every page
@@ -31,12 +34,15 @@ Phases, one line each (any failure raises and exits non-zero):
    plain version and one PyTorch library call (gather +
    scaled_dot_product_attention, a yardstick the port never calls) at the
    trace's final lengths, beside the bytes bound; the split grid and the
-   kernels' registers and spills from the -Xptxas -v logs.
+   kernels' registers and spills from the -Xptxas -v logs; then the same
+   times at phase 3's other decode shapes.
 6. attention kernels vs plain — the gated flash-attention forward and
    backward kernels against their plain version and its autograd
    gradients: ViT-small shapes (B 40, H 6, S 197, hd 64, bidirectional)
    under a p_f / p_o / p_s mix, without, with and above compaction
-   bounds; causal S 256 hd 128; window 128 at S 512 hd 64. o and lse
+   bounds; causal S 256 hd 128; window 128 at S 512 hd 64; stablelm-3b's
+   (hd 80) and phi3-vision-42b's (hd 96) attention, B 2, H 32, S 1024,
+   causal (rows padded to a pitch of 96 floats in the kernels). o and lse
    <= 1e-5, dq/dk/dv <= 1e-4, exact zeros on gated slices, lse = 2^30 on
    dead ones, executed tiles = live slices x live tiles per slice.
 7. fine-tune — the paper's D2FT fine-tune of ViT-small at full size
@@ -56,7 +62,8 @@ Phases, one line each (any failure raises and exits non-zero):
    both are held to), the library yardstick (scaled_dot_product_attention
    forward and its autograd backward on the live slices, which the port
    never calls) and both sources' registers and spills from the
-   -Xptxas -v logs.
+   -Xptxas -v logs. Then the same at stablelm-3b's and phi3-vision-42b's
+   attention shapes (B 2, H 32, S 1024, hd 80 / 96, causal).
 9. SSD kernels vs plain — the gated SSD chunked-scan forward and backward
    kernels against their plain version and its autograd gradients, on the
    operands the main path gives them (mamba2-130m's first SSD layer,
@@ -150,9 +157,10 @@ Phases, one line each (any failure raises and exits non-zero):
    losses within 1e-4 x max(1, |loss|) of the masked path's.
 18. RG-LRU kernel timing — CUDA-event times of both kernels at phase 17's
    shapes on layer 0's operands, gates and bounds, L2 flushed, through
-   the launcher call (the record's ms) and alone (compaction table and
-   zeroed outputs built outside the timed window), beside their plain
-   version's and the bytes bound; no single PyTorch call computes the
+   the launcher call (the record's ms) and alone (outputs allocated
+   outside the timed window; the launchers build no table and fill
+   nothing), beside their plain version's and the bytes bound, and the
+   kernels' registers and spills; no single PyTorch call computes the
    scan, so there is no library yardstick.
 19. MoE kernels vs plain — the gated MoE expert FFN forward and backward
    kernels against their plain version and its autograd gradients, on the
@@ -379,6 +387,105 @@ def page_check_host_time(torch, engine, reqs, n_steps):
             len(outer) // n_steps, 1e3 * wall / n_steps)
 
 
+# decode shapes of configs whose serving is not ported yet, held and timed
+# apart from gemma3-1b's: (config, H, n_kv, hd, window)
+DECODE_SHAPES = (("recurrentgemma-2b", 10, 1, 256, 2048),
+                 ("stablelm-3b", 32, 32, 80, 0),
+                 ("phi3-vision-42b", 32, 32, 96, 0))
+
+
+def decode_shapes_vs_plain(torch, gen):
+    """Phase 3's other shapes: B10 at recurrentgemma-2b's decode (10 query
+    heads on 1 KV head of 256, two head groups of 5 a block, window 2048)
+    and at stablelm-3b's (hd 80) and phi3-vision-42b's (hd 96), 32 heads
+    each, against the plain version: lengths at page and run boundaries,
+    tables null-padded over whole runs, gated heads and a slot with every
+    head gated; <= 1e-5, exact zeros, bitwise equal across two calls."""
+    from repro_torch.kernels.ops import paged_decode_attention
+    from repro_torch.kernels.paged_decode import paged_decode_ref
+    for name, H, n_kv, hd, window in DECODE_SHAPES:
+        worst = 0.0
+        for lengths, gated in (
+                ([15, 16, 17, 700], ((1, 0), (1, H - 1), (2, 0))),
+                ([63, 64, 2047, 2063], tuple((3, h) for h in range(H))),
+                ([731, 1131, 1551, 2063], ((0, H // 2),))):
+            args = paged_inputs(torch, gen, lengths, n_pages=600,
+                                n_pmax=130, H=H, n_kv=n_kv, hd=hd,
+                                gated=gated)
+            out = paged_decode_attention(*args[:5], g_f=args[5],
+                                         window=window)
+            again = paged_decode_attention(*args[:5], g_f=args[5],
+                                           window=window)
+            torch.cuda.synchronize()
+            err = float((out - paged_decode_ref(*args, window=window))
+                        .abs().max())
+            dead = float(out[args[5] == 0].abs().max())
+            if err > KERNEL_TOL or dead != 0.0 or \
+                    not torch.isfinite(out).all() or \
+                    not torch.equal(out, again):
+                raise AssertionError(
+                    f"kernel vs plain, {name} (H {H} n_kv {n_kv} hd {hd} "
+                    f"window {window}) lengths {lengths}: max abs err {err} "
+                    f"(tol {KERNEL_TOL}), dead heads {dead}, bitwise equal "
+                    f"{torch.equal(out, again)}")
+            worst = max(worst, err)
+        print(f"[kernel vs plain] paged_decode {name} decode shape: H {H} "
+              f"n_kv {n_kv} hd {hd} window {window}, ps {PAGE_SIZE}, n_pmax "
+              f"130, lengths at page and run boundaries, gated heads and a "
+              f"gated slot: max abs err <= {worst:.3e}, zeros exact, bitwise "
+              f"equal across two calls", flush=True)
+
+
+def decode_shapes_timing(torch, gen, lengths, n_pmax, tag):
+    """Phase 5's other shapes: CUDA-event times of B10 at DECODE_SHAPES
+    with the trace's final lengths, through the launcher and alone,
+    beside the plain version, gather + SDPA (enable_gqa) and the bytes
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_decode as pd
+    for name, H, n_kv, hd, window in DECODE_SHAPES:
+        args = paged_inputs(torch, gen, lengths, n_pages=n_pmax * 4 + 1,
+                            n_pmax=n_pmax, H=H, n_kv=n_kv, hd=hd)
+        B, L = len(lengths), n_pmax * PAGE_SIZE
+        q, kp, vp, table, ln, _ = args
+
+        def library():
+            idx = table.long()
+            keys = kp[idx].reshape(B, L, n_kv, hd).transpose(1, 2)
+            vals = vp[idx].reshape(B, L, n_kv, hd).transpose(1, 2)
+            pos = torch.arange(L, device="cuda")[None, :]
+            t = ln.long()[:, None]
+            mask = pos <= t
+            if window:
+                mask &= pos > t - window
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], keys, vals,
+                attn_mask=mask[:, None, None, :], enable_gqa=True)[:, :, 0]
+        out = torch.empty_like(q)
+        ws = torch.empty(pd.workspace_floats(B, H, hd, n_pmax, PAGE_SIZE),
+                         device="cuda")
+        k_ms = time_ms(torch, lambda: pd.paged_flash_decode(
+            *args, window=window))
+        alone = time_ms(torch, lambda: pd._decode_call(
+            *args, out, ws, window=window))
+        p_ms = time_ms(torch, lambda: pd.paged_decode_ref(*args,
+                                                          window=window))
+        l_ms = time_ms(torch, library)
+        b_ms, by = bound(lengths, window, H=H, n_kv=n_kv, hd=hd,
+                         n_pmax=n_pmax)
+        n_hg = -(-(H // n_kv) // 8)
+        print(f"[kernel timing] paged_decode {name} H {H} n_kv {n_kv} hd "
+              f"{hd} window {window} lengths {lengths}, split grid "
+              f"{(n_kv * n_hg, B, pd.n_splits(n_pmax, PAGE_SIZE))} "
+              f"({n_hg} head group(s) a KV head): launcher call {k_ms:.4f} "
+              f"ms (kernels alone {alone:.4f} ms), plain {p_ms:.4f} ms, "
+              f"library (gather+sdpa) {l_ms:.4f} ms, bound {b_ms:.5f} ms by "
+              f"{by}, {b_ms / k_ms:.1%} of bound ({b_ms / alone:.1%} alone) "
+              f"{tag}", flush=True)
+        del args, out, ws
+    torch.cuda.empty_cache()
+
+
 def attn_inputs(torch, gen, B, H, S, hd):
     """q, k, v, a cotangent and a p_f / p_o / p_s gate mix in the
     fine-tune's 3 : 1 : 1 proportions (slice op = random permutation mod
@@ -527,7 +634,11 @@ def attention_vs_plain(torch, gen):
              (40, 6, 197, 64, False, 0, "exact"),
              (40, 6, 197, 64, False, 0, "above"),
              (4, 8, 256, 128, True, 0, "above"),
-             (4, 4, 512, 64, True, 128, "exact")]
+             (4, 4, 512, 64, True, 128, "exact"),
+             # stablelm-3b's (hd 80) and phi3-vision-42b's (hd 96)
+             # attention at S 1024, causal
+             (2, 32, 1024, 80, True, 0, "exact"),
+             (2, 32, 1024, 96, True, 0, "above")]
     for B, H, S, hd, causal, window, mode in cases:
         q, k, v, do, g_f, g_b = attn_inputs(torch, gen, B, H, S, hd)
         n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
@@ -578,19 +689,26 @@ def profile_steps(torch, step, key, n_prof=3):
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = sorted(((e.self_device_time_total, e.count, e.key)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA), reverse=True)
-    busy_us = sum(t for t, _, _ in dev)
-    if busy_us <= 0:
-        raise AssertionError("the profiler saw no device time")
+    # a window late in this process has once come back with no device
+    # events at all (CUPTI's records lost): take it again, and say so
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_prof):
+                step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = sorted(((e.self_device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+        busy_us = sum(t for t, _, _ in dev)
+        if busy_us > 0:
+            break
+        print(f"[profile] window {attempt} of 3 saw no device time "
+              f"({key} kernels)", flush=True)
+    else:
+        raise AssertionError("the profiler saw no device time in 3 windows")
     key_us = sum(t for t, _, k in dev if key in k)
     top = [(t / 1e3 / n_prof, c // n_prof, k) for t, c, k in dev[:8]]
     named = {}
@@ -824,6 +942,14 @@ def attention_timing(torch, gen, tag):
               f"{tag}", flush=True)
     for name in ("d2ft_attention_fwd", "d2ft_attention_bwd"):
         print_resources(name, "attention timing")
+    # stablelm-3b's and phi3-vision-42b's attention (no path runs them
+    # yet): B 2, H 32, S 1024, causal, the fine-tune's 3 : 1 : 1 mix
+    for name, hd in (("stablelm-3b", 80), ("phi3-vision-42b", 96)):
+        _, _, _, _, g_f, g_b = attn_inputs(torch, gen, 2, 32, 1, hd)
+        attention_timing_case(
+            torch, gen, "attention timing", f"{name} (causal)", 2, 32, 1024,
+            hd, 0, g_f, g_b, int((g_f != 0).sum()), int((g_b != 0).sum()),
+            tag)
     return out
 
 
@@ -2153,18 +2279,17 @@ def rglru_timing(torch, operands, rg, tag):
                 time_ms(torch, lambda: torch.autograd.grad(
                     ref, refs, dy, retain_graph=True), iters=20),
                 *roofline(by[1], fl[1]))}
-    # the kernels alone: the compaction table and the zero-filled outputs
-    # that each launcher call builds on the card are made once, outside
-    # the timed window
+    # the kernels alone: the outputs each launcher call allocates are made
+    # once, outside the timed window (the launchers build no table and
+    # fill nothing: the kernels find which slices run and write the zeros)
     alone = {}
     for kind, gate, live_b, call, args, outs in (
             ("fwd", g_f, lf, d2r._fwd_call, (la, b, g_f), 1),
             ("bwd", g_b, lb, d2r._bwd_call, (la, h, dy, g_b), 2)):
-        G, Q, nc, n_disp, idx = d2r._prepare(la, gate, RG_CHUNK, live_b)
-        bufs = [torch.zeros_like(la) for _ in range(outs)] + \
-            [torch.empty((n_disp, nc, Wg), device="cuda") for _ in range(2)]
-        alone[kind] = time_ms(torch, lambda: call(*args, idx, *bufs, n_disp,
-                                                  G, Q))
+        G, Q, n_disp = d2r._prepare(la, gate, RG_CHUNK, live_b)
+        bufs = [torch.empty_like(la) for _ in range(outs)]
+        alone[kind] = time_ms(torch, lambda: call(*args, *bufs, n_disp, G,
+                                                  Q))
         del bufs
     live = {"fwd": int((g_f != 0).sum()), "bwd": int((g_b != 0).sum())}
     for kind, (k_ms, p_ms, b_ms, bb) in out.items():
@@ -2173,12 +2298,14 @@ def rglru_timing(torch, operands, rg, tag):
               f"chunk {RG_CHUNK}, layer 0's operands and gates, live "
               f"{live[kind]} of {g_f.numel()} (bound "
               f"{lf if kind == 'fwd' else lb}): launcher call {k_ms:.4f} ms "
-              f"(kernels alone, table and zeroed outputs built outside the "
-              f"window, {alone[kind]:.4f} ms), plain {p_ms:.4f} ms, library "
+              f"(kernel alone, outputs allocated outside the window, "
+              f"{alone[kind]:.4f} ms), plain {p_ms:.4f} ms, library "
               f"none (no PyTorch call computes the scan), bound {b_ms:.5f} "
               f"ms by {bb} ({by[i] / 1e6:.1f} MB, {fl[i] / 1e9:.3f} GFLOP), "
               f"{b_ms / k_ms:.1%} of bound ({b_ms / alone[kind]:.1%} alone) "
               f"{tag}", flush=True)
+    for name in ("d2ft_rglru_fwd", "d2ft_rglru_bwd"):
+        print_resources(name, "rglru timing")
     del h, refs, ref, dy
     torch.cuda.empty_cache()
     return out
@@ -2959,6 +3086,7 @@ def main() -> int:
           f"page and run boundaries, tables null-padded over whole runs, "
           f"gated heads: max abs err {max_err:.3e} <= {KERNEL_TOL}, "
           f"bitwise equal across two calls", flush=True)
+    decode_shapes_vs_plain(torch, gen)
 
     # 4. serve ------------------------------------------------------------
     cfg = get_config("gemma3-1b")
@@ -3144,6 +3272,7 @@ def main() -> int:
               f"{tag}", flush=True)
     print_resources("paged_decode", "kernel timing")
     del ws, dec_out
+    decode_shapes_timing(torch, gen, final, npm, tag)
 
     paged = records[0]
     del eng, plain, prof_eng, args

@@ -42,8 +42,10 @@
 //    kept to two k-steps in the score products and one in the gradient
 //    products, then added in IEEE float32 (tf32x3::mma3). 8 warps; the
 //    score tiles (R x W) as 4 x 2 warps of 16 x W/2, the accumulators (R x
-//    hd: dq, or dk and dv) as 2 x 4 warps of 32 x hd/4 (4 x 2 of 16 x 8 at
-//    hd 16), held in registers across the walk.
+//    hd: dq, or dk and dv) as 2 x 4 warps of 32 x hd/4 (4 x 2 of 16 x hd/2
+//    at hd 16 and 80, whose hd / 8 n-tiles do not split in 4), held in
+//    registers across the walk. Rows of hd 80 are padded to a pitch of 96
+//    floats in shared memory (the swizzle permutes within 32-float groups).
 //  * Tiles are rectangular: R = 64 resident rows against a walked tile of
 //    W = 64 rows up to hd 128 and W = 32 at hd 256. At hd 256 the resident
 //    q and do (dQ) or k and v (dK/dV) take 128 KB, a walked pair 64 KB and
@@ -93,11 +95,15 @@ constexpr int kRes = 64;                      // resident rows a block
 template <int HD>
 struct Geo {
   static constexpr int kW = HD > 128 ? 32 : 64;       // walked rows
-  static constexpr int kHp = HD < 32 ? 32 : HD;       // row pitch, floats
+  // row pitch, floats: a multiple of 32 for the swizzle (hd 80 takes 96)
+  static constexpr int kHp = (HD + 31) / 32 * 32;
   static constexpr int kSnt = kW / 16;                // score n-tiles a warp
-  static constexpr int kOwn = HD >= 32 ? 4 : 2;       // accumulator warps
-  static constexpr int kOmt = kRes / 16 / (8 / kOwn);  //   along rows, cols
-  static constexpr int kOnt = HD / 8 / kOwn;
+  // accumulator warps along the columns: 4, or 2 where hd / 8 n-tiles do
+  // not split in 4 (hd 16: 2 n-tiles; hd 80: 10)
+  static constexpr int kOwn = (HD / 8) % 4 == 0 ? 4 : 2;
+  static constexpr int kOmt = kRes / 16 / (8 / kOwn);  // m-tiles a warp
+  static constexpr int kOnt = HD / 8 / kOwn;           // n-tiles a warp
+  static_assert(kOnt * kOwn * 8 == HD, "accumulator columns");
   // the dK/dV role's (two score tiles) is the larger
   static constexpr size_t kSmem =
       sizeof(float) * (2 * kRes * kHp + 2 * kW * kHp + 2 * kRes * kW + 2 * kW);
@@ -552,6 +558,8 @@ int d2ft_attn_bwd_f32(const void* q, const void* k, const void* v,
     D2FT_BWD_CASE(16)
     D2FT_BWD_CASE(32)
     D2FT_BWD_CASE(64)
+    D2FT_BWD_CASE(80)
+    D2FT_BWD_CASE(96)
     D2FT_BWD_CASE(128)
     D2FT_BWD_CASE(256)
 #undef D2FT_BWD_CASE

@@ -39,8 +39,9 @@
 //  * Staging. q is staged once; k and v tiles stream through a two-stage
 //    cp.async ring: the next live tile's k and v load while this one's
 //    products run. Tiles (kernel_block(hd, "fwd")): 64 query rows against
-//    Bc = 64 key rows up to hd 64 and 32 from hd 128, in 40 KB (hd <= 32),
-//    80 KB (hd 64) and 96 KB (hd 128) of shared memory, two blocks an SM;
+//    Bc = 64 key rows up to hd 64 and 32 above, in 40 KB (hd <= 32), 80 KB
+//    (hd 64), 72 KB (hd 80 and 96, rows padded to a pitch of 96 floats) and
+//    96 KB (hd 128) of shared memory, two blocks an SM;
 //    at hd 256 q takes 64 KB, a k + v stage 64 KB and the score hand-over
 //    16 KB, 212,992 of the 232,448 bytes a block may take, one block of 8
 //    warps an SM (a 64-row key tile, or a third stage, would not fit).
@@ -91,7 +92,8 @@ constexpr float kLseMasked = 1073741824.0f;   // +2^30
 template <int HD>
 struct Geo {
   static constexpr int kBc = HD > 64 ? 32 : 64;       // key rows a tile
-  static constexpr int kHp = HD < 32 ? 32 : HD;       // row pitch, floats
+  // row pitch, floats: a multiple of 32 for the swizzle (hd 80 takes 96)
+  static constexpr int kHp = (HD + 31) / 32 * 32;
   static constexpr int kNt = kBc / 8;                 // score n-tiles
   static constexpr int kSplit = HD > 128 ? 2 : 1;     // warps a row group
   static constexpr int kWarps = kRows / 16 * kSplit;
@@ -353,8 +355,8 @@ extern "C" {
 // permutation of all n_slices slices, live ones first) and tiles may be
 // null (every slice dispatched in order; no tile count). Blocks of the
 // slices at slice_idx[n_disp:] write their zeros and LSE_MASKED, so o and
-// lse need no pre-fill. The tiles (64 query rows against 64 key rows, or
-// 32 from hd 128) must be the caller's kernel_block(hd, "fwd").
+// lse need no pre-fill. The tiles (64 query rows against 64 key rows up
+// to hd 64, 32 above) must be the caller's kernel_block(hd, "fwd").
 int d2ft_attn_fwd_f32(const void* q, const void* k, const void* v,
                       const void* gate, const void* slice_idx, void* o,
                       void* lse, void* tiles, int n_disp, int n_slices,
@@ -374,6 +376,8 @@ int d2ft_attn_fwd_f32(const void* q, const void* k, const void* v,
     D2FT_FWD_CASE(16)
     D2FT_FWD_CASE(32)
     D2FT_FWD_CASE(64)
+    D2FT_FWD_CASE(80)
+    D2FT_FWD_CASE(96)
     D2FT_FWD_CASE(128)
     D2FT_FWD_CASE(256)
 #undef D2FT_FWD_CASE

@@ -59,7 +59,9 @@ NEG_INF = -2.0 ** 30
 # exp(s - LSE_MASKED) is exactly 0 in the backward for any score.
 LSE_MASKED = 2.0 ** 30
 
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)   # 16: the smoke ViT's
+# the head dims of the repo's configs (16: the smoke ViT's; 80:
+# stablelm-3b's and hubert-xlarge's; 96: phi3-vision-42b's); others raise
+KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 # the kernels with a tile counter: the forward, and the backward's dQ and
 # dK/dV roles (one launch, a counter cell each)
 KERNEL_KINDS = ("fwd", "bwd_dq", "bwd_dkdv")
@@ -68,7 +70,7 @@ KERNEL_KINDS = ("fwd", "bwd_dq", "bwd_dkdv")
 def kernel_block(hd: int, kind: str = "fwd"):
     """(block_q, block_k): the tiles of one CUDA kernel at head_dim hd,
     fixed at compile time. The forward's hold 64 query rows (4 warps of
-    16) against key tiles of 64 rows, or 32 from hd 128, so that two
+    16) against key tiles of 64 rows up to hd 64 and 32 above, so that two
     cp.async stages fit beside q (two blocks an SM up to hd 128). The
     backward's hold 64 rows resident (queries in the dQ role, keys in the
     dK/dV role) against a walked tile of 64 rows, or 32 at hd 256, where a

@@ -26,7 +26,11 @@ Four groups of things live here:
   apply;
 * the launchers of the CUDA kernels, ``rglru_fwd``
   (``csrc/d2ft_rglru_fwd.cu``) and ``rglru_bwd``
-  (``csrc/d2ft_rglru_bwd.cu``), each with a ``.launches`` counter;
+  (``csrc/d2ft_rglru_bwd.cu``), each with a ``.launches`` counter: one
+  kernel launch a call, on outputs allocated unfilled (the kernel writes
+  every slice, the zeros of dead and undispatched ones too) and with no
+  compaction table (block y holds slice y and counts the live gates
+  before it);
 * ``gated_rglru_scan``, an autograd function whose forward is the forward
   kernel (saving h) and whose backward is the backward kernel. On CPU
   tensors it takes the plain version; on CUDA tensors it launches the
@@ -37,7 +41,10 @@ operations per element forward (exp, multiply, add) and 5 backward
 against 12 and 20 bytes of its own operands, far below the ~20 operations
 per byte at which float32 FMA (67 TFLOP/s) and not HBM (3.35 TB/s) would
 become the limit. The TPU's ``2·Q²·Wg`` per chunk is the cost of its
-quadratic chunk form, not of the function.
+quadratic chunk form, not of the function. The kernels stream each operand
+once (16-byte cp.async copies into shared memory, one tile ahead) and
+combine time segments in registers, shuffles and shared memory
+(``csrc/d2ft_rglru_common.cuh``).
 
 The backward uses the sequential form of the TPU kernel's sums. With
 ``a = exp(la)`` and ``g_t = dy_t + a_{t+1} · g_{t+1}`` (the cotangent of
@@ -172,7 +179,7 @@ def _check(name, t, device, shape):
 def _fwd_lib():
     lib = build.load("d2ft_rglru_fwd")
     lib.d2ft_rglru_fwd_f32.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.d2ft_rglru_fwd_f32.restype = ctypes.c_int
     lib.d2ft_rglru_fwd_error_string.argtypes = [ctypes.c_int]
     lib.d2ft_rglru_fwd_error_string.restype = ctypes.c_char_p
@@ -183,7 +190,7 @@ def _fwd_lib():
 def _bwd_lib():
     lib = build.load("d2ft_rglru_bwd")
     lib.d2ft_rglru_bwd_f32.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.d2ft_rglru_bwd_f32.restype = ctypes.c_int
     lib.d2ft_rglru_bwd_error_string.argtypes = [ctypes.c_int]
     lib.d2ft_rglru_bwd_error_string.restype = ctypes.c_char_p
@@ -205,8 +212,10 @@ def _check_gates(la, g_f, g_b=None):
 
 
 def _prepare(la, gate, chunk, live, tensors=()):
-    """Checks shared by both launchers; returns (G, Q, nc, n_disp, idx)
-    with idx the int32 compaction table (None when every slice runs)."""
+    """Checks shared by both launchers; returns (G, Q, n_disp): the gate
+    groups, the chunk and the dispatch count (a live slice with that many
+    live slices before it writes zeros, as one past the compaction table's
+    first n_disp entries would)."""
     dev = la.device
     if dev.type != "cuda":
         raise ValueError(f"the d2ft RG-LRU kernels need CUDA tensors, got "
@@ -222,13 +231,7 @@ def _prepare(la, gate, chunk, live, tensors=()):
     if S < 1 or Q < 1 or S % Q:
         raise ValueError(f"S={S} must be a positive multiple of the chunk "
                          f"min({chunk}, S) (pad first)")
-    NS = B * G
-    n_disp = contract.dispatch_count(live, NS)
-    idx = None
-    if n_disp < NS:
-        idx = contract.live_permutation(gate.reshape(NS), n_disp).to(
-            torch.int32)
-    return G, Q, S // Q, n_disp, idx
+    return G, Q, contract.dispatch_count(live, B * G)
 
 
 def _counter_slot(kind):
@@ -237,35 +240,29 @@ def _counter_slot(kind):
 
 
 def rglru_fwd(la, b, g_f, *, chunk: int, live=None):
-    """Launch the forward kernels (one launcher call, counted in
+    """Launch the forward kernel (one launch, counted in
     ``rglru_fwd.launches``). la, b [B, S, W] float32 contiguous on one CUDA
     device, S a multiple of the chunk, g_f [B, G] with W % G == 0;
     ``live`` is an optional upper bound on the g_f != 0 slice count.
     Returns h [B, S, W], exact zeros on slices with g_f == 0 or not
     dispatched."""
-    G, Q, nc, n_disp, idx = _prepare(la, g_f, chunk, live,
-                                     (("b", b, la.shape),))
-    h = (torch.empty if idx is None else torch.zeros)(
-        la.shape, dtype=torch.float32, device=la.device)
-    tot = torch.empty((n_disp, nc, la.shape[2] // G), dtype=torch.float32,
-                      device=la.device)
-    _fwd_call(la, b, g_f, idx, h, tot, torch.empty_like(tot), n_disp, G, Q)
+    G, Q, n_disp = _prepare(la, g_f, chunk, live, (("b", b, la.shape),))
+    h = torch.empty(la.shape, dtype=torch.float32, device=la.device)
+    _fwd_call(la, b, g_f, h, n_disp, G, Q)
     rglru_fwd.launches += 1
     return h
 
 
-def _fwd_call(la, b, g_f, idx, h, tot, last, n_disp, G, Q):
-    """The forward kernels on buffers ``rglru_fwd`` checked and allocated
-    (h zero-filled where idx compacts the slices); uncounted."""
+def _fwd_call(la, b, g_f, h, n_disp, G, Q):
+    """The forward kernel on buffers ``rglru_fwd`` checked and allocated;
+    uncounted."""
     lib = _fwd_lib()
-    _, S, W = la.shape
+    B, S, W = la.shape
     with torch.cuda.device(la.device):
         stream = torch.cuda.current_stream(la.device).cuda_stream
         err = lib.d2ft_rglru_fwd_f32(
-            la.data_ptr(), b.data_ptr(), g_f.data_ptr(),
-            None if idx is None else idx.data_ptr(), h.data_ptr(),
-            tot.data_ptr(), last.data_ptr(), _counter_slot("rglru_fwd"),
-            n_disp, S, W, G, Q, stream)
+            la.data_ptr(), b.data_ptr(), g_f.data_ptr(), h.data_ptr(),
+            _counter_slot("rglru_fwd"), B * G, n_disp, S, W, G, Q, stream)
     if err != 0:
         raise RuntimeError("d2ft RG-LRU forward launch failed: "
                            + lib.d2ft_rglru_fwd_error_string(err).decode())
@@ -275,36 +272,30 @@ rglru_fwd.launches = 0
 
 
 def rglru_bwd(la, g_b, h, dy, *, chunk: int, live=None):
-    """Launch the backward kernels (one launcher call, counted in
+    """Launch the backward kernel (one launch, counted in
     ``rglru_bwd.launches``). la and g_b as ``rglru_fwd``'s, h the forward's
     output, dy its cotangent; ``live`` bounds the g_b != 0 slice count.
     Returns (dla, db), exact zeros from g_b == 0 slices."""
-    G, Q, nc, n_disp, idx = _prepare(la, g_b, chunk, live,
-                                     (("h", h, la.shape),
-                                      ("dy", dy, la.shape)))
-    alloc = torch.empty if idx is None else torch.zeros
-    dla = alloc(la.shape, dtype=torch.float32, device=la.device)
-    db = alloc(la.shape, dtype=torch.float32, device=la.device)
-    tot = torch.empty((n_disp, nc, la.shape[2] // G), dtype=torch.float32,
-                      device=la.device)
-    _bwd_call(la, h, dy, g_b, idx, dla, db, tot, torch.empty_like(tot),
-              n_disp, G, Q)
+    G, Q, n_disp = _prepare(la, g_b, chunk, live, (("h", h, la.shape),
+                                                   ("dy", dy, la.shape)))
+    dla = torch.empty(la.shape, dtype=torch.float32, device=la.device)
+    db = torch.empty_like(dla)
+    _bwd_call(la, h, dy, g_b, dla, db, n_disp, G, Q)
     rglru_bwd.launches += 1
     return dla, db
 
 
-def _bwd_call(la, h, dy, g_b, idx, dla, db, tot, lead, n_disp, G, Q):
-    """The backward kernels on buffers ``rglru_bwd`` checked and allocated
-    (dla, db zero-filled where idx compacts the slices); uncounted."""
+def _bwd_call(la, h, dy, g_b, dla, db, n_disp, G, Q):
+    """The backward kernel on buffers ``rglru_bwd`` checked and allocated;
+    uncounted."""
     lib = _bwd_lib()
-    _, S, W = la.shape
+    B, S, W = la.shape
     with torch.cuda.device(la.device):
         stream = torch.cuda.current_stream(la.device).cuda_stream
         err = lib.d2ft_rglru_bwd_f32(
             la.data_ptr(), h.data_ptr(), dy.data_ptr(), g_b.data_ptr(),
-            None if idx is None else idx.data_ptr(), dla.data_ptr(),
-            db.data_ptr(), tot.data_ptr(), lead.data_ptr(),
-            _counter_slot("rglru_bwd"), n_disp, S, W, G, Q, stream)
+            dla.data_ptr(), db.data_ptr(), _counter_slot("rglru_bwd"),
+            B * G, n_disp, S, W, G, Q, stream)
     if err != 0:
         raise RuntimeError("d2ft RG-LRU backward launch failed: "
                            + lib.d2ft_rglru_bwd_error_string(err).decode())

@@ -16,15 +16,17 @@ addressed through a per-sequence page table. Two versions of one function:
 
 The kernel is a split-KV decode. Each (slot, kv head)'s history is cut
 into runs of ``split_len(page_size)`` positions (``KV_SPLIT``, 64, or its
-least common multiple with the page size); the grid is (n_kv, B, n_split)
-with ``n_split = n_splits(n_pmax, page_size)`` from the table's width, so
-no host sync sizes it. Each block writes its run's unnormalised
-accumulator, max and exp-sum into a float32 workspace this launcher
-allocates (``workspace_floats``), and a second kernel of the same call
-merges the runs of each (slot, head) in split order: bitwise the same on
-every call. At gemma3-1b's 129-page tables (page size 16) that is 33 runs
-and 132 blocks for 4 slots, where one block per (slot, kv head) left 128
-of the 132 SMs idle.
+least common multiple with the page size); the grid is (n_kv · n_hg, B,
+n_split) with ``n_split = n_splits(n_pmax, page_size)`` from the table's
+width, so no host sync sizes it, and n_hg = ceil(rep / 8) groups of at
+most 8 of a kv head's rep = H / n_kv query heads (one group up to rep 8;
+recurrentgemma-2b's rep 10 is two groups of 5). Each block writes its
+run's unnormalised accumulator, max and exp-sum into a float32 workspace
+this launcher allocates (``workspace_floats``), and a second kernel of the
+same call merges the runs of each (slot, head) in split order: bitwise the
+same on every call. At gemma3-1b's 129-page tables (page size 16) that
+is 33 runs and 132 blocks for 4 slots, where one block per (slot, kv
+head) left 128 of the 132 SMs idle.
 
 What bounds the kernel on an H100: bytes, the K/V rows of the positions
 each (slot, kv head) must read, once, over 3.35 TB/s; at decode's batch
@@ -124,7 +126,6 @@ def _lib():
     lib.paged_decode_f32.restype = ctypes.c_int
     lib.paged_decode_error_string.argtypes = [ctypes.c_int]
     lib.paged_decode_error_string.restype = ctypes.c_char_p
-    lib.paged_decode_max_rep.restype = ctypes.c_int
     lib.paged_decode_supports_head_dim.argtypes = [ctypes.c_int]
     lib.paged_decode_supports_head_dim.restype = ctypes.c_int
     return lib
@@ -148,9 +149,8 @@ def _prepare(q, k_pages, v_pages, page_table, lengths, g_f):
     lib = _lib()
     if not lib.paged_decode_supports_head_dim(hd):
         raise ValueError(f"head_dim {hd} has no kernel instantiation")
-    if H % n_kv or H // n_kv > lib.paged_decode_max_rep():
-        raise ValueError(f"H={H}, n_kv={n_kv}: rep must divide H and be <= "
-                         f"{lib.paged_decode_max_rep()}")
+    if H % n_kv:
+        raise ValueError(f"H={H} is not a multiple of n_kv={n_kv}")
     # the kernels copy rows in 16 bytes: the pools are too large to copy
     for name, x in (("k_pages", k_pages), ("v_pages", v_pages)):
         if x.data_ptr() % 16:

@@ -101,20 +101,27 @@ def test_tile_accounting_equals_jax(S, bq, bk):
 
 
 def test_kernel_tiling_accounting():
-    """The CUDA kernels' tiles: the forward's 64 query rows against 64
-    key rows up to hd 64 and 32 from hd 128; the backward's 64 resident
-    rows (queries in dQ, keys in dK/dV) against 64 walked rows, or 32 at
-    hd 256. ViT-small's S = 197 is 4 x 4 tiles in every kernel, the last
-    ragged; a causal or windowed mask skips whole tiles as JAX's predicate
-    does (gemma3-1b's S 1024: 272 causal 64 x 32 tiles in the forward and
-    in each backward role, 216 under its 512 window); FLOPs and bytes
-    scale with the live slices only."""
+    """The CUDA kernels' tiles at the head dims (16, 32, 64, 80, 96, 128,
+    256): the forward's 64 query rows against 64 key rows up to hd 64 and
+    32 above; the backward's 64 resident rows (queries in dQ, keys in
+    dK/dV) against 64 walked rows, or 32 at hd 256. ViT-small's S = 197 is
+    4 x 4 tiles in every kernel, the last ragged; a causal or windowed mask
+    skips whole tiles as JAX's predicate does (gemma3-1b's S 1024: 272
+    causal 64 x 32 tiles in the forward and in each backward role, 216
+    under its 512 window; stablelm-3b's hd 80 at S 1024: 272 forward and
+    136 causal 64 x 64 tiles a backward role); FLOPs and bytes scale with
+    the live slices only."""
+    assert d2a.KERNEL_HEAD_DIMS == (16, 32, 64, 80, 96, 128, 256)
     assert [d2a.kernel_block(hd) for hd in d2a.KERNEL_HEAD_DIMS] == \
-        [(64, 64)] * 3 + [(64, 32)] * 2
+        [(64, 64)] * 3 + [(64, 32)] * 4
     assert [d2a.kernel_block(hd, "bwd_dq") for hd in d2a.KERNEL_HEAD_DIMS] \
-        == [(64, 64)] * 4 + [(64, 32)]
+        == [(64, 64)] * 6 + [(64, 32)]
     assert [d2a.kernel_block(hd, "bwd_dkdv")
-            for hd in d2a.KERNEL_HEAD_DIMS] == [(64, 64)] * 4 + [(32, 64)]
+            for hd in d2a.KERNEL_HEAD_DIMS] == [(64, 64)] * 6 + [(32, 64)]
+    for hd in (80, 96):
+        assert d2a.kernel_live_tiles(1024, True, 0, hd) == 272
+        assert d2a.kernel_live_tiles(1024, True, 0, hd, "bwd_dq") == 136
+        assert d2a.kernel_live_tiles(1024, True, 0, hd, "bwd_dkdv") == 136
     with pytest.raises(ValueError, match="unknown kernel"):
         d2a.kernel_block(64, "bwd")
     assert d2a.kernel_live_tiles(197, False, 0, 64) == 16

@@ -13,7 +13,7 @@ attention's gradients; 1e-5 for the gated SSD scan's y and prevs and 1e-4
 for its gradients; 1e-5 x max(1, max |plain|) for the fused LoRA matmul
 (sums of up to 1152 products of values of ~1, where float32 rounds at
 ~1e-7 of the sum); 1e-5 (h) and 1e-4 (dla, db) x max(1, max |plain|) for
-the gated RG-LRU scan (a sequential float32 recurrence against the plain
+the gated RG-LRU scan (a segmented float32 recurrence against the plain
 version's chunked log-space sums); 1e-5 (y) and 1e-4 (dx, dW) x max(1,
 max |plain|) for the gated MoE expert FFN (sums of up to 2048 products in
 another order than cuBLAS's)."""
@@ -107,8 +107,16 @@ def test_kernel_matches_plain_at_gemma_shapes(window):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd,H,n_kv,window", [(32, 4, 1, 8), (64, 4, 2, 0),
-                                              (128, 8, 1, 5), (256, 2, 2, 0)])
+                                              (128, 8, 1, 5), (256, 2, 2, 0),
+                                              (256, 10, 1, 2048),
+                                              (32, 10, 1, 8), (64, 9, 1, 0),
+                                              (32, 16, 1, 0), (80, 4, 2, 0),
+                                              (96, 4, 1, 5), (80, 32, 32, 0),
+                                              (96, 32, 32, 8)])
 def test_kernel_head_dims_and_groups(hd, H, n_kv, window):
+    """Every head dim the kernel takes and query heads per KV head from 1
+    to 16: past 8 the kernel splits a KV head's heads into groups of at
+    most 8 (recurrentgemma-2b's 10 on 1: two groups of 5)."""
     _need_card()
     args = _case(1, 3, H, n_kv, hd, 4, 64, 9, [0, 13, 35], [(2, 0)])
     out = paged_decode_attention(*args[:5], g_f=args[5], window=window)
@@ -149,6 +157,13 @@ SPLIT_CASES = {
                      ((2, 1),), 0),
     "gemma_window": (4, 4, 1, 256, 16, 600, 129, [731, 1131, 1551, 2063],
                      ((0, 0), (0, 1), (0, 2), (0, 3)), 512),
+    # recurrentgemma-2b's decode (10 query heads on 1 KV head of 256,
+    # window 2048) and the head dims 80 and 96
+    "rep10": (2, 10, 1, 32, 8, 64, 24, [70, 150], ((1, 3), (1, 8)), 0),
+    "recurrentgemma": (4, 10, 1, 256, 16, 600, 129, [731, 1131, 1551, 2063],
+                       ((2, 0), (2, 9)), 2048),
+    "hd80": (2, 4, 2, 80, 8, 64, 24, [64, 140], ((0, 2),), 40),
+    "hd96": (2, 4, 1, 96, 8, 64, 24, [127, 5], (), 0),
 }
 
 
@@ -157,8 +172,9 @@ SPLIT_CASES = {
 def test_split_kv_decode_matches_plain_and_is_bitwise_deterministic(name):
     """The split-KV kernel and its merge against the plain version at run
     boundaries, a window that cuts a run, tables null-padded over whole
-    runs, a slot with every head gated, rep 8, B 1 and gemma3-1b's
-    shapes; two calls give bitwise-equal outputs (the runs are merged in
+    runs, a slot with every head gated, rep 8, rep 10, B 1, gemma3-1b's
+    and recurrentgemma-2b's shapes and head dims 80 and 96; two calls give
+    bitwise-equal outputs (the runs are merged in
     a fixed order, no float atomics), each call one launch."""
     _need_card()
     *shape, window = SPLIT_CASES[name]
@@ -239,18 +255,21 @@ def _attn_case(seed, B, H, S, hd):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd,S,causal,window", [
-    *[(hd, S, causal, window) for hd in (16, 32, 64, 128, 256)
+    *[(hd, S, causal, window) for hd in (16, 32, 64, 80, 96, 128, 256)
       for S in (1, 63, 197)
       for causal, window in ((False, 0), (True, 0), (True, 40))],
-    (256, 1024, True, 0), (256, 1024, True, 512)])
+    (256, 1024, True, 0), (256, 1024, True, 512), (80, 1024, True, 0),
+    (96, 1024, True, 0)])
 def test_d2ft_kernels_match_plain(hd, S, causal, window):
     """Forward and backward kernels against the plain version and its
     autograd gradients, with compaction bounds above the live counts;
     exact zeros on gated slices, LSE_MASKED on dead ones, and executed
     tiles = live slices x live tiles per slice of each kernel. hd 256
     takes 32-row forward tiles and 64 x 32 backward ones (ragged at S 63
-    and 197); S 1024 is gemma3-1b's fine-tune length, with
-    its 512 window and without."""
+    and 197); hd 80 and 96 rows padded to a pitch of 96 floats in shared
+    memory; S 1024 is gemma3-1b's fine-tune length, with its 512 window
+    and without, and stablelm-3b's (hd 80) and phi3-vision-42b's (hd 96)
+    causal."""
     _need_card()
     B, H = 3, 4
     q, k, v, do, g_f, g_b = _attn_case(hd + S, B, H, S, hd)
@@ -292,7 +311,8 @@ def test_d2ft_kernels_match_plain(hd, S, causal, window):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd,S,causal,window", [
-    (64, 197, False, 0), (256, 1024, True, 512), (256, 197, True, 40)])
+    (64, 197, False, 0), (256, 1024, True, 512), (256, 197, True, 40),
+    (80, 1024, True, 0), (96, 197, True, 40)])
 def test_d2ft_backward_is_bitwise_deterministic(hd, S, causal, window):
     """Two backward launches on the same inputs give bitwise-equal dq, dk
     and dv: FA2's split sums every gradient in one block, in a fixed order,
@@ -633,6 +653,49 @@ def test_rglru_kernels_match_plain(W, G, chunk, S, bounded):
     nc = Sp // Q
     assert counts["rglru_fwd"] == n_f * nc and counts["rglru_bwd"] == n_b * nc
     assert counts["ssd_fwd"] == counts["fwd"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,G,S,bounds", [
+    (2560, 10, 512, "live"), (2560, 80, 512, "live"), (128, 1, 4096, None),
+    (96, 2, 384, "above"), (36, 4, 40, "live")])
+def test_rglru_kernels_write_their_zeros_and_are_bitwise_deterministic(
+        W, G, S, bounds):
+    """Compacted and uncompacted calls of both kernels into NaN-filled
+    outputs (the launchers fill nothing): every slice is written, exact
+    zeros on gated and undispatched ones, finite elsewhere; two calls give
+    bitwise-equal h, dla and db (segments combined in a fixed order, no
+    atomics on values). Wg 256, 32, 128, 48 and 9 (the 4-byte path)."""
+    _need_card()
+    B, chunk = 3, 128 if S % 128 == 0 else 8
+    la, b, dy, g_f, g_b = _rglru_case(W + S, B, S, W, G)
+    n_f, n_b = int((g_f != 0).sum()), int((g_b != 0).sum())
+    live = {None: (None, None), "live": (n_f, n_b),
+            "above": (n_f + 1, n_b + 2)}[bounds]
+    Wg = W // G
+
+    def bands(t):
+        return t.reshape(B, S, G, Wg).transpose(1, 2)
+    runs = []
+    for _ in range(2):
+        h, dla, db = (torch.full_like(la, float("nan")) for _ in range(3))
+        _, Q, nf = d2r._prepare(la, g_f, chunk, live[0])
+        d2r._fwd_call(la, b, g_f, h, nf, G, Q)
+        _, _, nb = d2r._prepare(la, g_b, chunk, live[1])
+        d2r._bwd_call(la, h, dy, g_b, dla, db, nb, G, Q)
+        runs.append((h, dla, db))
+    torch.cuda.synchronize()
+    h, dla, db = runs[0]
+    for t in runs[0]:
+        assert torch.isfinite(t).all()
+    assert float(bands(h)[g_f == 0].abs().max()) == 0.0
+    for t in (dla, db):
+        assert float(bands(t)[g_b == 0].abs().max()) == 0.0
+    for u, v in zip(*runs):
+        assert torch.equal(u, v)
+    ref = d2r.gated_rglru_ref(la, b, g_f, g_b, chunk=chunk)
+    assert float((h - ref).abs().max()) <= \
+        TOL * max(1.0, float(ref.abs().max()))
 
 
 @pytest.mark.gpu

@@ -48,15 +48,21 @@ CASES = {
     "gated_heads": (3, 4, 1, 32, 4, 64, 8, [5, 17, 30],
                     [(0, 0), (0, 1), (0, 2), (0, 3), (1, 2)]),
     "mha": (2, 2, 2, 16, 4, 32, 5, [0, 19], [(1, 0)]),
+    # recurrentgemma-2b's 10 query heads on 1 KV head (two head groups of
+    # 5 in the kernel); stablelm-3b's head_dim 80 and phi3-vision-42b's 96
+    "rep10": (2, 10, 1, 32, 4, 32, 8, [6, 29], [(0, 9), (1, 4)]),
+    "hd80": (2, 4, 2, 80, 4, 32, 6, [11, 22], [(1, 1)]),
+    "hd96": (2, 4, 1, 96, 4, 32, 6, [3, 20], None),
 }
 
 
 @pytest.mark.parametrize("window", [0, 8])
 @pytest.mark.parametrize("name", list(CASES))
 def test_plain_matches_jax_pallas_kernel(name, window):
-    """Window 0 and 8, GQA, null-padded tables, lengths at and around page
-    boundaries and past the window, a slot with every head gated off and a
-    slot with one."""
+    """Window 0 and 8, GQA up to 10 query heads on one KV head, head dims
+    16 to 96, null-padded tables, lengths at and around page boundaries
+    and past the window, a slot with every head gated off and a slot with
+    one."""
     q, kp, vp, table, lengths, g = _case(0, *CASES[name])
     ref = np.asarray(jax_paged_decode(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
@@ -155,6 +161,9 @@ SPLIT_CASES = {
                    [(1, 0), (1, 1), (1, 2), (1, 3)], 64),
     "rep8": (2, 8, 1, 32, 8, 64, 24, [77, 140], [(0, 5)], 0),
     "batch1": (1, 4, 2, 64, 4, 64, 40, [129], None, 100),
+    "rep10": (2, 10, 1, 32, 8, 64, 24, [70, 150], [(1, 3), (1, 8)], 0),
+    "hd80": (2, 4, 2, 80, 8, 64, 24, [64, 140], [(0, 2)], 40),
+    "hd96": (2, 4, 1, 96, 8, 64, 24, [127, 5], None, 0),
 }
 
 
@@ -164,7 +173,8 @@ def test_split_kv_arithmetic_matches_plain_and_jax(name):
     against the plain version and the JAX Pallas kernel: lengths exactly at
     a run's end (63, 127) and one past (64, 128), a window that cuts a run,
     tables null-padded over whole runs, a slot whose heads are all gated,
-    rep 8 and B 1. Gated heads are exact zeros."""
+    rep 8, rep 10, head dims 80 and 96 and B 1. Gated heads are exact
+    zeros."""
     *shape, window = SPLIT_CASES[name]
     q, kp, vp, table, lengths, g = _case(3, *shape)
     assert split_len(shape[4]) == KV_SPLIT

@@ -3,7 +3,11 @@ on the CPU: the port's plain version (what the CUDA kernels are held
 against on the card) vs the Pallas kernels in interpret mode and the JAX
 plain version, the ungated doubling scan vs ``jax.lax.associative_scan``,
 the block and its init, the accounting the two packages share, the gate
-checks, the W % G refusal and the hybrid layout's weight carry-over.
+checks, the W % G refusal and the hybrid layout's weight carry-over; and
+the CUDA kernels' own order, emulated: their segment-and-combine
+arithmetic against jitted JAX, and the slices they run, each block
+deciding for its own from the gates, against JAX's compaction
+permutation.
 
 Scan shapes B 2, W 128 (the recurrentgemma smoke config's LRU width),
 chunk 8, at S 24 and at S 21 (the pad path), G 1 and 4; random p_f / p_o /
@@ -99,6 +103,164 @@ def test_plain_version_matches_jax_kernel_and_ref(S, G, bounds):
     for out, gate in ((mine[0], g_f), (mine[1], g_b), (mine[2], g_b)):
         bands = out.reshape(B, S, G, Wg).transpose(0, 2, 1, 3)
         assert np.all(bands[gate == 0] == 0)
+
+
+# The CUDA kernels' tile geometry (csrc/d2ft_rglru_common.cuh): each
+# thread folds KERNEL_ROWS rows, a warp holds 32 / 8 = 4 segments of each
+# of its 8 channel columns, a block 8 warps: tiles of 4 x 4 x 8 = 128 rows
+KERNEL_ROWS, KERNEL_SEGS_PER_WARP, KERNEL_WARPS = 4, 4, 8
+
+
+def _fma(a, b, c):
+    """fmaf in float32 (the product exact in float64, one rounding of the
+    sum but for double rounding's rare ulp)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _kernel_tile(a, x, carry, reverse):
+    """One tile of the RG-LRU kernels' arithmetic over [rows, C] float32
+    operands (a = exp(la)): each segment of KERNEL_ROWS rows folded into a
+    map (A, C) from a zero start; the segments of a warp combined by a
+    Kogge-Stone scan (from the right in the backward); each warp's total
+    folded in order onto the tile's entering ``carry`` for the warps after
+    it (before it, backward); each segment's rows walked again from its
+    entering state. Forward: the rows' h. Backward (x = dy): the rows' g,
+    the cotangent of h, which is db. Returns (rows' outputs, the carry
+    the tile passes on)."""
+    R, S_, W_ = KERNEL_ROWS, KERNEL_SEGS_PER_WARP, KERNEL_WARPS
+    C = a.shape[1]
+    a = a.reshape(W_ * S_, R, C)
+    x = x.reshape(W_ * S_, R, C)
+    rows = range(R - 1, -1, -1) if reverse else range(R)
+    A = np.ones((W_ * S_, C), np.float32)
+    M = np.zeros((W_ * S_, C), np.float32)
+    for i in rows:
+        A = A * a[:, i]
+        M = a[:, i] * (x[:, i] + M) if reverse else _fma(a[:, i], M, x[:, i])
+    A, M = A.reshape(W_, S_, C), M.reshape(W_, S_, C)
+    off = 1
+    while off < S_:                                  # Kogge-Stone
+        A2, M2 = A.copy(), M.copy()
+        for j in range(S_):
+            src = j + off if reverse else j - off
+            if 0 <= src < S_:
+                M2[:, j] = _fma(A[:, j], M[:, src], M[:, j])
+                A2[:, j] = A[:, j] * A[:, src]
+        A, M = A2, M2
+        off *= 2
+    total = 0 if reverse else -1                     # a warp's whole map
+    order = range(W_ - 1, -1, -1) if reverse else range(W_)
+    nxt = carry
+    for w in order:
+        nxt = _fma(A[w, total], nxt, M[w, total])
+    out = np.empty((W_ * S_, R, C), np.float32)
+    for w in range(W_):
+        hs = carry
+        for w2 in order:
+            if (w2 > w) if reverse else (w2 < w):
+                hs = _fma(A[w2, total], hs, M[w2, total])
+        for j in range(S_):
+            prev = j + 1 if reverse else j - 1
+            k = _fma(A[w, prev], hs, M[w, prev]) if 0 <= prev < S_ else hs
+            for i in rows:
+                if reverse:
+                    out[w * S_ + j, i] = x[w * S_ + j, i] + k
+                    k = a[w * S_ + j, i] * out[w * S_ + j, i]
+                else:
+                    k = _fma(a[w * S_ + j, i], k, x[w * S_ + j, i])
+                    out[w * S_ + j, i] = k
+    return out.reshape(-1, C), nxt
+
+
+def kernel_emulation(la, b, dy):
+    """h, dla, db of one slice's channels [S, C] as the kernels compute
+    them: the sequence in tiles (the last one's rows past S the identity
+    map), the forward from the first tile, the backward from the last,
+    dla = g · a · h_{t-1}."""
+    S, C = la.shape
+    tile = KERNEL_ROWS * KERNEL_SEGS_PER_WARP * KERNEL_WARPS
+    Sp = -(-S // tile) * tile
+
+    def pad(t):
+        return np.concatenate([t, np.zeros((Sp - S, C), np.float32)])
+    a = np.exp(pad(la)).astype(np.float32)
+    h = np.empty((Sp, C), np.float32)
+    g = np.empty((Sp, C), np.float32)
+    carry = np.zeros(C, np.float32)
+    for t0 in range(0, Sp, tile):
+        h[t0:t0 + tile], carry = _kernel_tile(
+            a[t0:t0 + tile], pad(b)[t0:t0 + tile], carry, False)
+    carry = np.zeros(C, np.float32)
+    for t0 in range(Sp - tile, -1, -tile):
+        g[t0:t0 + tile], carry = _kernel_tile(
+            a[t0:t0 + tile], pad(dy)[t0:t0 + tile], carry, True)
+    h, g = h[:S], g[:S]
+    h_prev = np.concatenate([np.zeros((1, C), np.float32), h[:-1]])
+    return h, (a[:S] * g) * h_prev, g
+
+
+def test_kernel_segment_order_matches_jax_ref():
+    """The CUDA kernels' segment-and-combine order, emulated in float32,
+    against jitted JAX ``gated_rglru_ref`` and its gradients at S 600
+    (five 128-row tiles, the last ragged), G 4 under a p_f / p_o / p_s
+    mix: h within 1e-5, dla and db within 1e-4; gated bands exact
+    zeros."""
+    rng = np.random.default_rng(21)
+    S, G = 600, 4
+    la, b, dy = _operands(rng, S, width=16)
+    g_f, g_b = _gates(rng, G)
+    f = jax.jit(lambda la, b: jax_ref.gated_rglru_ref(
+        la, b, jnp.asarray(g_f), jnp.asarray(g_b), chunk=CHUNK))
+    jy, vjp = jax.vjp(f, jnp.asarray(la), jnp.asarray(b))
+    theirs = [np.asarray(t) for t in (jy, *vjp(jnp.asarray(dy)))]
+    Wg = 16 // G
+    mine = [np.zeros_like(la) for _ in range(3)]
+    for s in range(B * G):
+        i, j = divmod(s, G)
+        band = slice(j * Wg, (j + 1) * Wg)
+        h, dla, db = kernel_emulation(la[i, :, band], b[i, :, band],
+                                      dy[i, :, band])
+        if g_f[i, j]:
+            mine[0][i, :, band] = h
+        if g_b[i, j]:
+            mine[1][i, :, band], mine[2][i, :, band] = dla, db
+    for name, a, c, tol in zip(("h", "dla", "db"), mine, theirs,
+                               (FWD_TOL, GRAD_TOL, GRAD_TOL)):
+        np.testing.assert_allclose(a, c, atol=tol, rtol=0, err_msg=name)
+    for out, gate in ((mine[0], g_f), (mine[1], g_b), (mine[2], g_b)):
+        bands = out.reshape(B, S, G, Wg).transpose(0, 2, 1, 3)
+        assert np.all(bands[gate == 0] == 0)
+
+
+def slice_runs_emulation(gate, n_disp, s, threads=256):
+    """``rglru::slice_runs``: whether block s (slice s) runs, its gate
+    live and, under a dispatch bound, fewer than n_disp live gates before
+    it, counted in chunks of one block's threads."""
+    if gate[s] == 0:
+        return False
+    if n_disp >= len(gate):
+        return True
+    before = sum(int(np.count_nonzero(gate[i0:min(i0 + threads, s)]))
+                 for i0 in range(0, s, threads))
+    return before < n_disp
+
+
+@pytest.mark.parametrize("n,live", [(8, None), (8, 3), (40, 30), (40, 40),
+                                    (300, 120)])
+def test_kernel_slice_rule_runs_the_compaction_tables_live_slices(n, live):
+    """The slices the kernels run, each block deciding for its own slice
+    from the gates (no table built by the launcher), are the live slices
+    among the first n_disp entries of JAX's ``live_permutation``; every
+    other block writes zeros. n 300 crosses a block's 256 threads; with
+    gates 60 % live, bounds 3 and 120 fall below the live count."""
+    rng = np.random.default_rng(n + (live or 0))
+    gate = (rng.random(n) < 0.6).astype(np.float32)
+    n_disp = contract.dispatch_count(live, n)
+    perm = np.asarray(jax_contract.live_permutation(jnp.asarray(gate),
+                                                    n_disp))
+    runs = {s for s in range(n) if slice_runs_emulation(gate, n_disp, s)}
+    assert runs == {int(s) for s in perm if gate[s] != 0}
+    assert len(runs) == min(n_disp, int(np.count_nonzero(gate)))
 
 
 def test_gb_zero_everywhere_gives_exact_zero_gradients():

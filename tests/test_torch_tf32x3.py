@@ -24,7 +24,9 @@ with a tenfold margin, and one TF32 product a step does not.
 The swizzled tiles' index arithmetic is checked apart: the transposed A
 loader of the MoE weight gradients (``tf32x3::load_a_km``) reads each
 element of its tile from a slot of its own, and each of its four reads
-puts a warp's 32 lanes on 32 distinct banks.
+puts a warp's 32 lanes on 32 distinct banks; the attention tiles at hd 80
+and 96, rows padded to a pitch of 96 floats, keep every element in a slot
+of its own and every fragment read on 32 distinct banks.
 """
 import functools
 
@@ -328,3 +330,40 @@ def test_transposed_a_loader_reads_distinct_slots_and_banks(pitch):
                 banks = {_at(pitch, k0 + t + dk, m0 + g + dm) % 32
                          for g in range(8) for t in range(4)}
                 assert len(banks) == 32, (k0, m0, dk, dm)
+
+
+# the attention tiles at stablelm-3b's hd 80 and phi3-vision-42b's 96:
+# rows padded to a pitch of 96 floats (both kernels' Geo<HD>::kHp, the
+# head dim rounded up to whole 32-float swizzle groups)
+@pytest.mark.parametrize("hd", [80, 96])
+def test_padded_head_dim_tiles_read_distinct_slots_and_banks(hd):
+    pitch = -(-hd // 32) * 32
+    assert pitch == 96
+    rows = 64
+    slots = {(r, c): _at(pitch, r, c) for r in range(rows) for c in range(hd)}
+    # each element in a slot of its own, inside its row's pitch, and each
+    # 16-byte chunk whole (cp.async fills it from one source chunk)
+    assert len(set(slots.values())) == rows * hd
+    assert all(r * pitch <= v < (r + 1) * pitch
+               for (r, _), v in slots.items())
+    for r in range(rows):
+        for c0 in range(0, hd, 4):
+            first = slots[(r, c0)]
+            assert first % 4 == 0
+            assert [slots[(r, c0 + i)] for i in range(4)] == \
+                list(range(first, first + 4))
+    # ldmatrix (load_a, load_b_nk): 8 rows of one 16-byte chunk column on
+    # 32 distinct banks
+    for r0 in range(0, rows, 8):
+        for c0 in range(0, hd, 4):
+            banks = {slots[(r0 + i, c0 + j)] % 32
+                     for i in range(8) for j in range(4)}
+            assert len(banks) == 32, (r0, c0)
+    # load_b_kn's reads (k0 + t, n0 + g) and (k0 + t + 4, n0 + g), lane =
+    # 4 g + t: 32 distinct banks
+    for k0 in range(0, rows, 8):
+        for n0 in range(0, hd, 8):
+            for dk in (0, 4):
+                banks = {slots[(k0 + t + dk, n0 + g)] % 32
+                         for g in range(8) for t in range(4)}
+                assert len(banks) == 32, (k0, n0, dk)

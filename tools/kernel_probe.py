@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Quick on-card probe of the paged decode and the gated attention forward
-kernels of the PyTorch port: build every kernel, hold both against their
-plain versions (1e-5, exact zeros on gated heads, bitwise equal across two
-calls) at chip_smoke.py's shapes and at other head dims, then time them
-roughly (CUDA events, L2 flushed) beside one PyTorch library call.
+"""Quick on-card probe of the paged decode and the gated attention kernels
+of the PyTorch port: build every kernel, hold the decode and the attention
+forward against their plain versions (1e-5, exact zeros on gated heads,
+bitwise equal across two calls) at chip_smoke.py's shapes, at every head
+dim and at 10 query heads on one KV head (recurrentgemma-2b's), the
+attention backward at every head dim (1e-4), then time them roughly (CUDA
+events, L2 flushed) beside one PyTorch library call.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -42,7 +44,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    for name in ("paged_decode", "d2ft_attention_fwd"):
+    for name in ("paged_decode", "d2ft_attention_fwd",
+                 "d2ft_attention_bwd"):
         print(name, build.resources(name), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -68,15 +71,24 @@ def main() -> int:
                   f"bitwise {torch.equal(out, again)}, zeros {zeros}",
                   flush=True)
     for hd, H, n_kv, window in ((32, 4, 1, 8), (64, 4, 2, 0), (128, 8, 1, 5),
-                                (256, 2, 2, 0), (64, 8, 1, 100)):
+                                (256, 2, 2, 0), (64, 8, 1, 100),
+                                (256, 10, 1, 2048), (80, 32, 32, 0),
+                                (96, 32, 32, 0), (80, 12, 2, 40),
+                                (96, 24, 2, 0), (32, 9, 1, 0)):
         args = cs.paged_inputs(torch, gen, [0, 13, 35, 300], n_pages=200,
-                               n_pmax=40, H=H, n_kv=n_kv, hd=hd, ps=8)
-        err = float((pd.paged_flash_decode(*args, window=window)
-                     - pd.paged_decode_ref(*args, window=window))
+                               n_pmax=40, H=H, n_kv=n_kv, hd=hd, ps=8,
+                               gated=((1, H - 1), (2, 0)))
+        out = pd.paged_flash_decode(*args, window=window)
+        again = pd.paged_flash_decode(*args, window=window)
+        torch.cuda.synchronize()
+        err = float((out - pd.paged_decode_ref(*args, window=window))
                     .abs().max())
-        ok &= err <= TOL
+        dead = args[5] == 0
+        good = (err <= TOL and torch.equal(out, again)
+                and float(out[dead].abs().max()) == 0.0)
+        ok &= good
         print(f"paged hd {hd} H {H} n_kv {n_kv} window {window}: err "
-              f"{err:.3e}", flush=True)
+              f"{err:.3e}, bitwise and zeros {good}", flush=True)
     args = cs.paged_inputs(torch, gen, [731, 1131, 1551, 2063], n_pages=600,
                            n_pmax=129)
     out = torch.empty_like(args[0])
@@ -114,6 +126,19 @@ def main() -> int:
                     print(f"fwd hd {hd} S {S} causal {causal} window "
                           f"{window}: o err {e_o:.3e}, lse err {e_l:.3e}, "
                           f"bitwise {bitwise}", flush=True)
+
+    for hd in d2a.KERNEL_HEAD_DIMS:
+        for S, causal, window in ((63, False, 0), (197, True, 40),
+                                  (1024, True, 0)):
+            q, k, v, do, g_f, g_b = cs.attn_inputs(torch, gen, 2, 4, S, hd)
+            e_f, e_b, _, _, zeros, counts, want = cs.attention_case(
+                torch, q, k, v, do, g_f, g_b, causal=causal, window=window,
+                live=(int((g_f != 0).sum()) + 1, int((g_b != 0).sum())))
+            good = e_f <= TOL and e_b <= 1e-4 and zeros and counts == want
+            ok &= good
+            print(f"fwd+bwd hd {hd} S {S} causal {causal} window {window}: "
+                  f"o/lse err {e_f:.3e}, grad err {e_b:.3e}, zeros and "
+                  f"tiles {zeros and counts == want}", flush=True)
 
     B, H, S, hd = cs.FT_BATCH, 6, 197, 64
     q, k, v, _, g_f, _ = cs.attn_inputs(torch, gen, B, H, S, hd)
