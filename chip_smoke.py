@@ -89,9 +89,15 @@ Phases, one line each (any failure raises and exits non-zero):
    weights and schedule. p50 step ms of the kernel path, the masked path
    and standard full fine-tuning (no D2FT), each run twice in turns,
    tokens/s, peak memory; then a profiler window over 3 kernel-path steps.
-11. SSD kernel timing — CUDA-event times of both kernels at phase 10's
-   shapes, layer 0's gates and bounds, L2 flushed, beside their plain
-   version's and the bound; no single PyTorch call computes the scan, so
+11. SSD kernel timing — CUDA-event times of both kernels, L2 flushed,
+   through the launcher call (the record's ms) and alone (outputs and
+   workspaces allocated outside the window; the launchers build no table
+   and fill nothing), beside both bounds (float32 FMA; 3xTF32, which the
+   record holds them to) at phase 10's shapes under layer 0's gates and
+   bounds, with every slice live, and at one request's prefill (B 1, S
+   8192), each kernel's grid, blocks an SM (CUDA's occupancy calculator)
+   and waves there; the plain version's time at phase 10's shapes and both
+   sources' registers and spills. No single PyTorch call computes the scan, so
    there is no library yardstick.
 12. hd-256 attention kernels vs plain — the gated flash-attention kernels
    at gemma3-1b's shapes (B 4, H 4, S 1024, hd 256: 32-row forward tiles,
@@ -221,6 +227,7 @@ result, without a card or without the repo's sources beside this file.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1291,44 +1298,88 @@ def lm_finetune(torch, np, tag):
             "bounds": (bounds[0] * rep, bounds[1] * rep)}
 
 
+def ssd_alone(torch, d2s, x, da, Bm, Cm, dy, g_f, g_b, prevs, Q, live):
+    """(forward, backward) callables of the SSD kernels alone: outputs and
+    workspaces made once, outside the timed window (the launchers fill
+    nothing and build no table, so that is all they add)."""
+    N = Bm.shape[-1]
+    fb, bb = d2s._fwd_buffers(x, N, Q), d2s._bwd_buffers(x, N, Q)
+    nf = d2s._prepare(x, da, Bm, Cm, g_f, Q, live[0])[2]
+    nb = d2s._prepare(x, da, Bm, Cm, g_b, Q, live[1])[2]
+    return (lambda: d2s._fwd_call(x, da, Bm, Cm, g_f, fb, nf, Q),
+            lambda: d2s._bwd_call(x, da, Bm, Cm, g_b, prevs, dy, bb, nb, Q))
+
+
 def ssd_timing(torch, train, tag):
     """Phase 11. Returns {"fwd"|"bwd": (ms, plain_ms, bound_ms, bound_by)}
-    at phase 10's shapes, layer 0's gates and the per-head bounds."""
+    at phase 10's shapes, layer 0's gates and the per-head bounds; prints
+    the same launcher and alone times with both bounds at every slice live
+    and at one request's prefill (B 1, S 8192)."""
     from repro_torch.kernels import d2ft_ssd as d2s
     gen = torch.Generator(device="cuda").manual_seed(11)
-    B, S, H, P, N, Q = LM_BATCH, LM_SEQ, 24, SSD_P, SSD_N, SSD_CHUNK
-    x, da, Bm, Cm, dy, g_f, g_b = ssd_inputs(torch, gen, B, H, S, P, N,
-                                             g=train["gates"])
-    lf, lb = train["bounds"]
-    _, prevs = d2s.ssd_fwd(x, da, Bm, Cm, g_f, chunk=Q, live=lf)
-    refs = [t.clone().requires_grad_() for t in (x, da, Bm, Cm)]
-    ref = d2s.gated_ssd_ref(*refs, g_f, g_b, chunk=Q)
-    g_np, b_np = g_f.cpu().numpy(), g_b.cpu().numpy()
-    fl = d2s.needed_flops(g_np, b_np, S, P, N, chunk=Q)
-    by = d2s.needed_bytes(g_np, b_np, S, P, N, chunk=Q)
-    out = {
-        "fwd": (time_ms(torch, lambda: d2s.ssd_fwd(x, da, Bm, Cm, g_f,
-                                                   chunk=Q, live=lf),
-                        iters=20),
-                time_ms(torch, lambda: d2s.gated_ssd_ref(
-                    x, da, Bm, Cm, g_f, g_b, chunk=Q), iters=20),
-                *roofline(by[0], fl[0])),
-        "bwd": (time_ms(torch, lambda: d2s.ssd_bwd(x, da, Bm, Cm, g_b, prevs,
-                                                   dy, chunk=Q, live=lb),
-                        iters=20),
-                time_ms(torch, lambda: torch.autograd.grad(
-                    ref, refs, dy, retain_graph=True), iters=20),
-                *roofline(by[1], fl[1]))}
-    live = {"fwd": int((g_f != 0).sum()), "bwd": int((g_b != 0).sum())}
-    for kind, (k_ms, p_ms, b_ms, bb) in out.items():
-        print(f"[ssd timing] d2ft_ssd_{kind} B {B} S {S} H {H} P {P} N {N} "
-              f"chunk {Q}, live {live[kind]} of {B * H} (bound "
-              f"{lf if kind == 'fwd' else lb}): kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, library none, bound {b_ms:.5f} ms by {bb} "
-              f"({fl[0 if kind == 'fwd' else 1] / 1e9:.3f} GFLOP with CB once "
-              f"per (sample, chunk), causal halves; "
-              f"{by[0 if kind == 'fwd' else 1] / 1e6:.1f} MB), "
-              f"{b_ms / k_ms:.1%} of bound {tag}", flush=True)
+    H, P, N, Q = 24, SSD_P, SSD_N, SSD_CHUNK
+    ones = {B: (torch.ones((B, H), device="cuda"),) * 2 for B in (1, LM_BATCH)}
+    occ = {kind: d2s.blocks_per_sm(kind, P, N) for kind in ("fwd", "bwd")}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for what, B, S, g, bounds in (
+            ("layer 0's gates", LM_BATCH, LM_SEQ, train["gates"],
+             train["bounds"]),
+            ("every slice live", LM_BATCH, LM_SEQ, ones[LM_BATCH],
+             (LM_BATCH * H,) * 2),
+            ("one request's prefill", 1, 8192, ones[1], (H, H))):
+        x, da, Bm, Cm, dy, g_f, g_b = ssd_inputs(torch, gen, B, H, S, P, N,
+                                                 g=g)
+        lf, lb = bounds
+        _, prevs = d2s.ssd_fwd(x, da, Bm, Cm, g_f, chunk=Q, live=lf)
+        g_np, b_np = g_f.cpu().numpy(), g_b.cpu().numpy()
+        fl = d2s.needed_flops(g_np, b_np, S, P, N, chunk=Q)
+        by = d2s.needed_bytes(g_np, b_np, S, P, N, chunk=Q)
+        alone = ssd_alone(torch, d2s, x, da, Bm, Cm, dy, g_f, g_b, prevs, Q,
+                          bounds)
+        calls = {"fwd": lambda: d2s.ssd_fwd(x, da, Bm, Cm, g_f, chunk=Q,
+                                            live=lf),
+                 "bwd": lambda: d2s.ssd_bwd(x, da, Bm, Cm, g_b, prevs, dy,
+                                            chunk=Q, live=lb)}
+        plain = {}
+        if not out:                      # the plain version at phase 10's
+            refs = [t.clone().requires_grad_() for t in (x, da, Bm, Cm)]
+            ref = d2s.gated_ssd_ref(*refs, g_f, g_b, chunk=Q)
+            plain = {"fwd": time_ms(torch, lambda: d2s.gated_ssd_ref(
+                         x, da, Bm, Cm, g_f, g_b, chunk=Q), iters=20),
+                     "bwd": time_ms(torch, lambda: torch.autograd.grad(
+                         ref, refs, dy, retain_graph=True), iters=20)}
+        live = {"fwd": int((g_f != 0).sum()), "bwd": int((g_b != 0).sum())}
+        for i, (kind, fn) in enumerate(calls.items()):
+            k_ms = time_ms(torch, fn, iters=20)
+            a_ms = time_ms(torch, alone[i], iters=20)
+            fma_ms, _ = roofline(by[i], fl[i])
+            b_ms, bb = tc_roofline(by[i], fl[i])
+            p_txt = (f", plain {plain[kind]:.4f} ms, library none"
+                     if plain else "")
+            print(f"[ssd timing] d2ft_ssd_{kind} B {B} S {S} H {H} P {P} N "
+                  f"{N} chunk {Q}, {what}: live {live[kind]} of {B * H} "
+                  f"(bound {bounds[i]}): launcher call {k_ms:.4f} ms "
+                  f"(kernels alone, outputs and workspaces allocated "
+                  f"outside the window, {a_ms:.4f} ms){p_txt}; bounds "
+                  f"3xTF32 {b_ms:.5f} ms by {bb}, float32 FMA {fma_ms:.5f} "
+                  f"ms ({fl[i] / 1e9:.3f} GFLOP with C.B^T once per "
+                  f"(sample, chunk), causal halves; {by[i] / 1e6:.1f} MB); "
+                  f"{b_ms / k_ms:.1%} of the 3xTF32 bound ({b_ms / a_ms:.1%} "
+                  f"alone) {tag}", flush=True)
+            if plain:
+                out[kind] = (k_ms, plain[kind], b_ms, bb)
+        grids = d2s.launch_grids(B, S, H, P, N, Q)
+        for kind, per_sm in occ.items():
+            print(f"[ssd timing] d2ft_ssd_{kind} at B {B} S {S}, grid, "
+                  f"blocks an SM, waves on {sms} SMs: " + "; ".join(
+                      f"{k} {g} {per_sm[k]} "
+                      f"{math.prod(g) / (sms * per_sm[k]):.2f}"
+                      for k, g in grids[kind].items()), flush=True)
+        del x, da, Bm, Cm, dy, prevs, alone, calls
+        torch.cuda.empty_cache()
+    for name in ("d2ft_ssd_fwd", "d2ft_ssd_bwd"):
+        print_resources(name, "ssd timing")
     return out
 
 
@@ -2443,7 +2494,15 @@ def moe_dw_launches(torch, xb, wu, wg, wd, dy, fs, bs, *, act, live, live_b,
             w.clone().requires_grad_(n) for w, n in zip((wu, wg, wd), need)]
         ops.gated_moe_ffn(*ins, fs, bs, act=act, block_c=MO_BLOCK_C,
                           live_slots=live, live_bwd_slots=live_b).backward(dy)
-    named = profile_steps(torch, step, "moe_", n_prof=1)[-1]
+    # every backward launches its dx kernel once: a window without it lost
+    # CUPTI's records (seen once on the card, with the forward's kernels
+    # gone too), so take it again, and say so
+    for attempt in range(1, 4):
+        named = profile_steps(torch, step, "moe_", n_prof=1)[-1]
+        if "moe_bwd_dx_kernel" in named:
+            break
+        print(f"[profile] MoE window {attempt} of 3 lost the backward's dx "
+              f"kernel (saw {sorted(named)})", flush=True)
     return dw_launches(named), {k: n for k, (_, n) in named.items()}
 
 

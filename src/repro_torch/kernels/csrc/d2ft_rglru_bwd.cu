@@ -51,7 +51,7 @@ rglru_bwd_kernel(const float* __restrict__ la, const float* __restrict__ h,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int col = tid % kCols, seg = tid / kCols;
   const int s = blockIdx.y;
-  const bool run = slice_runs(gate, n_slices, n_disp, s);
+  const bool run = gating::slice_runs<kThreads>(gate, n_slices, n_disp, s);
   const int Wg = W / G;
   const int ch = (blockIdx.x * kCols + col) * V;
   const bool cv = ch < Wg;

@@ -31,18 +31,17 @@
 // outside the sequence and channels past the band stage as zeros: la = 0
 // is the identity map's decay.
 //
-// Slices: block y holds slice y. It runs when its gate is not 0 and, if
-// the launcher bounds the dispatch (n_disp < n_slices), fewer than n_disp
-// live slices come before it: the live slices among the first n_disp
-// entries of the stable live-first permutation that
-// kernels/contract.py::live_permutation builds, so the launcher builds no
-// table. A block that does not run writes exact zeros and computes
-// nothing; the caller pre-fills nothing.
+// Slices: block y holds slice y and runs it by slice_gate.cuh's rule (its
+// gate is not 0 and, under a dispatch bound, fewer than n_disp live slices
+// come before it), so the launcher builds no table. A block that does not
+// run writes exact zeros and computes nothing; the caller pre-fills
+// nothing.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "slice_gate.cuh"   // which slices run
 #include "tf32x3.cuh"   // cp.async helpers
 
 namespace rglru {
@@ -124,21 +123,6 @@ __device__ __forceinline__ void shfl_down(float (&y)[V],
 #pragma unroll
   for (int c = 0; c < V; ++c)
     y[c] = __shfl_down_sync(0xffffffffu, x[c], off);
-}
-
-// Whether slice s runs: its gate is not 0 and, when n_disp < n, fewer
-// than n_disp of the gates before it are live (one block-wide count).
-// Block-uniform; every thread returns the same.
-__device__ __forceinline__ bool slice_runs(const float* __restrict__ gate,
-                                           int n, int n_disp, int s) {
-  if (gate[s] == 0.f) return false;
-  if (n_disp >= n) return true;
-  int before = 0;
-  for (int i0 = 0; i0 < s; i0 += kThreads) {
-    const int i = i0 + threadIdx.x;
-    before += __syncthreads_count(i < s && gate[i] != 0.f);
-  }
-  return before < n_disp;
 }
 
 // Launch geometry: one block per (channel group, slice).

@@ -57,7 +57,7 @@ rglru_fwd_kernel(const float* __restrict__ la, const float* __restrict__ b,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int col = tid % kCols, seg = tid / kCols;
   const int s = blockIdx.y;
-  const bool run = slice_runs(gate, n_slices, n_disp, s);
+  const bool run = gating::slice_runs<kThreads>(gate, n_slices, n_disp, s);
   const int Wg = W / G;
   const int ch = (blockIdx.x * kCols + col) * V;  // channel in the band
   const bool cv = ch < Wg;

@@ -1,4 +1,5 @@
-// D2FT-gated SSD chunked scan, forward, for Hopper (sm_90a), float32.
+// D2FT-gated SSD chunked scan, forward, for Hopper (sm_90a), float32
+// accuracy on the tensor cores (3xTF32).
 //
 // Replaces the Pallas TPU kernel repro/kernels/d2ft_ssd.py::_fwd_kernel
 // (launcher _forward). Per (sample, SSD head) slice with g_f != 0, and per
@@ -8,43 +9,50 @@
 //   state_c = sum_k exp(tot - cum_k) x_k B_k^T       [P, N]
 //   prev_0  = 0,  prev_{c+1} = exp(tot_c) prev_c + state_c
 // and it emits y [B, S, H, P] and prevs [B*H, nc, P, N] (the backward's
-// residual). A slice with g_f == 0 runs nothing and writes zero y and zero
-// prevs.
+// residual). A slice with g_f == 0, or past the dispatch bound, runs
+// nothing and writes zero y and zero prevs.
 //
 // What bounds it on this card: operations. A live (slice, chunk) at
-// Q = 256, P = 64, N = 128 needs ~13 MFLOP (this kernel executes ~23: full
-// 64 x 64 tiles on the diagonal, C.B^T per head) of float32 FMA (TF32 off:
-// no tensor cores) against ~0.2 MB of its own operands.
+// Q = 256, P = 64, N = 128 needs ~12.6 MFLOP of its own (the causal half
+// of (C.B^T o L) x, the state and inter-chunk products) and its sample
+// ~8.4 MFLOP once for C.B^T, against ~0.2 MB of its own operands.
 //
 // Design: the TPU grid (slice, chunk) walks the chunks of a slice in order
-// and carries the state in VMEM scratch ("arbitrary" axis). Hopper blocks
-// run in no order, and one block per live slice would give only
-// B*H*(live share) ~ 144 blocks for 132 SMs at the fine-tune's shapes. So
-// this is Mamba-2's own GPU split, three kernels in one launch call:
-//   1. ssd_state_kernel, one block per (dispatched slice, chunk): the
-//      chunk's own state_c and tot_c (written into prevs[s, c] and a
-//      scratch row);
-//   2. ssd_state_pass_kernel, one thread per state element of a slice: the
+// and carries the state in VMEM scratch. Hopper blocks run in no order, so
+// this is Mamba-2's own GPU split, four kernels in one launch call:
+//   1. ssd_cb_kernel (d2ft_ssd_common.cuh), one block per (q tile, chunk,
+//      sample with a running slice): C.B^T, [Q, Q] of depth N, once per
+//      (sample, chunk) rather than once per head, since B and C are shared
+//      by the H heads; only the causal 64 x 64 tiles, into the cb
+//      workspace (16.8 MB at B 8, S 2048, Q 256), which the 24 heads'
+//      blocks then read from L2. A block that held a sample's tiles in
+//      shared memory and looped over its heads would compute C.B^T once
+//      too, but would hold ~180 KB and run B*nc*nT blocks; this keeps the
+//      scan's grid at one block per (slice, chunk, q tile) and its shared
+//      memory under half an SM's. C.B^T is the forward's one product on
+//      float32 FMA, summed in the plain version's order (the common header
+//      says why);
+//   2. ssd_chunk_state_kernel<.., false> (common), one block per (slice,
+//      chunk): the chunk's cumulative decay (into the cum workspace, read
+//      by 3 and 4) and state_c = (x o d2e)^T B into prevs[s, c];
+//   3. ssd_state_pass_kernel, one thread per state element of a slice: the
 //      short sequential recurrence over chunks, in place, turning state_c
-//      into prev_c (zeros for dead slices);
-//   3. ssd_scan_kernel, one block per (dispatched slice, chunk): y, with
-//      the intra-chunk quadratic term sub-tiled as 64-row q tiles against
-//      the causal 64-row k tiles (a whole chunk's Q x Q decay matrix alone
-//      would be 256 KB, more than an SM's shared memory).
-// Compaction: a block reads its slice id from the int32 table
-// live_permutation builds (no gathered copies); the grid's slice dimension
-// is the dispatch count; the caller zero-fills outputs only when it
-// dispatches fewer slices than exist. B and C are read per sample, never
-// broadcast per head. Odd S is the caller's zero padding (da = 0: identity
-// decay), so there is no length mask. The executed-step counter (replaces
-// the JAX on_backward_block hook): kernel 3 adds one per executed (slice,
-// chunk) block with one atomic, when the caller passes the int64 cell.
-// Products are 64-row register tiles over shared memory (256 threads, each
-// 4 rows x 4..8 strided columns); no wgmma, TMA or cp.async yet.
+//      into prev_c (zeros for slices that do not run);
+//   4. ssd_scan_kernel, one block per (slice, chunk, q tile), the longest
+//      rows first: y = (C.B^T o L) x + e^cum C prev^T. Items staged one
+//      ahead: prev, then each causal k tile's C.B^T tile and x rows; the
+//      decays are applied to the C.B^T tile in shared memory in place.
+// The other products run on mma.sync in 3xTF32; wgmma takes tf32 only
+// with both operands K-major, which x is not in (C.B^T o L) x. The
+// executed-step counter (replaces the JAX on_backward_block hook): kernel 2
+// adds one per executed (slice, chunk) block with one atomic, when the
+// caller passes the int64 cell. Odd S is the caller's zero padding (da = 0:
+// identity decay), so there is no length mask.
 //
 // Launch contract: the caller (repro_torch/kernels/d2ft_ssd.py) checks
-// devices, dtypes, shapes and contiguity, allocates outputs and scratch and
-// passes PyTorch's current stream. The entry returns cudaGetLastError().
+// devices, dtypes, shapes and contiguity, allocates outputs and workspaces
+// (unfilled) and passes PyTorch's current stream. The entry returns the
+// first launch error.
 
 #include "d2ft_ssd_common.cuh"
 
@@ -53,190 +61,199 @@ namespace {
 using namespace ssd;
 
 template <int P, int N>
-constexpr size_t state_smem() {
-  return sizeof(float) * (kT * (N + 1) + kT * (P + 1) + kMaxQ);
-}
-
-template <int P, int N>
-__global__ void __launch_bounds__(kThreads) ssd_state_kernel(
-    const float* __restrict__ x, const float* __restrict__ da,
-    const float* __restrict__ Bm, const float* __restrict__ gate,
-    const int32_t* __restrict__ slice_idx, float* __restrict__ prevs,
-    float* __restrict__ tot, int S, int H, int Q) {
-  extern __shared__ float sm[];
-  float* b_s = sm;                       // [64][N+1]
-  float* x_s = b_s + kT * (N + 1);       // [64][P+1]
-  float* cum = x_s + kT * (P + 1);       // [256]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int d = blockIdx.x, c = blockIdx.y, nc = gridDim.y;
-  const int s = slice_idx != nullptr ? slice_idx[d] : d;
-  if (gate[s] == 0.f) return;            // the pass writes its zero prevs
-  const int b = s / H, h = s % H;
-  const long t0 = (long)b * S + (long)c * Q;
-  const int nT = (Q + kT - 1) / kT;
-  chunk_cumsum(cum, da + t0 * H + h, H, Q, nT * kT, tid);
-  const float total = cum[Q - 1];
-  if (tid == 0) tot[(long)d * nc + c] = total;
-
-  float acc[P / 16][N / 16];
-  zero(acc);
-  for (int kt = 0; kt < nT; ++kt) {
-    const int rows = min(kT, Q - kt * kT);
-    const long r0 = t0 + kt * kT;
-    load_tile<N>(b_s, N + 1, Bm + r0 * N, N, rows, tid);
-    load_tile<P>(x_s, P + 1, x + (r0 * H + h) * P, (long)H * P, rows, tid);
-    __syncthreads();
-    for (int i = tid; i < kT * P; i += kThreads) {   // x * decay-to-end
-      const int r = i / P, p = i % P;
-      x_s[r * (P + 1) + p] *= expf(total - cum[kt * kT + r]);
-    }
-    __syncthreads();
-    mma<P / 16, N / 16, kT, true, false>(acc, x_s, P + 1, b_s, N + 1, ty, tx);
-    __syncthreads();
-  }
-  float* st = prevs + ((long)s * nc + c) * P * N;
-#pragma unroll
-  for (int i = 0; i < P / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j)
-      st[(ty * (P / 16) + i) * N + tx + 16 * j] = acc[i][j];
-}
-
-template <int P, int N>
 __global__ void __launch_bounds__(kThreads) ssd_state_pass_kernel(
-    const float* __restrict__ gate, const int32_t* __restrict__ slice_idx,
-    float* __restrict__ prevs, const float* __restrict__ tot, int nc) {
-  const int d = blockIdx.x;
+    const float* __restrict__ gate, float* __restrict__ prevs,
+    const float* __restrict__ cumw, int n, int n_disp, int S, int Q) {
+  static_assert((P * N) % kThreads == 0, "whole blocks of elements");
+  constexpr long PN = (long)P * N;
+  const int s = blockIdx.x, nc = S / Q;
   const int e = blockIdx.y * kThreads + threadIdx.x;   // element of [P][N]
-  if (e >= P * N) return;
-  const int s = slice_idx != nullptr ? slice_idx[d] : d;
-  float* base = prevs + (long)s * nc * P * N + e;
-  if (gate[s] == 0.f) {
-    for (int c = 0; c < nc; ++c) base[(long)c * P * N] = 0.f;
+  float* base = prevs + s * nc * PN + e;
+  if (!gating::slice_runs<kThreads>(gate, n, n_disp, s)) {
+    for (int c = 0; c < nc; ++c) base[c * PN] = 0.f;
     return;
   }
+  const float* tot = cumw + (long)s * S + Q - 1;
   float run = 0.f;
-  for (int c = 0; c < nc; ++c) {
-    const float st = base[(long)c * P * N];
-    base[(long)c * P * N] = run;                        // state before c
-    run = run * expf(tot[(long)d * nc + c]) + st;
+  // kPassBatch chunks' loads in flight before their recurrence
+  for (int c0 = 0; c0 < nc; c0 += kPassBatch) {
+    float st[kPassBatch], dec[kPassBatch];
+#pragma unroll
+    for (int j = 0; j < kPassBatch; ++j)
+      if (c0 + j < nc) {
+        st[j] = base[(c0 + j) * PN];
+        dec[j] = expf(tot[(long)(c0 + j) * Q]);
+      }
+#pragma unroll
+    for (int j = 0; j < kPassBatch; ++j)
+      if (c0 + j < nc) {
+        base[(c0 + j) * PN] = run;                      // state before c
+        run = run * dec[j] + st[j];
+      }
   }
 }
 
 template <int P, int N>
-constexpr size_t scan_smem() {
-  return sizeof(float) *
-         (2 * kT * (N + 1) + kT * (P + 1) + kT * kLdT + 2 * kMaxQ);
-}
+struct ScanSmem {
+  static constexpr int pP = pitch_of(P), pN = pitch_of(N);
+  // an item: prev [P][pN], or a C.B^T tile [64][64] and x rows [64][pP]
+  static constexpr int kSlot =
+      P * pN > kT * kT + kT * pP ? P * pN : kT * kT + kT * pP;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kT * pN + 2 * kSlot + kMaxQ);
+};
 
 template <int P, int N>
-__global__ void __launch_bounds__(kThreads) ssd_scan_kernel(
-    const float* __restrict__ x, const float* __restrict__ da,
-    const float* __restrict__ Bm, const float* __restrict__ Cm,
-    const float* __restrict__ gate, const int32_t* __restrict__ slice_idx,
-    const float* __restrict__ prevs, float* __restrict__ y,
-    unsigned long long* __restrict__ steps, int S, int H, int Q) {
-  extern __shared__ float sm[];
-  float* c_s = sm;                       // [64][N+1] C rows of the q tile
-  float* b_s = c_s + kT * (N + 1);       // [64][N+1] B rows, or prev [P][N]
-  float* x_s = b_s + kT * (N + 1);       // [64][P+1]
-  float* t_s = x_s + kT * (P + 1);       // [64][65] (C.B^T) * decay
-  float* cum = t_s + kT * kLdT;          // [256]
-  float* ecum = cum + kMaxQ;             // [256] exp(cum)
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int d = blockIdx.x, c = blockIdx.y, nc = gridDim.y;
-  const int s = slice_idx != nullptr ? slice_idx[d] : d;
-  const int b = s / H, h = s % H;
-  const long t0 = (long)b * S + (long)c * Q;
-  if (gate[s] == 0.f) {
-    for (int i = tid; i < Q * P; i += kThreads)
-      y[((t0 + i / P) * H + h) * P + i % P] = 0.f;
+__global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(
+    const float* __restrict__ x, const float* __restrict__ Cm,
+    const float* __restrict__ gate, const float* __restrict__ prevs,
+    const float* __restrict__ cumw, const float* __restrict__ cb,
+    float* __restrict__ y, int n, int n_disp, int S, int H, int Q,
+    bool vec) {
+  using Sm = ScanSmem<P, N>;
+  constexpr int pP = Sm::pP, pN = Sm::pN;
+  using L = Lay<kT, P>;
+  extern __shared__ __align__(16) float sm[];
+  float* cs = sm;                        // [64][pN] C rows of the q tile
+  float* ring = cs + kT * pN;            // 2 items
+  float* cum = ring + 2 * Sm::kSlot;     // [256]
+  const int s = blockIdx.x, c = blockIdx.y, nc = gridDim.y;
+  const int nT = (Q + kT - 1) / kT, QP = nT * kT;
+  const int qt = nT - 1 - blockIdx.z;
+  const int b = s / H, h = s % H, qrows = min(kT, Q - qt * kT);
+  const long t0 = (long)b * S + (long)c * Q, q0 = t0 + qt * kT;
+  if (!gating::slice_runs<kThreads>(gate, n, n_disp, s)) {
+    for (int i = threadIdx.x; i < qrows * P; i += kThreads)
+      y[((q0 + i / P) * H + h) * P + i % P] = 0.f;
     return;
   }
-  const int nT = (Q + kT - 1) / kT;
-  chunk_cumsum(cum, da + t0 * H + h, H, Q, nT * kT, tid);
-  for (int i = tid; i < nT * kT; i += kThreads) ecum[i] = expf(cum[i]);
-  const float* prev = prevs + ((long)s * nc + c) * P * N;
-
-  for (int qt = 0; qt < nT; ++qt) {
-    const int qrows = min(kT, Q - qt * kT);
-    const long q0 = t0 + qt * kT;
-    load_tile<N>(c_s, N + 1, Cm + q0 * N, N, qrows, tid);
-    load_tile<N>(b_s, N + 1, prev, N, P, tid);
+  // item 0: prev (and the q tile's C rows and the chunk's decays); item
+  // 1 + kt: the C.B^T tile (qt, kt) and x rows of k tile kt
+  auto stage_item = [&](int it) {
+    float* dst = ring + (it & 1) * Sm::kSlot;
+    if (it == 0) {
+      stage_tile<kT, N>(cs, Cm + q0 * N, N, qrows, vec);
+      stage_tile<P, N>(dst, prevs + ((long)s * nc + c) * P * N, N, P, vec);
+      stage_cum(cum, cumw + (long)s * S + (long)c * Q, Q);
+    } else {
+      const int kt = it - 1;
+      stage_tile<kT, kT>(dst, cb + ((long)(b * nc + c) * QP + qt * kT) * QP
+                                  + kt * kT, QP, kT, true);
+      stage_tile<kT, P>(dst + kT * kT, x + ((t0 + kt * kT) * H + h) * P,
+                        (long)H * P, min(kT, Q - kt * kT), vec);
+    }
+  };
+  const int items = qt + 2;
+  float yi[L::NT][4], ya[L::NT][4];      // inter-chunk, intra-chunk
+  zero(yi);
+  zero(ya);
+  stage_item(0);
+  tf32x3::commit();
+  for (int it = 0; it < items; ++it) {
+    if (it + 1 < items) stage_item(it + 1);
+    tf32x3::commit();
+    tf32x3::wait<1>();
     __syncthreads();
-    float yi[4][P / 16];                 // C_q . prev^T (inter-chunk)
-    zero(yi);
-    mma<4, P / 16, N, false, true>(yi, c_s, N + 1, b_s, N + 1, ty, tx);
-    float acc[4][P / 16];                // intra-chunk
-    zero(acc);
-    __syncthreads();
-    for (int kt = 0; kt <= qt; ++kt) {
-      const int krows = min(kT, Q - kt * kT);
-      const long k0 = t0 + kt * kT;
-      load_tile<N>(b_s, N + 1, Bm + k0 * N, N, krows, tid);
-      load_tile<P>(x_s, P + 1, x + (k0 * H + h) * P, (long)H * P, krows,
-                   tid);
-      __syncthreads();
-      float sc[4][4];
-      zero(sc);
-      mma<4, 4, N, false, true>(sc, c_s, N + 1, b_s, N + 1, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = qt * kT + ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = kt * kT + tx + 16 * j;
-          const float L = k <= q ? expf(cum[q] - cum[k]) : 0.f;
-          t_s[(ty * 4 + i) * kLdT + tx + 16 * j] = sc[i][j] * L;
-        }
+    float* sl = ring + (it & 1) * Sm::kSlot;
+    if (it == 0) {                       // C_q . prev^T
+      gemm<N>(yi,
+              [&](tf32x3::FragA& a, int k0) {
+                tf32x3::load_a(a, cs, pN, L::row0(), k0);
+              },
+              [&](tf32x3::FragB& f, int k0, int j) {
+                tf32x3::load_b_nk(f, sl, pN, L::col0() + 8 * j, k0);
+              });
+    } else {                             // (C.B^T o L) x over k tile kt
+      const int kt = it - 1;
+      for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
+        const int r = i / kT, cc = i % kT;
+        sl[tf32x3::at(kT, r, cc)] *=
+            decay(cum, qt * kT + r, kt * kT + cc, Q);
       }
       __syncthreads();
-      mma<4, P / 16, kT, false, false>(acc, t_s, kLdT, x_s, P + 1, ty, tx);
-      __syncthreads();
+      const float* xs = sl + kT * kT;
+      gemm<kT>(ya,
+               [&](tf32x3::FragA& a, int k0) {
+                 tf32x3::load_a(a, sl, kT, L::row0(), k0);
+               },
+               [&](tf32x3::FragB& f, int k0, int j) {
+                 tf32x3::load_b_kn(f, xs, pP, k0, L::col0() + 8 * j);
+               });
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      if (r < qrows) {
-        const float e = ecum[qt * kT + r];
-        float* yr = y + ((q0 + r) * H + h) * P;
-#pragma unroll
-        for (int j = 0; j < P / 16; ++j)
-          yr[tx + 16 * j] = acc[i][j] + yi[i][j] * e;
-      }
-    }
+    __syncthreads();
   }
-  if (steps != nullptr && tid == 0) atomicAdd(steps, 1ull);
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = acc_row<L>(e);
+      if (r < qrows)
+        y[((q0 + r) * H + h) * P + acc_col<L>(j, e)] =
+            ya[j][e] + yi[j][e] * expf(cum[qt * kT + r]);
+    }
+}
+
+// Each kernel's dynamic shared memory, its attribute set where it is
+// over the 48 KB default.
+template <int P, int N>
+cudaError_t prepare_kernels(size_t (&smem)[4]) {
+  smem[0] = cb_smem<N>();
+  smem[1] = chunk_state_smem<P, N>();
+  smem[2] = 0;
+  smem[3] = ScanSmem<P, N>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_cb_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem[0]);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_chunk_state_kernel<P, N, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem[1]);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_scan_kernel<P, N>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem[3]);
+  return err;
+}
+
+// Blocks an SM holds of each kernel, in launch order.
+template <int P, int N>
+cudaError_t occupancy(int* out) {
+  size_t smem[4];
+  cudaError_t err = prepare_kernels<P, N>(smem);
+  const void* fns[4] = {(const void*)ssd_cb_kernel<N>,
+                        (const void*)ssd_chunk_state_kernel<P, N, false>,
+                        (const void*)ssd_state_pass_kernel<P, N>,
+                        (const void*)ssd_scan_kernel<P, N>};
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + i, fns[i],
+                                                        kThreads, smem[i]);
+  return err;
 }
 
 template <int P, int N>
 cudaError_t launch(const float* x, const float* da, const float* Bm,
-                   const float* Cm, const float* gate, const int32_t* idx,
-                   float* y, float* prevs, float* tot,
-                   unsigned long long* steps, int n_disp, int S, int H,
-                   int Q, cudaStream_t stream) {
-  const int nc = S / Q;
-  constexpr size_t sm_state = state_smem<P, N>();
-  constexpr size_t sm_scan = scan_smem<P, N>();
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_state_kernel<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sm_state);
+                   const float* Cm, const float* gate, float* y,
+                   float* prevs, float* cumw, float* cb,
+                   unsigned long long* steps, int Bsz, int n_disp, int S,
+                   int H, int Q, bool vec, cudaStream_t stream) {
+  const int n = Bsz * H, nc = S / Q, nT = (Q + kT - 1) / kT;
+  size_t smem[4];
+  cudaError_t err = prepare_kernels<P, N>(smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ssd_scan_kernel<P, N>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sm_scan);
-  if (err != cudaSuccess) return err;
-  ssd_state_kernel<P, N><<<dim3(n_disp, nc), kThreads, sm_state, stream>>>(
-      x, da, Bm, gate, idx, prevs, tot, S, H, Q);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const size_t sm_cb = smem[0], sm_st = smem[1], sm_scan = smem[3];
+  ssd_cb_kernel<N><<<dim3(nT, nc, Bsz), kThreads, sm_cb, stream>>>(
+      Bm, Cm, gate, cb, n, n_disp, S, H, Q, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_chunk_state_kernel<P, N, false>
+      <<<dim3(n, nc), kThreads, sm_st, stream>>>(
+          x, da, Bm, gate, prevs, cumw, steps, n, n_disp, S, H, Q, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ssd_state_pass_kernel<P, N>
-      <<<dim3(n_disp, (P * N + kThreads - 1) / kThreads), kThreads, 0,
-         stream>>>(gate, idx, prevs, tot, nc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ssd_scan_kernel<P, N><<<dim3(n_disp, nc), kThreads, sm_scan, stream>>>(
-      x, da, Bm, Cm, gate, idx, prevs, y, steps, S, H, Q);
+      <<<dim3(n, P * N / kThreads), kThreads, 0, stream>>>(
+          gate, prevs, cumw, n, n_disp, S, Q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_scan_kernel<P, N><<<dim3(n, nc, nT), kThreads, sm_scan, stream>>>(
+      x, Cm, gate, prevs, cumw, cb, y, n, n_disp, S, H, Q, vec);
   return cudaGetLastError();
 }
 
@@ -244,28 +261,39 @@ cudaError_t launch(const float* x, const float* da, const float* Bm,
 
 extern "C" {
 
-// Returns a cudaError_t: 0 on a successful launch. slice_idx and steps may
-// be null (every slice dispatched in order; no step count). tot is scratch
-// [n_disp, S/Q]. S must be a multiple of Q, Q <= 256.
+// Returns a cudaError_t: 0 on a successful launch. steps may be null (no
+// step count). Workspaces: cum [B*H, S], cb [B, S/Q, QP, QP] with QP =
+// 64 ceil(Q / 64). S must be a multiple of Q, Q <= 256; n_disp bounds the
+// running slices (n_disp >= B*H runs every live one).
 int d2ft_ssd_fwd_f32(const void* x, const void* da, const void* Bm,
-                     const void* Cm, const void* gate, const void* slice_idx,
-                     void* y, void* prevs, void* tot, void* steps, int n_disp,
+                     const void* Cm, const void* gate, void* y, void* prevs,
+                     void* cum, void* cb, void* steps, int Bsz, int n_disp,
                      int S, int H, int P, int N, int Q, void* stream) {
-  if (n_disp <= 0 || S <= 0 || Q <= 0 || Q > kMaxQ || S % Q)
+  if (Bsz <= 0 || H <= 0 || n_disp <= 0 || S <= 0 || Q <= 0 || Q > kMaxQ ||
+      S % Q)
     return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const int32_t* idx = static_cast<const int32_t*>(slice_idx);
+  auto w = [](void* p) { return static_cast<float*>(p); };
+  const void* staged[] = {x, Bm, Cm, prevs, cb};
+  const bool vec = vec_ok(staged, 5);
   unsigned long long* st = static_cast<unsigned long long*>(steps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P == 16 && N == 16)
-    return launch<16, 16>(f(x), f(da), f(Bm), f(Cm), f(gate), idx,
-                          static_cast<float*>(y), static_cast<float*>(prevs),
-                          static_cast<float*>(tot), st, n_disp, S, H, Q, s);
+    return launch<16, 16>(f(x), f(da), f(Bm), f(Cm), f(gate), w(y),
+                          w(prevs), w(cum), w(cb), st, Bsz, n_disp, S, H, Q,
+                          vec, s);
   if (P == 64 && N == 128)
-    return launch<64, 128>(f(x), f(da), f(Bm), f(Cm), f(gate), idx,
-                           static_cast<float*>(y),
-                           static_cast<float*>(prevs),
-                           static_cast<float*>(tot), st, n_disp, S, H, Q, s);
+    return launch<64, 128>(f(x), f(da), f(Bm), f(Cm), f(gate), w(y),
+                           w(prevs), w(cum), w(cb), st, Bsz, n_disp, S, H,
+                           Q, vec, s);
+  return cudaErrorInvalidValue;
+}
+
+// Fills out[0..3] with the blocks an SM holds of the forward's kernels
+// (C.B^T, chunk state, pass, scan) at (P, N); returns a cudaError_t.
+int d2ft_ssd_fwd_occupancy(int P, int N, int* out) {
+  if (P == 16 && N == 16) return occupancy<16, 16>(out);
+  if (P == 64 && N == 128) return occupancy<64, 128>(out);
   return cudaErrorInvalidValue;
 }
 

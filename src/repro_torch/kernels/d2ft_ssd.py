@@ -33,13 +33,19 @@ Four groups of things live here:
 
 What bounds the kernels on an H100: operations. A live (slice, chunk) of
 Q = 256, P = 64, N = 128 needs about 13 MFLOP forward (the causal half of
-the Q x Q products, the state products) against about 0.2 MB of its own
-inputs and outputs, ~60 FLOP per byte, above the ~20 at which float32 FMA
-(67 TFLOP/s, TF32 off) and not HBM becomes the limit. The design is
-Mamba-2's own GPU split (see the sources' headers): chunk states in
+the Q x Q products, the state products) and its sample about 8 MFLOP once
+for C.B^T, against about 0.2 MB of its own inputs and outputs. Every
+product runs on the tensor cores in 3xTF32 (float32 accuracy at up to 165
+TFLOP/s, ``csrc/tf32x3.cuh``), so the bytes come next: the backward sums
+dB and dC over the heads inside its kernels, in a fixed order, rather than
+writing per-head copies. The design is Mamba-2's own GPU split (see the
+sources' headers): C.B^T once per (sample, chunk), chunk states in
 parallel over (slice, chunk), one short sequential pass over the chunks,
-then the outputs in parallel over (slice, chunk), so that the grid holds
-B·H·live share·n_chunks blocks instead of one block per slice.
+then the outputs in parallel over (slice, chunk, 64-row tile); the
+backward's blocks loop over a group of ``HEAD_GROUP`` heads. Which slices
+run is decided by each block from the gates (``csrc/slice_gate.cuh``), and
+blocks of slices that do not run write their zeros: the launchers build no
+table and allocate unfilled buffers.
 """
 from __future__ import annotations
 
@@ -51,8 +57,13 @@ import torch
 
 from repro_torch.kernels import build, contract
 
-# The largest chunk the CUDA kernels take (four of their 64-row tiles).
+# The kernels' row tile, and the largest chunk they take (four tiles).
+TILE = 64
 KERNEL_MAX_CHUNK = 256
+# Heads a backward block loops over, summing dB and dC over them in
+# registers (csrc/d2ft_ssd_common.cuh's kHeadGroup; the C entry refuses a
+# group count that does not match it).
+HEAD_GROUP = 8
 # (P, N) pairs with a kernel instantiation: the smoke config's and
 # mamba2-130m's.
 KERNEL_SHAPES = ((16, 16), (64, 128))
@@ -207,10 +218,13 @@ def _check(name, t, device, shape):
 def _fwd_lib():
     lib = build.load("d2ft_ssd_fwd")
     lib.d2ft_ssd_fwd_f32.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.d2ft_ssd_fwd_f32.restype = ctypes.c_int
     lib.d2ft_ssd_fwd_error_string.argtypes = [ctypes.c_int]
     lib.d2ft_ssd_fwd_error_string.restype = ctypes.c_char_p
+    lib.d2ft_ssd_fwd_occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    lib.d2ft_ssd_fwd_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -218,16 +232,18 @@ def _fwd_lib():
 def _bwd_lib():
     lib = build.load("d2ft_ssd_bwd")
     lib.d2ft_ssd_bwd_f32.argtypes = (
-        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.d2ft_ssd_bwd_f32.restype = ctypes.c_int
     lib.d2ft_ssd_bwd_error_string.argtypes = [ctypes.c_int]
     lib.d2ft_ssd_bwd_error_string.restype = ctypes.c_char_p
+    lib.d2ft_ssd_bwd_occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    lib.d2ft_ssd_bwd_occupancy.restype = ctypes.c_int
     return lib
 
 
 def _prepare(x, da, Bm, Cm, gate, chunk, live, tensors=()):
-    """Checks shared by both launchers; returns (Q, nc, n_disp, idx) with
-    idx the int32 compaction table (None when every slice runs)."""
+    """Checks shared by both launchers; returns (Q, nc, n_disp)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the d2ft SSD kernels need CUDA tensors, got {dev}")
@@ -246,18 +262,97 @@ def _prepare(x, da, Bm, Cm, gate, chunk, live, tensors=()):
     if S < 1 or Q > KERNEL_MAX_CHUNK or S % Q:
         raise ValueError(f"S={S} must be a positive multiple of the chunk "
                          f"min({chunk}, S) <= {KERNEL_MAX_CHUNK} (pad first)")
-    NS = B * H
-    n_disp = contract.dispatch_count(live, NS)
-    idx = None
-    if n_disp < NS:
-        idx = contract.live_permutation(gate.reshape(NS), n_disp).to(
-            torch.int32)
-    return Q, S // Q, n_disp, idx
+    return Q, S // Q, contract.dispatch_count(live, B * H)
+
+
+def n_head_groups(H: int) -> int:
+    """Head groups of the backward's blocks: each sums dB and dC over up
+    to ``HEAD_GROUP`` heads."""
+    return -(-H // HEAD_GROUP)
+
+
+# the kernels each launcher call runs, in launch order
+KERNELS = {"fwd": ("ssd_cb_kernel", "ssd_chunk_state_kernel",
+                   "ssd_state_pass_kernel", "ssd_scan_kernel"),
+           "bwd": ("ssd_cb_kernel", "ssd_chunk_state_kernel",
+                   "ssd_dstate_pass_kernel", "ssd_bwd_kernel",
+                   "ssd_dda_kernel", "ssd_group_sum_kernel")}
+
+
+def launch_grids(B: int, S: int, H: int, P: int, N: int, Q: int):
+    """{kind: {kernel: grid}} of a launcher call at these shapes (S a
+    multiple of Q), as the C entries launch them; the backward's group sum
+    runs only past one head group."""
+    nc, nT, n, G = S // Q, -(-Q // TILE), B * H, n_head_groups(H)
+    cb, rows = (nT, nc, B), (n, P * N // 256)
+    grids = {"fwd": (cb, (n, nc), rows, (n, nc, nT)),
+             "bwd": (cb, (n, nc), rows, (B * G, nc, 2 * nT), (n, nc),
+                     (-(-S * N // 256), B, 2))}
+    out = {k: dict(zip(KERNELS[k], g)) for k, g in grids.items()}
+    if G == 1:
+        del out["bwd"]["ssd_group_sum_kernel"]
+    return out
+
+
+def blocks_per_sm(kind: str, P: int, N: int):
+    """{kernel: blocks an SM holds} of one direction's kernels at (P, N),
+    from the CUDA occupancy calculator (shared memory and registers)."""
+    lib = _fwd_lib() if kind == "fwd" else _bwd_lib()
+    fn = getattr(lib, f"d2ft_ssd_{kind}_occupancy")
+    out = (ctypes.c_int * len(KERNELS[kind]))()
+    err = fn(P, N, out)
+    if err != 0:
+        raise RuntimeError(f"d2ft SSD {kind} occupancy query failed: "
+                           + getattr(lib, f"d2ft_ssd_{kind}_error_string")(
+                               err).decode())
+    return dict(zip(KERNELS[kind], out))
 
 
 def _counter_slot(kind):
     tc = contract.tile_counter
     return tc.slot(kind) if tc is not None else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _workspace(x, Q):
+    """The workspaces both directions fill before they read them: the
+    in-chunk cumulative decays [B*H, S] and C.B^T of every chunk
+    [B, nc, QP, QP], QP = Q rounded up to the kernels' 64-row tiles."""
+    B, S, H, _ = x.shape
+    QP = -(-Q // TILE) * TILE
+    return {"cum": torch.empty((B * H, S), dtype=torch.float32,
+                               device=x.device),
+            "cb": torch.empty((B, S // Q, QP, QP), dtype=torch.float32,
+                              device=x.device)}
+
+
+def _fwd_buffers(x, N, Q):
+    """Outputs (y, prevs) and workspaces of a forward call, unfilled: the
+    kernels write every element they or a later kernel read."""
+    B, S, H, P = x.shape
+    return {"y": torch.empty_like(x, dtype=torch.float32),
+            "prevs": torch.empty((B * H, S // Q, P, N), dtype=torch.float32,
+                                 device=x.device), **_workspace(x, Q)}
+
+
+def _fwd_call(x, da, Bm, Cm, g_f, buf, n_disp, Q):
+    """Launch the forward kernels into ``_fwd_buffers``' tensors."""
+    B, S, H, P = x.shape
+    lib = _fwd_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.d2ft_ssd_fwd_f32(
+            x.data_ptr(), da.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            g_f.data_ptr(), buf["y"].data_ptr(), buf["prevs"].data_ptr(),
+            buf["cum"].data_ptr(), buf["cb"].data_ptr(),
+            _counter_slot("ssd_fwd"), B, n_disp, S, H, P, Bm.shape[-1], Q,
+            stream)
+    if err != 0:
+        raise RuntimeError("d2ft SSD forward launch failed: "
+                           + lib.d2ft_ssd_fwd_error_string(err).decode())
 
 
 def ssd_fwd(x, da, Bm, Cm, g_f, *, chunk: int, live=None):
@@ -266,68 +361,71 @@ def ssd_fwd(x, da, Bm, Cm, g_f, *, chunk: int, live=None):
     S a multiple of the chunk; ``live`` is an optional upper bound on the
     g_f != 0 slice count. Returns (y [B,S,H,P], prevs [B*H, nc, P, N]);
     slices not dispatched are zeros."""
-    Q, nc, n_disp, idx = _prepare(x, da, Bm, Cm, g_f, chunk, live)
-    B, S, H, P = x.shape
-    N = Bm.shape[-1]
-    alloc = torch.empty if idx is None else torch.zeros
-    y = alloc(x.shape, dtype=torch.float32, device=x.device)
-    prevs = alloc((B * H, nc, P, N), dtype=torch.float32, device=x.device)
-    tot = torch.empty((n_disp, nc), dtype=torch.float32, device=x.device)
-    lib = _fwd_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.d2ft_ssd_fwd_f32(
-            x.data_ptr(), da.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            g_f.data_ptr(), None if idx is None else idx.data_ptr(),
-            y.data_ptr(), prevs.data_ptr(), tot.data_ptr(),
-            _counter_slot("ssd_fwd"), n_disp, S, H, P, N, Q, stream)
-    if err != 0:
-        raise RuntimeError("d2ft SSD forward launch failed: "
-                           + lib.d2ft_ssd_fwd_error_string(err).decode())
+    Q, _, n_disp = _prepare(x, da, Bm, Cm, g_f, chunk, live)
+    buf = _fwd_buffers(x, Bm.shape[-1], Q)
+    _fwd_call(x, da, Bm, Cm, g_f, buf, n_disp, Q)
     ssd_fwd.launches += 1
-    return y, prevs
+    return buf["y"], buf["prevs"]
 
 
 ssd_fwd.launches = 0
+
+
+def _bwd_buffers(x, N, Q):
+    """Outputs (dx, ddA, dB, dC) and workspaces of a backward call,
+    unfilled: the state cotangents ds, the per-block partial sums of
+    sum(ds * prev), dcum's row parts from the two block roles and w (in
+    float64), and, past one head group, the groups' dB and dC partials."""
+    B, S, H, P = x.shape
+    nc, G, dev = S // Q, n_head_groups(H), x.device
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def f64(*shape):
+        return torch.empty(shape, dtype=torch.float64, device=dev)
+    return {"dx": f32(B, S, H, P), "dda": f32(B, S, H), "db": f32(B, S, N),
+            "dc": f32(B, S, N), "ds": f32(B * H, nc, P, N),
+            "dsp": f64(B * H, nc, P * N // 32), "rowp": f64(B * H, S),
+            "colp": f64(B * H, S), "wv": f64(B * H, S),
+            "part": f32(2, B, G, S, N) if G > 1 else None,
+            **_workspace(x, Q)}
+
+
+def _bwd_call(x, da, Bm, Cm, g_b, prevs, dy, buf, n_disp, Q):
+    """Launch the backward kernels into ``_bwd_buffers``' tensors."""
+    B, S, H, P = x.shape
+    lib = _bwd_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.d2ft_ssd_bwd_f32(
+            x.data_ptr(), da.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            g_b.data_ptr(), prevs.data_ptr(), dy.data_ptr(),
+            *(_ptr(buf[k]) for k in ("dx", "dda", "db", "dc", "cum", "cb",
+                                     "ds", "dsp", "rowp", "colp", "wv",
+                                     "part")),
+            _counter_slot("ssd_bwd"), B, n_disp, S, H, P, Bm.shape[-1], Q,
+            n_head_groups(H), stream)
+    if err != 0:
+        raise RuntimeError("d2ft SSD backward launch failed: "
+                           + lib.d2ft_ssd_bwd_error_string(err).decode())
 
 
 def ssd_bwd(x, da, Bm, Cm, g_b, prevs, dy, *, chunk: int, live=None):
     """Launch the backward kernels (one launcher call, counted in
     ``ssd_bwd.launches``). Arguments as ``ssd_fwd`` plus the forward's
     prevs and the cotangent dy; ``live`` bounds the g_b != 0 slice count.
-    Returns (dx, ddA, dB, dC), dB and dC summed over the heads, exact
-    zeros from g_b == 0 slices."""
-    Q, nc, n_disp, idx = _prepare(x, da, Bm, Cm, g_b, chunk, live,
-                                  (("dy", dy, x.shape),))
+    Returns (dx, ddA, dB, dC), dB and dC summed over the heads inside the
+    kernels, in a fixed order; exact zeros from g_b == 0 slices."""
+    Q, nc, n_disp = _prepare(x, da, Bm, Cm, g_b, chunk, live,
+                             (("dy", dy, x.shape),))
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     _check("prevs", prevs, x.device, (B * H, nc, P, N))
-    alloc = torch.empty if idx is None else torch.zeros
-    dx = alloc(x.shape, dtype=torch.float32, device=x.device)
-    dda = alloc(da.shape, dtype=torch.float32, device=x.device)
-    db_s = alloc((B, H, S, N), dtype=torch.float32, device=x.device)
-    dc_s = alloc((B, H, S, N), dtype=torch.float32, device=x.device)
-    ds = torch.empty((n_disp, nc, P, N), dtype=torch.float32,
-                     device=x.device)
-    tot = torch.empty((n_disp, nc), dtype=torch.float32, device=x.device)
-    lib = _bwd_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.d2ft_ssd_bwd_f32(
-            x.data_ptr(), da.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            g_b.data_ptr(), None if idx is None else idx.data_ptr(),
-            prevs.data_ptr(), dy.data_ptr(), dx.data_ptr(), dda.data_ptr(),
-            db_s.data_ptr(), dc_s.data_ptr(), ds.data_ptr(), tot.data_ptr(),
-            _counter_slot("ssd_bwd"), n_disp, S, H, P, N, Q, stream)
-    if err != 0:
-        raise RuntimeError("d2ft SSD backward launch failed: "
-                           + lib.d2ft_ssd_bwd_error_string(err).decode())
+    buf = _bwd_buffers(x, N, Q)
+    _bwd_call(x, da, Bm, Cm, g_b, prevs, dy, buf, n_disp, Q)
     ssd_bwd.launches += 1
-    # B and C are shared by the heads: sum the per-slice cotangents, in
-    # float64 and in a fixed order, so the sum adds one rounding and does
-    # not change from run to run
-    return (dx, dda, db_s.sum(dim=1, dtype=torch.float64).float(),
-            dc_s.sum(dim=1, dtype=torch.float64).float())
+    return buf["dx"], buf["dda"], buf["db"], buf["dc"]
 
 
 ssd_bwd.launches = 0

@@ -566,6 +566,78 @@ def test_finetune_kernel_path_matches_masked_path_on_card(arch):
                                rtol=0)
 
 
+def _ssd_alone(x, da, Bm, Cm, dy, g_f, g_b, Q, nd, fill=float("nan")):
+    """Both directions' kernels alone, into outputs and workspaces filled
+    with ``fill``, dispatching nd = (forward, backward) slices; returns
+    [y, prevs, dx, ddA, dB, dC]."""
+    N = Bm.shape[-1]
+    fb, bb = d2s._fwd_buffers(x, N, Q), d2s._bwd_buffers(x, N, Q)
+    for t in list(fb.values()) + list(bb.values()):
+        if t is not None:
+            t.fill_(fill)
+    d2s._fwd_call(x, da, Bm, Cm, g_f, fb, nd[0], Q)
+    d2s._bwd_call(x, da, Bm, Cm, g_b, fb["prevs"], dy, bb, nd[1], Q)
+    torch.cuda.synchronize()
+    return [fb["y"], fb["prevs"], bb["dx"], bb["dda"], bb["db"], bb["dc"]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N,H,S,chunk", [(16, 16, 6, 24, 8),
+                                           (64, 128, 24, 512, 256),
+                                           (64, 128, 9, 192, 64)])
+def test_ssd_kernels_are_bitwise_deterministic(P, N, H, S, chunk):
+    """Two calls of each SSD launcher on the same operands give bitwise
+    equal outputs: every sum, dB and dC over the heads included (one head
+    group at H 6, three at H 24, a short second one at H 9), runs in a
+    fixed order with no float atomics."""
+    _need_card()
+    x, da, Bm, Cm, dy, g_f, g_b = _ssd_case(P + H, 2, H, S, P, N)
+    Q = min(chunk, S)
+    outs = []
+    for _ in range(2):
+        y, prevs = d2s.ssd_fwd(x, da, Bm, Cm, g_f, chunk=Q)
+        outs.append([y, prevs, *d2s.ssd_bwd(x, da, Bm, Cm, g_b, prevs, dy,
+                                            chunk=Q)])
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(*outs))
+    assert all(bool(torch.isfinite(t).all()) for t in outs[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N,H,S,chunk", [(16, 16, 6, 24, 8),
+                                           (64, 128, 24, 512, 256),
+                                           (64, 128, 9, 192, 64)])
+def test_ssd_kernels_write_every_output_under_a_bound(P, N, H, S, chunk):
+    """The launchers allocate unfilled outputs and workspaces: into
+    NaN-filled ones, with the dispatch bounded two slices below the live
+    counts, every output is finite; y, prevs (forward) and dx, ddA
+    (backward) are exact zeros on the slices that do not run (gated, or
+    live past the first n_disp live ones) and bitwise equal to an
+    unbounded call's on the rest."""
+    _need_card()
+    Bsz = 2
+    x, da, Bm, Cm, dy, g_f, g_b = _ssd_case(P + H + 1, Bsz, H, S, P, N)
+    Q = min(chunk, S)
+    n = Bsz * H
+    nd = (int((g_f != 0).sum()) - 2, int((g_b != 0).sum()) - 2)
+    full = _ssd_alone(x, da, Bm, Cm, dy, g_f, g_b, Q, (n, n))
+    out = _ssd_alone(x, da, Bm, Cm, dy, g_f, g_b, Q, nd)
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    for i, (g, k) in enumerate(((g_f, nd[0]), (g_f, nd[0]), (g_b, nd[1]),
+                                (g_b, nd[1]))):
+        live = g.reshape(-1) != 0
+        runs = live & (torch.cumsum(live.int(), 0) <= k)
+        t, f = out[i], full[i]
+        if i != 1:                       # [B, S, H, ...]: slices first
+            t, f = (u.transpose(1, 2).reshape(n, -1) for u in (t, f))
+        assert bool((t[~runs] == 0).all())
+        assert torch.equal(t[runs], f[runs])
+    # dB and dC hold only the dispatched slices' share: a call whose
+    # outputs start at zero instead of NaN gives the same bits
+    again = _ssd_alone(x, da, Bm, Cm, dy, g_f, g_b, Q, nd, fill=0.0)
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+
+
 @pytest.mark.gpu
 def test_heads_not_tiling_groups_refuse_the_kernel_path_on_card():
     """G = 3 does not divide the smoke mamba2's 16 SSD heads: there is no

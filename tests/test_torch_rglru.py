@@ -59,6 +59,30 @@ def _gates(rng, G):
     return ((ops_ != 2).astype(np.float32), (ops_ == 0).astype(np.float32))
 
 
+def _gated_scan_f64(la, b, dy, g_f, g_b):
+    """The gated scan and its gradients in float64, row by row: h_t =
+    exp(la_t) h_{t-1} + b_t per channel, times g_f per band; the cotangent
+    reaches only g_b != 0 bands (g_b <= g_f). Returns [h, dla, db]."""
+    Bsz, S, Wd = la.shape
+    G = g_f.shape[1]
+    band = np.repeat(np.arange(G), Wd // G)
+    a = np.exp(la.astype(np.float64))
+    h = np.zeros((Bsz, S, Wd))
+    prev = np.zeros((Bsz, Wd))
+    for t in range(S):
+        prev = a[:, t] * prev + b[:, t]
+        h[:, t] = prev
+    g = np.zeros((Bsz, S, Wd))
+    carry = np.zeros((Bsz, Wd))
+    dyb = dy.astype(np.float64) * g_b[:, band][:, None, :]
+    for t in range(S - 1, -1, -1):
+        carry = dyb[:, t] + carry
+        g[:, t] = carry
+        carry = a[:, t] * carry
+    h_prev = np.concatenate([np.zeros((Bsz, 1, Wd)), h[:, :-1]], axis=1)
+    return [h * g_f[:, band][:, None, :], g * a * h_prev, g]
+
+
 @pytest.mark.parametrize("S", [24, 21])
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("bounds", ["live", "all"])
@@ -90,10 +114,22 @@ def test_plain_version_matches_jax_kernel_and_ref(S, G, bounds):
                                        jnp.asarray(g_f), jnp.asarray(g_b),
                                        chunk=Q)[:, :S]
 
-    for fn in (jax_kernel, jax_plain):
+    sides = {"the port's plain version": mine}
+    for name, fn in (("the JAX kernel (interpret)", jax_kernel),
+                     ("jax_ref.gated_rglru_ref", jax_plain)):
         jy, vjp = jax.vjp(fn, jnp.asarray(la), jnp.asarray(b))
-        theirs = [np.asarray(jy)] + [np.asarray(g)
-                                     for g in vjp(jnp.asarray(dy))]
+        sides[name] = [np.asarray(jy)] + [np.asarray(g)
+                                          for g in vjp(jnp.asarray(dy))]
+    # each side against a float64 evaluation of the same scan first, so
+    # that a failure names the side that drifted
+    exact = _gated_scan_f64(la, b, dy, g_f, g_b)
+    for side, outs in sides.items():
+        for what, a, r, tol in zip(("h", "dla", "db"), outs, exact,
+                                   (FWD_TOL, GRAD_TOL, GRAD_TOL)):
+            np.testing.assert_allclose(
+                a, r, atol=tol, rtol=0,
+                err_msg=f"{side} vs the float64 scan: {what}")
+    for theirs in list(sides.values())[1:]:
         np.testing.assert_allclose(mine[0], theirs[0], atol=FWD_TOL, rtol=0)
         for name, a, c in zip(("dla", "db"), mine[1:], theirs[1:]):
             np.testing.assert_allclose(a, c, atol=GRAD_TOL, rtol=0,
@@ -233,9 +269,10 @@ def test_kernel_segment_order_matches_jax_ref():
 
 
 def slice_runs_emulation(gate, n_disp, s, threads=256):
-    """``rglru::slice_runs``: whether block s (slice s) runs, its gate
-    live and, under a dispatch bound, fewer than n_disp live gates before
-    it, counted in chunks of one block's threads."""
+    """``gating::slice_runs`` (``csrc/slice_gate.cuh``): whether block s
+    (slice s) runs, its gate live and, under a dispatch bound, fewer than
+    n_disp live gates before it, counted in chunks of one block's
+    threads."""
     if gate[s] == 0:
         return False
     if n_disp >= len(gate):

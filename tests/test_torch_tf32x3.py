@@ -367,3 +367,40 @@ def test_padded_head_dim_tiles_read_distinct_slots_and_banks(hd):
                 banks = {slots[(k0 + t + dk, n0 + g)] % 32
                          for g in range(8) for t in range(4)}
                 assert len(banks) == 32, (k0, n0, dk)
+
+
+@pytest.mark.parametrize("H", [6, 17, 24])
+def test_ssd_head_group_sum_matches_the_per_head_sum(H):
+    """dB and dC of the SSD backward are summed over the heads inside the
+    kernels: a block adds its group's heads (``HEAD_GROUP`` of them, the
+    last group short at H 17) into one float32 accumulator in head order,
+    and past one group the groups' partials are added in float64 in group
+    order and rounded once. That order, emulated, equals the float64 sum
+    over the heads within float32 rounding: at most HEAD_GROUP roundings
+    of the heads' magnitudes and one of the sum. Two evaluations agree
+    bitwise (a fixed order, no atomics)."""
+    from repro_torch.kernels import d2ft_ssd
+    rng = np.random.default_rng(H)
+    hg, G = d2ft_ssd.HEAD_GROUP, d2ft_ssd.n_head_groups(H)
+    assert G == -(-H // hg)
+    contrib = (rng.normal(size=(H, 256, 128))
+               * rng.uniform(0.1, 10.0, size=(H, 1, 1))).astype(np.float32)
+
+    def kernel_order():
+        parts = []
+        for g in range(G):
+            acc = np.zeros(contrib.shape[1:], np.float32)
+            for h in range(g * hg, min(H, (g + 1) * hg)):
+                acc = (acc + contrib[h]).astype(np.float32)
+            parts.append(acc)
+        if G == 1:
+            return parts[0]
+        return np.sum(np.stack(parts).astype(np.float64), axis=0).astype(
+            np.float32)
+
+    got = kernel_order()
+    exact = np.sum(contrib.astype(np.float64), axis=0)
+    mag = np.sum(np.abs(contrib.astype(np.float64)), axis=0)
+    bound = (hg * mag + np.abs(exact)) * 2.0 ** -24
+    assert np.all(np.abs(got - exact) <= bound)
+    assert np.array_equal(got, kernel_order())
