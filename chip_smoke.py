@@ -219,6 +219,29 @@ Phases, one line each (any failure raises and exits non-zero):
    H 16, S 512, causal) under phase 21's layer-0 gates and bounds, through
    the launcher and alone, beside their plain version, SDPA and both
    bounds.
+23. the packed D2FT path — (a) ``repro_torch.launch.train --arch
+   gemma3-1b --full --d2ft --packed`` (phase 13's model, seed 0, batch 4 x
+   seq 1024 in 4 micro-batches, G 4, AdamW lr 1e-3, 6 steps) at the
+   launcher's budget (3 p_f + 1 p_o: every group gathers all four
+   samples) and the LLM example's (2 p_f + 1 p_o: every group skips one),
+   each with a step over ``packed_forward_mb`` (the micro-batch form: no
+   backward graph for the p_o part), the masked and the kernel path on
+   the same weights and schedule, each twice in turns, and standard full
+   fine-tuning twice at the first budget: p50 step ms, tokens/s, peak
+   memory, the FLOPs ``FlopCounterMode`` counts over one step as a
+   fraction of full fine-tuning's beside the schedule's compute_cost; the
+   packed and micro-batch losses within 1e-4 x max(1, |loss|) of the
+   masked path's; no attention kernel launched outside the kernel path.
+   Whether two calls of the packed loss and its gradients agree bitwise
+   (and their largest difference); profiler windows over 3 packed steps
+   and one micro-batch and one full step at the second budget (busy, idle,
+   device time by kind of kernel; no kernel of csrc/ on these paths); the
+   wall seconds of each run and of each part of the phase; two packed
+   steps with remat, losses within the same tolerance of the steps
+   without, peak memory beside theirs; the phase's seconds. (b) the ports
+   of the two examples at their own sizes: ``d2ft_llm_finetune.run`` for
+   20 steps on the packed, kernel and masked paths (finite losses, p50
+   step ms) and ``quickstart.run`` (both top-1s).
 
 Then one JSON line of the 13 kernel records, the card line again, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -307,6 +330,17 @@ MO_PARAMS = 6_919_096_320          # the JAX init_model's, by jax.eval_shape
 MO_PARAMS_8 = 3_562_571_776        # the same at 8 layers
 MO_BLOCK_C = 128                   # repro/models/moe.py's apply_moe default
 ACTS_ALL = ("silu", "gelu", "relu")
+
+# the packed D2FT path on gemma3-1b (phase 23): phase 13's shapes, seed
+# and optimizer, at the launcher's budget (3 p_f + 1 p_o of 4 micro-batches
+# of one sample: every group gathers all four samples, so this budget
+# measures the gather's overhead) and the LLM example's (2 p_f + 1 p_o:
+# every group skips one sample)
+PK_STEPS = 6                       # 8 took the phase past 150 s
+PK_BUDGETS = ((3, 1), (2, 1))
+PK_PROFILE_BUDGET = (2, 1)
+PK_REMAT_STEPS = 2
+PK_EXAMPLE_STEPS = 20              # the LLM example's steps on each path
 
 
 def card_line() -> str:
@@ -1133,13 +1167,14 @@ def ssd_vs_plain(torch):
     return worst
 
 
-def launcher_paths(argv, drive=None):
+def launcher_paths(argv, drive=None, own=None):
     """(run, scheds): run(name) drives ``repro_torch.launch.train.main`` on
     argv plus the path's flags ("kernel": --d2ft --kernel, "masked": --d2ft,
-    "full": none, standard full fine-tuning), or ``drive(flags)`` where one
-    is given, and returns its TrainLog. The first D2FT run keeps its step-0
-    schedule in ``scheds``; later runs replay it, so every path runs on the
-    same schedule."""
+    "packed": --d2ft --packed, "full": none, standard full fine-tuning), or
+    ``drive(flags)`` where one is given, or ``own[name]()`` for a path the
+    launcher does not run, and returns its TrainLog. The first D2FT run
+    keeps its step-0 schedule in ``scheds``; later runs replay it, so every
+    path runs on the same schedule."""
     from repro_torch.launch import train as launcher
     from repro_torch.train import loop
     scheds = []
@@ -1154,9 +1189,11 @@ def launcher_paths(argv, drive=None):
 
     def run(name):
         loop.plan_from_scores = recording if not scheds else replay
-        flags = {"kernel": ["--d2ft", "--kernel"], "masked": ["--d2ft"],
-                 "full": []}[name]
         try:
+            if own and name in own:
+                return own[name]()
+            flags = {"kernel": ["--d2ft", "--kernel"], "masked": ["--d2ft"],
+                     "packed": ["--d2ft", "--packed"], "full": []}[name]
             return (drive or launcher.main)(flags if drive else argv + flags)
         finally:
             loop.plan_from_scores = plan
@@ -3066,6 +3103,375 @@ def moe_timing(torch, mo, tag):
     return out, res
 
 
+def csrc_kernel_names():
+    """The ``__global__`` functions of ``src/repro_torch/kernels/csrc``."""
+    import re
+    names = set()
+    for f in (SRC / "repro_torch" / "kernels" / "csrc").glob("*.cu*"):
+        names.update(re.findall(
+            r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)\s*)?"
+            r"(?:void\s+)?(\w+)\s*\(", f.read_text()))
+    return names
+
+
+def mb_step_fn(cfg, opt, n_mb, n_pf, remat=False):
+    """A training step over ``core.d2ft.packed_forward_mb`` (the deployment
+    form: no backward graph is built for the p_o part), as
+    ``loop.make_train_step``'s packed step: mean token cross-entropy, the
+    global-norm clip, the optimizer update. step(model, opt_state, batch,
+    plan) with the plan's (idx, bwd, val) on the device."""
+    from repro_torch.core.d2ft import packed_forward_mb
+    from repro_torch.models.transformer import fused_xent
+    from repro_torch.optim.optimizers import clip_by_global_norm
+    from repro_torch.train import loop
+
+    def step(model, opt_state, batch, plan):
+        params = dict(model.named_parameters())
+        logits, _ = packed_forward_mb(model, cfg, batch["tokens"], plan,
+                                      n_mb, remat=remat, n_pf=n_pf)
+        loss = fused_xent(logits, batch["labels"])
+        grads, gnorm = clip_by_global_norm(loop._grads(loss, params), 1.0)
+        opt.update(grads, opt_state, params)
+        return model, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+    return step
+
+
+def mb_drive(torch, cfg, sched, B, S, steps, lr):
+    """The launcher's loop (``loop.finetune`` with its settings) over
+    ``mb_step_fn``: the model from seed 0, AdamW, the plan of
+    ``mb_packed_indices`` on the device before each step, the batch copied
+    in inside the timed step. Returns a TrainLog."""
+    from repro_torch.core.d2ft import mb_packed_indices
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train.loop import TrainLog
+
+    model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = adamw(lr)
+    state = opt.init(dict(model.named_parameters()))
+    n_mb = sched.n_microbatches
+    plan = mb_packed_indices(sched, n_mb)
+    step = mb_step_fn(cfg, opt, n_mb, int(plan[1].sum(-1).max()))
+    log = TrainLog()
+    for batch in lm_batches(0, cfg.vocab_size, B, S, steps):
+        dev_plan = tuple(torch.as_tensor(a, device="cuda") for a in plan)
+        t0 = time.perf_counter()
+        _, state, m = step(model, state, {
+            k: torch.as_tensor(v, device="cuda") for k, v in batch.items()},
+            dev_plan)
+        torch.cuda.synchronize()
+        log.step_times.append(time.perf_counter() - t0)
+        log.losses.append(float(m["loss"]))
+    return log
+
+
+def turns(torch, np, run, names):
+    """Every path of ``names`` twice, in turns (names, then names
+    reversed), so that no path gains from running later in the process.
+    Returns (first-round logs, p50 ms over both rounds, per-round p50 ms,
+    first-round peak memory, each run's wall seconds by path)."""
+    logs, times, peaks = {}, {n: [] for n in names}, {}
+    walls = {n: [] for n in names}
+    for name in list(names) + list(reversed(names)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        log = run(name)
+        walls[name].append(time.perf_counter() - t0)
+        if name not in logs:
+            logs[name] = log
+            peaks[name] = torch.cuda.max_memory_allocated()
+        times[name].append(log.step_times)
+    p50 = {n: 1e3 * float(np.median(t[0] + t[1])) for n, t in times.items()}
+    per = {n: [1e3 * float(np.median(x)) for x in t]
+           for n, t in times.items()}
+    return logs, p50, per, peaks, walls
+
+
+def step_flops(torch, step):
+    """FLOPs ``FlopCounterMode`` counts over one call of step(): the aten
+    matmuls, einsums and attention ops of the forward and backward (the
+    hand-written kernels are no aten ops and are not counted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        step()
+    torch.cuda.synchronize()
+    return fc.get_total_flops()
+
+
+def kernel_kinds(named):
+    """Device ms per step by kind of kernel (``profile_steps``' by-name
+    sums): GEMMs, the gathers and scatter-adds (index_select /
+    index_add), softmax, reductions, elementwise passes, the rest."""
+    kinds = (("GEMM", "gemm"), ("gather/scatter", "index"),
+             ("softmax", "softmax"), ("reductions", "reduce"),
+             ("elementwise", "elementwise"))
+    out = dict.fromkeys([k for k, _ in kinds] + ["other"], 0.0)
+    for name, (ms, _) in named.items():
+        kind = next((k for k, sub in kinds if sub in name.lower()), "other")
+        out[kind] += ms
+    return out
+
+
+def packed_finetune(torch, np, tag):
+    """Phase 23a. Returns the phase's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import compute_cost
+    from repro_torch.core.d2ft import mb_packed_indices, packed_forward
+    from repro_torch.core.schedule import (gates_from_schedule,
+                                           live_slice_bounds, packed_indices)
+    from repro_torch.data.synthetic import lm_batches, microbatch_assignment
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.models.transformer import fused_xent, init_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train import loop
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    B, S, n_mb, steps = GM_BATCH, GM_SEQ, GM_D2FT["n_microbatches"], PK_STEPS
+    mb_of = microbatch_assignment(B, n_mb)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(0, cfg.vocab_size, B, S, 1)).items()}
+    csrc = csrc_kernel_names()
+    full = {}
+    kept = {}
+    secs = dict.fromkeys(("runs", "FLOP counts", "repeat", "profiles",
+                          "remat"), 0.0)
+    for n_pf, n_po in PK_BUDGETS:
+        argv = ["--arch", "gemma3-1b", "--full", "--batch", str(B), "--seq",
+                str(S), "--steps", str(steps), "--lr", str(GM_LR),
+                "--n-microbatches", str(n_mb), "--n-pf", str(n_pf),
+                "--n-po", str(n_po)]
+        run, scheds = launcher_paths(argv, own={"mb": lambda: mb_drive(
+            torch, cfg, scheds[0], B, S, steps, GM_LR)})
+        names = ("packed", "mb", "masked", "kernel") + \
+            (("full",) if not full else ())
+        before = (d2a.flash_fwd.launches, d2a.flash_bwd.launches)
+        t0 = time.perf_counter()
+        logs, p50, per, peaks, walls = turns(torch, np, run, names)
+        secs["runs"] += time.perf_counter() - t0
+        if not full:
+            full = {"p50": p50["full"], "per": per["full"],
+                    "peak": peaks["full"]}
+        sched = scheds[0]
+        want = 2 * cfg.n_layers * steps
+        if (d2a.flash_fwd.launches - before[0],
+                d2a.flash_bwd.launches - before[1]) != (want, want):
+            raise AssertionError("attention kernels launched outside the "
+                                 "kernel path's two runs")
+        d_pk = check_losses(np, logs["packed"], logs["masked"])
+        d_mb = check_losses(np, logs["mb"], logs["masked"])
+        idx, bwd, val, c_f = packed_indices(sched, mb_of)
+        plan_mb = mb_packed_indices(sched, n_mb)
+        cost = compute_cost(sched.table)
+
+        # FLOPs of one step of each path on one model (seed 0)
+        model = init_model(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+        opt = adamw(GM_LR)
+        state = opt.init(dict(model.named_parameters()))
+        g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")
+        gates = (g_f.cuda(), g_b.cuda())
+        plan = tuple(torch.as_tensor(a, device="cuda")
+                     for a in (idx, bwd, val))
+        dev_mb = tuple(torch.as_tensor(a, device="cuda") for a in plan_mb)
+        steps_of = {
+            "packed": (loop.make_train_step(cfg, opt, use_gates=True,
+                                            packed=True), plan),
+            "mb": (mb_step_fn(cfg, opt, n_mb, int(plan_mb[1].sum(-1).max())),
+                   dev_mb),
+            "masked": (loop.make_train_step(cfg, opt, use_gates=True), gates),
+            "kernel": (loop.make_train_step(
+                cfg, opt, use_gates=True, use_kernel=True,
+                live_bounds=live_slice_bounds(sched, mb_of)), gates)}
+        if "flops" not in full:
+            steps_of["full"] = (loop.make_train_step(cfg, opt,
+                                                     use_gates=False), None)
+        flops = {}
+        t0 = time.perf_counter()
+        for name, (fn, args) in steps_of.items():
+            flops[name] = step_flops(torch, lambda: fn(model, state, batch,
+                                                       args))
+        secs["FLOP counts"] += time.perf_counter() - t0
+        full.setdefault("flops", flops.pop("full", None))
+        print(f"[packed] gemma3-1b full size ({cfg.n_layers} layers, d "
+              f"{cfg.d_model}, {cfg.n_heads} query heads and "
+              f"{cfg.n_kv_heads} KV head of {cfg.resolved_head_dim}, f32, "
+              f"seed 0) through repro_torch.launch.train --d2ft --packed, "
+              f"batch {B} x seq {S} in {n_mb} micro-batches, n_pf {n_pf} "
+              f"n_po {n_po}, G {sched.n_groups}, AdamW lr {GM_LR}, {steps} "
+              f"steps: per (layer, group) {idx.shape[-1]} gathered samples "
+              f"({c_f} p_f) of {B}, {plan_mb[0].shape[-1]} micro-batches in "
+              f"the micro-batch form; schedule compute_cost {cost:.3f}",
+              flush=True)
+        print(f"[packed] losses packed "
+              f"{[round(x, 6) for x in logs['packed'].losses]} | micro-batch "
+              f"{[round(x, 6) for x in logs['mb'].losses]} | masked "
+              f"{[round(x, 6) for x in logs['masked'].losses]} | max diff "
+              f"packed {d_pk:.3e}, micro-batch {d_mb:.3e} (<= 1e-4 x max(1, "
+              f"|loss|))", flush=True)
+        p50["full"], per["full"] = full["p50"], full["per"]
+        print(f"[packed] {n_pf}+{n_po} p50 step ms over 2 x {steps} steps: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in p50.items())
+              + "; per round " + ", ".join(
+                  f"{k} {r[0]:.3f} / {r[1]:.3f}" for k, r in per.items())
+              + f" {tag}")
+        print(f"[packed] {n_pf}+{n_po} wall s of each run (model init and "
+              f"the first run's scoring included): " + ", ".join(
+                  f"{k} " + " / ".join(f"{w:.1f}" for w in v)
+                  for k, v in walls.items()), flush=True)
+        print(f"[packed] {n_pf}+{n_po} tokens/s: " + ", ".join(
+            f"{k} {B * S / v * 1e3:.1f}" for k, v in p50.items()) + f" {tag}")
+        peaks["full"] = full["peak"]
+        print(f"[packed] {n_pf}+{n_po} max_memory_allocated of each path's "
+              f"first run (the first packed run's includes scoring): " +
+              ", ".join(f"{k} {v} bytes ({v / 2**30:.2f} GiB)"
+                        for k, v in peaks.items()) + f" {tag}", flush=True)
+        print(f"[packed] {n_pf}+{n_po} FLOPs of one step (FlopCounterMode: "
+              f"aten matmuls, forward and backward; the kernel path's "
+              f"attention kernels not counted): " + ", ".join(
+                  f"{k} {v:.4e} ({v / full['flops']:.4f} of full)"
+                  for k, v in flops.items())
+              + f", full {full['flops']:.4e}; schedule compute_cost "
+              f"{cost:.4f}", flush=True)
+        if (n_pf, n_po) == PK_PROFILE_BUDGET:
+            kept = dict(model=model, opt=opt, state=state, plan=plan,
+                        sched=sched, steps=steps_of)
+        else:
+            del model, state, opt, steps_of
+        torch.cuda.empty_cache()
+
+    # two calls of the packed loss and gradients on the same inputs
+    model, state, plan = kept["model"], kept["state"], kept["plan"]
+    params = list(model.parameters())
+
+    def loss_grads():
+        logits, _ = packed_forward(model, cfg, batch["tokens"], plan)
+        loss = fused_xent(logits, batch["labels"])
+        return [loss.detach()] + list(torch.autograd.grad(loss, params))
+
+    t0 = time.perf_counter()
+    a = loss_grads()
+    b = loss_grads()
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    worst = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    del a, b
+    secs["repeat"] = time.perf_counter() - t0
+    print(f"[packed] two calls of the packed loss and its {len(params)} "
+          f"gradients on the same inputs: bitwise equal {equal}, largest "
+          f"difference {worst:.3e}", flush=True)
+
+    # where a packed step's time goes, beside the micro-batch form's and
+    # full fine-tuning's
+    t0 = time.perf_counter()
+    steps_of = kept["steps"]
+    steps_of["full"] = (loop.make_train_step(cfg, kept["opt"],
+                                             use_gates=False), None)
+    # (one step in the windows beside the packed path's three: a window's
+    # trace takes the profiler ~20 s to process on this path)
+    for name, n_prof in (("packed", 3), ("mb", 1), ("full", 1)):
+        fn, args = steps_of[name]
+        busy, wall, idle, _, _, top, named = profile_steps(
+            torch, lambda: fn(model, state, batch, args), "", n_prof)
+        hits = sorted(k for k in named if any(c in k for c in csrc))
+        if hits:
+            raise AssertionError(f"csrc kernels ran on the {name} path: "
+                                 f"{hits}")
+        print(f"[profile] {n_prof} {name}-path gemma3-1b step(s) "
+              f"({PK_PROFILE_BUDGET[0]}+{PK_PROFILE_BUDGET[1]}): device busy "
+              f"{busy:.3f} ms per step, wall {wall:.3f} ms per step under "
+              f"the profiler, idle share {idle:.1%}; none of the "
+              f"{len(csrc)} kernels of csrc/ among its {len(named)} kernels; "
+              f"device ms per step by kind: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in kernel_kinds(named).items())
+              + f" {tag}")
+        if name == "packed":
+            print("[profile] top device time per step: " + "; ".join(
+                f"{k[:60]} x{c}: {t:.3f} ms" for t, c, k in top),
+                flush=True)
+    secs["profiles"] = time.perf_counter() - t0
+    sched = kept["sched"]
+    del model, state, params, plan, steps_of, fn, args
+    kept.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+
+    # remat: the same steps with each layer checkpointed
+    plan_np = packed_indices(sched, mb_of)[:3]
+    res = {}
+    for remat in (False, True):
+        model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+        opt = adamw(GM_LR)
+        state = opt.init(dict(model.named_parameters()))
+        step = loop.make_train_step(cfg, opt, use_gates=True, packed=True,
+                                    remat=remat)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for bt in lm_batches(0, cfg.vocab_size, B, S, PK_REMAT_STEPS):
+            dev_plan = tuple(torch.as_tensor(x, device="cuda")
+                             for x in plan_np)
+            t0 = time.perf_counter()
+            _, state, m = step(model, state, {
+                k: torch.as_tensor(v, device="cuda") for k, v in bt.items()},
+                dev_plan)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+        res[remat] = (losses, torch.cuda.max_memory_allocated(), ms)
+        del model, state, opt, step
+        torch.cuda.empty_cache()
+    off, on = res[False], res[True]
+    diff = np.abs(np.asarray(on[0]) - np.asarray(off[0]))
+    if not (np.isfinite(on[0]).all() and (diff <= 1e-4 * np.maximum(
+            1.0, np.abs(np.asarray(off[0])))).all()):
+        raise AssertionError(f"remat losses {on[0]} vs {off[0]}")
+    print(f"[packed] remat ({PK_REMAT_STEPS} packed steps, each layer "
+          f"checkpointed): losses {[round(x, 6) for x in on[0]]} vs "
+          f"{[round(x, 6) for x in off[0]]} without (max diff "
+          f"{float(diff.max()):.3e}); max_memory_allocated {on[1]} bytes "
+          f"({on[1] / 2**30:.2f} GiB) vs {off[1]} ({off[1] / 2**30:.2f} GiB); "
+          f"step ms {[round(x, 1) for x in on[2]]} vs "
+          f"{[round(x, 1) for x in off[2]]} {tag}", flush=True)
+    secs["remat"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    print(f"[packed] phase 23a in {total:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    return total
+
+
+def packed_examples(torch, np, tag):
+    """Phase 23b: the two examples at their own sizes."""
+    from repro_torch.examples import d2ft_llm_finetune, quickstart
+
+    t0 = time.perf_counter()
+    p50 = {}
+    for name, kw in (("packed", dict(packed=True)),
+                     ("kernel", dict(use_kernel=True)), ("masked", {})):
+        log = d2ft_llm_finetune.run(device="cuda", steps=PK_EXAMPLE_STEPS,
+                                    **kw)
+        if len(log.losses) != PK_EXAMPLE_STEPS or \
+                not np.isfinite(log.losses).all():
+            raise AssertionError(f"LLM example, {name} path: losses "
+                                 f"{log.losses}")
+        p50[name] = (1e3 * float(np.median(log.step_times)), log.losses)
+    cfg = d2ft_llm_finetune.CFG
+    print(f"[examples] d2ft_llm_finetune.run ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab_size}, "
+          f"batch {d2ft_llm_finetune.BATCH} x {d2ft_llm_finetune.SEQ}, 2 p_f "
+          f"+ 1 p_o of 4, G 12), {PK_EXAMPLE_STEPS} steps: p50 step ms " +
+          ", ".join(f"{k} {v[0]:.3f} (loss {v[1][0]:.3f} -> {v[1][-1]:.3f})"
+                    for k, v in p50.items()) + f" {tag}", flush=True)
+    acc_d2ft, acc_std = quickstart.run(device="cuda")
+    for acc in (acc_d2ft, acc_std):
+        if not 0.0 <= acc <= 1.0:
+            raise AssertionError(f"quickstart top-1 {acc}")
+    print(f"[examples] quickstart.run: top-1 D2FT@68% {acc_d2ft:.3f}, "
+          f"standard@100% {acc_std:.3f}; both examples in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3401,6 +3807,11 @@ def main() -> int:
 
     # 22. MoE kernel timing -----------------------------------------------
     mo_t, _ = moe_timing(torch, mo, tag)
+    torch.cuda.empty_cache()
+
+    # 23. the packed D2FT path on gemma3-1b; the two examples -------------
+    packed_finetune(torch, np, tag)
+    packed_examples(torch, np, tag)
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{

@@ -9,6 +9,14 @@ On one CUDA card, the main paths of the LLM fine-tune:
       --kernel --batch 4 --seq 1024 --steps 8
   python -m repro_torch.launch.train --arch recurrentgemma-2b --full \
       --d2ft --kernel --optimizer sgd --batch 4 --seq 512 --steps 8
+  python -m repro_torch.launch.train --arch gemma3-1b --full --d2ft \
+      --packed --batch 4 --seq 1024 --steps 8
+
+``--packed`` runs the packed D2FT path (``core.d2ft.packed_forward``:
+each head group gathers the samples its subnet runs), which takes
+attention blocks with a dense FFN only, and no gated kernel: it is
+exclusive with ``--kernel`` and refused on mamba2-130m, recurrentgemma-2b
+and olmoe-1b-7b.
 
 (olmoe-1b-7b's 27.7 GB of weights leave no room on one 80 GB card for
 the full fine-tune's gradients and optimizer state: ``chip_smoke.py`` runs
@@ -16,8 +24,8 @@ this loop on 8 of its 16 layers, and the full depth as D2FT-LoRA.)
 
 It runs on the card unless ``--device cpu`` is given, with a reduced
 (smoke) config unless ``--full`` is passed. The weights are random, from
-seed 0. The distributed, elastic, packed, mesh, fault-injection, resume
-and checkpoint options exit with "not ported yet".
+seed 0. The distributed, elastic, mesh, fault-injection, resume and
+checkpoint options exit with "not ported yet".
 """
 from __future__ import annotations
 
@@ -28,15 +36,15 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import D2FTConfig
+from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, D2FTConfig
 from repro_torch.data.synthetic import lm_batches
 from repro_torch.models.transformer import init_model
 from repro_torch.optim.optimizers import adamw, sgd
 from repro_torch.train.loop import TrainLog, finetune
 
 # flags of the JAX launcher whose paths come with later slices
-_NOT_PORTED = ("distributed", "elastic", "packed", "mesh", "faults",
-               "resume_from", "ckpt")
+_NOT_PORTED = ("distributed", "elastic", "mesh", "faults", "resume_from",
+               "ckpt")
 
 
 def parse_args(argv=None):
@@ -50,8 +58,8 @@ def parse_args(argv=None):
     ap.add_argument("--optimizer", choices=("sgd", "adamw"), default="adamw")
     ap.add_argument("--d2ft", action="store_true")
     ap.add_argument("--packed", action="store_true",
-                    help="use the packed D2FT execution path (not ported "
-                         "yet)")
+                    help="use the packed D2FT execution path (attention "
+                         "blocks with a dense FFN only)")
     ap.add_argument("--distributed", action="store_true",
                     help="data-parallel D2FT (not ported yet)")
     ap.add_argument("--kernel", action="store_true",
@@ -99,6 +107,11 @@ def main(argv=None) -> TrainLog:
     if args.sync_mode != "masked" or args.refresh_every is not None:
         raise SystemExit("--sync-mode/--refresh-every only apply to the "
                          "--distributed path")
+    if args.packed and args.kernel:
+        raise SystemExit("--packed and --kernel are exclusive (the packed "
+                         "gather path bypasses the gated attention kernel)")
+    if args.packed and not args.d2ft:
+        raise SystemExit("--packed runs a D2FT schedule: add --d2ft")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
     print(f"arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
@@ -106,6 +119,13 @@ def main(argv=None) -> TrainLog:
     if cfg.frontend != "none":
         raise SystemExit("text-training launcher; audio/vlm archs run "
                          "through the scripts in examples/")
+    if args.packed:
+        other = sorted(set(cfg.layer_kinds) - {ATTN_GLOBAL, ATTN_LOCAL})
+        if other or cfg.moe is not None:
+            raise SystemExit(
+                f"--packed runs attention blocks with a dense FFN only; "
+                f"{cfg.name} has " + (f"{other} blocks" if other else
+                                      "an MoE FFN"))
 
     d2 = None
     if args.d2ft:
@@ -122,7 +142,7 @@ def main(argv=None) -> TrainLog:
                          args.steps)
     t0 = time.time()
     _, _, log = finetune(model, cfg, d2, opt, batches, steps=args.steps,
-                         use_kernel=args.kernel)
+                         packed=args.packed, use_kernel=args.kernel)
     dt = time.time() - t0
     print(f"{args.steps} steps in {dt:.1f}s — loss "
           f"{log.losses[0]:.3f} -> {log.losses[-1]:.3f}")

@@ -10,8 +10,8 @@ Ported so far: dense attention blocks (global and sliding-window) with a
 dense or an MoE FFN, SSD blocks (mamba2: no FFN), RG-LRU blocks with a
 dense FFN (and so the hybrid recurrentgemma pattern), the batched serving
 prefill of the dense attention blocks, the D2FT-gated block forward
-(``apply_block``), the text-only ``forward`` with the MoE aux losses and
-the LLM loss (``fused_xent``, ``lm_loss``).
+(``apply_block``), the text-only ``forward`` (with remat) with the MoE
+aux losses and the LLM loss (``fused_xent``, ``lm_loss``).
 Gating: ``gates = (g_f, g_b)`` of shape [n_layers, B, G]; per block, the
 residual contribution is split into G head/width groups c_g and mixed as
 
@@ -33,6 +33,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import contract as kernel_contract
 
@@ -394,13 +395,12 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, features=None,
     layer, for the kernels' compaction. The layers
     run as a plain loop over the flat layer list; the MoE blocks'
     load-balance and router-z losses sum into aux_loss in layer order.
-    Frontend features, remat and the sharding branches (policy, tp) are
-    not ported yet.
+    remat checkpoints one layer at a time: the same values and gradients,
+    each layer's activations recomputed in the backward. Frontend features
+    and the sharding branches (policy, tp) are not ported yet.
     """
     if features is not None:
         raise _not_ported("the frontend (features) path of forward")
-    if remat:
-        raise _not_ported("remat (activation checkpointing)")
     if policy is not None or tp is not None:
         raise _not_ported_dist("the sharding branches of forward")
     cdt = torch_dtype(cfg.compute_dtype)
@@ -408,8 +408,13 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, features=None,
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (p, kind) in enumerate(zip(model.layers, cfg.layer_kinds)):
         lg = None if gates is None else (gates[0][i], gates[1][i])
-        x, a = apply_block(p, x, kind, cfg, lg, use_kernel=use_kernel,
-                           live_bounds=live_bounds)
+        if remat:
+            x, a = checkpoint(apply_block, p, x, kind, cfg, lg,
+                              use_kernel=use_kernel, live_bounds=live_bounds,
+                              use_reentrant=False)
+        else:
+            x, a = apply_block(p, x, kind, cfg, lg, use_kernel=use_kernel,
+                               live_bounds=live_bounds)
         if a is not None:
             aux_sum = aux_sum + a["load_balance"] + a["router_z"]
     return logits_from_hidden(model, cfg, x), {"aux_loss": aux_sum}

@@ -5,7 +5,8 @@
 ``launch/train.py`` runs); ``finetune_vit`` is the paper's ViT experiment.
 Both: optional D2FT schedule (scores -> knapsack -> gates), the masked or
 the kernel path, a global-norm clip and the optimizer update, one step per
-batch. The packed path, the sharding policy and the distributed loops come
+batch; ``finetune`` also runs the packed path (``core.d2ft.
+packed_forward``). The sharding policy and the distributed loops come
 with later slices.
 """
 from __future__ import annotations
@@ -20,12 +21,12 @@ import torch
 from repro_torch.configs.base import D2FTConfig, ModelConfig
 from repro_torch.core import d2ft as d2ft_mod
 from repro_torch.core.schedule import (Schedule, gates_from_schedule,
-                                       live_slice_bounds)
+                                       live_slice_bounds, packed_indices)
 from repro_torch.core.scores import compute_scores, transformer_blocks
 from repro_torch.data.synthetic import (microbatch_assignment,
                                         split_microbatches)
 from repro_torch.kernels.ops import _validate_gates
-from repro_torch.models.transformer import Transformer, lm_loss
+from repro_torch.models.transformer import Transformer, fused_xent, lm_loss
 from repro_torch.models.vit import ViT, ViTConfig, vit_forward, vit_loss
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 
@@ -57,28 +58,36 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, use_gates: bool,
     opt_state, metrics), updating the model's parameters in place.
 
     batch: {"tokens", "labels"} tensors on the model's device; sched_args:
-    the (g_f, g_b) gates [n_layers, B, G] when ``use_gates``. use_kernel
-    routes the attention, SSD, RG-LRU and MoE blocks through the gated
-    kernels, whose backward skips the p_o / p_s slices. live_bounds: the
-    (live_fwd, live_bwd) (sample, group) compaction bounds
-    (``core.schedule.live_slice_bounds``) of the gates this step gets. The
-    packed path and the sharding policy are not ported yet."""
-    if packed:
-        raise NotImplementedError(
-            "the packed D2FT path is not ported yet")
+    the (g_f, g_b) gates [n_layers, B, G] when ``use_gates``, or with
+    ``packed`` the plan (idx, bwd, val) [n_layers, G, C]
+    (``core.schedule.packed_indices``) that ``core.d2ft.packed_forward``
+    runs, whose loss is the mean token cross-entropy (no aux term, as the
+    reference's). use_kernel routes the attention, SSD, RG-LRU and MoE
+    blocks through the gated kernels, whose backward skips the p_o / p_s
+    slices; the packed path runs no kernel and ignores it. live_bounds:
+    the (live_fwd, live_bwd) (sample, group) compaction bounds
+    (``core.schedule.live_slice_bounds``) of the gates this step gets.
+    remat checkpoints each layer. The sharding policy is not ported
+    yet."""
     if policy is not None:
         raise NotImplementedError(
             "the sharding policy is not ported yet: it comes with the "
             "distributed slice")
 
+    def loss_of(model, batch, sched_args):
+        if packed:
+            logits, _ = d2ft_mod.packed_forward(model, cfg, batch["tokens"],
+                                                sched_args, remat=remat)
+            ce = fused_xent(logits, batch["labels"])
+            return ce, {"ce": ce}
+        gates = sched_args if use_gates else None
+        return lm_loss(model, cfg, batch.get("tokens"), batch["labels"],
+                       gates=gates, remat=remat, use_kernel=use_kernel,
+                       live_bounds=live_bounds if use_gates else None)
+
     def step(model: Transformer, opt_state, batch, sched_args=None):
         params = dict(model.named_parameters())
-        gates = sched_args if use_gates else None
-        loss, metrics = lm_loss(model, cfg, batch.get("tokens"),
-                                batch["labels"], gates=gates, remat=remat,
-                                use_kernel=use_kernel,
-                                live_bounds=live_bounds if use_gates
-                                else None)
+        loss, metrics = loss_of(model, batch, sched_args)
         grads, gnorm = clip_by_global_norm(_grads(loss, params), clip)
         opt.update(grads, opt_state, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -110,10 +119,12 @@ def finetune(model: Transformer, cfg: ModelConfig, d2: Optional[D2FTConfig],
     and the knapsack on the first batch's micro-batches, then per batch the
     gates and the live-slice bounds of that batch's micro-batch split. The
     gates are checked once per step on the host. Runs on the model's
-    device; ``batches`` yields numpy {"tokens", "labels"}. Returns (model,
-    opt_state, log); the model is updated in place."""
-    if packed:
-        raise NotImplementedError("the packed D2FT path is not ported yet")
+    device; ``batches`` yields numpy {"tokens", "labels"}. With
+    ``packed`` each batch's gather plan (``packed_indices``) replaces the
+    gates, and crosses to the device before the step, as the gates do.
+    Returns (model, opt_state, log); the model is updated in place."""
+    if packed and d2 is None:
+        raise ValueError("the packed path runs a D2FT schedule: pass d2")
     log = log or TrainLog()
     dev = next(model.parameters()).device
     opt_state = opt.init(dict(model.named_parameters()))
@@ -136,11 +147,16 @@ def finetune(model: Transformer, cfg: ModelConfig, d2: Optional[D2FTConfig],
         if d2 is not None:
             B = batch["labels"].shape[0]
             mb_of = microbatch_assignment(B, d2.n_microbatches)
-            g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")
-            if use_kernel:
-                bounds = live_slice_bounds(sched, mb_of)
-            _check_schedule_gates(g_f, g_b, bounds)
-            sched_args = (g_f.to(dev), g_b.to(dev))
+            if packed:
+                plan = packed_indices(sched, mb_of)[:3]
+                sched_args = tuple(torch.as_tensor(a, device=dev)
+                                   for a in plan)
+            else:
+                g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")
+                if use_kernel:
+                    bounds = live_slice_bounds(sched, mb_of)
+                _check_schedule_gates(g_f, g_b, bounds)
+                sched_args = (g_f.to(dev), g_b.to(dev))
         # the JAX package caches a jitted step per bounds pair; an eager
         # step costs nothing to make
         step_fn = make_train_step(cfg, opt, use_gates=d2 is not None,

@@ -12,7 +12,8 @@ path and on the kernel path (whose CPU route is the kernels' plain
 version), logits, loss and gradients within 1e-5; the scores over
 ``transformer_blocks`` and the schedule they give; a 3-step D2FT
 ``finetune`` within 1e-4 of JAX's, losses and parameters; the SSD H % G
-!= 0 branch's fallback report; the launcher on the CPU.
+!= 0 branch's fallback report; the launcher on the CPU, on the packed
+path too, and what it refuses.
 """
 import functools
 
@@ -268,12 +269,36 @@ def test_launcher_runs_the_fine_tune_on_the_cpu(capsys):
     assert len(log.losses) == 2 and np.isfinite(log.losses).all()
 
 
-@pytest.mark.parametrize("flag", ["--distributed", "--elastic", "--packed",
+@pytest.mark.parametrize("flag", ["--distributed", "--elastic",
                                   "--mesh=data=2", "--faults=f.json",
                                   "--resume-from=c.npz", "--ckpt=c.npz"])
 def test_launcher_refuses_what_is_not_ported(flag):
     with pytest.raises(SystemExit, match="not ported yet"):
         launcher.main(["--arch", "mamba2-130m", flag, "--device", "cpu"])
+
+
+def test_launcher_runs_the_packed_path_on_the_cpu(capsys):
+    log = launcher.main(["--arch", "gemma3-1b", "--d2ft", "--packed",
+                         "--batch", "8", "--seq", "16", "--steps", "2",
+                         "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "arch=gemma3-1b layers=7 d_model=128 device=cpu"
+    assert out[2].startswith("2 steps in ")
+    assert len(log.losses) == 2 and np.isfinite(log.losses).all()
+    assert set(log.metrics[0]) == {"ce", "loss", "grad_norm"}
+
+
+@pytest.mark.parametrize("arch,argv,match", [
+    ("gemma3-1b", ["--kernel"], "--packed and --kernel are exclusive"),
+    ("gemma3-1b", [], "add --d2ft"),
+    ("mamba2-130m", ["--d2ft"], r"\['ssd'\] blocks"),
+    ("recurrentgemma-2b", ["--d2ft"], r"\['rglru'\] blocks"),
+    ("olmoe-1b-7b", ["--d2ft"], "an MoE FFN")])
+def test_launcher_refuses_what_the_packed_path_cannot_run(arch, argv,
+                                                          match):
+    with pytest.raises(SystemExit, match=match):
+        launcher.main(["--arch", arch, "--packed", "--steps", "1",
+                       "--device", "cpu"] + argv)
 
 
 def test_launcher_without_device_refuses_silent_cpu():
