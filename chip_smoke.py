@@ -26,9 +26,11 @@ Phases, one line each (any failure raises and exits non-zero):
    returns, and the greedy tokens equal those of the plain gather path.
    Then a profiler window over five decode steps of the four longest
    requests: device busy and idle share per step, top kernels; and the
-   host time per step that ``ops.paged_decode_attention`` spends outside
-   the kernel launcher (its checks and the page-id range check's device
-   sync), over five more steps without the profiler.
+   host time per step of the page-id range check and of the paged entry
+   outside its kernel launcher, over five more steps without the
+   profiler: as the engine runs (one check of its host table a step) and
+   with a check of the device table at every layer, as the checked entry
+   makes (one device sync each).
 5. kernel timing — CUDA-event times of the decode launcher call and of its
    kernels alone (output and workspace allocated outside the window), its
    plain version and one PyTorch library call (gather +
@@ -243,6 +245,24 @@ Phases, one line each (any failure raises and exits non-zero):
    20 steps on the packed, kernel and masked paths (finite losses, p50
    step ms) and ``quickstart.run`` (both top-1s).
 
+24. serving the recurrent and MoE families — through the paged engine,
+   random weights from seed 0, f32, page size 16, 4 slots: (a)
+   recurrentgemma-2b at full size (26 layers, d 2560, its local
+   attention's 10 query heads on 1 KV head of 256 through the decode
+   kernel at window 2048), 8 requests with prompts of 24 to 2040 tokens,
+   two of which pass 2048 tokens in decode: launches == 8 x decode steps,
+   every request finishes, every page returns, tokens equal the gather
+   path's and, for the two that cross the window, ``generate``'s on each
+   alone; p50 decode step and time to first token, a profiler window over
+   5 decode steps. (b) mamba2-130m at full size, the same trace without
+   the kernel: tokens equal ``generate``'s request by request, the
+   prefill dump's SSD state within 1e-4 relative of
+   ``prefill_sequential``'s on a 64-token prompt; its profile. (c)
+   olmoe-1b-7b at full width and depth (64 experts top 8), prompts of 24
+   to 1024: launches == 16 x decode steps, tokens equal the gather
+   path's, pages return; its profile. (d) the serve example at its smoke
+   configs.
+
 Then one JSON line of the 13 kernel records, the card line again, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a card or without the repo's sources beside this file.
@@ -342,6 +362,16 @@ PK_PROFILE_BUDGET = (2, 1)
 PK_REMAT_STEPS = 2
 PK_EXAMPLE_STEPS = 20              # the LLM example's steps on each path
 
+# serving the recurrent and MoE families (phase 24): recurrentgemma-2b's
+# and mamba2-130m's trace, prompts 24 to 2040, two of whose requests pass
+# recurrentgemma-2b's 2048 window during decode (2030 + 32, 2040 + 24);
+# olmoe-1b-7b's, prompts 24 to 1024
+RS_PROMPTS = (24, 300, 700, 1100, 1500, 1900, 2030, 2040)
+RS_NEW = (32, 32, 32, 32, 24, 24, 32, 24)
+MO_SERVE_PROMPTS = (24, 130, 256, 400, 511, 700, 900, 1024)
+MO_SERVE_NEW = (16, 16, 16, 16, 16, 16, 16, 16)
+MO_SERVE_LAYERS = 16
+
 
 def card_line() -> str:
     return subprocess.run(
@@ -385,47 +415,64 @@ def bound(lengths, window, *, H, n_kv, hd, n_pmax, itemsize=4):
                                        else "operations")
 
 
-def page_check_host_time(torch, engine, reqs, n_steps):
-    """Host ms per decode step that ``ops.paged_decode_attention`` spends
-    outside ``paged_flash_decode``: its shape checks and the page-id range
-    check, whose ``.tolist()`` waits for the device once a call (the time
-    the host then blocks is part of it). Measured by wrapping the entry
-    where the decode step calls it and the launcher where the entry calls
-    it, over n_steps decode steps of ``reqs``; returns (ms per step,
-    calls per step, wall ms per step)."""
+def page_check_host_time(torch, new_engine, reqs, n_steps):
+    """Host ms per decode step that the page-id range check and the paged
+    entry's work outside the kernel launcher take, two ways, each over
+    n_steps decode steps of ``reqs`` in a fresh engine from
+    ``new_engine()``: as the engine runs (one ``check_page_ids`` of its
+    host table a step, then the unchecked entry ``_paged_decode_impl`` at
+    every attention layer), and with a range check of the device table
+    added before every layer's entry, as the checked entry
+    ``ops.paged_decode_attention`` does (its ``.tolist()`` waits for the
+    device once a call; the time the host then blocks is part of it).
+    The two run in turns (step, per layer, per layer, step). Returns
+    {mode: [(host ms per step, range checks per step, entry calls per
+    step, wall ms per step), ...]} for modes "step" and "per_layer"."""
     import repro_torch.kernels.ops as kops
-    import repro_torch.serving.paged_decode as spd
-    outer, inner = [], []
+    import repro_torch.serving.engine as seng
+    entry, launcher, check = (kops._paged_decode_impl,
+                              kops.paged_flash_decode, seng.check_page_ids)
+    result = {"step": [], "per_layer": []}
+    for mode in ("step", "per_layer", "per_layer", "step"):
+        outer, inner, checks = [], [], []
 
-    def timed(fn, sink):
-        def call(*a, **k):
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            sink.append(time.perf_counter() - t)
-            return out
-        return call
+        def timed(fn, sink, per_layer=False):
+            def call(*a, **k):
+                t = time.perf_counter()
+                if per_layer:
+                    kops.check_page_ids(a[3], a[1].shape[0])
+                out = fn(*a, **k)
+                sink.append(time.perf_counter() - t)
+                return out
+            return call
 
-    for r in reqs:
-        engine.submit(r)
-    engine.step()                                  # admits all of them
-    torch.cuda.synchronize()
-    entry, launcher = spd.paged_decode_attention, kops.paged_flash_decode
-    spd.paged_decode_attention = timed(entry, outer)
-    kops.paged_flash_decode = timed(launcher, inner)
-    try:
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            engine.step()
+        engine = new_engine()
+        for r in reqs:
+            engine.submit(r)
+        engine.step()                              # admits all of them
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        spd.paged_decode_attention = entry
-        kops.paged_flash_decode = launcher
-    if len(outer) != len(inner) or not outer:
-        raise AssertionError(f"{len(outer)} entry calls, {len(inner)} "
-                             "launcher calls")
-    return (1e3 * (sum(outer) - sum(inner)) / n_steps,
-            len(outer) // n_steps, 1e3 * wall / n_steps)
+        n_checks = kops.check_page_ids.calls
+        kops._paged_decode_impl = timed(entry, outer, mode == "per_layer")
+        kops.paged_flash_decode = timed(launcher, inner)
+        seng.check_page_ids = timed(check, checks)
+        try:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                engine.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            kops._paged_decode_impl = entry
+            kops.paged_flash_decode = launcher
+            seng.check_page_ids = check
+        if len(outer) != len(inner) or not outer:
+            raise AssertionError(f"{len(outer)} entry calls, {len(inner)} "
+                                 "launcher calls")
+        result[mode].append((
+            1e3 * (sum(outer) - sum(inner) + sum(checks)) / n_steps,
+            (kops.check_page_ids.calls - n_checks) / n_steps,
+            len(outer) / n_steps, 1e3 * wall / n_steps))
+    return result
 
 
 # decode shapes of configs whose serving is not ported yet, held and timed
@@ -2527,18 +2574,23 @@ def moe_dw_launches(torch, xb, wu, wg, wd, dy, fs, bs, *, act, live, live_b,
     from repro_torch.kernels import ops
 
     def step():
+        # the host waits 20 ms inside the window before it launches: at the
+        # N(0, 1) cases' 4 experts the call's kernels take microseconds, and
+        # a window that starts right before them has lost all but the last
+        # two (the dW kernels) three times in a row late in this process
+        time.sleep(0.02)
         ins = [xb.clone().requires_grad_()] + [
             w.clone().requires_grad_(n) for w, n in zip((wu, wg, wd), need)]
         ops.gated_moe_ffn(*ins, fs, bs, act=act, block_c=MO_BLOCK_C,
                           live_slots=live, live_bwd_slots=live_b).backward(dy)
     # every backward launches its dx kernel once: a window without it lost
-    # CUPTI's records (seen once on the card, with the forward's kernels
-    # gone too), so take it again, and say so
-    for attempt in range(1, 4):
+    # CUPTI's records (seen on the card, with the forward's kernels gone
+    # too), so take it again, and say so
+    for attempt in range(1, 6):
         named = profile_steps(torch, step, "moe_", n_prof=1)[-1]
         if "moe_bwd_dx_kernel" in named:
             break
-        print(f"[profile] MoE window {attempt} of 3 lost the backward's dx "
+        print(f"[profile] MoE window {attempt} of 5 lost the backward's dx "
               f"kernel (saw {sorted(named)})", flush=True)
     return dw_launches(named), {k: n for k, (_, n) in named.items()}
 
@@ -3472,6 +3524,261 @@ def packed_examples(torch, np, tag):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def family_requests(np, cfg, prompts, news, seed=0):
+    from repro_torch.serving.engine import Request
+    rng = np.random.RandomState(seed)
+    return [Request(uid=i, prompt=rng.randint(0, cfg.vocab_size, size=s)
+                    .astype(np.int32), max_new_tokens=m)
+            for i, (s, m) in enumerate(zip(prompts, news))]
+
+
+def serve_trace(torch, np, model, cfg, reqs, use_kernel, *, warm=False):
+    """Serve ``reqs`` through a fresh engine (4 slots, page size 16, the
+    pool the trace's worst case needs); with ``warm``, one short request
+    through another engine first. Returns (out, engine, decode-step s,
+    prefill s per request in admission order, kernel launches, run s).
+    Fails unless every request finishes with its prompt kept and every
+    page returns."""
+    from repro_torch.kernels.paged_decode import paged_flash_decode
+    from repro_torch.serving.engine import PagedServingEngine, Request
+    from repro_torch.serving.pages import pages_needed
+    max_seq = max(r.prompt_len + r.max_new_tokens for r in reqs)
+    kw = dict(page_size=PAGE_SIZE, max_slots=MAX_SLOTS, max_seq_len=max_seq,
+              n_pages=MAX_SLOTS * pages_needed(max_seq, PAGE_SIZE) + 1,
+              use_kernel=use_kernel)
+    if warm:
+        PagedServingEngine(model, cfg, **kw).run(
+            [Request(uid=0, prompt=reqs[0].prompt, max_new_tokens=4)])
+    eng = PagedServingEngine(model, cfg, **kw)
+    step_s, prefill_s = [], []
+
+    def timed(fn, sink):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            sink.append(time.perf_counter() - t)
+            return out
+        return call
+
+    eng._prefill = timed(eng._prefill, prefill_s)
+    eng._step = timed(eng._step, step_s)
+    before = paged_flash_decode.launches
+    t0 = time.perf_counter()
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    for r in reqs:
+        got = out.get(r.uid)
+        if got is None or len(got) != r.prompt_len + r.max_new_tokens or \
+                not np.array_equal(got[:r.prompt_len], r.prompt) or \
+                got.min() < 0 or got.max() >= cfg.vocab_size:
+            raise AssertionError(f"{cfg.name}: request {r.uid} did not "
+                                 "finish cleanly")
+    if eng.pm.n_free != eng.pm.capacity or eng.n_live or eng.waiting:
+        raise AssertionError(f"{cfg.name}: pages leaked: {eng.stats()}")
+    return (out, eng, step_s, prefill_s,
+            paged_flash_decode.launches - before, run_s)
+
+
+def first_difference(torch, model, cfg, req, mine, theirs, what):
+    """Raise naming the first token where two greedy runs of ``req``
+    differ, with the plain forward's two top logits at that step (so a
+    near tie shows as one)."""
+    from repro_torch.models.transformer import forward
+    pos = next(i for i in range(len(mine)) if mine[i] != theirs[i])
+    with torch.inference_mode():
+        logits, _ = forward(model, cfg, torch.as_tensor(
+            mine[None, :pos], device="cuda").long())
+    top = torch.topk(logits[0, -1], 2)
+    raise AssertionError(
+        f"{cfg.name}, request {req.uid} (prompt {req.prompt_len}): {what} "
+        f"differ first at position {pos} ({int(mine[pos])} against "
+        f"{int(theirs[pos])}); the forward's top two logits there "
+        f"{top.values.tolist()} at {top.indices.tolist()}")
+
+
+def serve_line(np, cfg, eng, reqs, step_s, prefill_s, run_s, tag):
+    n_gen = sum(r.max_new_tokens for r in reqs)
+    print(f"[serve families] {cfg.name}: {eng.n_steps} decode steps, p50 "
+          f"decode step ms {1e3 * float(np.median(step_s)):.3f} (min "
+          f"{1e3 * min(step_s):.3f}, max {1e3 * max(step_s):.3f}); time to "
+          f"first token (the admission's prefill call) p50 "
+          f"{1e3 * float(np.median(prefill_s)):.2f} ms, per prompt "
+          + ", ".join(f"{r.prompt_len}: {1e3 * t:.1f}"
+                      for r, t in zip(reqs, prefill_s))
+          + f"; generated tokens/s {n_gen / run_s:.2f} ({n_gen} tokens in "
+          f"{run_s:.3f} s incl. prefill) {tag}", flush=True)
+
+
+def serve_profile(torch, model, cfg, eng, reqs, key, use_kernel, tag):
+    """A profiler window over 5 decode steps of the trace's four longest
+    requests in a fresh engine shaped as ``eng``: busy and idle share, top
+    kernels, and the share of busy time of the kernels whose name holds
+    ``key``."""
+    from repro_torch.serving.engine import PagedServingEngine
+    prof_eng = PagedServingEngine(model, cfg, page_size=PAGE_SIZE,
+                                  max_slots=MAX_SLOTS,
+                                  max_seq_len=eng.max_seq_len,
+                                  n_pages=eng.pm.n_pages,
+                                  use_kernel=use_kernel)
+    for r in reqs[-MAX_SLOTS:]:
+        prof_eng.submit(r)
+    prof_eng.step()                                # admits all four
+    prof = profile_steps(torch, prof_eng.step, key, n_prof=5)
+    print_profile(f"{cfg.name}, 5 decode steps, 4 live slots (prompts "
+                  f"{[r.prompt_len for r in reqs[-MAX_SLOTS:]]})", prof, key,
+                  tag)
+
+
+def serve_families(torch, np, tag):
+    """Phase 24. Returns B10's launches over the phase's kernel-path
+    engine runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL
+    from repro_torch.examples import serve
+    from repro_torch.models.transformer import init_model, prefill_forward
+    from repro_torch.serving.decode import generate, prefill_sequential
+    t_phase = time.perf_counter()
+    launches = 0
+
+    def attn_layers(cfg):
+        return sum(k in (ATTN_GLOBAL, ATTN_LOCAL) for k in cfg.layer_kinds)
+
+    def model_of(cfg):
+        with torch.no_grad():
+            return init_model(torch.Generator(device="cuda").manual_seed(0),
+                              cfg)
+
+    # (a) recurrentgemma-2b: B10 at rep 10, window 2048, crossed in decode
+    t0 = time.perf_counter()
+    cfg = get_config("recurrentgemma-2b")
+    model = model_of(cfg)
+    reqs = family_requests(np, cfg, RS_PROMPTS, RS_NEW)
+    out, eng, step_s, prefill_s, n_k, run_s = serve_trace(
+        torch, np, model, cfg, reqs, True, warm=True)
+    n_attn = attn_layers(cfg)
+    if n_k != n_attn * eng.n_steps or n_k == 0:
+        raise AssertionError(f"recurrentgemma-2b: kernel launches {n_k} != "
+                             f"{n_attn} x {eng.n_steps} decode steps")
+    launches += n_k
+    plain, *_ = serve_trace(torch, np, model, cfg, reqs, False)
+    for r in reqs:
+        if not np.array_equal(out[r.uid], plain[r.uid]):
+            first_difference(torch, model, cfg, r, out[r.uid],
+                             plain[r.uid], "kernel and gather-path tokens")
+    crossing = [r for r in reqs
+                if r.prompt_len + r.max_new_tokens > cfg.window]
+    if len(crossing) < 2:
+        raise AssertionError("fewer than two requests cross the window")
+    for r in crossing:
+        alone = generate(model, cfg, torch.as_tensor(
+            r.prompt[None], device="cuda").long(), r.max_new_tokens)
+        alone = alone[0].cpu().numpy()
+        if not np.array_equal(out[r.uid], alone):
+            first_difference(torch, model, cfg, r, out[r.uid], alone,
+                             "engine and generate tokens")
+    print(f"[serve families] recurrentgemma-2b full size ({cfg.n_layers} "
+          f"layers: {cfg.n_layers - n_attn} RG-LRU, {n_attn} local attention "
+          f"of {cfg.n_heads} heads on {cfg.n_kv_heads} KV head of "
+          f"{cfg.resolved_head_dim}, window {cfg.window}; d {cfg.d_model}, "
+          f"f32, seed 0), "
+          f"{len(reqs)} requests / {MAX_SLOTS} slots, prompts "
+          f"{list(RS_PROMPTS)}, new {list(RS_NEW)}: paged_decode launches "
+          f"{n_k} = {n_attn} x {eng.n_steps}, all finished, pool drained, "
+          f"tokens == gather path; requests "
+          f"{[r.uid for r in crossing]} pass {cfg.window} tokens in decode "
+          f"and equal generate run on each alone "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    serve_line(np, cfg, eng, reqs, step_s, prefill_s, run_s, tag)
+    serve_profile(torch, model, cfg, eng, reqs, "paged_decode", True, tag)
+    del model, eng
+    torch.cuda.empty_cache()
+
+    # (b) mamba2-130m: the same trace shape, SSD state in the slots
+    t0 = time.perf_counter()
+    cfg = get_config("mamba2-130m")
+    model = model_of(cfg)
+    reqs = family_requests(np, cfg, RS_PROMPTS, RS_NEW)
+    out, eng, step_s, prefill_s, n_k, run_s = serve_trace(
+        torch, np, model, cfg, reqs, False, warm=True)
+    if n_k:
+        raise AssertionError(f"mamba2-130m launched paged_decode {n_k} times")
+    for r in reqs:
+        alone = generate(model, cfg, torch.as_tensor(
+            r.prompt[None], device="cuda").long(), r.max_new_tokens)
+        alone = alone[0].cpu().numpy()
+        if not np.array_equal(out[r.uid], alone):
+            first_difference(torch, model, cfg, r, out[r.uid], alone,
+                             "engine and generate tokens")
+    toks = torch.as_tensor(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (1, 64)), device="cuda").long()
+    with torch.inference_mode():
+        _, dumped = prefill_forward(model, cfg, toks, raw_kv=True)
+        _, seq = prefill_sequential(model, cfg, toks, 64)
+    rel = max(float((a["state"] - b["state"]).abs().max()
+                    / b["state"].abs().max()) for a, b in zip(dumped, seq))
+    if not rel <= 1e-4:
+        raise AssertionError(f"mamba2-130m: the prefill dump's SSD state is "
+                             f"{rel:.3e} relative from prefill_sequential's")
+    print(f"[serve families] mamba2-130m full size ({cfg.n_layers} SSD "
+          f"layers, d {cfg.d_model}, chunk {cfg.ssm.chunk}, f32, seed 0), "
+          f"the same "
+          f"trace: all finished, pool drained, tokens == generate on each "
+          f"request alone; the prefill dump's SSD state on a 64-token "
+          f"prompt {rel:.3e} relative from prefill_sequential's (<= 1e-4) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    serve_line(np, cfg, eng, reqs, step_s, prefill_s, run_s, tag)
+    serve_profile(torch, model, cfg, eng, reqs, "gemm", False, tag)
+    del model, eng
+    torch.cuda.empty_cache()
+
+    # (c) olmoe-1b-7b: 64 experts top 8 in every layer, B10 at rep 1
+    t0 = time.perf_counter()
+    full = get_config("olmoe-1b-7b")
+    cfg = full.replace(n_layers=min(full.n_layers, MO_SERVE_LAYERS))
+    model = model_of(cfg)
+    init_s = time.perf_counter() - t0
+    reqs = family_requests(np, cfg, MO_SERVE_PROMPTS, MO_SERVE_NEW)
+    out, eng, step_s, prefill_s, n_k, run_s = serve_trace(
+        torch, np, model, cfg, reqs, True, warm=True)
+    n_attn = attn_layers(cfg)
+    if n_k != n_attn * eng.n_steps or n_k == 0:
+        raise AssertionError(f"olmoe-1b-7b: kernel launches {n_k} != "
+                             f"{n_attn} x {eng.n_steps} decode steps")
+    launches += n_k
+    plain, *_ = serve_trace(torch, np, model, cfg, reqs, False)
+    for r in reqs:
+        if not np.array_equal(out[r.uid], plain[r.uid]):
+            first_difference(torch, model, cfg, r, out[r.uid],
+                             plain[r.uid], "kernel and gather-path tokens")
+    print(f"[serve families] olmoe-1b-7b full width ({cfg.n_layers} of "
+          f"{full.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, "
+          f"{cfg.moe.n_experts} experts top {cfg.moe.top_k}, "
+          f"f32, seed 0; init {init_s:.1f} s), {len(reqs)} requests / "
+          f"{MAX_SLOTS} slots, prompts {list(MO_SERVE_PROMPTS)}, new "
+          f"{list(MO_SERVE_NEW)}: paged_decode launches {n_k} = {n_attn} x "
+          f"{eng.n_steps}, all finished, pool drained, tokens == gather "
+          f"path ({time.perf_counter() - t0:.1f} s)", flush=True)
+    serve_line(np, cfg, eng, reqs, step_s, prefill_s, run_s, tag)
+    serve_profile(torch, model, cfg, eng, reqs, "paged_decode", True, tag)
+    del model, eng
+    torch.cuda.empty_cache()
+
+    # (d) the serve example at its smoke configs
+    t0 = time.perf_counter()
+    outs = serve.run(torch.device("cuda"))
+    for arch, o in outs.items():
+        if tuple(o.shape) != (serve.BATCH, serve.PROMPT + serve.NEW):
+            raise AssertionError(f"serve example, {arch}: {tuple(o.shape)}")
+    print(f"[serve families] the serve example: {sorted(outs)} in "
+          f"{time.perf_counter() - t0:.1f} s; phase 24 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3678,15 +3985,26 @@ def main() -> int:
     print("[profile] top device time per step: " + "; ".join(
         f"{k[:60]} x{c // n_prof}: {t / 1e3 / n_prof:.3f} ms"
         for t, c, k in dev[:6]), flush=True)
-    check_ms, calls, chk_wall = page_check_host_time(
-        torch, PagedServingEngine(eng.model, cfg, use_kernel=True, **kw),
+    checks = page_check_host_time(
+        torch, lambda: PagedServingEngine(eng.model, cfg, use_kernel=True,
+                                          **kw),
         reqs[-MAX_SLOTS:], n_prof)
-    print(f"[profile] ops.paged_decode_attention outside its kernel "
-          f"launcher (shape checks and the page-id range check, whose "
-          f".tolist() is the call's one device sync): {check_ms:.3f} ms of "
-          f"host time per decode step over {calls} calls a step, "
-          f"{check_ms / chk_wall:.1%} of the {chk_wall:.3f} ms step (no "
-          f"profiler) {tag}", flush=True)
+    counts = {(r[1], r[2]) for m in checks.values() for r in m}
+    calls = checks["step"][0][2]
+    if counts != {(1, calls), (1 + calls, calls)}:
+        raise AssertionError(f"range checks and entry calls per step: "
+                             f"{checks}")
+
+    def both(mode):
+        return ", ".join(f"{ms:.3f} ms of a {wall:.3f} ms step"
+                         for ms, _, _, wall in checks[mode])
+    print(f"[profile] page-id range check and the paged entry outside its "
+          f"kernel launcher, host time per decode step over {n_prof} steps "
+          f"(no profiler; in turns): with the engine's one check of its "
+          f"host table a step ({calls:g} entry calls a step) {both('step')}"
+          f"; with a check of the device table at every layer, as the "
+          f"checked entry makes ({1 + calls:g} checks a step, each a device "
+          f"sync) {both('per_layer')} {tag}", flush=True)
 
     # 5. kernel timing ----------------------------------------------------
     final = sorted(s + m - 1 for s, m in zip(PROMPT_LENS, MAX_NEW))[-4:]
@@ -3812,6 +4130,10 @@ def main() -> int:
     # 23. the packed D2FT path on gemma3-1b; the two examples -------------
     packed_finetune(torch, np, tag)
     packed_examples(torch, np, tag)
+    torch.cuda.empty_cache()
+
+    # 24. serving the recurrent and MoE families; the serve example -------
+    serve_families(torch, np, tag)
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{

@@ -70,13 +70,16 @@ KERNEL_SHAPES = ((16, 16), (64, 128))
 
 
 # ========================================================= plain versions
-def ssd_scan_ref(x, da, Bm, Cm, chunk: int, *, return_prevs: bool = False):
+def ssd_scan_ref(x, da, Bm, Cm, chunk: int, *, return_prevs: bool = False,
+                 return_final_state: bool = False):
     """Ungated SSD chunked scan (``repro/kernels/ref.py::ssd_scan_ref``).
     x: [B,S,H,P]; da: [B,S,H]; Bm, Cm: [B,S,N]; S a multiple of
     min(chunk, S). Returns y [B,S,H,P] and, with ``return_prevs``, the state
     entering each chunk [B,nc,H,P,N] (float32, or float64 for float64
     inputs: the on-card checks evaluate this version in float64 as the
-    reference of the float32 kernels).
+    reference of the float32 kernels); or, with ``return_final_state``, the
+    state after the last row [B,H,P,N] (the serving prefill's decode
+    state; zero-padded rows are identity updates).
 
     One deliberate difference from the JAX package: the causal decay is
     ``exp(where(causal, diff, -inf))`` instead of ``where(causal,
@@ -120,6 +123,8 @@ def ssd_scan_ref(x, da, Bm, Cm, chunk: int, *, return_prevs: bool = False):
     y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cc.to(acc), prev_states) \
         * torch.exp(cum)[..., None]
     y = (y_intra.to(acc) + y_inter).reshape(Bsz, S, H, P).to(x.dtype)
+    if return_final_state:
+        return y, carry
     return (y, prev_states) if return_prevs else y
 
 

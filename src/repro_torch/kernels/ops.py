@@ -22,6 +22,28 @@ from repro_torch.kernels.paged_decode import (paged_decode_ref,
                                               paged_flash_decode)
 
 
+def check_page_ids(page_table, n_pages: int) -> None:
+    """The page-id range check of ``paged_decode_attention``: every table
+    entry must be a valid page id in [0, n_pages), or a kernel would read
+    outside the pools. A numpy table is read where it lies; a tensor's range
+    is read on the host, one device synchronisation on CUDA. Counted in
+    ``check_page_ids.calls``. The serving engine checks its host copy of
+    the table once a decode step; a direct call of ``paged_decode_step``
+    checks its table once a step; the entry below checks on every call."""
+    check_page_ids.calls += 1
+    if isinstance(page_table, np.ndarray):
+        lo, hi = int(page_table.min()), int(page_table.max())
+    else:
+        lo, hi = torch.stack(torch.aminmax(page_table)).tolist()
+    if lo < 0 or hi >= n_pages:
+        raise ValueError(
+            f"page_table entries must be valid page ids in [0, "
+            f"{n_pages}): got range [{lo}, {hi}]")
+
+
+check_page_ids.calls = 0
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
                            g_f=None, *, window: int = 0):
     """One token per sequence against a paged KV cache.
@@ -34,8 +56,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
     forward gates — serving is schedule-free so the default is all-ones;
     gated-off heads write zeros. Returns [B, H, hd].
 
-    The page-id range check reads the table on the host, which costs one
-    device synchronisation per call on CUDA tensors.
+    The page-id range check (``check_page_ids``) reads the table on the
+    host, which costs one device synchronisation per call on CUDA tensors;
+    the decode step checks once a step and calls ``_paged_decode_impl``.
     """
     B, H, hd = q.shape
     if q.shape[-1] != k_pages.shape[-1]:
@@ -48,17 +71,21 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
         raise ValueError(
             f"page_table/lengths batch mismatch: {tuple(page_table.shape)}, "
             f"{tuple(lengths.shape)}, B={B}")
-    if g_f is None:
-        g_f = torch.ones((B, H), dtype=torch.float32, device=q.device)
-    elif tuple(g_f.shape) != (B, H):
+    if g_f is not None and tuple(g_f.shape) != (B, H):
         raise ValueError(f"g_f must be [B={B}, H={H}], got "
                          f"{tuple(g_f.shape)}")
-    n_pages = k_pages.shape[0]
-    lo, hi = torch.stack(torch.aminmax(page_table)).tolist()
-    if lo < 0 or hi >= n_pages:
-        raise ValueError(
-            f"page_table entries must be valid page ids in [0, "
-            f"{n_pages}): got range [{lo}, {hi}]")
+    check_page_ids(page_table, k_pages.shape[0])
+    return _paged_decode_impl(q, k_pages, v_pages, page_table, lengths, g_f,
+                              window=window)
+
+
+def _paged_decode_impl(q, k_pages, v_pages, page_table, lengths, g_f=None,
+                       *, window: int = 0):
+    """``paged_decode_attention`` without its checks: the caller has
+    checked the table's page ids (once a decode step, not once a layer).
+    CPU tensors take the plain version, CUDA tensors the kernels."""
+    if g_f is None:
+        g_f = torch.ones(q.shape[:2], dtype=torch.float32, device=q.device)
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pages, v_pages, page_table, lengths,
                                 g_f, window=window)
@@ -148,14 +175,19 @@ def _scan_pad(S: int, chunk: int):
 def _padded_scan(scan, operands, *args, chunk: int, **kw):
     """``scan(*operands, *args, chunk=Q, **kw)`` on operands zero-padded
     along their sequence dimension (dim 1) to a chunk multiple
-    (``_scan_pad``), the output sliced back to S."""
+    (``_scan_pad``), the output sliced back to S (the first of a tuple
+    output; the others, such as a final state, pass through)."""
     S = operands[0].shape[1]
     Q, Sp = _scan_pad(S, chunk)
     if Sp != S:
         operands = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, Sp - S))
                     for t in operands]
     y = scan(*operands, *args, chunk=Q, **kw)
-    return y[:, :S] if Sp != S else y
+    if Sp == S:
+        return y
+    if isinstance(y, tuple):            # (y, extras): only y has the S axis
+        return (y[0][:, :S],) + tuple(y[1:])
+    return y[:, :S]
 
 
 def _gated_ssd_impl(x, da, Bm, Cm, g_f, g_b, *, chunk: int, live_fwd=None,

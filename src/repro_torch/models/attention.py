@@ -1,8 +1,9 @@
 """GQA attention: causal, bidirectional and sliding-window (block-local,
-subquadratic), and the gated kernel route of the fine-tune. Port of the
-prefill and training subset of ``repro/models/attention.py``: plain tensor
-code, except ``gated_kernel_attention``, which calls the gated flash
-kernels (``kernels/d2ft_attention.py``).
+subquadratic), the gated kernel route of the fine-tune, and single-token
+decode against full-length or ring KV caches. Port of the training,
+prefill and contiguous-decode subset of ``repro/models/attention.py``:
+plain tensor code, except ``gated_kernel_attention``, which calls the gated
+flash kernels (``kernels/d2ft_attention.py``).
 """
 from __future__ import annotations
 
@@ -209,3 +210,74 @@ def _block_local_attention(q, k, v, window: int):
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bchqk,bckhd->bcqhd", probs, vcat)
     return out.reshape(B, S, Hq, hd)
+
+
+def kv_prefill_cache(k, v, window: int, max_len: int) -> dict:
+    """Full-history prefill K/V [B,S,n_kv,hd] -> the ``init_kv_cache``
+    decode layout, so ``decode_attention`` can continue from position S.
+
+    Global layers get the zero-padded [B, max_len, ...] cache. Local layers
+    get the [B, W, ...] ring buffer: slot ``p % W`` holds position ``p`` for
+    the last ``min(S, W)`` positions — the state a sequential decode-path
+    prefill would have left, so the next decode step (t = S) overwrites the
+    slot whose position just fell out of the window."""
+    B, S = k.shape[:2]
+    if window and window > 0:
+        L = window
+        m = min(S, L)
+        pos = torch.arange(S - m, S, device=k.device)
+        kc = k.new_zeros((B, L) + tuple(k.shape[2:]))
+        vc = v.new_zeros((B, L) + tuple(v.shape[2:]))
+        kc[:, pos % L] = k[:, pos]
+        vc[:, pos % L] = v[:, pos]
+        return {"k": kc, "v": vc}
+    if S > max_len:
+        raise ValueError(f"prompt length {S} exceeds cache max_len "
+                         f"{max_len}")
+    kc = k.new_zeros((B, max_len) + tuple(k.shape[2:]))
+    vc = v.new_zeros((B, max_len) + tuple(v.shape[2:]))
+    kc[:, :S] = k
+    vc[:, :S] = v
+    return {"k": kc, "v": vc}
+
+
+# -------------------------------------------------------------------- decode
+def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
+                  window: int, dtype, *, device) -> dict:
+    L = window if window and window > 0 else max_len
+    shape = (batch, L, n_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(p: Attention, cache: dict, x, *, t: int, n_heads: int,
+                     n_kv_heads: int, head_dim: int, window: int = 0,
+                     rope: bool = True, rope_theta: float = 10_000.0):
+    """One-token decode. x: [B, 1, d_model]; t: tokens already in the cache
+    (the new token has position t), a host int. Global caches are
+    [B, max_len, ...]; local caches are ring buffers [B, W, ...]. The new
+    K/V row is written into the cache in place; returns (out [B, 1,
+    d_model], cache)."""
+    B = x.shape[0]
+    t = int(t)
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    if rope:
+        pos = torch.full((B, 1), t, dtype=torch.long, device=x.device)
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    kc, vc = cache["k"], cache["v"]
+    L = kc.shape[1]
+    # ring buffer for local layers; a full-length cache's last slot takes
+    # any position past it, as the JAX package's min(t, L - 1) does
+    slot = t % L if window and window > 0 else min(t, L - 1)
+    kc[:, slot] = k[:, 0]
+    vc[:, slot] = v[:, 0]
+    idx = torch.arange(L, device=x.device)
+    if window and window > 0:
+        # absolute position held by ring slot s after writing token t
+        abs_pos = t - torch.remainder(t - idx, L)
+        valid = (abs_pos >= 0) & (abs_pos <= t) & (abs_pos > t - window)
+    else:
+        valid = idx <= t
+    out = _sdpa(q, kc, vc, valid[None, None, None, :])     # [B,1,Hq,hd]
+    return out.reshape(B, 1, n_heads * head_dim) @ p.wo, cache

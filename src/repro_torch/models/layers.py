@@ -151,3 +151,11 @@ def softcap(logits, cap: float):
     if cap and cap > 0:
         return torch.tanh(logits / cap) * cap
     return logits
+
+
+def conv_tail(raw, width: int):
+    """The last ``width - 1`` rows of a depthwise causal conv's raw inputs
+    [B, S, Ch], left-padded with zeros when S < width - 1: the conv state a
+    one-token decode step continues from (SSD and RG-LRU caches)."""
+    pad = raw.new_zeros((raw.shape[0], width - 1, raw.shape[-1]))
+    return torch.cat([pad, raw], dim=1)[:, -(width - 1):]

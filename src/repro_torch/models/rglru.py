@@ -1,5 +1,5 @@
 """RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427; port
-of the training forward of ``repro/models/rglru.py``).
+of ``repro/models/rglru.py``).
 
 Recurrence (per channel):
     r_t = sigmoid(W_a x_t)                 (recurrence gate)
@@ -14,9 +14,10 @@ Ungated (full fine-tuning, and the scoring pass), the affine scan runs as
 a log-depth doubling scan over S in plain PyTorch (``_assoc_scan``), where
 the JAX package uses ``jax.lax.associative_scan``. Gated, the scan runs
 in the chunked log-space form (``kernels/d2ft_rglru.py``): the plain
-version on the masked path, the kernels on the kernel path. The serving
-half (``return_state``, ``head_scale``, ``init_rglru_cache``,
-``decode_rglru``) comes with the recurrent serving slice.
+version on the masked path, the kernels on the kernel path. Serving
+prefills through the same forward (``return_state``: the conv tail and
+the last hidden state) and decodes with the single-step update
+(``init_rglru_cache``, ``decode_rglru``).
 """
 from __future__ import annotations
 
@@ -28,18 +29,13 @@ from torch import nn
 
 from repro_torch.configs.base import RGLRUConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.layers import _gelu_tanh, _param, dense_init
+from repro_torch.models.layers import (_gelu_tanh, _param, conv_tail,
+                                       dense_init)
 
 _C = 8.0
 # chunk used by both the gated kernels and their masked plain version --
 # they must match so the two paths see identical chunked-scan numerics
 _SCAN_CHUNK = 128
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the recurrent serving "
-        "slice")
 
 
 class RGLRU(nn.Module):
@@ -153,31 +149,61 @@ def apply_rglru(p: RGLRU, x, cfg: RGLRUConfig,
     the fine-tune checks its gates once per step) with ``live_bounds`` =
     (live_fwd, live_bwd) band-slice upper bounds for compaction; otherwise
     the chunked plain version with the masked detach mix computes the same
-    function. ``head_scale`` and ``return_state`` serve the serving path
-    and are not ported yet."""
-    if return_state:
-        raise _not_ported("return_state (the decode cache dump)")
-    if head_scale is not None:
-        raise _not_ported("head_scale")
+    function. ``head_scale``: an optional [B, H] multiplier of H
+    block-diagonal channel groups (each W / H wide) on the scan output.
+
+    return_state: additionally return the decode cache after the last token
+    (``init_rglru_cache``'s structure: the conv tail of raw pre-conv inputs
+    plus the float32 hidden state) — the serving prefill dump. Under gates
+    it takes the masked plain scan, as the JAX package does."""
     gate = _gelu_tanh(x @ p.w_gate_branch)
-    u = _causal_conv(x @ p.w_rec_branch, p.conv_w, p.conv_b)
+    u_raw = x @ p.w_rec_branch
+    u = _causal_conv(u_raw, p.conv_w, p.conv_b)
     if gates is not None:
         g_f, g_b = gates
         log_a, b = _rglru_log_gates(p, u)
         lf, lb = live_bounds if live_bounds is not None else (None, None)
-        h32 = kernel_ops._gated_rglru_impl(log_a, b, g_f, g_b,
-                                           chunk=_SCAN_CHUNK, live_fwd=lf,
-                                           live_bwd=lb, plain=not use_kernel)
+        h32 = kernel_ops._gated_rglru_impl(
+            log_a, b, g_f, g_b, chunk=_SCAN_CHUNK, live_fwd=lf, live_bwd=lb,
+            plain=return_state or not use_kernel)
     else:
         a, b = _rglru_gates(p, u)
         h32 = _assoc_scan(a, b)                         # [B, S, W] float32
     h = h32.to(x.dtype)
-    return (h * gate) @ p.w_out
+    if head_scale is not None:
+        H = head_scale.shape[-1]
+        # block-diagonal groups: channel c takes group c // (W / H)
+        hs = torch.repeat_interleave(head_scale, h.shape[-1] // H, dim=-1)
+        h = h * hs[:, None, :].to(h.dtype)
+    out = (h * gate) @ p.w_out
+    if return_state:
+        return out, {"conv": conv_tail(u_raw, p.conv_w.shape[0]),
+                     "h": h32[:, -1]}
+    return out
 
 
-def init_rglru_cache(batch: int, d_model: int, cfg: RGLRUConfig, dtype):
-    raise _not_ported("init_rglru_cache")
+def init_rglru_cache(batch: int, d_model: int, cfg: RGLRUConfig, dtype, *,
+                     device):
+    width = cfg.lru_width or d_model
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, width), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, width), dtype=torch.float32, device=device),
+    }
 
 
 def decode_rglru(p: RGLRU, cache, x, cfg: RGLRUConfig):
-    raise _not_ported("decode_rglru")
+    """One-token decode. x: [B,1,d_model]. Returns (y [B,1,d_model], new
+    cache); the cache given is not modified. The gates take
+    ``_rglru_log_gates``'s jitted form of 1 - a², as the forward does."""
+    gate = _gelu_tanh(x @ p.w_gate_branch)
+    u = x @ p.w_rec_branch
+    conv_in = torch.cat([cache["conv"], u], dim=1)
+    K = p.conv_w.shape[0]
+    u1 = conv_in[:, 0] * p.conv_w[0]
+    for i in range(1, K):
+        u1 = u1 + conv_in[:, i] * p.conv_w[i]
+    a, b = _rglru_gates(p, u1 + p.conv_b)               # [B, W]
+    h = a * cache["h"] + b
+    y = h.to(x.dtype)[:, None] * gate
+    return y @ p.w_out, {"conv": conv_in[:, 1:], "h": h}

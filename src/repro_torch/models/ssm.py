@@ -1,13 +1,14 @@
 """Mamba-2 SSD (state-space duality) block, chunked-scan implementation
-(port of the training and prefill forward of ``repro/models/ssm.py``).
+(port of ``repro/models/ssm.py``).
 
 Follows arXiv:2405.21060: per-head scalar decay a_t = exp(dt_t * A_h),
 state update h_t = a_t h_{t-1} + dt_t * x_t B_t^T, output y_t = C_t h_t +
 D x_t. The chunked algorithm (intra-chunk quadratic term, inter-chunk
 recurrence) is ``kernels/d2ft_ssd.py::ssd_scan_ref``; the gated kernel
-route is ``kernels/ops.py::gated_ssd_scan``. The decode recurrence
-(``init_ssd_cache``, ``decode_ssd``) and ``return_state`` come with the
-serving slice of this family.
+route is ``kernels/ops.py::gated_ssd_scan``. Serving prefills with the
+same plain scan (``return_state``: the conv tail and the state after the
+last token) and decodes with the O(1) single-step recurrence against a
+cached state (``init_ssd_cache``, ``decode_ssd``).
 
 Shapes: d_inner = expand * d_model, H = d_inner // head_dim (P), state N.
 Single B/C group (ngroups=1) as in mamba2-130m.
@@ -22,7 +23,7 @@ from torch import nn
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import d2ft_ssd, ops as kernel_ops
-from repro_torch.models.layers import _param, dense_init
+from repro_torch.models.layers import _param, conv_tail, dense_init
 
 
 def _dims(d_model: int, cfg: SSMConfig):
@@ -93,16 +94,19 @@ def _gated_rmsnorm(y, z, scale, eps: float = 1e-6):
 def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int,
                 return_final_state: bool = False):
     """Core SSD. xh: [B,S,H,P]; dt: [B,S,H]; A: [H] (negative); Bm, Cm:
-    [B,S,N]. Returns y: [B,S,H,P]. Odd lengths zero-pad to the chunk (a
-    padded row has zero log-decay and zero input)."""
-    if return_final_state:
-        raise NotImplementedError(
-            "return_final_state is not ported yet: it comes with the serving "
-            "slice of the SSM family")
+    [B,S,N]. Returns y: [B,S,H,P]; with ``return_final_state`` also the
+    recurrent state after the last token [B,H,P,N] float32 (what a decode
+    cache must carry to continue the sequence). Odd lengths zero-pad to the
+    chunk: a padded row has zero log-decay (an identity state update) and
+    zero input, so the final state of the padded scan is that of row S."""
     dA = dt * A[None, None, :]                          # [B,S,H] (negative)
     xbar = xh * dt[..., None]                           # dt-weighted input
-    return kernel_ops._padded_scan(d2ft_ssd.ssd_scan_ref, (xbar, dA, Bm, Cm),
-                                   chunk=chunk).to(xh.dtype)
+    out = kernel_ops._padded_scan(d2ft_ssd.ssd_scan_ref, (xbar, dA, Bm, Cm),
+                                  chunk=chunk,
+                                  return_final_state=return_final_state)
+    if return_final_state:
+        return out[0].to(xh.dtype), out[1].float()
+    return out.to(xh.dtype)
 
 
 def apply_ssd(p: SSD, x, d_model: int, cfg: SSMConfig,
@@ -122,11 +126,12 @@ def apply_ssd(p: SSD, x, d_model: int, cfg: SSMConfig,
     head-slice upper bounds for compaction; otherwise the plain version of
     the kernels (``d2ft_ssd.gated_ssd_ref``, the masked mix over the dense
     chunked scan) computes the same function.
+
+    return_state: additionally return the decode cache after the last token
+    (``init_ssd_cache``'s structure: the conv tail of raw xBC inputs plus
+    the float32 recurrent state) — the serving prefill dump. It takes the
+    plain scan (under gates, its masked mix), as the JAX package does.
     """
-    if return_state:
-        raise NotImplementedError(
-            "return_state (the decode cache dump) is not ported yet: it "
-            "comes with the serving slice of the SSM family")
     d_inner, H, P, N = _dims(d_model, cfg)
     z, xBC_raw, dt = _split_in(p, x, d_model, cfg)
     xBC = _causal_conv(xBC_raw, p.conv_w, p.conv_b)
@@ -135,8 +140,17 @@ def apply_ssd(p: SSD, x, d_model: int, cfg: SSMConfig,
     Cm = xBC[..., d_inner + N:]
     dt = F.softplus(dt + p.dt_bias)
     A = -torch.exp(p.A_log.float())
-    if gates is None:
-        y = ssd_chunked(xin, dt, A, Bm, Cm, cfg.chunk)
+    state = None
+    if gates is None or return_state:
+        y = ssd_chunked(xin, dt, A, Bm, Cm, cfg.chunk,
+                        return_final_state=return_state)
+        if return_state:
+            y, state = y
+        if gates is not None:
+            g_f, g_b = gates
+            gf = g_f[:, None, :, None].to(y.dtype)
+            gb = g_b[:, None, :, None].to(y.dtype)
+            y = gf * (gb * y + (1.0 - gb) * y.detach())
     else:
         # the kernel path and the masked path share the padding and the
         # operands; the masked path takes the plain version on any device
@@ -152,4 +166,48 @@ def apply_ssd(p: SSD, x, d_model: int, cfg: SSMConfig,
         y = y * head_scale[:, None, :, None].to(y.dtype)
     y = y.reshape(*x.shape[:2], d_inner)
     y = _gated_rmsnorm(y, z, p.norm_scale)
-    return y @ p.w_out
+    out = y @ p.w_out
+    if return_state:
+        return out, {"conv": conv_tail(xBC_raw, p.conv_w.shape[0]),
+                     "state": state}
+    return out
+
+
+# -------------------------------------------------------------------- decode
+def init_ssd_cache(batch: int, d_model: int, cfg: SSMConfig, dtype, *,
+                   device):
+    d_inner, H, P, N = _dims(d_model, cfg)
+    conv_ch = d_inner + 2 * N
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, conv_ch),
+                            dtype=dtype, device=device),
+        # recurrent state accumulates in f32 regardless of compute dtype
+        "state": torch.zeros((batch, H, P, N), dtype=torch.float32,
+                             device=device),
+    }
+
+
+def decode_ssd(p: SSD, cache, x, d_model: int, cfg: SSMConfig):
+    """One-token decode. x: [B,1,d_model]. Returns (y [B,1,d_model], new
+    cache); the cache given is not modified."""
+    d_inner, H, P, N = _dims(d_model, cfg)
+    B = x.shape[0]
+    z, xBC, dt = _split_in(p, x, d_model, cfg)
+    conv_in = torch.cat([cache["conv"], xBC], dim=1)            # [B,W,Ch]
+    W = p.conv_w.shape[0]
+    out = conv_in[:, 0] * p.conv_w[0]
+    for i in range(1, W):
+        out = out + conv_in[:, i] * p.conv_w[i]
+    xBC1 = F.silu(out + p.conv_b)[:, None]                      # [B,1,Ch]
+    xin = xBC1[..., :d_inner].reshape(B, H, P)
+    Bm = xBC1[:, 0, d_inner:d_inner + N]
+    Cm = xBC1[:, 0, d_inner + N:]
+    dt1 = F.softplus(dt[:, 0] + p.dt_bias)                      # [B,H]
+    A = -torch.exp(p.A_log.float())
+    a = torch.exp(dt1.float() * A[None, :])                     # [B,H]
+    dBx = torch.einsum("bhp,bn,bh->bhpn", xin, Bm, dt1).float()
+    state = cache["state"] * a[:, :, None, None] + dBx
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), state).to(x.dtype)
+    y = y + p.D[None, :, None] * xin
+    y = _gated_rmsnorm(y.reshape(B, 1, d_inner), z, p.norm_scale)
+    return y @ p.w_out, {"conv": conv_in[:, 1:], "state": state}

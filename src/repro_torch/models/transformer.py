@@ -8,10 +8,12 @@ gain from the stacked layout here.
 
 Ported so far: dense attention blocks (global and sliding-window) with a
 dense or an MoE FFN, SSD blocks (mamba2: no FFN), RG-LRU blocks with a
-dense FFN (and so the hybrid recurrentgemma pattern), the batched serving
-prefill of the dense attention blocks, the D2FT-gated block forward
-(``apply_block``), the text-only ``forward`` (with remat) with the MoE
-aux losses and the LLM loss (``fused_xent``, ``lm_loss``).
+dense FFN (and so the hybrid recurrentgemma pattern), the D2FT-gated block
+forward (``apply_block``), the text-only ``forward`` (with remat) with the
+MoE aux losses, the LLM loss (``fused_xent``, ``lm_loss``), and serving:
+the batched prefill with its cache dump (``prefill_forward``) and the
+contiguous-cache decode (``init_cache``, ``decode_step``) of every block
+kind.
 Gating: ``gates = (g_f, g_b)`` of shape [n_layers, B, G]; per block, the
 residual contribution is split into G head/width groups c_g and mixed as
 
@@ -22,10 +24,9 @@ forward value but no gradient flows through the subnet for that sample;
 p_s removes the contribution. An SSD block gates its scan per (sample,
 head) instead (``models/ssm.apply_ssd``), an RG-LRU block per (sample,
 channel band) (``models/rglru.apply_rglru``), and an MoE FFN is one group
-whose gates also drive its dispatch (``models/moe.apply_moe``). Serving an
-MoE model, the frontends and the decode caches come with later slices; the
-tensor-parallel, sharding-policy and expert-parallel branches with the
-distributed slice.
+whose gates also drive its dispatch (``models/moe.apply_moe``). The
+frontends come with a later slice; the tensor-parallel, sharding-policy
+and expert-parallel branches with the distributed slice.
 """
 from __future__ import annotations
 
@@ -473,45 +474,128 @@ def lm_loss(model: Transformer, cfg: ModelConfig, tokens, labels,
     return loss + aux["aux_loss"], {"ce": loss, "aux": aux["aux_loss"]}
 
 
-# ====================================================== prefill (cache dump)
-def _prefill_block(p: Block, x, kind: str, cfg: ModelConfig):
-    """One block of the batched prefill: the dense forward computation plus
-    the post-rope K/V the block leaves behind. Returns (x, {"k","v"})."""
+# ================================================================== decoding
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
+    """Per-layer decode caches, a flat list like the layers: attention
+    ``{"k","v"}`` (global [B, max_len, ...], local the [B, W, ...] ring),
+    SSD ``{"conv","state"}``, RG-LRU ``{"conv","h"}``."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    caches = []
+    for kind in cfg.layer_kinds:
+        if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+            window = cfg.window if kind == ATTN_LOCAL else 0
+            caches.append(attn.init_kv_cache(
+                batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
+                window, dtype, device=device))
+        elif kind == SSD:
+            caches.append(ssm_mod.init_ssd_cache(batch, cfg.d_model, cfg.ssm,
+                                                 dtype, device=device))
+        elif kind == RGLRU:
+            caches.append(rglru_mod.init_rglru_cache(
+                batch, cfg.d_model, cfg.rglru, dtype, device=device))
+        else:
+            raise ValueError(kind)
+    return caches
+
+
+def decode_recurrent(p: Block, c, h, kind: str, cfg: ModelConfig):
+    """An SSD or RG-LRU mixer on one token: returns its contribution and
+    copies the new state into the cache entry ``c`` in place (the paged
+    pools and the contiguous caches both keep their tensors)."""
+    if kind == SSD:
+        y, new = ssm_mod.decode_ssd(p.ssd, c, h, cfg.d_model, cfg.ssm)
+    elif kind == RGLRU:
+        y, new = rglru_mod.decode_rglru(p.rglru, c, h, cfg.rglru)
+    else:
+        raise ValueError(kind)
+    for name, t in new.items():
+        c[name].copy_(t)
+    return y
+
+
+def decode_ffn(p: Block, x, cfg: ModelConfig):
+    """The residual FFN of a decode step (dense or MoE, ungated); the MoE
+    router sees every row of the batch, as the JAX package's does."""
+    if not hasattr(p, "norm2"):
+        return x
+    return x + _apply_ffn(p, apply_norm(p.norm2, x, cfg.norm), cfg)[0]
+
+
+def _decode_block(p: Block, c, x, kind: str, cfg: ModelConfig, t: int):
     h = apply_norm(p.norm1, x, cfg.norm)
-    if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
-        raise _not_ported(f"block kind {kind!r}")
-    if hasattr(p, "moe"):
-        raise _not_ported("the MoE FFN in serving")
-    window = cfg.window if kind == ATTN_LOCAL else 0
-    c, k, v = attn.apply_attention(
-        p.attn, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, causal=cfg.causal, window=window,
-        rope=cfg.rope, rope_theta=cfg.rope_theta, return_kv=True)
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        y, _ = attn.decode_attention(
+            p.attn, c, h, t=t, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+            window=cfg.window if kind == ATTN_LOCAL else 0, rope=cfg.rope,
+            rope_theta=cfg.rope_theta)
+    else:
+        y = decode_recurrent(p, c, h, kind, cfg)
+    return decode_ffn(p, x + y, cfg)
+
+
+def decode_step(model: Transformer, cache, cfg: ModelConfig, token, t,
+                policy=None):
+    """One decode step. token: [B, 1] int; t: tokens already cached (a host
+    int). Returns (logits [B, 1, vocab], cache), the cache updated in place.
+    ``policy`` raises until the distributed slice ports it."""
+    if policy is not None:
+        raise _not_ported_dist("the sharding policy of decode_step")
+    cdt = torch_dtype(cfg.compute_dtype)
+    x = apply_embedding(model.embed, token).to(cdt)
+    for p, c, kind in zip(model.layers, cache, cfg.layer_kinds):
+        x = _decode_block(p, c, x, kind, cfg, int(t))
+    return logits_from_hidden(model, cfg, x), cache
+
+
+# ====================================================== prefill (cache dump)
+def _prefill_block(p: Block, x, kind: str, cfg: ModelConfig, max_len: int,
+                   raw_kv: bool):
+    """One block of the batched prefill: the dense forward computation of
+    ``apply_block`` (ungated) plus the decode-cache entry the block leaves
+    behind — post-rope K/V for attention, the final conv and recurrent
+    state for SSD / RG-LRU. Returns (x, cache_entry)."""
+    h = apply_norm(p.norm1, x, cfg.norm)
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        window = cfg.window if kind == ATTN_LOCAL else 0
+        c, k, v = attn.apply_attention(
+            p.attn, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, causal=cfg.causal, window=window,
+            rope=cfg.rope, rope_theta=cfg.rope_theta, return_kv=True)
+        entry = {"k": k, "v": v} if raw_kv else \
+            attn.kv_prefill_cache(k, v, window, max_len)
+    elif kind == SSD:
+        c, entry = ssm_mod.apply_ssd(p.ssd, h, cfg.d_model, cfg.ssm,
+                                     return_state=True)
+    elif kind == RGLRU:
+        c, entry = rglru_mod.apply_rglru(p.rglru, h, cfg.rglru,
+                                         return_state=True)
+    else:
+        raise ValueError(kind)
     x = x + c
-    if hasattr(p, "mlp"):
+    if hasattr(p, "norm2"):
         h2 = apply_norm(p.norm2, x, cfg.norm)
         x = x + _apply_ffn(p, h2, cfg)[0]
-    return x, {"k": k, "v": v}
+    return x, entry
 
 
-def prefill_forward(model: Transformer, cfg: ModelConfig, tokens, *,
-                    raw_kv: bool = True):
+def prefill_forward(model: Transformer, cfg: ModelConfig, tokens,
+                    max_len: int = 0, *, raw_kv: bool = False):
     """Batched serving prefill: one teacher-forced pass over the whole
-    prompt that also returns each layer's post-rope K/V.
+    prompt that also dumps the decode caches.
 
     tokens: [B, S] int. Returns (logits [B, S, vocab], cache) where cache is
-    a flat per-layer list of ``{"k","v"}: [B, S, n_kv, hd]`` — the JAX
-    package's ``raw_kv=True`` entries, which the paged engine slices into
-    pages. The contiguous decode caches of ``raw_kv=False`` come with the
-    port of ``serving/decode.py``.
+    ``init_cache(cfg, B, max_len)``'s flat per-layer list, filled so that
+    decode continues from position S (max_len defaults to S). With
+    ``raw_kv=True`` attention entries are instead the full post-rope
+    history ``{"k","v"}: [B, S, n_kv, hd]`` — what the paged serving engine
+    slices into pages. Recurrent entries are the same either way.
     """
-    if not raw_kv:
-        raise NotImplementedError(
-            "raw_kv=False (contiguous decode caches) is not ported yet")
     cdt = torch_dtype(cfg.compute_dtype)
+    max_len = max_len or tokens.shape[1]
     x = apply_embedding(model.embed, tokens).to(cdt)
     cache = []
     for p, kind in zip(model.layers, cfg.layer_kinds):
-        x, entry = _prefill_block(p, x, kind, cfg)
+        x, entry = _prefill_block(p, x, kind, cfg, max_len, raw_kv)
         cache.append(entry)
     return logits_from_hidden(model, cfg, x), cache

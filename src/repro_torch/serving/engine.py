@@ -15,10 +15,17 @@ ever swapped out.
 Slot/device contract (shared with ``paged_decode_step``):
 * inactive slots keep an all-null page-table row and length 0 — the step
   writes their K/V into the null page sink and their logits are garbage
-  the engine never reads.
+  the engine never reads. Recurrent (SSD / RG-LRU) slot state is likewise
+  garbage for inactive slots and is overwritten at admission.
 * batch-independence: a slot's logits depend only on its own row of
-  (page_table, lengths) and its own pages — admitting or evicting a
-  neighbour mid-flight cannot change another sequence's tokens.
+  (page_table, lengths) and its own pages and state — admitting or
+  evicting a neighbour mid-flight cannot change another sequence's tokens.
+  An MoE FFN is the exception, as in the JAX package: its router sees all
+  ``max_slots`` rows, inactive ones included, so slots couple through the
+  experts' capacity.
+* the page ids are checked once a step on the host copy of the table
+  (``ops.check_page_ids``), so the kernel path syncs with the device once
+  a step, to read the logits, and not once a layer.
 
 Prefill is the batched ``prefill_forward`` (one pass per admitted request)
 written straight into pages. Greedy decoding only (argmax, first index on
@@ -39,6 +46,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import check_page_ids
 from repro_torch.models.transformer import (Transformer, init_model,
                                             prefill_forward)
 from repro_torch.serving.pages import PageManager, pages_needed
@@ -102,8 +110,10 @@ class PagedServingEngine:
 
         self._step = functools.partial(
             paged_decode_step, model, self.pools, cfg,
-            page_size=self.page_size, use_kernel=use_kernel)
-        self._prefill = functools.partial(prefill_forward, model, cfg)
+            page_size=self.page_size, use_kernel=use_kernel,
+            tables_checked=True)
+        self._prefill = functools.partial(prefill_forward, model, cfg,
+                                          raw_kv=True)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -206,6 +216,7 @@ class PagedServingEngine:
             if newp is not None:
                 self.page_table[slot, seq.n_cached // self.page_size] = newp
 
+        check_page_ids(self.page_table, self.pm.n_pages)
         logits, _ = self._step(self._to_device(token),
                                self._to_device(self.page_table),
                                self._to_device(self.lengths))

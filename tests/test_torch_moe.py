@@ -707,21 +707,33 @@ def test_lora_trajectory_matches_jax(use_kernel):
 
 # ================================================================ serving
 def test_serving_refuses_moe_blocks():
-    """Prefill and the paged decode step raise on an MoE block rather than
-    skip its FFN."""
+    """Serving never skips an MoE block's FFN. It once refused MoE blocks;
+    since the MoE families are served it runs them: the prefill's logits
+    are ``forward``'s, and they move when the experts' weights are zeroed
+    (so the FFN ran); the paged decode step and the engine answer."""
     cfg = olmoe_1b_7b.smoke_config()
     model = init_model(torch.Generator().manual_seed(0), cfg)
-    tokens = torch.zeros((1, 5), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="the MoE FFN in serving"):
-        prefill_forward(model, cfg, tokens)
-    pools = init_paged_pools(cfg, n_pages=4, page_size=4, max_slots=1,
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="the MoE FFN in serving"):
-        paged_decode_step(model, pools, cfg, tokens[:, :1],
-                          torch.zeros((1, 2), dtype=torch.int32),
-                          torch.zeros((1,), dtype=torch.int32), page_size=4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 5),
+                           generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        logits, cache = prefill_forward(model, cfg, tokens, raw_kv=True)
+        ref, _ = forward(model, cfg, tokens)
+        np.testing.assert_allclose(logits.numpy(), ref.numpy(), atol=1e-5,
+                                   rtol=0)
+        pools = init_paged_pools(cfg, n_pages=4, page_size=4, max_slots=1,
+                                 device="cpu")
+        step, _ = paged_decode_step(model, pools, cfg, tokens[:, :1],
+                                    torch.zeros((1, 2), dtype=torch.int32),
+                                    torch.zeros((1,), dtype=torch.int32),
+                                    page_size=4)
+        assert tuple(step.shape) == (1, 1, cfg.vocab_size)
+        assert torch.isfinite(step).all()
+        for layer in model.layers:
+            layer.moe.w_down.zero_()
+        off, _ = prefill_forward(model, cfg, tokens, raw_kv=True)
+        assert float((off - logits).abs().max()) > 1e-3
     engine = make_engine(cfg, seed=0, device="cpu", page_size=4, n_pages=9,
                          max_slots=2, max_seq_len=16)
-    with pytest.raises(NotImplementedError, match="the MoE FFN in serving"):
-        engine.run([Request(uid=0, prompt=np.zeros(5, np.int32),
-                            max_new_tokens=2)])
+    out = engine.run([Request(uid=0, prompt=np.zeros(5, np.int32),
+                              max_new_tokens=2)])
+    assert len(out[0]) == 7
