@@ -262,6 +262,39 @@ Phases, one line each (any failure raises and exits non-zero):
    to 1024: launches == 16 x decode steps, tokens equal the gather
    path's, pages return; its profile. (d) the serve example at its smoke
    configs.
+25. the rest of the model surface — random weights from seed 0, f32,
+   TF32 off outside the 3xTF32 kernels, every kernel route armed against
+   a fallback: (a) stablelm-3b at full size (32 layers, d 2560, 32 heads
+   of 80, 2.8 B parameters) through ``repro_torch.launch.train --full
+   --d2ft --kernel`` (batch 4 x seq 512 in 4 micro-batches, n_pf 3 / n_po
+   1, G 32, AdamW, 3 steps): 32 + 32 B2 launches a step, executed tiles =
+   the schedule's, losses within 1e-4 x max(1, |loss|) of the masked
+   path's; p50 step ms of the kernel, masked and full paths (each twice,
+   in turns), peak memory, a profiler window over 3 steps with B2's share
+   of busy time. (b) phi-3-vision-4.2b at full size (576 patch rows of
+   1024 + 448 text tokens, batch 4) and (c) hubert-xlarge at full size
+   (1024 frames of 512, batch 4, bidirectional), and (d) qwen1.5-32b (4
+   of 64 layers), mixtral-8x22b (2 of 56) and moonshot-v1-16b-a3b (8 of
+   48) at full width, batch 4 x 512, through ``train/loop.py::finetune(...,
+   use_kernel=True)`` (n_pf 3 / n_po 1, momentum-free SGD, 3 steps):
+   launches a step = the schedule's count, executed tiles = the
+   schedule's (MoE: the launched masks'), the first-step loss within
+   tolerance of the masked path's forward on the same weights, schedule
+   and batch, finite losses; p50 step ms and peak memory; B2 (and B8 / B9)
+   against their plain versions on the operands the path handed their
+   first call; B2 timed at each new shape (hd 80 causal and
+   bidirectional, hd 96 over the image prefix, hd 128 at 40 heads and at
+   GQA 6:1), B8 / B9 at mixtral's and moonshot's layer 0 (E 8, D 6144, F
+   16384; E 64, F 1408), beside their plain versions, library yardsticks
+   and bounds. (e) serving through the paged engine, 4 requests through 4
+   slots, page size 16: stablelm-3b at full size and the three (d) models
+   at (d)'s depth, one mixtral request of 4090 + 16 tokens past its 4096
+   window: B10 launches = attention layers x decode steps, tokens equal
+   the gather path's, every page back; p50 decode step, a profile of 5
+   decode steps each; then B10 against its plain version and timed at
+   qwen's, mixtral's (rep 6, window 4096, lengths past it) and
+   moonshot's decode shapes. ``python3 chip_smoke.py --only 25`` runs
+   phases 1, 2 and 25 alone (a partial run that prints no result).
 
 Then one JSON line of the 13 kernel records, the card line again, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -371,6 +404,34 @@ RS_NEW = (32, 32, 32, 32, 24, 24, 32, 24)
 MO_SERVE_PROMPTS = (24, 130, 256, 400, 511, 700, 900, 1024)
 MO_SERVE_NEW = (16, 16, 16, 16, 16, 16, 16, 16)
 MO_SERVE_LAYERS = 16
+
+# the rest of the model surface (phase 25): stablelm-3b through the
+# launcher at full size; phi-3-vision-4.2b and hubert-xlarge at full size
+# and qwen1.5-32b, mixtral-8x22b and moonshot-v1-16b-a3b at full width,
+# cut in depth to fit 80 GB beside their gradients (k of 64, 56 and 48
+# layers: about 3.7, 5.4 and 5.4 B parameters), through
+# train/loop.py::finetune on the kernel route; the four causal text archs
+# served, mixtral-8x22b with one request past its 4096 window
+NA_BATCH = 4
+NA_SEQ = 512
+NA_STEPS = 3
+NA_LR = 1e-3
+NA_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
+VL_TEXT = 448                      # + 576 patch rows: 1024 positions
+AU_FRAMES = 1024
+NA_DEPTH = {"qwen1.5-32b": 4, "mixtral-8x22b": 2, "moonshot-v1-16b-a3b": 8}
+NA_SERVE_PROMPTS = (24, 200, 700, 1000)
+MX_SERVE_PROMPTS = (24, 300, 1000, 4090)   # 4090 + 16 new pass 4096
+NA_SERVE_NEW = 16
+# B10 at the served archs' decode shapes: (config, H, n_kv, hd, window),
+# lengths past 4096 and a table of 270 pages (4320 positions)
+NEW_DECODE_SHAPES = (("qwen1.5-32b", 40, 40, 128, 0),
+                     ("mixtral-8x22b", 48, 8, 128, 4096),
+                     ("moonshot-v1-16b-a3b", 16, 16, 128, 0))
+NEW_DECODE_CASES = (([15, 16, 17, 700], "edges"),
+                    ([63, 4095, 4096, 4200], "slot"),
+                    ([731, 2063, 4097, 4150], "one"))
+NEW_DECODE_NPMAX = 270
 
 
 def card_line() -> str:
@@ -482,7 +543,12 @@ DECODE_SHAPES = (("recurrentgemma-2b", 10, 1, 256, 2048),
                  ("phi3-vision-42b", 32, 32, 96, 0))
 
 
-def decode_shapes_vs_plain(torch, gen):
+DECODE_CASES = (([15, 16, 17, 700], "edges"), ([63, 64, 2047, 2063], "slot"),
+                ([731, 1131, 1551, 2063], "one"))
+
+
+def decode_shapes_vs_plain(torch, gen, shapes=DECODE_SHAPES,
+                           cases=DECODE_CASES, n_pmax=130):
     """Phase 3's other shapes: B10 at recurrentgemma-2b's decode (10 query
     heads on 1 KV head of 256, two head groups of 5 a block, window 2048)
     and at stablelm-3b's (hd 80) and phi3-vision-42b's (hd 96), 32 heads
@@ -491,14 +557,15 @@ def decode_shapes_vs_plain(torch, gen):
     head gated; <= 1e-5, exact zeros, bitwise equal across two calls."""
     from repro_torch.kernels.ops import paged_decode_attention
     from repro_torch.kernels.paged_decode import paged_decode_ref
-    for name, H, n_kv, hd, window in DECODE_SHAPES:
+    for name, H, n_kv, hd, window in shapes:
         worst = 0.0
-        for lengths, gated in (
-                ([15, 16, 17, 700], ((1, 0), (1, H - 1), (2, 0))),
-                ([63, 64, 2047, 2063], tuple((3, h) for h in range(H))),
-                ([731, 1131, 1551, 2063], ((0, H // 2),))):
-            args = paged_inputs(torch, gen, lengths, n_pages=600,
-                                n_pmax=130, H=H, n_kv=n_kv, hd=hd,
+        for lengths, which in cases:
+            gated = {"edges": ((1, 0), (1, H - 1), (2, 0)),
+                     "slot": tuple((3, h) for h in range(H)),
+                     "one": ((0, H // 2),)}[which]
+            args = paged_inputs(torch, gen, lengths,
+                                n_pages=max(600, 4 * n_pmax + 1),
+                                n_pmax=n_pmax, H=H, n_kv=n_kv, hd=hd,
                                 gated=gated)
             out = paged_decode_attention(*args[:5], g_f=args[5],
                                          window=window)
@@ -519,19 +586,21 @@ def decode_shapes_vs_plain(torch, gen):
             worst = max(worst, err)
         print(f"[kernel vs plain] paged_decode {name} decode shape: H {H} "
               f"n_kv {n_kv} hd {hd} window {window}, ps {PAGE_SIZE}, n_pmax "
-              f"130, lengths at page and run boundaries, gated heads and a "
-              f"gated slot: max abs err <= {worst:.3e}, zeros exact, bitwise "
-              f"equal across two calls", flush=True)
+              f"{n_pmax}, lengths {[c[0] for c in cases]} (at page and run "
+              f"boundaries), gated heads and a gated slot: max abs err <= "
+              f"{worst:.3e}, zeros exact, bitwise equal across two calls",
+              flush=True)
 
 
-def decode_shapes_timing(torch, gen, lengths, n_pmax, tag):
+def decode_shapes_timing(torch, gen, lengths, n_pmax, tag,
+                         shapes=DECODE_SHAPES):
     """Phase 5's other shapes: CUDA-event times of B10 at DECODE_SHAPES
     with the trace's final lengths, through the launcher and alone,
     beside the plain version, gather + SDPA (enable_gqa) and the bytes
     bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import paged_decode as pd
-    for name, H, n_kv, hd, window in DECODE_SHAPES:
+    for name, H, n_kv, hd, window in shapes:
         args = paged_inputs(torch, gen, lengths, n_pages=n_pmax * 4 + 1,
                             n_pmax=n_pmax, H=H, n_kv=n_kv, hd=hd)
         B, L = len(lengths), n_pmax * PAGE_SIZE
@@ -700,10 +769,11 @@ def attention_case(torch, q, k, v, do, g_f, g_b, *, causal, window, live):
               for a, b in ((qk, qr), (kk, kr), (vk, vr)))
     s_f = float(ref.abs().max())
     s_b = max(float(t.grad.abs().max()) for t in (qr, kr, vr))
-    zeros = (float(out[g_f == 0].abs().max()) == 0.0
+    # (a schedule's layer may hold no dead slice: then nothing to hold)
+    zeros = (_dead_max(out, g_f == 0) == 0.0
              and torch.equal(o2, out)
              and bool((lse[g_f == 0] == d2a.LSE_MASKED).all())
-             and all(float(t.grad[g_b == 0].abs().max()) == 0.0
+             and all(_dead_max(t.grad, g_b == 0) == 0.0
                      for t in (qk, kk, vk))
              and bool(torch.isfinite(out).all()))
     tiles = attn_tiles(q.shape[2], causal, window, q.shape[3])
@@ -1567,8 +1637,9 @@ def schedule_tiles(sched, mb_of, cfg, steps, seq=GM_SEQ):
     """Attention tiles the schedule makes each kernel (forward, dK/dV, dQ)
     execute in ``steps`` steps at length ``seq``, and those full
     fine-tuning would: per layer, the live (sample, head) slices times the
-    kernel's live tiles per slice under that layer's causal or window
-    mask. Returns two {kind: tiles}: the schedule's and full's."""
+    kernel's live tiles per slice under that layer's causal, window or
+    (an encoder's) full mask. Returns two {kind: tiles}: the schedule's
+    and full's."""
     from repro_torch.core.schedule import gates_from_schedule
     g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")       # [L, B, G]
     rep = cfg.n_heads // sched.n_groups
@@ -1576,7 +1647,8 @@ def schedule_tiles(sched, mb_of, cfg, steps, seq=GM_SEQ):
     full = dict.fromkeys(want, 0)
     for layer, kind in enumerate(cfg.layer_kinds):
         window = cfg.window if kind == "attn_local" else 0
-        tiles = attn_tiles(seq, True, window, cfg.resolved_head_dim)
+        tiles = attn_tiles(seq, cfg.causal or window > 0, window,
+                           cfg.resolved_head_dim)
         for k in want:
             g = g_f if k == "fwd" else g_b
             want[k] += steps * int(g[layer].sum()) * rep * tiles[k]
@@ -1584,31 +1656,42 @@ def schedule_tiles(sched, mb_of, cfg, steps, seq=GM_SEQ):
     return want, full
 
 
-def gemma_finetune(torch, np, tag):
-    """Phase 13. Returns {"launches": {"fwd", "bwd"}, "heads": per-head
-    (g_f, g_b) of layers 0 and 5 of the step-0 split, "bounds": per-head
-    bounds}."""
+def launcher_finetune(torch, np, tag, arch, label, B, S, steps, lr, d2,
+                      head_layers, call=None):
+    """Phases 13 and 25a: ``repro_torch.launch.train --arch <arch> --full
+    --d2ft --kernel`` (AdamW, batch B x seq S in d2's micro-batches, G =
+    the heads): launches per step, executed tile fractions from the device
+    counter equal to the schedule's, finite losses within 1e-4 x max(1,
+    |loss|) of the masked path; p50 step ms of the kernel path, the masked
+    path and standard full fine-tuning (each twice, in turns), tokens/s,
+    peak memory, a profiler window. ``call``: a list that takes B2's
+    first call (its operands). Returns {"launches": {"fwd", "bwd"},
+    "heads": {layer: per-head (g_f, g_b)} of the step-0 split for
+    ``head_layers``, "bounds": per-head bounds}."""
+    import contextlib
     from repro_torch.configs import get_config
     from repro_torch.core.schedule import (gates_from_schedule,
                                            live_slice_bounds)
     from repro_torch.data.synthetic import lm_batches, microbatch_assignment
     from repro_torch.kernels import contract
     from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models.transformer import init_model
     from repro_torch.optim.optimizers import adamw
     from repro_torch.train import loop
 
-    cfg = get_config("gemma3-1b")
-    B, S, n_mb = GM_BATCH, GM_SEQ, GM_D2FT["n_microbatches"]
+    cfg = get_config(arch)
+    n_mb = d2["n_microbatches"]
     run, scheds = launcher_paths(
-        ["--arch", "gemma3-1b", "--full", "--batch", str(B), "--seq",
-         str(S), "--steps", str(GM_STEPS), "--lr", str(GM_LR),
-         "--n-microbatches", str(n_mb), "--n-pf", str(GM_D2FT["n_pf"]),
-         "--n-po", str(GM_D2FT["n_po"])])
+        ["--arch", arch, "--full", "--batch", str(B), "--seq", str(S),
+         "--steps", str(steps), "--lr", str(lr), "--n-microbatches",
+         str(n_mb), "--n-pf", str(d2["n_pf"]), "--n-po", str(d2["n_po"])])
 
     torch.cuda.reset_peak_memory_stats()
     d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
-    with contract.count_tiles("cuda") as tc:
+    grab = contextlib.nullcontext() if call is None else \
+        capture_first(torch, attn_mod, "gated_flash_attention", call)
+    with contract.count_tiles("cuda") as tc, grab:
         log_k = run("kernel")
         counts = tc.read()
     launches = {"fwd": d2a.flash_fwd.launches, "bwd": d2a.flash_bwd.launches}
@@ -1617,12 +1700,12 @@ def gemma_finetune(torch, np, tag):
     mb_of = microbatch_assignment(B, n_mb)
     bounds = live_slice_bounds(sched, mb_of)
     rep = cfg.n_heads // sched.n_groups
-    want, full = schedule_tiles(sched, mb_of, cfg, GM_STEPS)
+    want, full = schedule_tiles(sched, mb_of, cfg, steps, S)
     frac = {k: counts[k] / full[k] for k in want}
-    per_step = cfg.n_layers * GM_STEPS
+    per_step = cfg.n_layers * steps
     if launches != {"fwd": per_step, "bwd": per_step}:
         raise AssertionError(f"attention kernel launches {launches} != "
-                             f"{cfg.n_layers} per step x {GM_STEPS} steps")
+                             f"{cfg.n_layers} per step x {steps} steps")
     if counts != {**want, "ssd_fwd": 0, "ssd_bwd": 0, "rglru_fwd": 0,
                   "rglru_bwd": 0, "moe_fwd": 0, "moe_bwd": 0}:
         raise AssertionError(f"executed tiles {counts} != the schedule's "
@@ -1636,33 +1719,33 @@ def gemma_finetune(torch, np, tag):
     torch.cuda.reset_peak_memory_stats()
     p50, per = in_turns(np, run, {"kernel": log_k, "masked": log_m})
     peak_all = torch.cuda.max_memory_allocated()
-    print(f"[gemma fine-tune] gemma3-1b full size ({cfg.n_layers} layers, d "
+    print(f"[{label}] {arch} full size ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {cfg.n_heads} query heads and {cfg.n_kv_heads} KV "
-          f"head of {cfg.resolved_head_dim}, window {cfg.window}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}, f32, seed 0) through "
-          f"repro_torch.launch.train, batch {B} x seq {S} in {n_mb} "
-          f"micro-batches, n_pf {GM_D2FT['n_pf']} n_po {GM_D2FT['n_po']}, G "
-          f"{sched.n_groups}, AdamW lr {GM_LR}, {GM_STEPS} steps: attention "
+          f"head(s) of {cfg.resolved_head_dim}, window {cfg.window}, "
+          f"{cfg.norm} norm, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, f32, "
+          f"seed 0) through repro_torch.launch.train, batch {B} x seq {S} "
+          f"in {n_mb} micro-batches, n_pf {d2['n_pf']} n_po {d2['n_po']}, G "
+          f"{sched.n_groups}, AdamW lr {lr}, {steps} steps: attention "
           f"kernel launches {launches}, live (sample, group) bounds {bounds} "
           f"x {rep} heads per group, executed tile fractions fwd "
           f"{frac['fwd']:.3f} bwd {frac['bwd_dkdv']:.3f}/{frac['bwd_dq']:.3f}"
           f" (= the schedule's: {want} of {full} tiles)",
           flush=True)
-    print(f"[gemma fine-tune] losses kernel "
+    print(f"[{label}] losses kernel "
           f"{[round(float(x), 6) for x in log_k.losses]} | masked "
           f"{[round(x, 6) for x in log_m.losses]} | max diff {diff:.3e}",
           flush=True)
-    print(f"[gemma fine-tune] p50 step ms over 2 x {GM_STEPS} steps: kernel "
+    print(f"[{label}] p50 step ms over 2 x {steps} steps: kernel "
           f"path {p50['kernel']:.3f}, masked path {p50['masked']:.3f}, "
           f"standard full fine-tuning (d2ft off, plain attention) "
           f"{p50['full']:.3f}; per round " + ", ".join(
               f"{k} {r[0]:.3f} / {r[1]:.3f}" for k, r in per.items())
           + f" {tag}")
-    print(f"[gemma fine-tune] tokens/s: kernel path "
+    print(f"[{label}] tokens/s: kernel path "
           f"{B * S / p50['kernel'] * 1e3:.1f}, masked "
           f"{B * S / p50['masked'] * 1e3:.1f}, full "
           f"{B * S / p50['full'] * 1e3:.1f} {tag}")
-    print(f"[gemma fine-tune] max_memory_allocated, scoring included: kernel "
+    print(f"[{label}] max_memory_allocated, scoring included: kernel "
           f"path {peak_k} bytes ({peak_k / 2**30:.2f} GiB), masked path "
           f"{peak_m} bytes ({peak_m / 2**30:.2f} GiB), the largest of the "
           f"timed rounds (full fine-tuning's AdamW state included) "
@@ -1671,20 +1754,21 @@ def gemma_finetune(torch, np, tag):
     # where a kernel-path step's time goes
     g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")
     model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
-    opt = adamw(GM_LR)
+    opt = adamw(lr)
     state = opt.init(dict(model.named_parameters()))
     step = loop.make_train_step(cfg, opt, use_gates=True, use_kernel=True,
                                 live_bounds=bounds)
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in next(lm_batches(0, cfg.vocab_size, B, S, 1)).items()}
     gates = (g_f.cuda(), g_b.cuda())
-    print_profile("3 kernel-path gemma3-1b fine-tune steps", profile_steps(
+    print_profile(f"3 kernel-path {arch} fine-tune steps", profile_steps(
         torch, lambda: step(model, state, batch, gates), "d2ft_attn"),
-        "d2ft attention kernels", tag)
+        "d2ft attention kernels", tag, breakdown=True)
     del model, state, batch, opt, step
     torch.cuda.empty_cache()
     heads = {layer: tuple(torch.repeat_interleave(g[layer], rep, dim=1)
-                          .cuda() for g in (g_f, g_b)) for layer in (0, 5)}
+                          .cuda() for g in (g_f, g_b))
+             for layer in head_layers}
     return {"launches": launches, "heads": heads,
             "bounds": (bounds[0] * rep, bounds[1] * rep)}
 
@@ -1880,9 +1964,10 @@ def gemma_lora(torch, np, tag):
 
 
 def attention_timing_case(torch, gen, label, what, B, H, S, hd, window,
-                          g_f, g_b, lf, lb, tag):
+                          g_f, g_b, lf, lb, tag, causal=True):
     """CUDA-event times, L2 flushed, of both attention kernels on N(0, 1)
-    q, k, v, do [B, H, S, hd], causal under ``window``, gates [B, H] and
+    q, k, v, do [B, H, S, hd], causal under ``window`` (bidirectional
+    where ``causal`` is False: an encoder's), gates [B, H] and
     bounds (lf, lb): through the launcher and alone, beside the plain
     version, SDPA on the live slices (its forward; its autograd backward)
     and both bounds. Returns {"fwd"|"bwd": (ms, plain_ms, library_ms,
@@ -1891,12 +1976,12 @@ def attention_timing_case(torch, gen, label, what, B, H, S, hd, window,
     from repro_torch.kernels import d2ft_attention as d2a
     q, k, v, do = (torch.randn((B, H, S, hd), generator=gen,
                                device="cuda") for _ in range(4))
-    o, lse = d2a.flash_fwd(q, k, v, g_f, causal=True, window=window,
+    o, lse = d2a.flash_fwd(q, k, v, g_f, causal=causal, window=window,
                            live=lf)
     qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
-    ref = d2a.gated_attention_ref(qr, kr, vr, g_f, g_b, causal=True,
+    ref = d2a.gated_attention_ref(qr, kr, vr, g_f, g_b, causal=causal,
                                   window=window)
-    mask = d2a._mask(S, True, window, "cuda")
+    mask = d2a._mask(S, causal, window, "cuda")
     pairs = int(mask.sum())                # unmasked (q, k) pairs
 
     def flat(t, gate):                 # [live, S, hd], gathered once
@@ -1920,14 +2005,14 @@ def attention_timing_case(torch, gen, label, what, B, H, S, hd, window,
                     n_b * 5 * 2 * pairs * hd)}
     res = {
         "fwd": (time_ms(torch, lambda: d2a.flash_fwd(
-                    q, k, v, g_f, causal=True, window=window, live=lf)),
+                    q, k, v, g_f, causal=causal, window=window, live=lf)),
                 time_ms(torch, lambda: d2a.gated_attention_ref(
-                    q, k, v, g_f, g_b, causal=True, window=window)),
+                    q, k, v, g_f, g_b, causal=causal, window=window)),
                 time_ms(torch, lambda: sdpa(lq, lk, lv)),
                 *tc_roofline(*work["fwd"])),
         # both run 3xTF32 on the tensor cores: held to that bound
         "bwd": (time_ms(torch, lambda: d2a.flash_bwd(
-                    q, k, v, g_b, o, lse, do, causal=True, window=window,
+                    q, k, v, g_b, o, lse, do, causal=causal, window=window,
                     live=lb)),
                 time_ms(torch, lambda: torch.autograd.grad(
                     ref, (qr, kr, vr), do, retain_graph=True)),
@@ -1935,10 +2020,10 @@ def attention_timing_case(torch, gen, label, what, B, H, S, hd, window,
                     lib_o, (bq, bk, bv), ldo, retain_graph=True)),
                 *tc_roofline(*work["bwd"]))}
     alone = {
-        "fwd": attention_fwd_alone(torch, q, k, v, g_f, causal=True,
+        "fwd": attention_fwd_alone(torch, q, k, v, g_f, causal=causal,
                                    window=window, live=lf),
         "bwd": attention_bwd_alone(torch, q, k, v, o, lse, do, g_b,
-                                   causal=True, window=window, live=lb)}
+                                   causal=causal, window=window, live=lb)}
     for kind, (k_ms, p_ms, l_ms, b_ms, by) in res.items():
         print(f"[{label}] d2ft_attention_{kind} {what} B {B} H {H} S {S} "
               f"hd {hd}, live "
@@ -2571,23 +2656,43 @@ def moe_dw_launches(torch, xb, wu, wg, wd, dy, fs, bs, *, act, live, live_b,
     launches, with requires_grad on xb and on the weights ``need`` names,
     from a profiler window over one call: ({1: <1>, 2: <2>} launches of
     the backward's dW kernels, every moe_ kernel's launches by name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.kernels import ops
 
     def step():
-        # the host waits 20 ms inside the window before it launches: at the
-        # N(0, 1) cases' 4 experts the call's kernels take microseconds, and
-        # a window that starts right before them has lost all but the last
-        # two (the dW kernels) three times in a row late in this process
+        # the host waits 20 ms before it launches (at the N(0, 1) cases' 4
+        # experts the call's kernels take microseconds) and 100 ms after
+        # they end, so that CUPTI delivers their records before the window
+        # moves on
         time.sleep(0.02)
         ins = [xb.clone().requires_grad_()] + [
             w.clone().requires_grad_(n) for w, n in zip((wu, wg, wd), need)]
         ops.gated_moe_ffn(*ins, fs, bs, act=act, block_c=MO_BLOCK_C,
                           live_slots=live, live_bwd_slots=live_b).backward(dy)
+        torch.cuda.synchronize()
+        time.sleep(0.1)
     # every backward launches its dx kernel once: a window without it lost
-    # CUPTI's records (seen on the card, with the forward's kernels gone
-    # too), so take it again, and say so
+    # CUPTI's records (seen on the card late in this process: every kernel
+    # but the last two gone, in five windows in a row that traced from
+    # their first call), so the window traces a warm-up call before the
+    # one it counts, and waits for the records; where it still loses them,
+    # it is taken again, and says so
+    step()
     for attempt in range(1, 6):
-        named = profile_steps(torch, step, "moe_", n_prof=1)[-1]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     acc_events=True) as prof:
+            for _ in range(2):
+                step()
+                prof.step()
+        named = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and "moe_" in e.key:
+                ms, n = named.get(kernel_name(e.key), (0.0, 0))
+                named[kernel_name(e.key)] = (ms + e.self_device_time_total
+                                             / 1e3, n + e.count)
         if "moe_bwd_dx_kernel" in named:
             break
         print(f"[profile] MoE window {attempt} of 5 lost the backward's dx "
@@ -3031,117 +3136,12 @@ def moe_timing(torch, mo, tag):
     and bounds; "bwd_dw_up" is the backward as D2FT-LoRA's step asks for
     it (dW_up alone). Then the hd-128 attention kernels at olmoe-1b-7b's
     shapes under phase 21's gates and bounds."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import d2ft_moe as d2m
-    from repro_torch.kernels import ops
-    xb, wu, wg, wd, fs, bs, live, live_b = moe_operands(
-        torch, mo["gates"], mo["bounds"])
-    calls = []
-    with torch.no_grad(), capture(d2m, "gated_moe_ffn", calls):
-        ops._gated_moe_impl(xb, wu, wg, wd, fs, bs, act="silu",
-                            block_c=MO_BLOCK_C, live_slots=live,
-                            live_bwd_slots=live_b)
-    (xs, _, _, _, fm, bm), kw = calls[0]
-    xs, fm, bm = (t.contiguous() for t in (xs, fm, bm))
-    bc, nb = kw["block_c"], kw["bwd_blocks"]
-    E, Cr, D = xs.shape
-    Fd = wu.shape[2]
-    cb = nb * bc
-    up = (True, False, False)
-    dy = torch.randn(xs.shape, generator=torch.Generator(
-        device="cuda").manual_seed(22), device="cuda")
-    refs = [t.clone().requires_grad_() for t in (xs, wu, wg, wd)]
-    ref = d2m.gated_moe_ffn_ref(*refs, fm, bm, act="silu", block_c=bc)
-    # the plain version and the library with w_up alone requiring grad
-    refs_u = [xs.clone().requires_grad_(), wu.clone().requires_grad_(), wg,
-              wd]
-    ref_u = d2m.gated_moe_ffn_ref(*refs_u, fm, bm, act="silu", block_c=bc)
-
-    def library(x, u, g, d):
-        return torch.bmm(F.silu(torch.bmm(x, g)) * torch.bmm(x, u), d)
-    lib_in = [t.clone().requires_grad_() for t in (xs[:, :cb], wu, wg, wd)]
-    lib_out = library(*lib_in)
-    lib_u = [xs[:, :cb].clone().requires_grad_(),
-             wu.clone().requires_grad_(), wg, wd]
-    lib_out_u = library(*lib_u)
-    fmn, bmn = fm.cpu().numpy(), bm[:, :nb].cpu().numpy()
-    fl = {"fwd": d2m.gated_moe_flops(fmn, bmn, bc, D, Fd)[0],
-          "bwd": d2m.bwd_flops(bmn, bc, D, Fd),
-          "bwd_dw_up": d2m.bwd_flops(bmn, bc, D, Fd, up)}
-    by = {"fwd": d2m.needed_bytes(fmn, bmn, bc, D, Fd)[0],
-          "bwd": d2m.needed_bytes(fmn, bmn, bc, D, Fd)[1],
-          "bwd_dw_up": d2m.needed_bytes(fmn, bmn, bc, D, Fd, need=up)[1]}
-    # every product runs 3xTF32 on the tensor cores: held to that bound
-    out = {
-        "fwd": (time_ms(torch, lambda: d2m.moe_fwd(
-                    xs, wu, wg, wd, fm, act="silu", block_c=bc), iters=20),
-                time_ms(torch, lambda: d2m.gated_moe_ffn_ref(
-                    xs, wu, wg, wd, fm, bm, act="silu", block_c=bc),
-                    iters=20),
-                time_ms(torch, lambda: library(xs, wu, wg, wd), iters=20),
-                *tc_roofline(by["fwd"], fl["fwd"])),
-        "bwd": (time_ms(torch, lambda: d2m.moe_bwd(
-                    xs, wu, wg, wd, bm, dy, act="silu", block_c=bc,
-                    bwd_blocks=nb), iters=20),
-                time_ms(torch, lambda: torch.autograd.grad(
-                    ref, refs, dy, retain_graph=True), iters=20),
-                time_ms(torch, lambda: torch.autograd.grad(
-                    lib_out, lib_in, dy[:, :cb], retain_graph=True),
-                    iters=20),
-                *tc_roofline(by["bwd"], fl["bwd"])),
-        "bwd_dw_up": (
-                time_ms(torch, lambda: d2m.moe_bwd(
-                    xs, wu, wg, wd, bm, dy, act="silu", block_c=bc,
-                    bwd_blocks=nb, need=up), iters=20),
-                time_ms(torch, lambda: torch.autograd.grad(
-                    ref_u, refs_u[:2], dy, retain_graph=True), iters=20),
-                time_ms(torch, lambda: torch.autograd.grad(
-                    lib_out_u, lib_u[:2], dy[:, :cb], retain_graph=True),
-                    iters=20),
-                *tc_roofline(by["bwd_dw_up"], fl["bwd_dw_up"]))}
-    # the kernels alone: outputs, scratch and the work list allocated once,
-    # outside the timed window
-    y, mid = torch.empty_like(xs), torch.empty((E, Cr, Fd), device="cuda")
-    work_f = torch.empty((E * (Cr // bc) + 1,), dtype=torch.int32,
-                         device="cuda")
-    dx = torch.zeros_like(xs)
-    dws = [torch.empty_like(w) for w in (wu, wg, wd)]
-    dhg = torch.empty((E, cb, 2 * Fd), device="cuda")
-    ah = torch.empty((E, cb, Fd), device="cuda")
-    work_b = torch.empty((E * nb + 1,), dtype=torch.int32, device="cuda")
-    alone = {
-        "fwd": time_ms(torch, lambda: d2m._fwd_call(
-            xs, wu, wg, wd, fm, y, mid, work_f, bc, "silu"), iters=20),
-        "bwd": time_ms(torch, lambda: d2m._bwd_call(
-            xs, wu, wg, wd, bm, dy, dx, *dws, dhg, ah, work_b, nb, bc,
-            "silu"), iters=20),
-        "bwd_dw_up": time_ms(torch, lambda: d2m._bwd_call(
-            xs, wu, wg, wd, bm, dy, dx, dws[0], None, None, dhg, None,
-            work_b, nb, bc, "silu"), iters=20)}
-    live_t = {"fwd": int((fm != 0).sum()), "bwd": int((bm[:, :nb] != 0).sum())}
-    what = {"fwd": "three torch.bmm and silu on the truncated buffer",
-            "bwd": "their autograd backward, every input requiring grad",
-            "bwd_dw_up": "their autograd backward, x and w_up alone "
-                         "requiring grad"}
-    for kind, (k_ms, p_ms, l_ms, b_ms, bb) in out.items():
-        grid = tuple(fm.shape) if kind == "fwd" else (E, nb)
-        print(f"[moe timing] d2ft_moe_{kind} E {E} C {xb.shape[1]} -> "
-              f"{Cr} D {D} F {Fd} block_c {bc}, phase 21's layer-0 operands "
-              f"and gates, slot bounds ({live}, {live_b}): grid {grid}, "
-              f"{live_t[kind[:3]]} live tiles: launcher call {k_ms:.4f} ms "
-              f"(kernels alone, buffers allocated outside the window, "
-              f"{alone[kind]:.4f} ms), plain {p_ms:.4f} ms, library "
-              f"({what[kind]}) {l_ms:.4f} ms; bounds ({fl[kind] / 1e9:.1f} "
-              f"GFLOP, {by[kind] / 1e6:.1f} MB): float32 FMA "
-              f"{roofline(by[kind], fl[kind])[0]:.4f} ms, 3xTF32 tensor "
-              f"cores {b_ms:.4f} ms by {bb}; held to the 3xTF32 one, "
-              f"{b_ms / k_ms:.1%} of it ({b_ms / alone[kind]:.1%} alone); "
-              f"{fl[kind] / k_ms / 1e9:.1f} TFLOP/s of float32 work through "
-              f"the launcher {tag}", flush=True)
+    operands = moe_operands(torch, mo["gates"], mo["bounds"])
+    out = moe_times(torch, *operands, "phase 21's layer-0 operands and "
+                    "gates", "moe timing", tag)
     print_resources("d2ft_moe_fwd", "moe timing")
     print_resources("d2ft_moe_bwd", "moe timing")
-    del xb, wu, wg, wd, xs, refs, ref, refs_u, ref_u, lib_in, lib_out
-    del lib_u, lib_out_u, y, mid, dx, dws, dhg, ah, dy
+    del operands
     torch.cuda.empty_cache()
 
     # olmoe-1b-7b's attention: hd 128, 16 heads, one gate per head (G 16)
@@ -3153,6 +3153,129 @@ def moe_timing(torch, mo, tag):
         "hd-128 attention timing", "phase 21's layer-0 gates (causal)",
         MO_BATCH, cfg_h, MO_SEQ, cfg_hd, 0, g_f, g_b, lf, lb, tag)
     return out, res
+
+
+def moe_times(torch, xb, wu, wg, wd, fs, bs, live, live_b, what_ops, label,
+              tag, *, iters=20, dw_up=True):
+    """CUDA-event times, L2 flushed, of both MoE kernels on the operands
+    ``apply_moe`` hands ``ops._gated_moe_impl`` (the capacity buffer, the
+    expert weights, both slot masks and slot bounds), and, with ``dw_up``,
+    of the backward with dW_up alone (D2FT-LoRA's): through the launcher
+    call and alone (buffers allocated outside the window), beside the plain
+    version, a library yardstick (three torch.bmm and silu on the
+    truncated buffer, its autograd backward) and both bounds. Returns
+    {"fwd"|"bwd"[|"bwd_dw_up"]: (ms, plain_ms, library_ms, bound_ms,
+    bound_by)}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import d2ft_moe as d2m
+    from repro_torch.kernels import ops
+    calls = []
+    with torch.no_grad(), capture(d2m, "gated_moe_ffn", calls):
+        ops._gated_moe_impl(xb, wu, wg, wd, fs, bs, act="silu",
+                            block_c=MO_BLOCK_C, live_slots=live,
+                            live_bwd_slots=live_b)
+    (xs, _, _, _, fm, bm), kw = calls[0]
+    del calls
+    xs, fm, bm = (t.contiguous() for t in (xs, fm, bm))
+    bc, nb = kw["block_c"], kw["bwd_blocks"]
+    E, Cr, D = xs.shape
+    Fd = wu.shape[2]
+    cb = nb * bc
+    up = (True, False, False)
+    dy = torch.randn(xs.shape, generator=torch.Generator(
+        device="cuda").manual_seed(22), device="cuda")
+    fmn, bmn = fm.cpu().numpy(), bm[:, :nb].cpu().numpy()
+    fl = {"fwd": d2m.gated_moe_flops(fmn, bmn, bc, D, Fd)[0],
+          "bwd": d2m.bwd_flops(bmn, bc, D, Fd),
+          "bwd_dw_up": d2m.bwd_flops(bmn, bc, D, Fd, up)}
+    by = {"fwd": d2m.needed_bytes(fmn, bmn, bc, D, Fd)[0],
+          "bwd": d2m.needed_bytes(fmn, bmn, bc, D, Fd)[1],
+          "bwd_dw_up": d2m.needed_bytes(fmn, bmn, bc, D, Fd, need=up)[1]}
+
+    def library(x, u, g, d):
+        return torch.bmm(F.silu(torch.bmm(x, g)) * torch.bmm(x, u), d)
+
+    def timed(fn):
+        return time_ms(torch, fn, iters=iters, warmup=min(5, iters))
+
+    # every product runs 3xTF32 on the tensor cores: held to that bound
+    out = {"fwd": (
+        timed(lambda: d2m.moe_fwd(xs, wu, wg, wd, fm, act="silu",
+                                  block_c=bc)),
+        timed(lambda: d2m.gated_moe_ffn_ref(xs, wu, wg, wd, fm, bm,
+                                            act="silu", block_c=bc)),
+        timed(lambda: library(xs, wu, wg, wd)),
+        *tc_roofline(by["fwd"], fl["fwd"]))}
+    # the backward as full fine-tuning asks for it (every input requiring
+    # grad) and, with dw_up, as D2FT-LoRA's step does (x and w_up alone)
+    kinds = [("bwd", (True, True, True))] + (
+        [("bwd_dw_up", up)] if dw_up else [])
+    for kind, need in kinds:
+        refs = [xs.clone().requires_grad_()] + [
+            w.clone().requires_grad_() if n else w
+            for w, n in zip((wu, wg, wd), need)]
+        ref = d2m.gated_moe_ffn_ref(*refs, fm, bm, act="silu", block_c=bc)
+        lib_in = [xs[:, :cb].clone().requires_grad_()] + [
+            w.clone().requires_grad_() if n else w
+            for w, n in zip((wu, wg, wd), need)]
+        lib_out = library(*lib_in)
+        wants = [t for t in refs if t.requires_grad]
+        lib_wants = [t for t in lib_in if t.requires_grad]
+        out[kind] = (
+            timed(lambda: d2m.moe_bwd(xs, wu, wg, wd, bm, dy, act="silu",
+                                      block_c=bc, bwd_blocks=nb,
+                                      need=need)),
+            timed(lambda: torch.autograd.grad(ref, wants, dy,
+                                              retain_graph=True)),
+            timed(lambda: torch.autograd.grad(lib_out, lib_wants,
+                                              dy[:, :cb],
+                                              retain_graph=True)),
+            *tc_roofline(by[kind], fl[kind]))
+        del refs, ref, lib_in, lib_out, wants, lib_wants
+        torch.cuda.empty_cache()
+    # the kernels alone: outputs, scratch and the work list allocated once,
+    # outside the timed window
+    y, mid = torch.empty_like(xs), torch.empty((E, Cr, Fd), device="cuda")
+    work_f = torch.empty((E * (Cr // bc) + 1,), dtype=torch.int32,
+                         device="cuda")
+    dx = torch.zeros_like(xs)
+    dws = [torch.empty_like(w) for w in (wu, wg, wd)]
+    dhg = torch.empty((E, cb, 2 * Fd), device="cuda")
+    ah = torch.empty((E, cb, Fd), device="cuda")
+    work_b = torch.empty((E * nb + 1,), dtype=torch.int32, device="cuda")
+    alone = {
+        "fwd": timed(lambda: d2m._fwd_call(
+            xs, wu, wg, wd, fm, y, mid, work_f, bc, "silu")),
+        "bwd": timed(lambda: d2m._bwd_call(
+            xs, wu, wg, wd, bm, dy, dx, *dws, dhg, ah, work_b, nb, bc,
+            "silu"))}
+    if dw_up:
+        alone["bwd_dw_up"] = timed(lambda: d2m._bwd_call(
+            xs, wu, wg, wd, bm, dy, dx, dws[0], None, None, dhg, None,
+            work_b, nb, bc, "silu"))
+    live_t = {"fwd": int((fm != 0).sum()), "bwd": int((bm[:, :nb] != 0).sum())}
+    what = {"fwd": "three torch.bmm and silu on the truncated buffer",
+            "bwd": "their autograd backward, every input requiring grad",
+            "bwd_dw_up": "their autograd backward, x and w_up alone "
+                         "requiring grad"}
+    for kind, (k_ms, p_ms, l_ms, b_ms, bb) in out.items():
+        grid = tuple(fm.shape) if kind == "fwd" else (E, nb)
+        print(f"[{label}] d2ft_moe_{kind} E {E} C {xb.shape[1]} -> "
+              f"{Cr} D {D} F {Fd} block_c {bc}, {what_ops}, slot bounds "
+              f"({live}, {live_b}): grid {grid}, "
+              f"{live_t[kind[:3]]} live tiles: launcher call {k_ms:.4f} ms "
+              f"(kernels alone, buffers allocated outside the window, "
+              f"{alone[kind]:.4f} ms), plain {p_ms:.4f} ms, library "
+              f"({what[kind]}) {l_ms:.4f} ms; bounds ({fl[kind] / 1e9:.1f} "
+              f"GFLOP, {by[kind] / 1e6:.1f} MB): float32 FMA "
+              f"{roofline(by[kind], fl[kind])[0]:.4f} ms, 3xTF32 tensor "
+              f"cores {b_ms:.4f} ms by {bb}; held to the 3xTF32 one, "
+              f"{b_ms / k_ms:.1%} of it ({b_ms / alone[kind]:.1%} alone); "
+              f"{fl[kind] / k_ms / 1e9:.1f} TFLOP/s of float32 work through "
+              f"the launcher {tag}", flush=True)
+    del xs, y, mid, dx, dws, dhg, ah, dy
+    torch.cuda.empty_cache()
+    return out
 
 
 def csrc_kernel_names():
@@ -3779,6 +3902,416 @@ def serve_families(torch, np, tag):
     return launches
 
 
+def plain_sgd(torch, lr):
+    """SGD without momentum: no moment buffers, so that a 5.4 B-parameter
+    float32 model, its gradients and a step's activations fit on one
+    80 GB card (``optim.sgd`` keeps a momentum buffer, even at 0)."""
+    from repro_torch.optim.optimizers import Optimizer
+
+    def init(params):
+        return {"step": 0}
+
+    def update(grads, state, params):
+        with torch.no_grad():
+            for n, p in params.items():
+                p.add_(grads[n], alpha=-lr)
+        state["step"] += 1
+        return params, state
+    return Optimizer(init, update, elidable=True, n_moments=0)
+
+
+def head_groups(cfg):
+    """D2FT head groups of a phase-25 run: one a head, as the launcher
+    gives them, unless the dense FFN's width does not split into that many
+    column groups (qwen1.5-32b: 40 heads, d_ff 27392 = 2^8 x 107), then the
+    largest count that tiles both."""
+    if cfg.moe is None and cfg.d_ff > 0:
+        return math.gcd(cfg.n_heads, cfg.d_ff)
+    return cfg.n_heads
+
+
+def feature_batches(np, cfg, B, seq, steps, seed=0):
+    """numpy batches of ``seq`` positions for ``loop.finetune``: for a
+    frontend arch unit-normal stub embeddings of ``frontend.feature_spec``'s
+    shape, with ``lm_batches``' text tokens and labels after a vision
+    prefix, or uniform frame labels for an audio encoder; for a text arch
+    ``lm_batches``."""
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models.frontends import feature_spec, text_len
+    n_text = text_len(cfg, seq)
+    text = lm_batches(seed, cfg.vocab_size, B, n_text, steps) \
+        if n_text else None
+    rng = np.random.default_rng(seed + 1)
+    for _ in range(steps):
+        spec = feature_spec(cfg, B, seq)
+        out = {} if spec is None else {
+            "features": rng.standard_normal(spec[0], dtype=np.float32)}
+        if text is not None:
+            out.update(next(text))
+        else:
+            out["labels"] = rng.integers(0, cfg.vocab_size, (B, seq)) \
+                .astype(np.int32)
+        yield out
+
+
+def capture_first(torch, module, name, sink):
+    """Context manager: the first call of ``module.name`` records its
+    (args, kwargs) in ``sink``, tensors detached (they outlive the step's
+    graph); every call runs as before."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def patched():
+        orig = getattr(module, name)
+
+        def grab(*a, **k):
+            if not sink:
+                sink.append((tuple(t.detach() if isinstance(t, torch.Tensor)
+                                   else t for t in a), dict(k)))
+            return orig(*a, **k)
+        setattr(module, name, grab)
+        try:
+            yield sink
+        finally:
+            setattr(module, name, orig)
+    return patched()
+
+
+def predicted_launches(cfg, steps):
+    """``moe_launches`` after ``steps`` kernel-path steps: one B2 forward
+    and backward an attention layer, one B8 and B9 call a layer with an
+    MoE FFN."""
+    n_attn = sum(k in ("attn_global", "attn_local") for k in cfg.layer_kinds)
+    n_moe = cfg.n_layers if cfg.moe is not None else 0
+    return {"fwd": n_moe * steps, "bwd": n_moe * steps,
+            "attn_fwd": n_attn * steps, "attn_bwd": n_attn * steps}
+
+
+def attention_operands_vs_plain(torch, name, call, gen):
+    """B2 forward and backward on the operands the main path handed its
+    first call (q, k, v [B, H, S, hd] with kv heads expanded, the per-head
+    gates and bounds) and a unit-normal cotangent, against the plain
+    version: o / lse <= 1e-5, grads <= 1e-4 (each x max(1, max |plain|)),
+    exact zeros, executed tiles = live slices x live tiles. Returns (o/lse
+    err, grad err, the call's shape and mask)."""
+    (q, k, v, g_f, g_b), kw = call
+    causal, window = kw["causal"], kw.get("window", 0)
+    live = (kw.get("live_fwd"), kw.get("live_bwd"))
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    e_f, e_b, s_f, s_b, zeros, counts, want = attention_case(
+        torch, q, k, v, do, g_f, g_b, causal=causal, window=window,
+        live=live)
+    B, H, S, hd = q.shape
+    what = (f"{name}'s layer-0 operands (B {B} H {H} S {S} hd {hd}, "
+            f"{'causal' if causal else 'bidirectional'}, window {window}, "
+            f"bounds {live})")
+    if e_f > KERNEL_TOL * max(1.0, s_f) or e_b > GRAD_TOL * max(1.0, s_b) \
+            or not zeros or counts != want:
+        raise AssertionError(
+            f"attention kernels vs plain, {what}: o/lse err {e_f} (max "
+            f"|plain| {s_f}), grad err {e_b} (max |plain| {s_b}), exact "
+            f"zeros {zeros}, tiles {counts} != {want}")
+    print(f"[new archs vs plain] d2ft_attention {what}: live "
+          f"{int((g_f != 0).sum())}/{int((g_b != 0).sum())} of {B * H}, "
+          f"o/lse err {e_f:.3e} (max |plain| {s_f:.3g}), grad err "
+          f"{e_b:.3e} (max |plain| {s_b:.3g}), zeros exact, tiles = live "
+          f"slices x live tiles", flush=True)
+    return e_f, e_b, (B, H, S, hd, causal, window)
+
+
+def moe_operands_vs_plain(torch, name, call, gen):
+    """B8 / B9 on the operands the main path handed ``ops._gated_moe_impl``
+    at its first call (layer 0's capacity buffer, expert weights, slot
+    masks and bounds), against the plain version and its autograd
+    gradients: y <= 1e-5, dx / dW <= 1e-4, each x max(1, max |plain|),
+    exact zeros on dead tiles, executed tiles = the launched masks'."""
+    (xb, wu, wg, wd, fs, bs), kw = call
+    live, live_b = kw["live_slots"], kw["live_bwd_slots"]
+    dy = torch.randn(xb.shape, generator=gen, device="cuda")
+    errs, scale, zeros, counts, mirror, grids, _ = moe_case(
+        torch, xb, wu, wg, wd, dy, fs, bs, act=kw["act"], live=live,
+        live_b=live_b)
+    tols = [KERNEL_TOL] + [GRAD_TOL] * 4
+    bad = [i for i, (e, s, t) in enumerate(zip(errs, scale, tols))
+           if not e <= t * max(1.0, s)]
+    E, C, D = xb.shape
+    what = (f"{name}'s layer-0 operands (E {E} C {C} D {D} F "
+            f"{wu.shape[2]}, slot bounds ({live}, {live_b}), grids {grids})")
+    if bad or not zeros or counts["moe_fwd"] != mirror["moe_fwd"] or \
+            counts["moe_bwd"] != mirror["moe_bwd"]:
+        raise AssertionError(
+            f"MoE kernels vs plain, {what}: errors [y, dx, dW_up, dW_gate, "
+            f"dW_down] {errs} against max |plain| {scale}, exact zeros "
+            f"{zeros}, tiles {counts} != the masks' {mirror}")
+    print(f"[new archs vs plain] d2ft_moe {what}: errors [y, dx, dW_up, "
+          f"dW_gate, dW_down] " + ", ".join(f"{e:.3e}" for e in errs)
+          + " against max |plain| " + ", ".join(f"{s:.3g}" for s in scale)
+          + f", zeros exact, tiles {counts['moe_fwd']} / "
+          f"{counts['moe_bwd']} = the launched masks'", flush=True)
+    return max(errs[:1]), max(errs[1:])
+
+
+def arch_finetune(torch, np, arch, cfg, B, seq, what, tag):
+    """Phase 25b-d: ``loop.finetune(..., use_kernel=True)`` on ``cfg``
+    (random weights from seed 0, f32), batch B x ``seq`` positions of
+    ``feature_batches`` in 4 micro-batches, n_pf 3 / n_po 1, G =
+    ``head_groups(cfg)``, momentum-free SGD, NA_STEPS steps: launches
+    against the schedule's count, executed tiles, the first-step loss
+    against the masked path's on the same weights, schedule and batch
+    (its forward, without gradients), finite losses, p50 step ms, peak
+    memory. Returns {"heads": layer 0's per-head gates, "bounds":
+    per-head bounds, "attn": B2's first call, "moe": ``_gated_moe_impl``'s
+    first call or None}."""
+    from types import SimpleNamespace
+    from repro_torch.configs.base import D2FTConfig
+    from repro_torch.core.schedule import (gates_from_schedule,
+                                           live_slice_bounds)
+    from repro_torch.data.synthetic import microbatch_assignment
+    from repro_torch.kernels import contract, ops
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.kernels import d2ft_moe as d2m
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.transformer import init_model, lm_loss
+    from repro_torch.train import loop
+
+    t0 = time.perf_counter()
+    d2 = D2FTConfig(**NA_D2FT, head_groups=head_groups(cfg))
+    n_mb, steps = d2.n_microbatches, NA_STEPS
+    info = {}
+
+    def kernel_path():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        info["params"] = sum(p.numel() for p in model.parameters())
+        info["init_s"] = time.perf_counter() - t
+        log = loop.finetune(model, cfg, d2, plain_sgd(torch, NA_LR),
+                            feature_batches(np, cfg, B, seq, steps),
+                            steps=steps, use_kernel=True)[2]
+        info["peak"] = torch.cuda.max_memory_allocated()
+        return log
+    run, scheds = launcher_paths(None, own={"kernel": kernel_path})
+    d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
+    d2m.moe_fwd.launches = d2m.moe_bwd.launches = 0
+    hook, sums = mask_sums()
+    attn_call, moe_call = [], []
+    d2m.dispatch = hook
+    try:
+        with contract.count_tiles("cuda") as tc, \
+                capture_first(torch, attn_mod, "gated_flash_attention",
+                              attn_call), \
+                capture_first(torch, ops, "_gated_moe_impl", moe_call):
+            log_k = run("kernel")
+            counts = tc.read()
+    finally:
+        d2m.dispatch = None
+    launches = moe_launches()
+    if launches != predicted_launches(cfg, steps):
+        raise AssertionError(f"{arch}: launches {launches} != the "
+                             f"schedule's {predicted_launches(cfg, steps)}")
+    sched = scheds[0]
+    mb_of = microbatch_assignment(B, n_mb)
+    bounds = live_slice_bounds(sched, mb_of)
+    want, full = schedule_tiles(sched, mb_of, cfg, steps, seq)
+    mirror = {k: int(sum(int(v) for v in sums[k])) for k in sums}
+    if any(counts[k] != want[k] for k in want) or \
+            counts["moe_fwd"] != mirror["fwd"] or \
+            counts["moe_bwd"] != mirror["bwd"]:
+        raise AssertionError(f"{arch}: executed tiles {counts} != the "
+                             f"schedule's attention {want} / the MoE "
+                             f"masks' {mirror}")
+    # the masked path's first-step loss: its forward on the same weights,
+    # schedule and batch (its backward would keep [B, H, S, S] softmax
+    # probabilities of every layer: 17 GB more at phi-3-vision-4.2b)
+    torch.cuda.empty_cache()
+    g_f, g_b = gates_from_schedule(sched, mb_of, "cpu")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(feature_batches(np, cfg, B, seq, 1)).items()}
+    with torch.no_grad():
+        model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+        loss_m = float(lm_loss(model, cfg, batch.get("tokens"),
+                               batch["labels"],
+                               features=batch.get("features"),
+                               gates=(g_f.cuda(), g_b.cuda()))[0])
+    if moe_launches() != launches:
+        raise AssertionError(f"{arch}: the masked path launched a kernel")
+    del model, batch
+    torch.cuda.empty_cache()
+    diff = check_losses(np, SimpleNamespace(losses=log_k.losses[:1]),
+                        SimpleNamespace(losses=[loss_m]))
+    if not np.isfinite(log_k.losses).all():
+        raise AssertionError(f"{arch}: losses {log_k.losses}")
+    p50 = 1e3 * float(np.median(log_k.step_times))
+    peak = info["peak"]
+    per_step = {k: v // steps for k, v in launches.items()}
+    rep = cfg.n_heads // sched.n_groups
+    print(f"[new archs] {what} ({info['params']} parameters, f32, seed 0; "
+          f"init {info['init_s']:.1f} s) through train/loop.py::finetune "
+          f"(use_kernel=True), batch {B} x {seq} positions in {n_mb} "
+          f"micro-batches, n_pf {NA_D2FT['n_pf']} n_po {NA_D2FT['n_po']}, "
+          f"G {sched.n_groups}, momentum-free SGD lr {NA_LR}, {steps} steps: "
+          f"launches a step {per_step} (= the schedule's count), live "
+          f"(sample, group) bounds {bounds} x {rep}, executed attention "
+          f"tiles = the schedule's ({want} of {full}), MoE tiles "
+          f"{counts['moe_fwd']} / {counts['moe_bwd']} = the launched masks'; "
+          f"losses {[round(float(x), 6) for x in log_k.losses]}, first-step "
+          f"masked-path loss {loss_m:.6f} (diff {diff:.3e}); p50 step ms "
+          f"{p50:.3f} (steps {[round(1e3 * t, 1) for t in log_k.step_times]}"
+          f"), max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB, "
+          f"scoring included); {time.perf_counter() - t0:.1f} s {tag}",
+          flush=True)
+    heads = tuple(torch.repeat_interleave(g[0], rep, dim=1).cuda()
+                  for g in (g_f, g_b))
+    return {"heads": heads, "bounds": (bounds[0] * rep, bounds[1] * rep),
+            "attn": attn_call[0], "moe": moe_call[0] if moe_call else None}
+
+
+def serve_arch(torch, np, cfg, prompts, label, tag):
+    """Phase 25e for one arch: 4 requests through 4 slots, page size 16,
+    the kernel path (one warm-up engine first) and the gather path: B10
+    launches = attention layers x decode steps, every request finishes,
+    every page returns, the tokens equal; the requests whose prompt and
+    new tokens pass the window are named (under an MoE FFN the slots share
+    each expert's decode capacity, so ``generate`` on one request alone is
+    no oracle for the engine's tokens, in the JAX package too; the gather
+    path, which applies the same window, is); p50 decode step, a profile
+    of 5 decode steps. Returns the trace's final lengths."""
+    from repro_torch.models.transformer import init_model
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = init_model(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs = family_requests(np, cfg, prompts, (NA_SERVE_NEW,) * len(prompts))
+    out, eng, step_s, prefill_s, n_k, run_s = serve_trace(
+        torch, np, model, cfg, reqs, True, warm=True)
+    n_attn = sum(k in ("attn_global", "attn_local") for k in cfg.layer_kinds)
+    if n_k != n_attn * eng.n_steps or n_k == 0:
+        raise AssertionError(f"{cfg.name}: kernel launches {n_k} != "
+                             f"{n_attn} x {eng.n_steps} decode steps")
+    plain, *_ = serve_trace(torch, np, model, cfg, reqs, False)
+    for r in reqs:
+        if not np.array_equal(out[r.uid], plain[r.uid]):
+            first_difference(torch, model, cfg, r, out[r.uid], plain[r.uid],
+                             "kernel and gather-path tokens")
+    crossing = [r for r in reqs if cfg.window and
+                r.prompt_len + r.max_new_tokens > cfg.window]
+    if cfg.window and not crossing:
+        raise AssertionError(f"{cfg.name}: no request passes the window")
+    print(f"[new archs serve] {label} (f32, seed 0; init {init_s:.1f} s), "
+          f"{len(reqs)} requests / {MAX_SLOTS} slots, prompts "
+          f"{list(prompts)}, {NA_SERVE_NEW} new each: paged_decode launches "
+          f"{n_k} = {n_attn} x {eng.n_steps}, all finished, pool drained, "
+          f"tokens == gather path"
+          + (f"; requests {[r.uid for r in crossing]} pass the "
+             f"{cfg.window} window in decode" if crossing else "")
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    serve_line(np, cfg, eng, reqs, step_s, prefill_s, run_s, tag)
+    serve_profile(torch, model, cfg, eng, reqs, "paged_decode", True, tag)
+    final = [r.prompt_len + r.max_new_tokens - 1 for r in reqs]
+    del model, eng, out, plain
+    torch.cuda.empty_cache()
+    return final
+
+
+def new_archs(torch, np, tag):
+    """Phase 25."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    def timing(arch, run, causal=True):
+        B, H, S, hd = run["attn"][0][0].shape
+        window = run["attn"][1].get("window", 0)
+        attention_timing_case(
+            torch, gen, "new archs attention timing",
+            f"{arch}'s shape and layer-0 gates "
+            f"({'causal' if causal else 'bidirectional'})", B, H, S, hd,
+            window, *run["heads"], *run["bounds"], tag, causal=causal)
+
+    # (a) stablelm-3b through the launcher; served at full size
+    t0 = time.perf_counter()
+    call = []
+    st = launcher_finetune(torch, np, tag, "stablelm-3b", "new archs",
+                           NA_BATCH, NA_SEQ, NA_STEPS, NA_LR, NA_D2FT, (0,),
+                           call)
+    B, H, S, hd = attention_operands_vs_plain(torch, "stablelm-3b", call[0],
+                                              gen)[2][:4]
+    del call
+    attention_timing_case(torch, gen, "new archs attention timing",
+                          "stablelm-3b's shape and layer-0 gates (causal)",
+                          B, H, S, hd, 0, *st["heads"][0], *st["bounds"],
+                          tag)
+    print(f"[new archs] phase 25a in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    serve_arch(torch, np, get_config("stablelm-3b"), NA_SERVE_PROMPTS,
+               "stablelm-3b full size (32 layers, 32 heads of 80)", tag)
+
+    # (b) phi-3-vision-4.2b, (c) hubert-xlarge: full size, feature batches
+    for arch, seq, what in (
+            ("phi-3-vision-4.2b", None, "phi-3-vision-4.2b full size (32 "
+             "layers, d 3072, 32 heads of 96; 576 patch rows of 1024 + "
+             f"{VL_TEXT} text tokens, causal)"),
+            ("hubert-xlarge", AU_FRAMES, "hubert-xlarge full size (48 "
+             f"layers, d 1280, 16 heads of 80, bidirectional; {AU_FRAMES} "
+             "frames of 512)")):
+        cfg = get_config(arch)
+        seq = seq or cfg.frontend_tokens + VL_TEXT
+        run = arch_finetune(torch, np, arch, cfg, NA_BATCH, seq, what, tag)
+        attention_operands_vs_plain(torch, arch, run["attn"], gen)
+        timing(arch, run, causal=cfg.causal)
+        del run
+        torch.cuda.empty_cache()
+
+    # (d) qwen1.5-32b, mixtral-8x22b, moonshot-v1-16b-a3b at full width,
+    # cut in depth; each then served at that depth
+    final = None
+    for arch, k in NA_DEPTH.items():
+        full = get_config(arch)
+        cfg = full.replace(n_layers=k)
+        what = (f"{arch} at full width, {k} of {full.n_layers} layers (d "
+                f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV "
+                f"heads of {cfg.resolved_head_dim}"
+                + (f", window {cfg.window}" if cfg.window else "")
+                + (f", {cfg.moe.n_experts} experts top {cfg.moe.top_k} of "
+                   f"d_ff {cfg.moe.d_ff}"
+                   + (f" + {cfg.moe.n_shared_experts} shared"
+                      if cfg.moe.n_shared_experts else "")
+                   if cfg.moe else f", d_ff {cfg.d_ff}, q/k/v biases")
+                + f", vocab {cfg.vocab_size})")
+        run = arch_finetune(torch, np, arch, cfg, NA_BATCH, NA_SEQ, what,
+                            tag)
+        attention_operands_vs_plain(torch, arch, run["attn"], gen)
+        if arch != "moonshot-v1-16b-a3b":      # olmoe-1b-7b's shape, row 2
+            timing(arch, run)
+        if run["moe"] is not None:
+            moe_operands_vs_plain(torch, arch, run["moe"], gen)
+            (xb, wu, wg, wd, fs, bs), kw = run["moe"]
+            moe_times(torch, xb, wu, wg, wd, fs, bs, kw["live_slots"],
+                      kw["live_bwd_slots"], f"{arch}'s layer-0 operands "
+                      "and gates", "new archs moe timing", tag,
+                      iters=5 if cfg.moe.d_ff > 4096 else 20, dw_up=False)
+            del xb, wu, wg, wd, fs, bs
+        del run
+        torch.cuda.empty_cache()
+        prompts = MX_SERVE_PROMPTS if cfg.window else NA_SERVE_PROMPTS
+        lengths = serve_arch(torch, np, cfg, prompts, what, tag)
+        if cfg.window:
+            final = lengths
+
+    # B10 at the new decode shapes: against the plain version (lengths
+    # past mixtral's 4096 window) and timed at mixtral's final lengths
+    decode_shapes_vs_plain(torch, gen, NEW_DECODE_SHAPES, NEW_DECODE_CASES,
+                           NEW_DECODE_NPMAX)
+    decode_shapes_timing(torch, gen, final, -(-max(final) // PAGE_SIZE) + 1,
+                         tag, NEW_DECODE_SHAPES)
+    print(f"[new archs] phase 25 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3818,6 +4351,18 @@ def main() -> int:
     print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.2f} s "
           f"-> {build.build_dir()}", flush=True)
     print(build.ptxas_report(), flush=True)
+
+    if sys.argv[1:] == ["--only", "25"]:
+        # phase 25 alone, after the device and the build: a partial run,
+        # which prints no result
+        from repro_torch.kernels import contract
+
+        def refuse(kind, reason):
+            raise AssertionError(f"{kind} took a non-kernel route: {reason}")
+        contract.on_fallback = refuse
+        new_archs(torch, np, f"[{card}]")
+        print("chip_smoke: phase 25 alone passed (a partial run: no result)")
+        return 0
 
     # 3. kernel vs plain --------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4094,7 +4639,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 13. gemma3-1b LLM fine-tune through the launcher ---------------------
-    gm = gemma_finetune(torch, np, tag)
+    gm = launcher_finetune(torch, np, tag, "gemma3-1b", "gemma fine-tune",
+                           GM_BATCH, GM_SEQ, GM_STEPS, GM_LR, GM_D2FT, (0, 5))
 
     # 14. D2FT-LoRA fine-tune on gemma3-1b ---------------------------------
     lo = gemma_lora(torch, np, tag)
@@ -4134,6 +4680,10 @@ def main() -> int:
 
     # 24. serving the recurrent and MoE families; the serve example -------
     serve_families(torch, np, tag)
+    torch.cuda.empty_cache()
+
+    # 25. the rest of the model surface: six archs fine-tuned and served --
+    new_archs(torch, np, tag)
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{

@@ -1,5 +1,6 @@
 """Knapsack machinery for D2FT scheduling (paper Algorithms 1 & 2); port
-of ``repro/core/knapsack.py``, numpy, verbatim but for the device-side DP.
+of ``repro/core/knapsack.py``: numpy, verbatim, and the device-side DP in
+torch.
 
 The orchestration problem (Eq. 4) is a multiple-knapsack; the paper's
 heuristic decouples it (i) across devices and (ii) per device into a
@@ -12,8 +13,11 @@ Solvers:
   * ``dp_knapsack``        — classic table DP with backtracking (numpy; the
                              production scheduler — host-side, like data
                              ordering in MaxText).
-  * (``dp_knapsack_value_jax``, the JAX package's device-side DP, is off
-    the fine-tune's path and not ported yet.)
+  * ``dp_knapsack_value``  — the optimal value by a DP on the values'
+                             device, one vectorised update over the
+                             capacity axis per item (the JAX package's
+                             ``dp_knapsack_value_jax``; off the fine-tune's
+                             path: property tests, on-device scheduling).
   * ``brute_force``        — exhaustive oracle for small N (tests).
 
 Costs are floats; they are scaled to integers with ``resolution`` before the
@@ -26,6 +30,7 @@ import itertools
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 def _to_int(weights: np.ndarray, capacity: float, resolution: int):
@@ -61,6 +66,28 @@ def dp_knapsack(values: np.ndarray, weights: np.ndarray, capacity: float,
             sel[i - 1] = True
             c -= w[i - 1]
     return sel
+
+
+def dp_knapsack_value(values, weights_int, capacity_int: int
+                      ) -> torch.Tensor:
+    """Optimal 0/1 knapsack value, a float32 scalar on the values' device.
+
+    values: [N] float (a tensor, or anything ``torch.as_tensor`` takes);
+    weights_int: [N] int; capacity_int: a host int. Items go in order, each
+    one update of the whole [C + 1] table, f[c] = max(f[c], f[c - w] + v)
+    where c >= w, as the JAX package's ``lax.scan`` makes it."""
+    C = int(capacity_int)
+    dev = values.device if isinstance(values, torch.Tensor) else None
+    values = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    weights = torch.as_tensor(weights_int, dtype=torch.int32,
+                              device=values.device).long()
+    idx = torch.arange(C + 1, device=values.device)
+    neg_inf = torch.tensor(float("-inf"), device=values.device)
+    f = torch.zeros(C + 1, dtype=torch.float32, device=values.device)
+    for v, w in zip(values, weights):
+        shifted = f[torch.clamp(idx - w, 0, C)]
+        f = torch.maximum(f, torch.where(idx >= w, shifted + v, neg_inf))
+    return f[C]
 
 
 def brute_force(values: np.ndarray, weights: np.ndarray, capacity: float

@@ -8,7 +8,8 @@ packages, so the mapping only unstacks the layers: the JAX tree stacks the
 layers of each pattern position over cycles (``cycles[j]`` has a leading
 ``n_cycles`` dim) and keeps the remainder in ``rest``; cycle ``c``,
 position ``j`` becomes flat layer ``c*P + j``, remainder layer ``i`` becomes
-``n_cycles*P + i``. Every block's leaves cross the same way, an attention
+``n_cycles*P + i``. ``unembed`` and a frontend arch's ``frontend_proj``
+cross as they are. Every block's leaves cross the same way, an attention
 block's (``attn.wq`` ...) as an SSD block's (``ssd.w_in``, ``conv_w``,
 ``conv_b``, ``A_log``, ``dt_bias``, ``D``, ``norm_scale``, ``w_out``;
 mamba2-130m stacks its 24 layers in one pattern cycle) and an MoE FFN's
@@ -50,8 +51,9 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     for key in ("embed", "final_norm"):
         for name, a in _leaves(key, tree[key]):
             state[name] = torch.from_numpy(a.copy())
-    if "unembed" in tree:
-        state["unembed"] = torch.from_numpy(np.asarray(tree["unembed"]).copy())
+    for key in ("unembed", "frontend_proj"):
+        if key in tree:
+            state[key] = torch.from_numpy(np.asarray(tree[key]).copy())
     cycles = tree.get("cycles", [])
     P = len(cycles)
     n_cycles = 0

@@ -6,11 +6,15 @@ The JAX package stacks layers per pattern cycle for ``lax.scan``;
 ``j`` into layer ``c*P + j``. PyTorch runs eagerly, so there is nothing to
 gain from the stacked layout here.
 
-Ported so far: dense attention blocks (global and sliding-window) with a
-dense or an MoE FFN, SSD blocks (mamba2: no FFN), RG-LRU blocks with a
-dense FFN (and so the hybrid recurrentgemma pattern), the D2FT-gated block
-forward (``apply_block``), the text-only ``forward`` (with remat) with the
-MoE aux losses, the LLM loss (``fused_xent``, ``lm_loss``), and serving:
+Ported so far: dense attention blocks (global and sliding-window, causal
+or bidirectional, with or without q / k / v biases) with a dense or an
+MoE FFN (shared experts too), SSD blocks (mamba2: no FFN), RG-LRU blocks
+with a dense FFN (and so the hybrid recurrentgemma pattern), the
+D2FT-gated block forward (``apply_block``), ``forward`` (with remat) with
+the MoE aux losses and the stub frontends' features (a projector,
+``frontend_proj``, puts them ahead of the token embeddings; an audio
+encoder takes them alone), the LLM loss (``fused_xent``, ``lm_loss``,
+over the text region where features come first), and serving:
 the batched prefill with its cache dump (``prefill_forward``) and the
 contiguous-cache decode (``init_cache``, ``decode_step``) of every block
 kind.
@@ -25,8 +29,8 @@ p_s removes the contribution. An SSD block gates its scan per (sample,
 head) instead (``models/ssm.apply_ssd``), an RG-LRU block per (sample,
 channel band) (``models/rglru.apply_rglru``), and an MoE FFN is one group
 whose gates also drive its dispatch (``models/moe.apply_moe``). The
-frontends come with a later slice; the tensor-parallel, sharding-policy
-and expert-parallel branches with the distributed slice.
+tensor-parallel, sharding-policy and expert-parallel branches come with
+the distributed slice.
 """
 from __future__ import annotations
 
@@ -48,11 +52,6 @@ from repro_torch.models.layers import (_act, _param, apply_embedding,
                                        apply_norm, dense_init, init_embedding,
                                        init_mlp, init_norm, softcap,
                                        torch_dtype)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with a later slice of the port")
 
 
 def _not_ported_dist(what: str):
@@ -342,33 +341,36 @@ def layer_groups(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...], Tuple[str, ...
 
 # ================================================================ model init
 class Transformer(nn.Module):
-    """embed, final_norm, a flat ``layers`` list and, when the embeddings
-    are not tied, ``unembed`` [d_model, vocab]."""
+    """embed, final_norm, a flat ``layers`` list, ``unembed`` [d_model,
+    vocab] when the embeddings are not tied, and ``frontend_proj``
+    [frontend_dim, d_model] for an arch with a stub frontend."""
 
     def __init__(self, embed, final_norm, layers: List[Block],
-                 unembed: Optional[torch.Tensor] = None):
+                 unembed: Optional[torch.Tensor] = None,
+                 frontend_proj: Optional[torch.Tensor] = None):
         super().__init__()
         self.embed = embed
         self.final_norm = final_norm
         self.layers = nn.ModuleList(layers)
         if unembed is not None:
             self.unembed = _param(unembed)
+        if frontend_proj is not None:
+            self.frontend_proj = _param(frontend_proj)
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig) -> Transformer:
     """Random init on ``gen.device`` from the generator's stream (the
     numbers differ from ``jax.random``'s; tests carry JAX params over with
     ``interop.params_from_jax``)."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} is not ported yet")
     dtype = torch_dtype(cfg.param_dtype)
     embed = init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype)
     final_norm = init_norm(cfg.norm, cfg.d_model, dtype, gen.device)
     unembed = None if cfg.tie_embeddings else \
         dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    frontend_proj = None if cfg.frontend == "none" else \
+        dense_init(gen, cfg.frontend_dim, cfg.d_model, dtype)
     layers = [_init_block(gen, kind, cfg, dtype) for kind in cfg.layer_kinds]
-    return Transformer(embed, final_norm, layers, unembed)
+    return Transformer(embed, final_norm, layers, unembed, frontend_proj)
 
 
 def logits_from_hidden(model: Transformer, cfg: ModelConfig, x):
@@ -388,8 +390,10 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, features=None,
             use_kernel: bool = False, live_bounds=None, tp=None):
     """Returns (logits, aux) — logits [B, S, vocab], aux {"aux_loss"}.
 
-    tokens: [B, S] int. gates: optional (g_f, g_b) of shape [n_layers, B,
-    G]. use_kernel routes attention, SSD, RG-LRU and MoE blocks through
+    tokens: [B, S_text] int (None for an audio encoder). features: [B, T_f,
+    frontend_dim] stub frontend embeddings (audio / vlm), projected by
+    ``frontend_proj`` and put ahead of the token embeddings. gates:
+    optional (g_f, g_b) of shape [n_layers, B, G]. use_kernel routes attention, SSD, RG-LRU and MoE blocks through
     the gated kernels; live_bounds: optional (live_fwd, live_bwd)
     per-layer max live (sample, group) slice counts
     (``core.schedule.live_slice_bounds``), one bound shared by every
@@ -397,15 +401,18 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, features=None,
     run as a plain loop over the flat layer list; the MoE blocks'
     load-balance and router-z losses sum into aux_loss in layer order.
     remat checkpoints one layer at a time: the same values and gradients,
-    each layer's activations recomputed in the backward. Frontend features
-    and the sharding branches (policy, tp) are not ported yet.
+    each layer's activations recomputed in the backward. The sharding
+    branches (policy, tp) are not ported yet.
     """
-    if features is not None:
-        raise _not_ported("the frontend (features) path of forward")
     if policy is not None or tp is not None:
         raise _not_ported_dist("the sharding branches of forward")
     cdt = torch_dtype(cfg.compute_dtype)
-    x = apply_embedding(model.embed, tokens).to(cdt)
+    parts = []
+    if features is not None:
+        parts.append(features.to(cdt) @ model.frontend_proj.to(cdt))
+    if tokens is not None:
+        parts.append(apply_embedding(model.embed, tokens).to(cdt))
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (p, kind) in enumerate(zip(model.layers, cfg.layer_kinds)):
         lg = None if gates is None else (gates[0][i], gates[1][i])
@@ -465,11 +472,15 @@ def fused_xent(logits, labels):
 def lm_loss(model: Transformer, cfg: ModelConfig, tokens, labels,
             features=None, gates=None, policy=None, remat: bool = False,
             use_kernel: bool = False, live_bounds=None, tp=None):
-    """Next-token cross-entropy. Returns (loss, {"ce", "aux"})."""
+    """Next-token (or frame-classification) cross-entropy. Returns (loss,
+    {"ce", "aux"}); with features ahead of tokens (a VLM), over the text
+    region only, to which the labels align."""
     logits, aux = forward(model, cfg, tokens=tokens, features=features,
                           gates=gates, policy=policy, remat=remat,
                           use_kernel=use_kernel, live_bounds=live_bounds,
                           tp=tp)
+    if features is not None and tokens is not None:
+        logits = logits[:, -labels.shape[1]:]
     loss = fused_xent(logits, labels)
     return loss + aux["aux_loss"], {"ce": loss, "aux": aux["aux_loss"]}
 

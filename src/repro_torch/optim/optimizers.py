@@ -86,9 +86,26 @@ def clip_scale(norm, max_norm: float):
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
+def _global_norm(grads: Params):
+    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+
+
 def clip_by_global_norm(grads: Params, max_norm: float):
     """Returns (clipped grads, global norm); the norm stays a device
     tensor, so clipping needs no synchronisation."""
-    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+    norm = _global_norm(grads)
     scale = clip_scale(norm, max_norm)
     return {n: g * scale for n, g in grads.items()}, norm
+
+
+def clip_by_global_norm_(grads: Params, max_norm: float):
+    """``clip_by_global_norm`` scaling gradients that nothing else holds in
+    place: the same values, without a second parameter-sized copy (which
+    would not fit beside mixtral-8x22b's two full-width layers and their
+    gradients on one 80 GB card). Returns (grads, global norm)."""
+    norm = _global_norm(grads)
+    scale = clip_scale(norm, max_norm)
+    # autograd may hand two leaves one tensor: scale each tensor once
+    for g in {id(g): g for g in grads.values()}.values():
+        g.mul_(scale)
+    return grads, norm

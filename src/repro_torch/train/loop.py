@@ -28,7 +28,7 @@ from repro_torch.data.synthetic import (microbatch_assignment,
 from repro_torch.kernels.ops import _validate_gates
 from repro_torch.models.transformer import Transformer, fused_xent, lm_loss
 from repro_torch.models.vit import ViT, ViTConfig, vit_forward, vit_loss
-from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
+from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm_
 
 
 @dataclass
@@ -57,7 +57,9 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, use_gates: bool,
     """Returns step(model, opt_state, batch, sched_args=None) -> (model,
     opt_state, metrics), updating the model's parameters in place.
 
-    batch: {"tokens", "labels"} tensors on the model's device; sched_args:
+    batch: {"tokens", "labels"} tensors on the model's device, with
+    "features" for a frontend arch (an audio encoder's batch has no
+    "tokens"); sched_args:
     the (g_f, g_b) gates [n_layers, B, G] when ``use_gates``, or with
     ``packed`` the plan (idx, bwd, val) [n_layers, G, C]
     (``core.schedule.packed_indices``) that ``core.d2ft.packed_forward``
@@ -82,13 +84,14 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, use_gates: bool,
             return ce, {"ce": ce}
         gates = sched_args if use_gates else None
         return lm_loss(model, cfg, batch.get("tokens"), batch["labels"],
-                       gates=gates, remat=remat, use_kernel=use_kernel,
+                       features=batch.get("features"), gates=gates,
+                       remat=remat, use_kernel=use_kernel,
                        live_bounds=live_bounds if use_gates else None)
 
     def step(model: Transformer, opt_state, batch, sched_args=None):
         params = dict(model.named_parameters())
         loss, metrics = loss_of(model, batch, sched_args)
-        grads, gnorm = clip_by_global_norm(_grads(loss, params), clip)
+        grads, gnorm = clip_by_global_norm_(_grads(loss, params), clip)
         opt.update(grads, opt_state, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return model, opt_state, dict(metrics, loss=loss.detach(),
@@ -119,7 +122,8 @@ def finetune(model: Transformer, cfg: ModelConfig, d2: Optional[D2FTConfig],
     and the knapsack on the first batch's micro-batches, then per batch the
     gates and the live-slice bounds of that batch's micro-batch split. The
     gates are checked once per step on the host. Runs on the model's
-    device; ``batches`` yields numpy {"tokens", "labels"}. With
+    device; ``batches`` yields numpy {"tokens", "labels"} (and "features"
+    for a frontend arch: an audio batch has no "tokens"). With
     ``packed`` each batch's gather plan (``packed_indices``) replaces the
     gates, and crosses to the device before the step, as the gates do.
     Returns (model, opt_state, log); the model is updated in place."""
@@ -142,7 +146,8 @@ def finetune(model: Transformer, cfg: ModelConfig, d2: Optional[D2FTConfig],
             sched = plan_from_scores(
                 cfg, d2, dict(model.named_parameters()), mbs,
                 lambda p, mb: lm_loss(model, cfg, mb.get("tokens"),
-                                      mb["labels"])[0])
+                                      mb["labels"],
+                                      features=mb.get("features"))[0])
         sched_args = bounds = None
         if d2 is not None:
             B = batch["labels"].shape[0]
@@ -189,7 +194,7 @@ def make_vit_step(cfg: ViTConfig, opt: Optimizer, use_gates: bool,
                                  use_kernel=use_kernel,
                                  live_bounds=live_bounds if use_gates
                                  else None)
-        grads, gnorm = clip_by_global_norm(_grads(loss, params), clip)
+        grads, gnorm = clip_by_global_norm_(_grads(loss, params), clip)
         opt.update(grads, opt_state, params)
         return model, opt_state, dict(metrics, loss=loss.detach(),
                                       grad_norm=gnorm)

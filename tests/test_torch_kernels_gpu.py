@@ -1162,3 +1162,82 @@ def test_olmoe_kernel_path_matches_masked_path_on_card():
     assert np.isfinite(losses[True]).all()
     np.testing.assert_allclose(losses[True], losses[False], atol=1e-4,
                                rtol=0)
+
+
+NEW_ARCHS = ["stablelm-3b", "qwen1.5-32b", "mixtral-8x22b",
+             "moonshot-v1-16b-a3b", "phi-3-vision-4.2b", "hubert-xlarge"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_zoo_arch_kernel_route_matches_masked_path_on_card(arch):
+    """Each arch's smoke config (hd 32; q / k / v biases, GQA, a window,
+    MoE with no dense FFN or with shared experts, a vision prefix, a
+    bidirectional audio encoder) under a p_f / p_o / p_s mix (G 4, B 2, S
+    16) and the launcher's bounds: ``use_kernel=True`` launches B2 (and
+    B8 / B9 under an MoE FFN), takes no non-kernel route, and its loss
+    and gradients equal the masked path's (1e-5; 1e-4 x max(1, max
+    |masked|))."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.schedule import (P_F, P_O, P_S, Schedule,
+                                           gates_from_schedule,
+                                           live_slice_bounds)
+    from repro_torch.data.synthetic import microbatch_assignment
+    from repro_torch.models.transformer import lm_loss
+    _need_card()
+    cfg = get_smoke_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_model(gen, cfg)
+    B, S, G = 2, 16, 4
+    batch = {}
+    n_text = S
+    if cfg.frontend == "audio_stub":
+        batch["features"] = torch.randn((B, S, cfg.frontend_dim),
+                                        generator=gen, device="cuda")
+        n_text = 0
+    elif cfg.frontend == "vision_stub":
+        batch["features"] = torch.randn(
+            (B, cfg.frontend_tokens, cfg.frontend_dim), generator=gen,
+            device="cuda")
+        n_text = S - cfg.frontend_tokens
+    if n_text:
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (B, n_text),
+                                        generator=gen, device="cuda")
+    batch["labels"] = torch.randint(0, cfg.vocab_size, (B, n_text or S),
+                                    generator=gen, device="cuda")
+    rng = np.random.default_rng(11)
+    table = rng.choice([P_F, P_O, P_S], size=(cfg.n_layers * G, 2),
+                       p=[.4, .3, .3]).astype(np.int8)
+    table[0, 0] = P_F
+    sched = Schedule(table, cfg.n_layers, G)
+    mb_of = microbatch_assignment(B, 2)
+    gates = gates_from_schedule(sched, mb_of, "cuda")
+    params = list(model.parameters())
+
+    def refuse(kind, why):
+        raise AssertionError(f"{kind} took a non-kernel route: {why}")
+    out = {}
+    for use_kernel in (True, False):
+        a0, m0 = d2a.flash_fwd.launches, d2m.moe_fwd.launches
+        contract.on_fallback = refuse
+        try:
+            loss, _ = lm_loss(model, cfg, batch.get("tokens"),
+                              batch["labels"],
+                              features=batch.get("features"), gates=gates,
+                              use_kernel=use_kernel,
+                              live_bounds=live_slice_bounds(sched, mb_of))
+        finally:
+            contract.on_fallback = None
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        launched = (d2a.flash_fwd.launches - a0, d2m.moe_fwd.launches - m0)
+        assert launched == ((cfg.n_layers, cfg.n_layers if cfg.moe else 0)
+                            if use_kernel else (0, 0))
+        out[use_kernel] = (float(loss), grads)
+    assert np.isfinite(out[True][0])
+    assert abs(out[True][0] - out[False][0]) <= TOL
+    for (name, _), gk, gm in zip(model.named_parameters(), out[True][1],
+                                 out[False][1]):
+        assert (gk is None) == (gm is None), name
+        if gk is not None:
+            lim = 1e-4 * max(1.0, float(gm.abs().max()))
+            assert float((gk - gm).abs().max()) <= lim, name
