@@ -295,6 +295,27 @@ Phases, one line each (any failure raises and exits non-zero):
    qwen's, mixtral's (rep 6, window 4096, lengths past it) and
    moonshot's decode shapes. ``python3 chip_smoke.py --only 25`` runs
    phases 1, 2 and 25 alone (a partial run that prints no result).
+26. data-parallel D2FT on gemma3-1b — ``repro_torch.launch.train --arch
+   gemma3-1b --full --d2ft --kernel --distributed`` at phase 13's budget
+   (global batch 4 x 1024 in 4 micro-batches, n_pf 3 / n_po 1, G 4, AdamW
+   lr 1e-3), 4 steps, the schedule re-planned every 2, each in a process
+   of its own (this script again, ``--dp-rank``), which prints one JSON
+   line a rank. (a) One rank over NCCL (``--mesh data=1``): every step's
+   loss within 1e-4 x max(1, |loss|) of ``train.loop.finetune
+   (use_kernel=True)``'s on the same batches and schedules (replayed),
+   B2's launches = 26 x 4 a direction, the sync's bytes = the plan's
+   ``ar_bytes``. (b) Two ranks sharing the card over gloo, 2 x 1024 a rank
+   (``torch.distributed.run --nproc_per_node 2 ... --mesh data=2``), on
+   the launcher's own knapsack schedule and on the paper's concentrated
+   mix (40 % of the subnets p_f on every micro-batch, 30 % p_o, the rest
+   p_s): for each step the bytes the sync's counter saw against
+   ``sync_byte_report``'s ``ar_bytes`` (exactly equal), the sync's
+   host-clock ms (gloo staging the bucket through pinned host memory on
+   one card: not an interconnect number) against the step's p50, each
+   rank's peak memory, and a checksum of the parameters, bitwise equal on
+   both ranks after every step; B2's launches on each rank. A rank that
+   fails fails the phase. ``python3 chip_smoke.py --only 26`` runs phases
+   1, 2 and 26 alone (a partial run that prints no result).
 
 Then one JSON line of the 13 kernel records, the card line again, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -308,6 +329,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -432,6 +454,15 @@ NEW_DECODE_CASES = (([15, 16, 17, 700], "edges"),
                     ([63, 4095, 4096, 4200], "slot"),
                     ([731, 2063, 4097, 4150], "one"))
 NEW_DECODE_NPMAX = 270
+
+# data-parallel D2FT on gemma3-1b (phase 26): phase 13's model, seed,
+# budget and optimizer at 4 steps, re-planned every 2; the paper's
+# concentrated schedule mix (p_f, p_o, p_s shares of the subnets) for the
+# second two-rank run; a rank process's time limit
+DP_STEPS = 4
+DP_REFRESH = 2
+DP_MIX = (0.4, 0.3, 0.3)
+DP_TIMEOUT = 600
 
 
 def card_line() -> str:
@@ -4312,6 +4343,278 @@ def new_archs(torch, np, tag):
           flush=True)
 
 
+def concentrated_table(np, L, G, n_mb, mix=DP_MIX, seed=0):
+    """[L*G, n_mb] schedule table of the paper's concentrated mix: a
+    seeded round(mix[0] * K) of the K subnets p_f on every micro-batch,
+    round(mix[1] * K) p_o on every one, the rest p_s (frozen heads stay
+    frozen); the backward-dead subnets are what the masked sync skips."""
+    K = L * G
+    order = np.random.default_rng(seed).permutation(K)
+    n_f, n_o = round(mix[0] * K), round(mix[1] * K)
+    table = np.full((K, n_mb), 3, np.int8)
+    table[order[:n_f]] = 1
+    table[order[n_f:n_f + n_o]] = 2
+    return table
+
+
+def dp_rank(torch, np, leg, argv):
+    """One rank of phase 26: ``repro_torch.launch.train.main(argv)`` on the
+    card, the kernel path only (a fallback raises), with the schedule the
+    launcher plans (``leg`` "launcher") or the concentrated mix ("mix"),
+    and a checksum of the parameters after every step. Prints one line,
+    ``DP26 {json}``: the loss, step and sync times, the sync's bytes and
+    the plan's, the checksums, peak memory and B2's launches."""
+    import os
+    from repro_torch.core.schedule import Schedule
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def refuse(kind, reason):
+        raise AssertionError(f"{kind} took a non-kernel route: {reason}")
+    contract.on_fallback = refuse
+    tables, sums = [], []
+    plan, make = loop.plan_from_scores, loop.make_distributed_train_step
+
+    def planned(cfg, d2, *a, **k):
+        if leg == "mix":
+            sched = Schedule(concentrated_table(
+                np, cfg.n_layers, d2.head_groups, d2.n_microbatches,
+                seed=len(tables)), cfg.n_layers, d2.head_groups)
+        else:
+            sched = plan(cfg, d2, *a, **k)
+        tables.append("".join(map(str, sched.table.ravel())))
+        return sched
+
+    def checked(*a, **k):
+        step = make(*a, **k)
+
+        def run(model, state, batch, gates):
+            out = step(model, state, batch, gates)
+            sums.append(int(torch.stack([
+                p.detach().view(torch.int32).sum(dtype=torch.int64)
+                for p in model.parameters()]).sum()))
+            return out
+        return run
+
+    loop.plan_from_scores, loop.make_distributed_train_step = planned, \
+        checked
+    d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    log = launcher.main(argv)
+    refreshes = log.extras["refreshes"]
+    line = {
+        "rank": int(os.environ.get("RANK", 0)),
+        "losses": log.losses, "step_ms": [1e3 * t for t in log.step_times],
+        "sync_bytes": log.extras["sync_bytes"],
+        "sync_ms": log.extras["sync_ms"],
+        "refresh_steps": [r["step"] for r in refreshes],
+        "ar_bytes": [r["sync"]["ar_bytes"] for r in refreshes],
+        "total_bytes": refreshes[0]["sync"]["total_bytes"],
+        "fraction": [r["sync"]["fraction"] for r in refreshes],
+        "n_skipped": [r["sync"]["n_skipped"] for r in refreshes],
+        "n_sliced": [r["sync"]["n_sliced"] for r in refreshes],
+        "device_of": [r["device_of"] for r in refreshes],
+        "sums": sums, "peak": torch.cuda.max_memory_allocated(),
+        "launches": {"fwd": d2a.flash_fwd.launches,
+                     "bwd": d2a.flash_bwd.launches},
+        "tables": tables}
+    os.write(1, ("DP26 " + json.dumps(line) + "\n").encode())
+    return 0
+
+
+def dp_run(cmd, n_ranks, timeout=DP_TIMEOUT):
+    """Run a phase-26 command in a session of its own; kill the whole
+    session (torch.distributed.run's ranks included) at the time limit.
+    Returns (each rank's DP26 record by rank, seconds)."""
+    import os
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{cmd} passed its {timeout} s limit:\n"
+                             f"{out[-4000:]}") from None
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    recs = {}
+    for ln in out.splitlines():
+        if ln.startswith("DP26 "):
+            rec = json.loads(ln[5:])
+            recs[rec["rank"]] = rec
+    if proc.returncode != 0 or sorted(recs) != list(range(n_ranks)):
+        raise AssertionError(f"{cmd} exited {proc.returncode} with rank "
+                             f"records {sorted(recs)}:\n{out[-6000:]}")
+    return recs, seconds
+
+
+def dp_argv(mesh, leg):
+    """The launcher's flags of a phase-26 run, and the rank's leg."""
+    d2 = GM_D2FT
+    return ["--dp-rank", leg, "--arch", "gemma3-1b", "--full", "--batch",
+            str(GM_BATCH), "--seq", str(GM_SEQ), "--steps", str(DP_STEPS),
+            "--lr", str(GM_LR), "--n-microbatches",
+            str(d2["n_microbatches"]), "--n-pf", str(d2["n_pf"]), "--n-po",
+            str(d2["n_po"]), "--d2ft", "--kernel", "--distributed",
+            "--mesh", f"data={mesh}", "--refresh-every", str(DP_REFRESH)]
+
+
+def dp_check_bytes(rec, what):
+    """Each step's sync bytes equal the active plan's ar_bytes."""
+    want = [rec["ar_bytes"][max(k for k, s in enumerate(rec["refresh_steps"])
+                                if s <= i)] for i in range(DP_STEPS)]
+    if rec["sync_bytes"] != want or len(want) != DP_STEPS:
+        raise AssertionError(f"{what} rank {rec['rank']}: sync bytes "
+                             f"{rec['sync_bytes']} != ar_bytes {want}")
+    return want
+
+
+def dp_reference(torch, np, cfg, tables):
+    """``loop.finetune(use_kernel=True)`` on phase 26's batches, its
+    schedules replayed from the run's tables (one a refresh), the AdamW
+    state carried across the refreshes. Returns the losses."""
+    from repro_torch.configs.base import D2FTConfig
+    from repro_torch.core.schedule import Schedule
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train import loop
+
+    G = cfg.n_heads
+    d2 = D2FTConfig(head_groups=G, **GM_D2FT)
+    model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batches = list(lm_batches(0, cfg.vocab_size, GM_BATCH, GM_SEQ,
+                              DP_STEPS))
+    opt, state, losses = adamw(GM_LR), None, []
+    plan = loop.plan_from_scores
+    try:
+        for k, text in enumerate(tables):
+            table = np.frombuffer(text.encode(), np.uint8) - ord("0")
+            sched = Schedule(table.astype(np.int8).reshape(
+                cfg.n_layers * G, -1), cfg.n_layers, G)
+            loop.plan_from_scores = lambda *a, sched=sched, **kw: sched
+            carried = opt if state is None else \
+                opt._replace(init=lambda p, state=state: state)
+            seg = batches[k * DP_REFRESH:(k + 1) * DP_REFRESH]
+            _, state, log = loop.finetune(model, cfg, d2, carried, seg,
+                                          steps=len(seg), use_kernel=True)
+            losses += log.losses
+    finally:
+        loop.plan_from_scores = plan
+    del model, state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def data_parallel(torch, np, tag):
+    """Phase 26. Returns {"launches": (a)'s B2 launches}."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3-1b")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    n_layers = cfg.n_layers
+    want_launches = {"fwd": n_layers * DP_STEPS, "bwd": n_layers * DP_STEPS}
+
+    # (a) one rank over NCCL against the single-device loop
+    recs, secs = dp_run([sys.executable, str(ROOT / "chip_smoke.py")]
+                        + dp_argv(1, "launcher"), 1)
+    a = recs[0]
+    want = dp_check_bytes(a, "(a)")
+    if a["launches"] != want_launches:
+        raise AssertionError(f"(a) B2 launches {a['launches']} != "
+                             f"{want_launches}")
+    ref = dp_reference(torch, np, cfg, a["tables"])
+    diff = check_losses(np, SimpleNamespace(losses=a["losses"]),
+                        SimpleNamespace(losses=ref))
+    print(f"[data parallel] (a) gemma3-1b full size through "
+          f"repro_torch.launch.train --distributed --mesh data=1 --kernel "
+          f"(one rank, NCCL), batch {GM_BATCH} x seq {GM_SEQ}, n_pf "
+          f"{GM_D2FT['n_pf']} n_po {GM_D2FT['n_po']} of "
+          f"{GM_D2FT['n_microbatches']}, G {cfg.n_heads}, AdamW lr {GM_LR}, "
+          f"{DP_STEPS} steps, re-planned at steps {a['refresh_steps']}: "
+          f"losses {[round(x, 6) for x in a['losses']]} vs "
+          f"finetune(use_kernel=True) on the same batches and schedules "
+          f"{[round(x, 6) for x in ref]}, max diff {diff:.3e}; B2 "
+          f"launches {a['launches']} (= {n_layers} x {DP_STEPS}); sync "
+          f"bytes a step {a['sync_bytes']} = ar_bytes (fraction "
+          f"{a['fraction']} of {a['total_bytes']:.0f}); p50 step ms "
+          f"{float(np.median(a['step_ms'])):.3f}, sync ms "
+          f"{[round(x, 3) for x in a['sync_ms']]}; peak "
+          f"{a['peak'] / 2**30:.2f} GiB; {secs:.1f} s in its process {tag}",
+          flush=True)
+
+    # (b) two ranks sharing the card over gloo
+    for leg in ("launcher", "mix"):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2", str(ROOT / "chip_smoke.py")] + \
+            dp_argv(2, leg)
+        recs, secs = dp_run(cmd, 2)
+        for r in recs.values():
+            dp_check_bytes(r, f"(b) {leg}")
+            if r["launches"] != want_launches:
+                raise AssertionError(f"(b) {leg} rank {r['rank']}: B2 "
+                                     f"launches {r['launches']}")
+            if not np.isfinite(r["losses"]).all():
+                raise AssertionError(f"(b) {leg}: losses {r['losses']}")
+        r0, r1 = recs[0], recs[1]
+        if r0["sums"] != r1["sums"] or len(r0["sums"]) != DP_STEPS:
+            raise AssertionError(f"(b) {leg}: parameter checksums differ "
+                                 f"across ranks: {r0['sums']} vs "
+                                 f"{r1['sums']}")
+        if r0["losses"] != r1["losses"]:
+            raise AssertionError(f"(b) {leg}: the ranks' mean losses "
+                                 f"differ: {r0['losses']} {r1['losses']}")
+        if leg == "mix" and not max(r0["fraction"]) < 1.0:
+            raise AssertionError(f"(b) mix: sync fraction {r0['fraction']}")
+        same = r0["tables"] == a["tables"]
+        vs_a = float(np.max(np.abs(np.asarray(r0["losses"]) -
+                                   np.asarray(a["losses"]))))
+        p50 = [float(np.median(r["step_ms"])) for r in (r0, r1)]
+        sync = [float(np.median(r["sync_ms"])) for r in (r0, r1)]
+        print(f"[data parallel] (b) {leg} schedule"
+              + (" (the launcher's knapsack)" if leg == "launcher" else
+                 f" (the paper's concentrated mix {DP_MIX})")
+              + f": two ranks on one card over gloo (torch.distributed.run "
+              f"--nproc_per_node 2, --mesh data=2), 2 x {GM_SEQ} a rank, "
+              f"AdamW, {DP_STEPS} steps; sync fraction {r0['fraction']} "
+              f"({r0['n_skipped']} leaves skipped, {r0['n_sliced']} "
+              f"group-sliced); bytes a step: counter {r0['sync_bytes']} = "
+              f"ar_bytes on both ranks, of {r0['total_bytes']:.0f}; "
+              f"losses {[round(x, 6) for x in r0['losses']]}"
+              + (f" (vs (a): max diff {vs_a:.3e}, same schedules)" if same
+                 else " (schedules differ from (a)'s)")
+              + f"; parameter checksums bitwise equal on both ranks after "
+              f"every step {r0['sums']}; B2 launches per rank "
+              f"{r0['launches']}; device_of {r0['device_of']} {tag}",
+              flush=True)
+        print(f"[data parallel] (b) {leg}: sync host-clock ms a step (gloo "
+              f"staging the bucket through pinned host memory on one card, "
+              f"not an interconnect number) rank 0 "
+              f"{[round(x, 3) for x in r0['sync_ms']]}, rank 1 "
+              f"{[round(x, 3) for x in r1['sync_ms']]}: p50 {sync[0]:.3f} / "
+              f"{sync[1]:.3f} against the step's p50 {p50[0]:.3f} / "
+              f"{p50[1]:.3f} ms ({sync[0] / p50[0]:.1%} of rank 0's step); "
+              f"peak memory rank 0 {r0['peak']} bytes "
+              f"({r0['peak'] / 2**30:.2f} GiB), rank 1 {r1['peak']} bytes "
+              f"({r1['peak'] / 2**30:.2f} GiB); {secs:.1f} s for the run "
+              f"{tag}", flush=True)
+    print(f"[data parallel] phase 26 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": a["launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4323,6 +4626,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     import numpy as np
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_rank(torch, np, sys.argv[2], sys.argv[3:])
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -4352,16 +4657,19 @@ def main() -> int:
           f"-> {build.build_dir()}", flush=True)
     print(build.ptxas_report(), flush=True)
 
-    if sys.argv[1:] == ["--only", "25"]:
-        # phase 25 alone, after the device and the build: a partial run,
-        # which prints no result
+    if sys.argv[1:] in (["--only", "25"], ["--only", "26"]):
+        # phase 25 or 26 alone, after the device and the build: a partial
+        # run, which prints no result
         from repro_torch.kernels import contract
 
         def refuse(kind, reason):
             raise AssertionError(f"{kind} took a non-kernel route: {reason}")
         contract.on_fallback = refuse
-        new_archs(torch, np, f"[{card}]")
-        print("chip_smoke: phase 25 alone passed (a partial run: no result)")
+        only = sys.argv[2]
+        (new_archs if only == "25" else data_parallel)(torch, np,
+                                                       f"[{card}]")
+        print(f"chip_smoke: phase {only} alone passed (a partial run: no "
+              "result)")
         return 0
 
     # 3. kernel vs plain --------------------------------------------------
@@ -4684,6 +4992,10 @@ def main() -> int:
 
     # 25. the rest of the model surface: six archs fine-tuned and served --
     new_archs(torch, np, tag)
+    torch.cuda.empty_cache()
+
+    # 26. data-parallel D2FT on gemma3-1b: one rank, then two -------------
+    data_parallel(torch, np, tag)
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{

@@ -1,2 +1,2 @@
-"""Entry points (port of ``repro/launch``): the single-device training
-launcher so far."""
+"""Entry points (port of ``repro/launch``): the training launcher, the
+parallelism config and the data mesh of the distributed path."""

@@ -22,14 +22,31 @@ and olmoe-1b-7b.
 the full fine-tune's gradients and optimizer state: ``chip_smoke.py`` runs
 this loop on 8 of its 16 layers, and the full depth as D2FT-LoRA.)
 
+``--distributed`` runs the data-parallel D2FT loop
+(``train.loop.finetune_distributed``: the schedule-masked gradient sync,
+one process per rank). One rank needs no launcher:
+
+  python -m repro_torch.launch.train --arch gemma3-1b --full --d2ft \
+      --kernel --distributed --mesh data=1 --batch 4 --seq 1024 --steps 4
+
+and N ranks run under ``torch.distributed.run`` (NCCL where every rank has
+its own card, gloo where ranks share one, or on the CPU):
+
+  python -m torch.distributed.run --standalone --nproc_per_node 2 \
+      -m repro_torch.launch.train --arch gemma3-1b --d2ft --distributed \
+      --mesh data=2 --steps 3 --device cpu
+
 It runs on the card unless ``--device cpu`` is given, with a reduced
 (smoke) config unless ``--full`` is passed. The weights are random, from
-seed 0. The distributed, elastic, mesh, fault-injection, resume and
-checkpoint options exit with "not ported yet".
+seed 0. The ZeRO sync modes, the stage and tensor axes, and the elastic,
+fault-injection, resume and checkpoint options exit with "not ported
+yet".
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 import torch
@@ -38,13 +55,13 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, D2FTConfig
 from repro_torch.data.synthetic import lm_batches
+from repro_torch.launch.parallel import MeshSpec, ParallelConfig
 from repro_torch.models.transformer import init_model
 from repro_torch.optim.optimizers import adamw, sgd
-from repro_torch.train.loop import TrainLog, finetune
+from repro_torch.train.loop import TrainLog, finetune, finetune_distributed
 
 # flags of the JAX launcher whose paths come with later slices
-_NOT_PORTED = ("distributed", "elastic", "mesh", "faults", "resume_from",
-               "ckpt")
+_NOT_PORTED = ("elastic", "faults", "resume_from", "ckpt")
 
 
 def parse_args(argv=None):
@@ -61,22 +78,25 @@ def parse_args(argv=None):
                     help="use the packed D2FT execution path (attention "
                          "blocks with a dense FFN only)")
     ap.add_argument("--distributed", action="store_true",
-                    help="data-parallel D2FT (not ported yet)")
+                    help="data-parallel D2FT with the schedule-masked "
+                         "gradient sync (one process per rank)")
     ap.add_argument("--kernel", action="store_true",
                     help="route the attention (any head_dim the kernels "
                          "take, 256 included), SSD, RG-LRU and MoE blocks "
                          "through the gated CUDA kernels (their plain "
                          "versions on the CPU)")
     ap.add_argument("--mesh", default=None, metavar="data=D,stage=S,tensor=T",
-                    help="multi-axis device mesh (not ported yet)")
+                    help="device mesh of the --distributed path (the "
+                         "data axis: data=N, N the number of ranks)")
     ap.add_argument("--sync-mode",
                     choices=("masked", "zero", "zero3", "local"),
                     default="masked",
                     help="distributed gradient sync (only the --distributed "
-                         "path, not ported yet)")
+                         "path; zero / zero3 are not ported yet, local runs "
+                         "in the elastic loop)")
     ap.add_argument("--refresh-every", type=int, default=None,
                     help="re-plan the schedule every k steps (only the "
-                         "--distributed path, not ported yet)")
+                         "--distributed path)")
     ap.add_argument("--n-pf", type=int, default=3)
     ap.add_argument("--n-po", type=int, default=1)
     ap.add_argument("--n-microbatches", type=int, default=4)
@@ -99,23 +119,70 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def _distributed_spec(args, spec, argv) -> MeshSpec:
+    """The --distributed path's refusals, as the JAX launcher makes them,
+    and its mesh spec (``--mesh``, else the world), which must match this
+    process's world."""
+    if not args.d2ft:
+        raise SystemExit("--distributed requires --d2ft")
+    if args.packed:
+        raise SystemExit("--distributed and --packed are exclusive "
+                         "(the shard_map step drives the gated paths)")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    spec = spec or MeshSpec(data=world)
+    try:
+        ParallelConfig(
+            mesh=spec, sync_mode=args.sync_mode, use_kernel=args.kernel,
+            microbatches=args.n_microbatches if spec.stage > 1 else 0
+        ).require_ported()
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+    ndev = spec.data
+    if args.n_microbatches % ndev:
+        raise SystemExit(
+            f"--distributed needs --n-microbatches divisible by the "
+            f"data-mesh size: {args.n_microbatches} % {ndev} != 0 "
+            "(equal-sized shard_map shards)")
+    if args.batch % args.n_microbatches:
+        raise SystemExit(
+            f"--batch must be divisible by --n-microbatches: "
+            f"{args.batch} % {args.n_microbatches} != 0")
+    if ndev > 1 and "WORLD_SIZE" not in os.environ:
+        raise SystemExit(
+            f"--mesh data={ndev} runs one process per rank; launch it as "
+            f"python -m torch.distributed.run --standalone --nproc_per_node "
+            f"{ndev} -m repro_torch.launch.train "
+            + " ".join(sys.argv[1:] if argv is None else argv))
+    if ndev != world:
+        raise SystemExit(f"--mesh data={ndev} does not match the world of "
+                         f"{world} processes")
+    return spec
+
+
 def main(argv=None) -> TrainLog:
     args = parse_args(argv)
+    spec = MeshSpec.parse(args.mesh) if args.mesh else None
+    if spec is not None and not args.distributed:
+        raise SystemExit("--mesh only applies to the --distributed path")
     for flag in _NOT_PORTED:
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet")
-    if args.sync_mode != "masked" or args.refresh_every is not None:
-        raise SystemExit("--sync-mode/--refresh-every only apply to the "
-                         "--distributed path")
     if args.packed and args.kernel:
         raise SystemExit("--packed and --kernel are exclusive (the packed "
                          "gather path bypasses the gated attention kernel)")
+    if not args.distributed and (args.sync_mode != "masked"
+                                 or args.refresh_every is not None):
+        raise SystemExit("--sync-mode/--refresh-every only apply to the "
+                         "--distributed path")
+    if args.sync_mode == "local":
+        raise SystemExit("--faults/--resume-from/--sync-mode local require "
+                         "--elastic (the plain distributed loop has no "
+                         "fault handling)")
     if args.packed and not args.d2ft:
         raise SystemExit("--packed runs a D2FT schedule: add --d2ft")
-    dev = resolve_device(args.device)
+    if args.distributed:
+        spec = _distributed_spec(args, spec, argv)
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
-    print(f"arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
-          f"device={dev}")
     if cfg.frontend != "none":
         raise SystemExit("text-training launcher; audio/vlm archs run "
                          "through the scripts in examples/")
@@ -126,26 +193,60 @@ def main(argv=None) -> TrainLog:
                 f"--packed runs attention blocks with a dense FFN only; "
                 f"{cfg.name} has " + (f"{other} blocks" if other else
                                       "an MoE FFN"))
+    if not args.distributed:
+        return _run(args, cfg, resolve_device(args.device), None, None)
+    from repro_torch.launch.mesh import make_data_mesh
+    mesh = make_data_mesh(spec.data, args.device)
+    try:
+        return _run(args, cfg, mesh.device, mesh, spec)
+    finally:
+        mesh.close()
 
+
+def _run(args, cfg, dev, mesh, spec) -> TrainLog:
+    """The fine-tune on ``dev``: ``finetune``, or with a mesh, rank
+    ``mesh.rank``'s part of ``finetune_distributed`` (rank 0 prints)."""
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        print(f"arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+              f"device={dev}" + (f" mesh={spec.describe()}" if mesh else ""))
     d2 = None
     if args.d2ft:
         d2 = D2FTConfig(n_microbatches=args.n_microbatches, n_pf=args.n_pf,
                         n_po=args.n_po,
                         head_groups=max(cfg.n_heads, 1))
-        print(f"D2FT: {args.n_pf} p_f + {args.n_po} p_o of "
-              f"{args.n_microbatches} micro-batches "
-              f"(compute {100 * (args.n_pf + 0.4 * args.n_po) / args.n_microbatches:.0f}%)")
+        if lead:
+            print(f"D2FT: {args.n_pf} p_f + {args.n_po} p_o of "
+                  f"{args.n_microbatches} micro-batches "
+                  f"(compute {100 * (args.n_pf + 0.4 * args.n_po) / args.n_microbatches:.0f}%)")
 
     model = init_model(torch.Generator(device=dev).manual_seed(0), cfg)
     opt = adamw(args.lr) if args.optimizer == "adamw" else sgd(args.lr)
     batches = lm_batches(0, cfg.vocab_size, args.batch, args.seq,
                          args.steps)
     t0 = time.time()
-    _, _, log = finetune(model, cfg, d2, opt, batches, steps=args.steps,
-                         packed=args.packed, use_kernel=args.kernel)
+    if mesh is None:
+        _, _, log = finetune(model, cfg, d2, opt, batches, steps=args.steps,
+                             packed=args.packed, use_kernel=args.kernel)
+    else:
+        _, _, log = finetune_distributed(
+            model, cfg, d2, opt, batches, steps=args.steps, mesh=mesh,
+            parallel=ParallelConfig(mesh=spec, use_kernel=args.kernel),
+            refresh_every=args.refresh_every)
+        if lead:
+            rep, sync = log.extras["rebalance"], log.extras["sync"]
+            print(f"assignment: loads {rep['loads']} spread {rep['spread']} "
+                  f"imbalance {rep['imbalance']:.3f} "
+                  f"({len(log.extras['refreshes'])} replans)")
+            print(f"grad sync: {sync['fraction']:.0%} of param bytes "
+                  f"all-reduced ({sync['n_skipped']} leaves skipped, "
+                  f"{sync['n_sliced']} group-sliced); sent per step "
+                  f"{log.extras['sync_bytes']} bytes in "
+                  f"{[round(ms, 3) for ms in log.extras['sync_ms']]} ms")
     dt = time.time() - t0
-    print(f"{args.steps} steps in {dt:.1f}s — loss "
-          f"{log.losses[0]:.3f} -> {log.losses[-1]:.3f}")
+    if lead:
+        print(f"{args.steps} steps in {dt:.1f}s — loss "
+              f"{log.losses[0]:.3f} -> {log.losses[-1]:.3f}")
     return log
 
 

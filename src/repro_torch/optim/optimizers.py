@@ -81,6 +81,39 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                      n_moments=2)
 
 
+def chunked(opt: Optimizer, chunk: int) -> Optimizer:
+    """Stream ``opt``'s update ``chunk`` elements at a time.
+
+    The update of every optimizer here is leafwise and elementwise, so
+    each leaf and its params-shaped moments can be flattened and updated
+    one ``chunk``-sized slice at a time: the update then touches O(chunk)
+    elements at once instead of O(leaf). The slices are views, so the
+    in-place update writes through to the parameters and moments. Every
+    slice sees the same input ``step`` (the bias correction of the whole
+    update) and the counter advances once per call, so the results are
+    bit-identical to ``opt.update``."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+    def update(grads: Params, state, params: Params):
+        moment_keys = [k for k in state if k != "step"]
+        step = state["step"]
+        for n, p in params.items():
+            flat = {"g": grads[n].reshape(-1), "p": p.view(-1)}
+            flat.update({k: state[k][n].view(-1) for k in moment_keys})
+            for a in range(0, flat["p"].numel(), chunk):
+                sl = {k: v[a:a + chunk] for k, v in flat.items()}
+                opt.update({n: sl["g"]},
+                           {"step": step,
+                            **{k: {n: sl[k]} for k in moment_keys}},
+                           {n: sl["p"]})
+        state["step"] = step + 1
+        return params, state
+
+    return Optimizer(opt.init, update, elidable=opt.elidable,
+                     n_moments=opt.n_moments)
+
+
 def clip_scale(norm, max_norm: float):
     """Global-norm clip factor."""
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)

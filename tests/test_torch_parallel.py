@@ -1,0 +1,211 @@
+"""The port's parallelism config, its refusals and the chunked optimizer
+(``repro_torch/launch/parallel.py``, ``launch/train.py``'s distributed
+flags, ``optim/optimizers.py::chunked``) against the JAX package on the
+CPU: ``MeshSpec.parse`` and ``ParallelConfig`` give JAX's results, error
+types and messages, case for case; the launcher refuses the distributed
+flags' misuses with JAX's messages; what the port does not run yet (the
+ZeRO modes, stage and tensor axes, the guard, the elastic loop) raises
+"not ported yet"; ``chunked`` is bit-identical to the unchunked SGD and
+AdamW updates.
+"""
+import sys
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from repro.launch import train as jax_launcher
+from repro.launch.parallel import MeshSpec as JaxMeshSpec
+from repro.launch.parallel import ParallelConfig as JaxParallelConfig
+from repro_torch.configs import gemma3_1b
+from repro_torch.configs.base import D2FTConfig
+from repro_torch.launch import train as launcher
+from repro_torch.launch.parallel import MeshSpec, ParallelConfig
+from repro_torch.optim.optimizers import adamw, chunked, sgd
+from repro_torch.train import loop
+
+
+def _outcome(fn):
+    """(exception type name, message) or ("ok", repr of the result)."""
+    try:
+        return "ok", fn()
+    except (AssertionError, ValueError, TypeError,
+            NotImplementedError) as e:
+        return type(e).__name__, str(e)
+
+
+@pytest.mark.parametrize("text", [
+    "data=4,stage=2,tensor=1", "data=8", "", " data = 2 , tensor=2 ",
+    "data", "pod=2", "data=2,data=4", "data=0", "stage=-1", "data=x"])
+def test_mesh_spec_parse_matches_jax(text):
+    def shape(cls):
+        return lambda: (cls.parse(text).shape, cls.parse(text).size,
+                        cls.parse(text).describe())
+    assert _outcome(shape(MeshSpec)) == _outcome(shape(JaxMeshSpec))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(sync_mode="zero"), dict(sync_mode="zero3"),
+    dict(sync_mode="local"), dict(sync_mode="bogus"),
+    dict(sync_mode="zero3", streamed=True),
+    dict(sync_mode="zero3", opt_chunk=64),
+    dict(streamed=True), dict(opt_chunk=64),
+    dict(sync_mode="zero3", streamed=True, guard=True),
+    dict(sync_mode="local", mesh=dict(stage=2), microbatches=2),
+    dict(sync_mode="zero3", streamed=True, mesh=dict(tensor=2)),
+    dict(guard=True, mesh=dict(tensor=2)),
+    dict(use_kernel=True, mesh=dict(stage=2), microbatches=2),
+    dict(mesh=dict(stage=2)), dict(microbatches=2),
+    dict(mesh=dict(data=0)), dict(use_kernel=True, mesh=dict(data=4))],
+    ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()) or "default")
+def test_parallel_config_matches_jax(kw):
+    """Every config the JAX package refuses is refused with its error; the
+    ones it accepts are accepted (the ZeRO modes too: the step and the
+    loop refuse those)."""
+    def make(config, spec):
+        def build():
+            args = dict(kw)
+            args["mesh"] = spec(**args.get("mesh", {}))
+            c = config(**args)
+            return (c.mesh.shape, c.sync_mode, c.data_axis, c.stage_axis,
+                    c.tensor_axis)
+        return build
+    assert _outcome(make(ParallelConfig, MeshSpec)) == \
+        _outcome(make(JaxParallelConfig, JaxMeshSpec))
+
+
+@pytest.mark.parametrize("what", [
+    "stage", "tensor", "guard", "step_zero", "step_zero3", "loop_zero3",
+    "plan_zero", "launcher_zero", "launcher_zero3", "launcher_stage",
+    "launcher_elastic"])
+def test_what_is_not_ported_says_so(what):
+    cfg = gemma3_1b.smoke_config()
+    d2 = D2FTConfig(n_microbatches=4, n_pf=3, n_po=1, head_groups=4)
+    argv = ["--arch", "gemma3-1b", "--d2ft", "--distributed", "--device",
+            "cpu"]
+    calls = {
+        "stage": lambda: ParallelConfig(mesh=MeshSpec(stage=2),
+                                        microbatches=2),
+        "tensor": lambda: ParallelConfig(mesh=MeshSpec(tensor=2)),
+        "guard": lambda: ParallelConfig(guard=True),
+        "step_zero": lambda: loop.make_distributed_train_step(
+            cfg, sgd(0.1), None, None,
+            parallel=ParallelConfig(sync_mode="zero")),
+        "step_zero3": lambda: loop.make_distributed_train_step(
+            cfg, sgd(0.1), None, None,
+            parallel=ParallelConfig(sync_mode="zero3")),
+        "loop_zero3": lambda: loop.finetune_distributed(
+            None, cfg, d2, sgd(0.1), [], steps=1, mesh=None,
+            parallel=ParallelConfig(sync_mode="zero3")),
+        "plan_zero": lambda: __import__(
+            "repro_torch.sharding.sync", fromlist=["x"]).grad_sync_plan(
+            {}, cfg, None, mode="zero"),
+        "launcher_zero": lambda: launcher.main(argv + ["--sync-mode",
+                                                       "zero"]),
+        "launcher_zero3": lambda: launcher.main(argv + ["--sync-mode",
+                                                        "zero3"]),
+        "launcher_stage": lambda: launcher.main(argv + [
+            "--mesh", "data=1,stage=2"]),
+        "launcher_elastic": lambda: launcher.main(argv + ["--elastic"]),
+    }
+    exc = SystemExit if what.startswith("launcher") else NotImplementedError
+    with pytest.raises(exc, match="not ported yet"):
+        calls[what]()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mesh", "data=1"],
+    ["--sync-mode", "zero"],
+    ["--refresh-every", "2"],
+    ["--distributed", "--d2ft", "--sync-mode", "local"],
+    ["--distributed"],
+    ["--distributed", "--d2ft", "--packed"],
+    ["--distributed", "--d2ft", "--batch", "6"],
+    ["--d2ft", "--packed", "--kernel"]],
+    ids=lambda a: " ".join(a))
+def test_launcher_refusals_match_jax(argv, monkeypatch):
+    """The JAX launcher's refusals of the distributed flags' misuses, with
+    its messages (the JAX launcher reads sys.argv)."""
+    base = ["--arch", "mamba2-130m", "--steps", "1"]
+    monkeypatch.setattr(sys, "argv", ["train"] + base + argv)
+    with pytest.raises(SystemExit) as theirs:
+        jax_launcher.main()
+    with pytest.raises(SystemExit) as mine:
+        launcher.main(base + argv + ["--device", "cpu"])
+    assert str(mine.value) == str(theirs.value)
+
+
+@pytest.mark.parametrize("argv,env,match", [
+    (["--mesh", "data=3"], {},
+     "--distributed needs --n-microbatches divisible by the data-mesh "
+     "size: 4 % 3 != 0 (equal-sized shard_map shards)"),
+    (["--mesh", "data=2"], {},
+     "--mesh data=2 runs one process per rank; launch it as python -m "
+     "torch.distributed.run --standalone --nproc_per_node 2 -m "
+     "repro_torch.launch.train --arch gemma3-1b --steps 1 --d2ft "
+     "--distributed --mesh data=2 --device cpu"),
+    (["--mesh", "data=1"], {"WORLD_SIZE": "2"},
+     "--mesh data=1 does not match the world of 2 processes")],
+    ids=["n_microbatches", "torchrun", "world"])
+def test_launcher_mesh_must_match_the_world(argv, env, match, monkeypatch):
+    """What the port's process-per-rank launch adds: ``--mesh data=N``
+    equals the world size, and N > 1 needs ``torch.distributed.run``; the
+    n_microbatches % data refusal is JAX's message (the JAX launcher
+    reaches it only on a mesh of more devices than this host has)."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit) as e:
+        launcher.main(["--arch", "gemma3-1b", "--steps", "1", "--d2ft",
+                       "--distributed"] + argv + ["--device", "cpu"])
+    assert str(e.value) == match
+
+
+def test_loose_kwargs_are_the_deprecated_spelling():
+    cfg = gemma3_1b.smoke_config()
+    with pytest.warns(DeprecationWarning, match="is deprecated"):
+        loop.make_distributed_train_step(cfg, sgd(0.1), None, None,
+                                         sync_mode="local")
+    with pytest.raises(TypeError, match="not both"):
+        loop.make_distributed_train_step(
+            cfg, sgd(0.1), None, None, parallel=ParallelConfig(),
+            sync_mode="local")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        loop.make_distributed_train_step(
+            cfg, sgd(0.1), None, None,
+            parallel=ParallelConfig(sync_mode="local"))
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64, 10_000])
+@pytest.mark.parametrize("make", [
+    lambda: sgd(0.1), lambda: sgd(0.05, weight_decay=0.01, nesterov=True),
+    lambda: adamw(1e-3), lambda: adamw(1e-2, weight_decay=0.0)],
+    ids=["sgd", "sgd_nesterov_decay", "adamw", "adamw_no_decay"])
+def test_chunked_update_is_bit_identical(make, chunk):
+    """Three updates, chunk by chunk (1 element, ragged 7, 64, more than a
+    leaf), against the unchunked update: parameters, moments and step
+    equal bit for bit."""
+    rng = np.random.default_rng(chunk)
+    shapes = {"w": (33, 17), "b": (5,), "s": ()}
+    p0 = {k: torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+          for k, s in shapes.items()}
+    runs = []
+    for opt in (make(), chunked(make(), chunk)):
+        params = {k: v.clone() for k, v in p0.items()}
+        state = opt.init(params)
+        g_rng = np.random.default_rng(1)
+        for _ in range(3):
+            grads = {k: torch.as_tensor(g_rng.standard_normal(s)
+                                        .astype(np.float32))
+                     for k, s in shapes.items()}
+            opt.update(grads, state, params)
+        runs.append((params, state))
+    (p1, s1), (p2, s2) = runs
+    assert s1["step"] == s2["step"] == 3
+    for k in shapes:
+        assert torch.equal(p1[k], p2[k]), k
+        for m in (key for key in s1 if key != "step"):
+            assert torch.equal(s1[m][k], s2[m][k]), (m, k)
+    with pytest.raises(ValueError, match="chunk must be >= 1"):
+        chunked(sgd(0.1), 0)
