@@ -84,7 +84,7 @@ Phases, one line each (any failure raises and exits non-zero):
 10. LLM fine-tune — ``repro_torch.launch.train`` on mamba2-130m at full
    size (24 layers, d 768, random weights from seed 0), batch 8 x seq
    2048 of ``lm_batches`` in 4 micro-batches, n_pf 2 / n_po 1, AdamW lr
-   1e-3, 8 steps, scores and knapsack at step 0. 24 forward and 24
+   1e-3, 6 steps, scores and knapsack at step 0. 24 forward and 24
    backward SSD launches per step, executed step fractions equal to the
    schedule's live counts (read from the device counter), finite losses
    within 1e-4 x max(1, |loss|) of the masked plain path on the same
@@ -113,7 +113,7 @@ Phases, one line each (any failure raises and exits non-zero):
 13. gemma3-1b fine-tune — ``repro_torch.launch.train --arch gemma3-1b
    --full --d2ft --kernel`` (26 layers, d 1152, random weights from seed
    0), batch 4 x seq 1024 in 4 micro-batches, n_pf 3 / n_po 1, G 4, AdamW
-   lr 1e-3, 8 steps: 26 + 26 attention launches per step, executed tile
+   lr 1e-3, 6 steps: 26 + 26 attention launches per step, executed tile
    fractions from the device counter equal to the schedule's, finite
    losses within 1e-4 x max(1, |loss|) of the masked path; p50 step ms of
    the kernel path, the masked path and standard full fine-tuning (each
@@ -157,7 +157,7 @@ Phases, one line each (any failure raises and exits non-zero):
    18 RG-LRU and 8 local attention, d 2560, 10 query heads on 1 KV head of
    256, window 2048, random weights from seed 0, 3,549,934,080
    parameters), batch 4 x seq 512 in 4 micro-batches, n_pf 3 / n_po 1, G
-   10, lr 1e-3, 8 steps: 18 + 18 RG-LRU and 8 + 8 attention launches per
+   10, lr 1e-3, 6 steps: 18 + 18 RG-LRU and 8 + 8 attention launches per
    step, executed fractions from the device counter equal to the
    schedule's, finite losses; p50 step ms of the kernel path and standard
    full fine-tuning (each twice, in turns), tokens/s, peak memory, a
@@ -191,7 +191,7 @@ Phases, one line each (any failure raises and exits non-zero):
    ``repro_torch.examples.lora_finetune``'s ``plan_lora`` and
    ``finetune_lora``: rank 8 on wq/wk/wv and per-expert w_up (26,738,688
    adapter parameters), SGD 0.1, n_pf 3 / n_po 0 of 4, G 16, batch 4 x
-   seq 512, 8 steps: 16 + 16 MoE and 16 + 16 attention launches per step,
+   seq 512, 6 steps: 16 + 16 MoE and 16 + 16 attention launches per step,
    executed MoE tiles = the launched masks', attention tiles = the
    schedule's, the base bit-identical after the steps and the adapters
    moved, losses within 1e-4 x max(1, |loss|) of the masked path; p50 step
@@ -203,7 +203,7 @@ Phases, one line each (any failure raises and exits non-zero):
 21. olmoe-1b-7b fine-tune — the launcher's loop (``train/loop.py::
    finetune`` with ``repro_torch.launch.train``'s settings: --optimizer
    sgd, lr 1e-3, n_pf 3 / n_po 1 of 4, G 16) at full width on 8 of the 16
-   layers (3,562,571,776 parameters), batch 4 x seq 512, 8 steps: 8 + 8
+   layers (3,562,571,776 parameters), batch 4 x seq 512, 6 steps: 8 + 8
    MoE and attention launches per step, device tile counts = the masks'
    and the schedule's, losses within tolerance of the masked path; p50
    step ms of the kernel, masked and full fine-tuning paths (each twice,
@@ -222,8 +222,9 @@ Phases, one line each (any failure raises and exits non-zero):
    the launcher and alone, beside their plain version, SDPA and both
    bounds.
 23. the packed D2FT path — (a) ``repro_torch.launch.train --arch
-   gemma3-1b --full --d2ft --packed`` (phase 13's model, seed 0, batch 4 x
-   seq 1024 in 4 micro-batches, G 4, AdamW lr 1e-3, 6 steps) at the
+   gemma3-1b --full --d2ft --packed`` (phase 13's model at full width,
+   its first 13 of 26 layers, seed 0, batch 4 x seq 1024 in 4
+   micro-batches, G 4, AdamW lr 1e-3, 4 steps) at the
    launcher's budget (3 p_f + 1 p_o: every group gathers all four
    samples) and the LLM example's (2 p_f + 1 p_o: every group skips one),
    each with a step over ``packed_forward_mb`` (the micro-batch form: no
@@ -315,7 +316,31 @@ Phases, one line each (any failure raises and exits non-zero):
    rank's peak memory, and a checksum of the parameters, bitwise equal on
    both ranks after every step; B2's launches on each rank. A rank that
    fails fails the phase. ``python3 chip_smoke.py --only 26`` runs phases
-   1, 2 and 26 alone (a partial run that prints no result).
+   1, 2 and 26 alone (a partial run that prints no result). In the whole
+   script the run on the launcher's schedule takes its first plan only (2
+   steps), and runs in phase 27's process of two ranks.
+27. ZeRO-1 and ZeRO-3 data-parallel D2FT on gemma3-1b, in phase 26's
+   processes, on phase 26's model, budget and refreshes. (a) After the
+   masked run on the one NCCL rank, ``--sync-mode zero`` and ``zero3`` on
+   its schedules (replayed): losses within 1e-6 of the masked run's, B2's
+   launches 26 x 4 a direction, each step's bytes by collective equal to
+   the plan's ``rs_bytes`` / ``ag_bytes`` / ``ar_bytes``, the moments'
+   bytes equal to ``zero_state_byte_report``'s, ZeRO-3's bytes between
+   steps within 1 % of the shards and the moments. (b) After the masked
+   AdamW run on the mix, the masked sync with SGD, ZeRO-1 with AdamW
+   (weight decay 0.01: no gather elided) and with SGD (elidable: fewer
+   bytes gathered), ZeRO-3 and streamed ZeRO-3 (the loop's
+   ``ParallelConfig(streamed=True)``), two gloo ranks: those checks on
+   both ranks every step, against the masked run with the same
+   optimizer, the canonical parameters bitwise equal on both ranks, the
+   streamed run bitwise equal to ZeRO-3's, ``check_zero3_residency``
+   passing, forward-dead gathers elided; p50 step ms, the sync's ms by
+   collective and peak memory printed a rank.
+   ``python3 chip_smoke.py --only 27`` runs phases 1, 2 and 27 alone,
+   with the masked baselines (a partial run that prints no result). To
+   keep the whole script inside its limit, the launcher fine-tunes of
+   phases 10, 13, 14, 17, 20 and 21 take 6 steps (8 before), and phase 23
+   4 steps (6 before) on 13 of gemma3-1b's 26 layers.
 
 Then one JSON line of the 13 kernel records, the card line again, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -357,7 +382,7 @@ FT_LR = 0.05
 # examples/d2ft_llm_finetune.py (2 p_f + 1 p_o of 4 micro-batches)
 LM_BATCH = 8
 LM_SEQ = 2048
-LM_STEPS = 8
+LM_STEPS = 6
 LM_LR = 1e-3
 LM_D2FT = dict(n_microbatches=4, n_pf=2, n_po=1)
 SSD_P, SSD_N, SSD_CHUNK = 64, 128, 256         # mamba2-130m's SSD widths
@@ -369,7 +394,7 @@ SSD_P, SSD_N, SSD_CHUNK = 64, 128, 256         # mamba2-130m's SSD widths
 # LoRA example's own settings (repro_torch/examples/lora_finetune.py)
 GM_BATCH = 4
 GM_SEQ = 1024
-GM_STEPS = 8
+GM_STEPS = 6
 GM_LR = 1e-3
 GM_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 
@@ -379,7 +404,7 @@ GM_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 # memory before any run (PERF.md, section 4)
 RG_BATCH = 4
 RG_SEQ = 512
-RG_STEPS = 8
+RG_STEPS = 6
 RG_LR = 1e-3
 RG_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 RG_CHUNK = 128                     # repro/models/rglru.py's scan chunk
@@ -394,7 +419,7 @@ RG_PARAMS = 3_549_934_080          # the JAX init_model's, by jax.eval_shape
 # tokens x 8 / 64 experts, 384 after the pad to block_c 128)
 MO_BATCH = 4
 MO_SEQ = 512
-MO_STEPS = 8
+MO_STEPS = 6
 MO_LR = 1e-3
 MO_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 MO_LORA_D2FT = dict(n_microbatches=4, n_pf=3, n_po=0)
@@ -411,7 +436,11 @@ ACTS_ALL = ("silu", "gelu", "relu")
 # of one sample: every group gathers all four samples, so this budget
 # measures the gather's overhead) and the LLM example's (2 p_f + 1 p_o:
 # every group skips one sample)
-PK_STEPS = 6                       # 8 took the phase past 150 s
+PK_STEPS = 4                       # 8 took the phase past 150 s
+# the first 13 of gemma3-1b's 26 layers (two cycles of five local and one
+# global, then one local): phase 23 took 140-165 s at full depth, which
+# with phases 26-27 pushed the whole script near its limit
+PK_LAYERS = 13
 PK_BUDGETS = ((3, 1), (2, 1))
 PK_PROFILE_BUDGET = (2, 1)
 PK_REMAT_STEPS = 2
@@ -461,8 +490,11 @@ NEW_DECODE_NPMAX = 270
 # second two-rank run; a rank process's time limit
 DP_STEPS = 4
 DP_REFRESH = 2
+# phase 26 (b)'s run on the launcher's schedule: its first plan only, cut
+# from 4 steps to keep the whole script inside its time limit
+DP_LAUNCHER_STEPS = 2
 DP_MIX = (0.4, 0.3, 0.3)
-DP_TIMEOUT = 600
+DP_TIMEOUT = 800
 
 
 def card_line() -> str:
@@ -3421,8 +3453,21 @@ def kernel_kinds(named):
 
 
 def packed_finetune(torch, np, tag):
-    """Phase 23a. Returns the phase's seconds."""
+    """Phase 23a on gemma3-1b at full width, ``PK_LAYERS`` of its layers
+    (the launcher builds the cut config). Returns the phase's seconds."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    cfg = get_config("gemma3-1b").replace(n_layers=PK_LAYERS)
+    get = launcher.get_config
+    launcher.get_config = lambda arch: cfg if arch == "gemma3-1b" \
+        else get(arch)
+    try:
+        return _packed_finetune(torch, np, tag, cfg)
+    finally:
+        launcher.get_config = get
+
+
+def _packed_finetune(torch, np, tag, cfg):
     from repro_torch.core.cost_model import compute_cost
     from repro_torch.core.d2ft import mb_packed_indices, packed_forward
     from repro_torch.core.schedule import (gates_from_schedule,
@@ -3434,7 +3479,6 @@ def packed_finetune(torch, np, tag):
     from repro_torch.train import loop
 
     t_phase = time.perf_counter()
-    cfg = get_config("gemma3-1b")
     B, S, n_mb, steps = GM_BATCH, GM_SEQ, GM_D2FT["n_microbatches"], PK_STEPS
     mb_of = microbatch_assignment(B, n_mb)
     batch = {k: torch.as_tensor(v, device="cuda")
@@ -3501,7 +3545,8 @@ def packed_finetune(torch, np, tag):
                                                        args))
         secs["FLOP counts"] += time.perf_counter() - t0
         full.setdefault("flops", flops.pop("full", None))
-        print(f"[packed] gemma3-1b full size ({cfg.n_layers} layers, d "
+        print(f"[packed] gemma3-1b full width, {cfg.n_layers} of 26 "
+              f"layers (d "
               f"{cfg.d_model}, {cfg.n_heads} query heads and "
               f"{cfg.n_kv_heads} KV head of {cfg.resolved_head_dim}, f32, "
               f"seed 0) through repro_torch.launch.train --d2ft --packed, "
@@ -4357,17 +4402,32 @@ def concentrated_table(np, L, G, n_mb, mix=DP_MIX, seed=0):
     return table
 
 
-def dp_rank(torch, np, leg, argv):
-    """One rank of phase 26: ``repro_torch.launch.train.main(argv)`` on the
-    card, the kernel path only (a fallback raises), with the schedule the
-    launcher plans (``leg`` "launcher") or the concentrated mix ("mix"),
-    and a checksum of the parameters after every step. Prints one line,
-    ``DP26 {json}``: the loss, step and sync times, the sync's bytes and
-    the plan's, the checksums, peak memory and B2's launches."""
+def dp_rank(torch, np, leg, runs, argv):
+    """One rank of phases 26-27: ``repro_torch.launch.train.main`` on the
+    card once a run, the kernel path only (a fallback raises), in one
+    process. ``runs`` is "mode:optimizer[:flag...],...": each run adds
+    ``--sync-mode mode --optimizer optimizer`` to ``argv``; the flags are
+    ``streamed`` (the loop's ``ParallelConfig`` with ``streamed=True``,
+    which the launcher has no flag for), ``launcher`` (the run's leg is
+    "launcher", whatever ``leg`` says) and ``steps=N``. The schedule is
+    the one the launcher plans (leg "launcher": the first such run plans
+    and scores, the later ones replay its tables) or the concentrated mix
+    ("mix"). After every step: the
+    moments' bytes, the bytes allocated (what a ZeRO-3 rank keeps between
+    steps: the bytes its live tensors requested, and
+    ``memory_allocated``, which adds the allocator's rounding) and, where
+    the parameters are replicated, their checksum. Prints
+    one line a run, ``DPREC {json}``: the loss, step and sync times, the
+    sync's bytes by collective and the plan's, the reports, the checksums,
+    peak memory, B2's launches and, for a
+    streamed run after an unstreamed ZeRO-3 one, whether the canonical
+    parameters are bitwise equal."""
+    import dataclasses
     import os
     from repro_torch.core.schedule import Schedule
     from repro_torch.kernels import contract
     from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import train as launcher
     from repro_torch.train import loop
 
@@ -4377,60 +4437,145 @@ def dp_rank(torch, np, leg, argv):
     def refuse(kind, reason):
         raise AssertionError(f"{kind} took a non-kernel route: {reason}")
     contract.on_fallback = refuse
-    tables, sums = [], []
     plan, make = loop.plan_from_scores, loop.make_distributed_train_step
+    make_mesh, init, fit = mesh_mod.make_data_mesh, launcher.init_model, \
+        launcher.finetune_distributed
+    rank = int(os.environ.get("RANK", 0))
+    # one process group for every run: each run's mesh finds it made
+    group = make_mesh(int(os.environ.get("WORLD_SIZE", 1)),
+                      "cpu" if "cpu" in argv else None)
+    first_tables, z3_params = [], None
+    for spec in runs.split(","):
+        mode, opt_name, *flags = spec.split(":")
+        streamed = "streamed" in flags
+        run_leg = "launcher" if "launcher" in flags else leg
+        steps = [f.split("=")[1] for f in flags if f.startswith("steps=")]
+        name = "_".join([mode, opt_name] + [f for f in flags
+                                           if not f.startswith("steps=")])
+        tables, sums, moments, between, between_alloc = [], [], [], [], []
+        made, meshes = [], []
 
-    def planned(cfg, d2, *a, **k):
-        if leg == "mix":
-            sched = Schedule(concentrated_table(
-                np, cfg.n_layers, d2.head_groups, d2.n_microbatches,
-                seed=len(tables)), cfg.n_layers, d2.head_groups)
-        else:
-            sched = plan(cfg, d2, *a, **k)
-        tables.append("".join(map(str, sched.table.ravel())))
-        return sched
+        def planned(cfg, d2, *a, **k):
+            if run_leg == "mix":
+                sched = Schedule(concentrated_table(
+                    np, cfg.n_layers, d2.head_groups, d2.n_microbatches,
+                    seed=len(tables)), cfg.n_layers, d2.head_groups)
+            elif first_tables:
+                table = np.frombuffer(first_tables[len(tables)].encode(),
+                                      np.uint8) - ord("0")
+                sched = Schedule(table.astype(np.int8).reshape(
+                    cfg.n_layers * d2.head_groups, -1), cfg.n_layers,
+                    d2.head_groups)
+            else:
+                sched = plan(cfg, d2, *a, **k)
+            tables.append("".join(map(str, sched.table.ravel())))
+            return sched
 
-    def checked(*a, **k):
-        step = make(*a, **k)
+        def checked(*a, **k):
+            step = make(*a, **k)
 
-        def run(model, state, batch, gates):
-            out = step(model, state, batch, gates)
-            sums.append(int(torch.stack([
-                p.detach().view(torch.int32).sum(dtype=torch.int64)
-                for p in model.parameters()]).sum()))
-            return out
-        return run
+            def run(model, state, batch, gates):
+                out = step(model, state, batch, gates)
+                torch.cuda.synchronize()
+                between.append(torch.cuda.memory_stats()[
+                    "requested_bytes.all.current"])
+                between_alloc.append(torch.cuda.memory_allocated())
+                moments.append(sum(t.numel() * t.element_size()
+                                   for v in state.values()
+                                   if isinstance(v, dict)
+                                   for t in v.values()))
+                if mode != "zero3":
+                    sums.append(int(torch.stack([
+                        p.detach().view(torch.int32).sum(dtype=torch.int64)
+                        for p in model.parameters()]).sum()))
+                return out
+            return run
 
-    loop.plan_from_scores, loop.make_distributed_train_step = planned, \
-        checked
-    d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    log = launcher.main(argv)
-    refreshes = log.extras["refreshes"]
-    line = {
-        "rank": int(os.environ.get("RANK", 0)),
-        "losses": log.losses, "step_ms": [1e3 * t for t in log.step_times],
-        "sync_bytes": log.extras["sync_bytes"],
-        "sync_ms": log.extras["sync_ms"],
-        "refresh_steps": [r["step"] for r in refreshes],
-        "ar_bytes": [r["sync"]["ar_bytes"] for r in refreshes],
-        "total_bytes": refreshes[0]["sync"]["total_bytes"],
-        "fraction": [r["sync"]["fraction"] for r in refreshes],
-        "n_skipped": [r["sync"]["n_skipped"] for r in refreshes],
-        "n_sliced": [r["sync"]["n_sliced"] for r in refreshes],
-        "device_of": [r["device_of"] for r in refreshes],
-        "sums": sums, "peak": torch.cuda.max_memory_allocated(),
-        "launches": {"fwd": d2a.flash_fwd.launches,
-                     "bwd": d2a.flash_bwd.launches},
-        "tables": tables}
-    os.write(1, ("DP26 " + json.dumps(line) + "\n").encode())
+        def capture_init(*a, **k):
+            made.append(init(*a, **k))
+            return made[-1]
+
+        def capture_mesh(*a, **k):
+            meshes.append(make_mesh(*a, **k))
+            return meshes[-1]
+
+        def streamed_fit(*a, parallel, **k):
+            return fit(*a, parallel=dataclasses.replace(
+                parallel, streamed=streamed), **k)
+
+        loop.plan_from_scores, loop.make_distributed_train_step = planned, \
+            checked
+        mesh_mod.make_data_mesh, launcher.init_model = capture_mesh, \
+            capture_init
+        launcher.finetune_distributed = streamed_fit
+        d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log = launcher.main(argv + ["--sync-mode", mode, "--optimizer",
+                                    opt_name]
+                            + (["--steps", steps[0]] if steps else []))
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"fwd": d2a.flash_fwd.launches,
+                    "bwd": d2a.flash_bwd.launches}
+        if not first_tables and run_leg == "launcher":
+            first_tables.extend(tables)
+        model = made[-1]
+        with torch.no_grad():
+            weighted = 0
+            for p in model.parameters():
+                v = p.detach().reshape(-1).view(torch.int32).long()
+                w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+                weighted += int((v * w).sum())
+                del v, w
+        same_as_zero3 = None
+        if mode == "zero3" and not streamed:
+            z3_params = {n: p.detach().cpu()
+                         for n, p in model.named_parameters()}
+        elif mode == "zero3" and z3_params is not None:
+            same_as_zero3 = all(torch.equal(p.detach().cpu(), z3_params[n])
+                                for n, p in model.named_parameters())
+        del model, made[:]
+        refreshes = log.extras["refreshes"]
+        line = {
+            "rank": rank, "run": name, "mode": mode, "opt": opt_name,
+            "streamed": streamed,
+            "losses": log.losses, "step_ms": [1e3 * t for t in log.step_times],
+            "sync_bytes": log.extras["sync_bytes"],
+            "by_kind": log.extras["sync_bytes_by_kind"],
+            "ms_by_kind": log.extras["sync_ms_by_kind"],
+            "sync_ms": log.extras["sync_ms"],
+            "refresh_steps": [r["step"] for r in refreshes],
+            "ar_bytes": [r["sync"]["ar_bytes"] for r in refreshes],
+            "rs_bytes": [r["sync"]["rs_bytes"] for r in refreshes],
+            "ag_bytes": [r["sync"]["ag_bytes"] for r in refreshes],
+            "total_bytes": refreshes[0]["sync"]["total_bytes"],
+            "fraction": [r["sync"]["fraction"] for r in refreshes],
+            "n_skipped": [r["sync"]["n_skipped"] for r in refreshes],
+            "n_sliced": [r["sync"]["n_sliced"] for r in refreshes],
+            "n_zero": [r["sync"]["n_zero"] for r in refreshes],
+            "zero_state": [r.get("zero_state") for r in refreshes],
+            "zero3": [r.get("zero3_params") for r in refreshes],
+            "residency": [r.get("residency") for r in refreshes],
+            "device_of": [r["device_of"] for r in refreshes],
+            "sums": sums, "weighted": weighted, "moments": moments,
+            "between": between, "between_alloc": between_alloc,
+            "peak": peak, "launches": launches,
+            "reshard": meshes[-1].counter.bytes.get("reshard", 0),
+            "same_as_zero3": same_as_zero3,
+            "tables": tables}
+        os.write(1, ("DPREC " + json.dumps(line) + "\n").encode())
+        del log
+    loop.plan_from_scores, loop.make_distributed_train_step = plan, make
+    mesh_mod.make_data_mesh, launcher.init_model = make_mesh, init
+    launcher.finetune_distributed = fit
+    group.close()
     return 0
 
 
 def dp_run(cmd, n_ranks, timeout=DP_TIMEOUT):
-    """Run a phase-26 command in a session of its own; kill the whole
+    """Run a phase-26/27 command in a session of its own; kill the whole
     session (torch.distributed.run's ranks included) at the time limit.
-    Returns (each rank's DP26 record by rank, seconds)."""
+    Returns ({run: {rank: record}}, seconds)."""
     import os
     import signal
     t0 = time.perf_counter()
@@ -4451,34 +4596,48 @@ def dp_run(cmd, n_ranks, timeout=DP_TIMEOUT):
     seconds = time.perf_counter() - t0
     recs = {}
     for ln in out.splitlines():
-        if ln.startswith("DP26 "):
-            rec = json.loads(ln[5:])
-            recs[rec["rank"]] = rec
-    if proc.returncode != 0 or sorted(recs) != list(range(n_ranks)):
-        raise AssertionError(f"{cmd} exited {proc.returncode} with rank "
-                             f"records {sorted(recs)}:\n{out[-6000:]}")
+        if ln.startswith("DPREC "):
+            rec = json.loads(ln[6:])
+            recs.setdefault(rec["run"], {})[rec["rank"]] = rec
+    if proc.returncode != 0 or not recs or any(
+            sorted(r) != list(range(n_ranks)) for r in recs.values()):
+        raise AssertionError(f"{cmd} exited {proc.returncode} with records "
+                             f"{ {k: sorted(v) for k, v in recs.items()} }:"
+                             f"\n{out[-6000:]}")
     return recs, seconds
 
 
-def dp_argv(mesh, leg):
-    """The launcher's flags of a phase-26 run, and the rank's leg."""
+def dp_argv(mesh, leg, runs):
+    """The rank's leg and runs, and the launcher's flags of phases
+    26-27."""
     d2 = GM_D2FT
-    return ["--dp-rank", leg, "--arch", "gemma3-1b", "--full", "--batch",
-            str(GM_BATCH), "--seq", str(GM_SEQ), "--steps", str(DP_STEPS),
-            "--lr", str(GM_LR), "--n-microbatches",
+    return ["--dp-rank", leg, runs, "--arch", "gemma3-1b", "--full",
+            "--batch", str(GM_BATCH), "--seq", str(GM_SEQ), "--steps",
+            str(DP_STEPS), "--lr", str(GM_LR), "--n-microbatches",
             str(d2["n_microbatches"]), "--n-pf", str(d2["n_pf"]), "--n-po",
             str(d2["n_po"]), "--d2ft", "--kernel", "--distributed",
             "--mesh", f"data={mesh}", "--refresh-every", str(DP_REFRESH)]
 
 
+def dp_plan_bytes(rec, key):
+    """The active plan's ``key`` bytes at each step of the run."""
+    return [rec[key][max(k for k, s in enumerate(rec["refresh_steps"])
+                         if s <= i)] for i in range(len(rec["losses"]))]
+
+
 def dp_check_bytes(rec, what):
-    """Each step's sync bytes equal the active plan's ar_bytes."""
-    want = [rec["ar_bytes"][max(k for k, s in enumerate(rec["refresh_steps"])
-                                if s <= i)] for i in range(DP_STEPS)]
-    if rec["sync_bytes"] != want or len(want) != DP_STEPS:
+    """Each step's sync bytes, by collective, equal the active plan's
+    ar_bytes, rs_bytes and ag_bytes."""
+    kinds = (("all_reduce", "ar_bytes"), ("reduce_scatter", "rs_bytes"),
+             ("all_gather", "ag_bytes"))
+    want = [{kind: int(b) for kind, key in kinds
+             for b in [dp_plan_bytes(rec, key)[i]] if b}
+            for i in range(len(rec["losses"]))]
+    if rec["by_kind"] != want or \
+            rec["sync_bytes"] != [sum(w.values()) for w in want]:
         raise AssertionError(f"{what} rank {rec['rank']}: sync bytes "
-                             f"{rec['sync_bytes']} != ar_bytes {want}")
-    return want
+                             f"{rec['by_kind']} != the plan's {want}")
+    return [sum(w.values()) for w in want]
 
 
 def dp_reference(torch, np, cfg, tables):
@@ -4518,101 +4677,282 @@ def dp_reference(torch, np, cfg, tables):
     return losses
 
 
-def data_parallel(torch, np, tag):
-    """Phase 26. Returns {"launches": (a)'s B2 launches}."""
+def data_parallel(torch, np, tag, phases=(26, 27)):
+    """Phases 26 and 27 (``phases``: either or both). One process runs a
+    one-rank NCCL mesh through the masked sync (phase 26 (a)), then ZeRO-1
+    and ZeRO-3 on the same schedules (27 (a)). One torch.distributed.run
+    of two gloo ranks runs the masked sync with AdamW on the launcher's
+    schedule (its first plan, ``DP_LAUNCHER_STEPS``) and on the
+    concentrated mix (26 (b)), then on the mix the masked sync with SGD,
+    ZeRO-1 with AdamW and with SGD, ZeRO-3 and streamed ZeRO-3 (27 (b)).
+    Phase 27 alone still runs the masked runs on the mix and in (a), as
+    the baselines its losses are held to. Returns {"launches": (a)'s
+    masked run's B2 launches}."""
     from repro_torch.configs import get_config
     cfg = get_config("gemma3-1b")
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     n_layers = cfg.n_layers
     want_launches = {"fwd": n_layers * DP_STEPS, "bwd": n_layers * DP_STEPS}
+    zero = 27 in phases
 
-    # (a) one rank over NCCL against the single-device loop
+    # (a) one rank over NCCL
+    runs_a = "masked:adamw" + (",zero:adamw,zero3:adamw" if zero else "")
     recs, secs = dp_run([sys.executable, str(ROOT / "chip_smoke.py")]
-                        + dp_argv(1, "launcher"), 1)
-    a = recs[0]
-    want = dp_check_bytes(a, "(a)")
-    if a["launches"] != want_launches:
-        raise AssertionError(f"(a) B2 launches {a['launches']} != "
-                             f"{want_launches}")
-    ref = dp_reference(torch, np, cfg, a["tables"])
-    diff = check_losses(np, SimpleNamespace(losses=a["losses"]),
-                        SimpleNamespace(losses=ref))
-    print(f"[data parallel] (a) gemma3-1b full size through "
-          f"repro_torch.launch.train --distributed --mesh data=1 --kernel "
-          f"(one rank, NCCL), batch {GM_BATCH} x seq {GM_SEQ}, n_pf "
-          f"{GM_D2FT['n_pf']} n_po {GM_D2FT['n_po']} of "
-          f"{GM_D2FT['n_microbatches']}, G {cfg.n_heads}, AdamW lr {GM_LR}, "
-          f"{DP_STEPS} steps, re-planned at steps {a['refresh_steps']}: "
-          f"losses {[round(x, 6) for x in a['losses']]} vs "
-          f"finetune(use_kernel=True) on the same batches and schedules "
-          f"{[round(x, 6) for x in ref]}, max diff {diff:.3e}; B2 "
-          f"launches {a['launches']} (= {n_layers} x {DP_STEPS}); sync "
-          f"bytes a step {a['sync_bytes']} = ar_bytes (fraction "
-          f"{a['fraction']} of {a['total_bytes']:.0f}); p50 step ms "
-          f"{float(np.median(a['step_ms'])):.3f}, sync ms "
-          f"{[round(x, 3) for x in a['sync_ms']]}; peak "
-          f"{a['peak'] / 2**30:.2f} GiB; {secs:.1f} s in its process {tag}",
-          flush=True)
+                        + dp_argv(1, "launcher", runs_a), 1)
+    a = recs["masked_adamw"][0]
+    for name, rec in recs.items():
+        dp_check_bytes(rec[0], f"(a) {name}")
+        if rec[0]["launches"] != want_launches:
+            raise AssertionError(f"(a) {name} B2 launches "
+                                 f"{rec[0]['launches']} != {want_launches}")
+    if 26 in phases:
+        ref = dp_reference(torch, np, cfg, a["tables"])
+        diff = check_losses(np, SimpleNamespace(losses=a["losses"]),
+                            SimpleNamespace(losses=ref))
+        print(f"[data parallel] (a) gemma3-1b full size through "
+              f"repro_torch.launch.train --distributed --mesh data=1 "
+              f"--kernel (one rank, NCCL), batch {GM_BATCH} x seq {GM_SEQ}, "
+              f"n_pf {GM_D2FT['n_pf']} n_po {GM_D2FT['n_po']} of "
+              f"{GM_D2FT['n_microbatches']}, G {cfg.n_heads}, AdamW lr "
+              f"{GM_LR}, {DP_STEPS} steps, re-planned at steps "
+              f"{a['refresh_steps']}: losses "
+              f"{[round(x, 6) for x in a['losses']]} vs "
+              f"finetune(use_kernel=True) on the same batches and schedules "
+              f"{[round(x, 6) for x in ref]}, max diff {diff:.3e}; B2 "
+              f"launches {a['launches']} (= {n_layers} x {DP_STEPS}); sync "
+              f"bytes a step {a['sync_bytes']} = ar_bytes (fraction "
+              f"{a['fraction']} of {a['total_bytes']:.0f}); p50 step ms "
+              f"{float(np.median(a['step_ms'])):.3f}, sync ms "
+              f"{[round(x, 3) for x in a['sync_ms']]}; peak "
+              f"{a['peak'] / 2**30:.2f} GiB; {secs:.1f} s in its process "
+              f"{tag}", flush=True)
+    if zero:
+        for name in ("zero_adamw", "zero3_adamw"):
+            r = recs[name][0]
+            zero_run_checks(np, r, a, f"(a) {name}")
+            print(f"[zero] (a) {name}: --sync-mode {r['mode']} on one NCCL "
+                  f"rank, the same batches and schedules as the masked run "
+                  f"(replayed): losses {[round(x, 6) for x in r['losses']]}, "
+                  f"max diff against the masked run's "
+                  f"{dp_max_diff(np, r, a):.3e} (limit 1e-6); B2 launches "
+                  f"{r['launches']}; "
+                  + zero_run_line(np, r, dp_other_bytes(np, a)) + f" {tag}",
+                  flush=True)
+        print(f"[zero] (a) one process, {secs:.1f} s for its three runs "
+              f"{tag}", flush=True)
 
-    # (b) two ranks sharing the card over gloo
-    for leg in ("launcher", "mix"):
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc_per_node", "2", str(ROOT / "chip_smoke.py")] + \
-            dp_argv(2, leg)
-        recs, secs = dp_run(cmd, 2)
-        for r in recs.values():
-            dp_check_bytes(r, f"(b) {leg}")
-            if r["launches"] != want_launches:
-                raise AssertionError(f"(b) {leg} rank {r['rank']}: B2 "
+    # (b) two ranks sharing the card over gloo, one torch.distributed.run
+    runs = ([f"masked:adamw:launcher:steps={DP_LAUNCHER_STEPS}"]
+            if 26 in phases else []) + ["masked:adamw"] + (
+        ["masked:sgd", "zero:adamw", "zero:sgd", "zero3:adamw",
+         "zero3:adamw:streamed"] if zero else [])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", str(ROOT / "chip_smoke.py")] + \
+        dp_argv(2, "mix", ",".join(runs))
+    recs, secs = dp_run(cmd, 2)
+    for name, by_rank in recs.items():
+        for r in by_rank.values():
+            dp_check_bytes(r, f"(b) {name}")
+            n = len(r["losses"])
+            if r["launches"] != {"fwd": n_layers * n, "bwd": n_layers * n}:
+                raise AssertionError(f"(b) {name} rank {r['rank']}: B2 "
                                      f"launches {r['launches']}")
             if not np.isfinite(r["losses"]).all():
-                raise AssertionError(f"(b) {leg}: losses {r['losses']}")
-        r0, r1 = recs[0], recs[1]
-        if r0["sums"] != r1["sums"] or len(r0["sums"]) != DP_STEPS:
-            raise AssertionError(f"(b) {leg}: parameter checksums differ "
-                                 f"across ranks: {r0['sums']} vs "
-                                 f"{r1['sums']}")
+                raise AssertionError(f"(b) {name}: losses {r['losses']}")
+        r0, r1 = by_rank[0], by_rank[1]
+        if r0["sums"] != r1["sums"] or r0["weighted"] != r1["weighted"]:
+            raise AssertionError(f"(b) {name}: parameter checksums differ "
+                                 f"across ranks: {r0['sums']} "
+                                 f"{r0['weighted']} vs {r1['sums']} "
+                                 f"{r1['weighted']}")
         if r0["losses"] != r1["losses"]:
-            raise AssertionError(f"(b) {leg}: the ranks' mean losses "
+            raise AssertionError(f"(b) {name}: the ranks' mean losses "
                                  f"differ: {r0['losses']} {r1['losses']}")
-        if leg == "mix" and not max(r0["fraction"]) < 1.0:
-            raise AssertionError(f"(b) mix: sync fraction {r0['fraction']}")
-        same = r0["tables"] == a["tables"]
-        vs_a = float(np.max(np.abs(np.asarray(r0["losses"]) -
-                                   np.asarray(a["losses"]))))
-        p50 = [float(np.median(r["step_ms"])) for r in (r0, r1)]
-        sync = [float(np.median(r["sync_ms"])) for r in (r0, r1)]
-        print(f"[data parallel] (b) {leg} schedule"
-              + (" (the launcher's knapsack)" if leg == "launcher" else
-                 f" (the paper's concentrated mix {DP_MIX})")
-              + f": two ranks on one card over gloo (torch.distributed.run "
-              f"--nproc_per_node 2, --mesh data=2), 2 x {GM_SEQ} a rank, "
-              f"AdamW, {DP_STEPS} steps; sync fraction {r0['fraction']} "
-              f"({r0['n_skipped']} leaves skipped, {r0['n_sliced']} "
-              f"group-sliced); bytes a step: counter {r0['sync_bytes']} = "
-              f"ar_bytes on both ranks, of {r0['total_bytes']:.0f}; "
-              f"losses {[round(x, 6) for x in r0['losses']]}"
-              + (f" (vs (a): max diff {vs_a:.3e}, same schedules)" if same
-                 else " (schedules differ from (a)'s)")
-              + f"; parameter checksums bitwise equal on both ranks after "
-              f"every step {r0['sums']}; B2 launches per rank "
-              f"{r0['launches']}; device_of {r0['device_of']} {tag}",
-              flush=True)
-        print(f"[data parallel] (b) {leg}: sync host-clock ms a step (gloo "
-              f"staging the bucket through pinned host memory on one card, "
-              f"not an interconnect number) rank 0 "
-              f"{[round(x, 3) for x in r0['sync_ms']]}, rank 1 "
-              f"{[round(x, 3) for x in r1['sync_ms']]}: p50 {sync[0]:.3f} / "
-              f"{sync[1]:.3f} against the step's p50 {p50[0]:.3f} / "
-              f"{p50[1]:.3f} ms ({sync[0] / p50[0]:.1%} of rank 0's step); "
-              f"peak memory rank 0 {r0['peak']} bytes "
-              f"({r0['peak'] / 2**30:.2f} GiB), rank 1 {r1['peak']} bytes "
-              f"({r1['peak'] / 2**30:.2f} GiB); {secs:.1f} s for the run "
-              f"{tag}", flush=True)
-    print(f"[data parallel] phase 26 took "
+    if 26 in phases:
+        dp26_b_lines(np, "launcher", recs["masked_adamw_launcher"], a, tag)
+        dp26_b_lines(np, "mix", recs["masked_adamw"], a, tag)
+    if zero:
+        zero_mix_checks(np, recs, tag)
+    print(f"[data parallel] (b) one torch.distributed.run of two ranks, "
+          f"{secs:.1f} s for its {len(runs)} runs {tag}", flush=True)
+    print(f"[data parallel] phases {'-'.join(map(str, phases))} took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"launches": a["launches"]}
+
+
+def dp26_b_lines(np, leg, recs, a, tag):
+    """Phase 26 (b)'s two lines of a leg's masked AdamW run."""
+    r0, r1 = recs[0], recs[1]
+    n = len(r0["losses"])
+    if leg == "mix" and not max(r0["fraction"]) < 1.0:
+        raise AssertionError(f"(b) mix: sync fraction {r0['fraction']}")
+    same = r0["tables"] == a["tables"][:len(r0["tables"])]
+    vs_a = float(np.max(np.abs(np.asarray(r0["losses"]) -
+                               np.asarray(a["losses"][:n]))))
+    p50 = [float(np.median(r["step_ms"])) for r in (r0, r1)]
+    sync = [float(np.median(r["sync_ms"])) for r in (r0, r1)]
+    print(f"[data parallel] (b) {leg} schedule"
+          + (" (the launcher's knapsack)" if leg == "launcher" else
+             f" (the paper's concentrated mix {DP_MIX})")
+          + f": two ranks on one card over gloo (torch.distributed.run "
+          f"--nproc_per_node 2, --mesh data=2), 2 x {GM_SEQ} a rank, "
+          f"AdamW, {n} steps; sync fraction {r0['fraction']} "
+          f"({r0['n_skipped']} leaves skipped, {r0['n_sliced']} "
+          f"group-sliced); bytes a step: counter {r0['sync_bytes']} = "
+          f"ar_bytes on both ranks, of {r0['total_bytes']:.0f}; "
+          f"losses {[round(x, 6) for x in r0['losses']]}"
+          + (f" (vs (a): max diff {vs_a:.3e}, same schedules)" if same
+             else " (schedules differ from (a)'s)")
+          + f"; parameter checksums bitwise equal on both ranks after "
+          f"every step {r0['sums']}; B2 launches per rank "
+          f"{r0['launches']}; device_of {r0['device_of']} {tag}",
+          flush=True)
+    print(f"[data parallel] (b) {leg}: sync host-clock ms a step (gloo "
+          f"staging the bucket through pinned host memory on one card, "
+          f"not an interconnect number) rank 0 "
+          f"{[round(x, 3) for x in r0['sync_ms']]}, rank 1 "
+          f"{[round(x, 3) for x in r1['sync_ms']]}: p50 {sync[0]:.3f} / "
+          f"{sync[1]:.3f} against the step's p50 {p50[0]:.3f} / "
+          f"{p50[1]:.3f} ms ({sync[0] / p50[0]:.1%} of rank 0's step); "
+          f"peak memory rank 0 {r0['peak']} bytes "
+          f"({r0['peak'] / 2**30:.2f} GiB), rank 1 {r1['peak']} bytes "
+          f"({r1['peak'] / 2**30:.2f} GiB) {tag}", flush=True)
+
+
+def dp_max_diff(np, r, base):
+    return float(np.max(np.abs(np.asarray(r["losses"]) -
+                               np.asarray(base["losses"]))))
+
+
+def zero_run_checks(np, r, base, what):
+    """A ZeRO run against the masked run on the same schedules: losses
+    within 1e-6, the moments' bytes after every step equal to the plan's
+    ``zero_state_byte_report``, and under ZeRO-3 the bytes the live
+    tensors requested between steps (``memory_allocated`` less the
+    allocator's rounding of each block, which depends on the order the
+    blocks were split in), less what the masked run's hold besides its
+    parameters and moments (the process's workspaces:
+    ``dp_other_bytes``), within 1 % of the shards, the fallback leaves
+    and the sharded moments."""
+    if r["tables"] != base["tables"]:
+        raise AssertionError(f"{what}: schedules differ from the masked "
+                             "run's")
+    diff = dp_max_diff(np, r, base)
+    if not diff <= 1e-6:
+        raise AssertionError(f"{what}: losses {r['losses']} vs masked "
+                             f"{base['losses']}: max diff {diff}")
+    want = dp_plan_bytes({**r, "x": [z["per_device_bytes"]
+                                     for z in r["zero_state"]]}, "x")
+    if r["moments"] != [int(w) for w in want]:
+        raise AssertionError(f"{what}: moment bytes {r['moments']} != "
+                             f"zero_state_byte_report's {want}")
+    if r["mode"] == "zero3":
+        other = dp_other_bytes(np, base)
+        for i, got in enumerate(r["between"]):
+            k = max(j for j, s in enumerate(r["refresh_steps"]) if s <= i)
+            z3 = r["zero3"][k]
+            model = z3["shard_bytes"] + z3["fallback_bytes"] + want[i]
+            if abs(got - other - model) > 0.01 * model:
+                raise AssertionError(f"{what}: {got} bytes requested "
+                                     f"between steps, {other} of them "
+                                     f"besides the state, the model "
+                                     f"{model}")
+
+
+def dp_other_bytes(np, masked):
+    """What a masked run's live tensors request between steps besides its
+    parameters and moments (cuBLAS workspaces and the like), the median
+    over its steps."""
+    return int(np.median([b - masked["total_bytes"] - m for b, m in
+                          zip(masked["between"], masked["moments"])]))
+
+
+def zero_run_line(np, r, other):
+    """A ZeRO run's numbers, on one line; ``other``: the masked run's
+    bytes besides its state (``dp_other_bytes``)."""
+    kinds = sorted({k for d in r["ms_by_kind"] for k in d})
+    ms = {k: round(float(np.median([d.get(k, 0.0) for d in r["ms_by_kind"]])),
+                   3) for k in kinds}
+    z = r["zero_state"][-1]
+    text = (f"bytes a step by collective {r['by_kind']} = the plan's "
+            f"(ar / rs / ag {r['ar_bytes']} / {r['rs_bytes']} / "
+            f"{r['ag_bytes']}); p50 step ms "
+            f"{float(np.median(r['step_ms'])):.3f}, the sync's host-clock "
+            f"ms a step {[round(x, 3) for x in r['sync_ms']]} (p50 by "
+            f"collective, the calls alone: {ms}); optimizer state "
+            f"{r['moments'][-1]} bytes = zero_state_byte_report's "
+            f"per_device_bytes (fraction {z['fraction']:.4f} of "
+            f"{z['replicated_bytes']:.0f}); requested between steps "
+            f"{r['between']} (memory_allocated {r['between_alloc']})")
+    if r["mode"] == "zero3":
+        z3 = r["zero3"][-1]
+        text += (f" = shards {z3['shard_bytes']:.0f} + fallback "
+                 f"{z3['fallback_bytes']:.0f} + moments {r['moments'][-1]} "
+                 f"+ the masked run's {other} bytes besides its state, "
+                 f"within 1 %; {z3['n_gather_elided']} forward-dead "
+                 f"gathers elided, residency fraction {z3['fraction']:.4f}, "
+                 f"peak unit {z3['peak_unit']}")
+    if r["residency"][0] is not None:
+        text += (f"; check_zero3_residency peak agreement "
+                 f"{[x['peak_agreement'] for x in r['residency']]}")
+    return text + (f"; re-layout bytes {r['reshard']}; peak "
+                   f"{r['peak']} bytes ({r['peak'] / 2**30:.2f} GiB)")
+
+
+def zero_mix_checks(np, recs, tag):
+    """Phase 27 (b): every ZeRO run of the mix process against the masked
+    run with its optimizer, on both ranks; the gather elision where the
+    optimizer allows it; streamed ZeRO-3 bitwise equal to ZeRO-3."""
+    for name in ("zero_adamw", "zero_sgd", "zero3_adamw",
+                 "zero3_adamw_streamed"):
+        by_rank = recs[name]
+        base = recs["masked_sgd" if name == "zero_sgd" else "masked_adamw"]
+        for rank in (0, 1):
+            zero_run_checks(np, by_rank[rank], base[rank],
+                            f"(b) {name} rank {rank}")
+        r0 = by_rank[0]
+        if r0["mode"] == "zero3" and not min(
+                z["n_gather_elided"] for z in r0["zero3"]) > 0:
+            raise AssertionError(f"(b) {name}: no gather elided")
+        elided = any(g < t for g, t in zip(r0["ag_bytes"],
+                                           [r0["total_bytes"]] * 2))
+        if name == "zero_sgd" and not elided:
+            raise AssertionError(f"(b) zero_sgd: ag_bytes {r0['ag_bytes']}")
+        if name == "zero_adamw" and elided:
+            raise AssertionError(f"(b) zero_adamw (weight decay 0.01, not "
+                                 f"elidable): ag_bytes {r0['ag_bytes']}")
+        if name == "zero3_adamw_streamed":
+            z3 = recs["zero3_adamw"]
+            for rank in (0, 1):
+                if by_rank[rank]["losses"] != z3[rank]["losses"] or \
+                        not by_rank[rank]["same_as_zero3"]:
+                    raise AssertionError(f"(b) streamed ZeRO-3 rank {rank} "
+                                         "differs from ZeRO-3")
+            if any(x is None for x in r0["residency"]):
+                raise AssertionError("(b) streamed: no residency check")
+        for rank in (0, 1):
+            r = by_rank[rank]
+            print(f"[zero] (b) {name} rank {rank}: two gloo ranks on one "
+                  f"card, the concentrated mix, 2 x {GM_SEQ} a rank: "
+                  f"losses {[round(x, 6) for x in r['losses']]}, max diff "
+                  f"against the masked {r['opt']} run's "
+                  f"{dp_max_diff(np, r, base[rank]):.3e} (limit 1e-6); "
+                  f"canonical parameters bitwise equal on both ranks "
+                  f"(weighted checksum {r['weighted']})"
+                  + (", and to ZeRO-3's" if r["same_as_zero3"] else "")
+                  + "; " + zero_run_line(np, r, dp_other_bytes(
+                      np, base[rank])) + f" {tag}", flush=True)
+    for name in ("masked_adamw", "masked_sgd"):
+        m = recs[name][0]
+        print(f"[zero] (b) {name} (the baseline) rank 0: losses "
+              f"{[round(x, 6) for x in m['losses']]}, bytes a step "
+              f"{m['sync_bytes']}, p50 step ms "
+              f"{float(np.median(m['step_ms'])):.3f}, sync ms p50 "
+              f"{float(np.median(m['sync_ms'])):.3f}, requested between "
+              f"steps {m['between']} (parameters {m['total_bytes']:.0f}, "
+              f"moments {m['moments'][-1]}), peak {m['peak']} bytes "
+              f"{tag}", flush=True)
 
 
 def main() -> int:
@@ -4627,7 +4967,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
     if sys.argv[1:2] == ["--dp-rank"]:
-        return dp_rank(torch, np, sys.argv[2], sys.argv[3:])
+        return dp_rank(torch, np, sys.argv[2], sys.argv[3], sys.argv[4:])
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -4657,20 +4997,33 @@ def main() -> int:
           f"-> {build.build_dir()}", flush=True)
     print(build.ptxas_report(), flush=True)
 
-    if sys.argv[1:] in (["--only", "25"], ["--only", "26"]):
-        # phase 25 or 26 alone, after the device and the build: a partial
-        # run, which prints no result
+    if sys.argv[1:] in (["--only", "25"], ["--only", "26"],
+                        ["--only", "27"]):
+        # phase 25, 26 or 27 alone, after the device and the build: a
+        # partial run, which prints no result
         from repro_torch.kernels import contract
 
         def refuse(kind, reason):
             raise AssertionError(f"{kind} took a non-kernel route: {reason}")
         contract.on_fallback = refuse
         only = sys.argv[2]
-        (new_archs if only == "25" else data_parallel)(torch, np,
-                                                       f"[{card}]")
+        if only == "25":
+            new_archs(torch, np, f"[{card}]")
+        else:
+            data_parallel(torch, np, f"[{card}]", phases=(int(only),))
         print(f"chip_smoke: phase {only} alone passed (a partial run: no "
               "result)")
         return 0
+
+    t_lap = [time.perf_counter()]
+
+    def lap(phase):
+        """Prints the seconds since the last lap: the phases before
+        ``phase``."""
+        now = time.perf_counter()
+        print(f"[timing] {now - t_lap[0]:.1f} s up to phase {phase}",
+              flush=True)
+        t_lap[0] = now
 
     # 3. kernel vs plain --------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4713,6 +5066,7 @@ def main() -> int:
           f"bitwise equal across two calls", flush=True)
     decode_shapes_vs_plain(torch, gen)
 
+    lap(4)
     # 4. serve ------------------------------------------------------------
     cfg = get_config("gemma3-1b")
     max_seq = max(s + m for s, m in zip(PROMPT_LENS, MAX_NEW))
@@ -4859,6 +5213,7 @@ def main() -> int:
           f"checked entry makes ({1 + calls:g} checks a step, each a device "
           f"sync) {both('per_layer')} {tag}", flush=True)
 
+    lap(5)
     # 5. kernel timing ----------------------------------------------------
     final = sorted(s + m - 1 for s, m in zip(PROMPT_LENS, MAX_NEW))[-4:]
     npm = pages_needed(max_seq, PAGE_SIZE)
@@ -4914,12 +5269,15 @@ def main() -> int:
     del eng, plain, prof_eng, args
     torch.cuda.empty_cache()
 
+    lap(6)
     # 6. attention kernels vs plain ----------------------------------------
     errs = attention_vs_plain(torch, gen)
 
+    lap(7)
     # 7. fine-tune --------------------------------------------------------
     train = finetune(torch, np, tag)
 
+    lap(8)
     # 8. attention kernel timing ------------------------------------------
     timing = attention_timing(torch, gen, tag)
     torch.cuda.empty_cache()
@@ -4931,71 +5289,91 @@ def main() -> int:
         raise AssertionError(f"{kind} took a non-kernel route: {reason}")
     contract.on_fallback = refuse_fallback
 
+    lap(9)
     # 9. SSD kernels vs plain ---------------------------------------------
     ssd_errs = ssd_vs_plain(torch)
     torch.cuda.empty_cache()
 
+    lap(10)
     # 10. LLM fine-tune through the launcher ------------------------------
     lm = lm_finetune(torch, np, tag)
 
+    lap(11)
     # 11. SSD kernel timing -----------------------------------------------
     ssd_t = ssd_timing(torch, lm, tag)
     torch.cuda.empty_cache()
 
+    lap(12)
     # 12. hd-256 attention kernels vs plain --------------------------------
     gm_errs = gemma_attention_vs_plain(torch, gen)
     torch.cuda.empty_cache()
 
+    lap(13)
     # 13. gemma3-1b LLM fine-tune through the launcher ---------------------
     gm = launcher_finetune(torch, np, tag, "gemma3-1b", "gemma fine-tune",
                            GM_BATCH, GM_SEQ, GM_STEPS, GM_LR, GM_D2FT, (0, 5))
 
+    lap(14)
     # 14. D2FT-LoRA fine-tune on gemma3-1b ---------------------------------
     lo = gemma_lora(torch, np, tag)
 
+    lap(15)
     # 15. LoRA and hd-256 attention kernel timing --------------------------
     gm_t = gemma_timing(torch, gm, lo, tag)
     torch.cuda.empty_cache()
 
+    lap(16)
     # 16. RG-LRU kernels vs plain -----------------------------------------
     rg_errs, rg_operands = rglru_vs_plain(torch)
 
+    lap(17)
     # 17. recurrentgemma-2b fine-tune through the launcher ----------------
     rg = rg_finetune(torch, np, tag)
 
+    lap(18)
     # 18. RG-LRU kernel timing --------------------------------------------
     rg_t = rglru_timing(torch, rg_operands, rg, tag)
     del rg_operands
     torch.cuda.empty_cache()
 
+    lap(19)
     # 19. MoE kernels vs plain --------------------------------------------
     moe_errs = moe_vs_plain(torch)
 
+    lap(20)
     # 20. D2FT-LoRA on olmoe-1b-7b at full width and depth -----------------
     ol = olmoe_lora(torch, np, tag)
 
+    lap(21)
     # 21. the launcher's loop on olmoe-1b-7b, full width, 8 of 16 layers ---
     mo = olmoe_finetune(torch, np, tag)
 
+    lap(22)
     # 22. MoE kernel timing -----------------------------------------------
     mo_t, _ = moe_timing(torch, mo, tag)
     torch.cuda.empty_cache()
 
+    lap(23)
     # 23. the packed D2FT path on gemma3-1b; the two examples -------------
     packed_finetune(torch, np, tag)
     packed_examples(torch, np, tag)
     torch.cuda.empty_cache()
 
+    lap(24)
     # 24. serving the recurrent and MoE families; the serve example -------
     serve_families(torch, np, tag)
     torch.cuda.empty_cache()
 
+    lap(25)
     # 25. the rest of the model surface: six archs fine-tuned and served --
     new_archs(torch, np, tag)
     torch.cuda.empty_cache()
 
-    # 26. data-parallel D2FT on gemma3-1b: one rank, then two -------------
+    lap(26)
+    # 26-27. data-parallel D2FT on gemma3-1b, masked and ZeRO: one rank,
+    # then two ---------------------------------------------------------
     data_parallel(torch, np, tag)
+    lap("28 (the kernel records)")
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{

@@ -5,8 +5,9 @@ The JAX package runs one program over a ``jax.sharding.Mesh``; the port
 runs one process per rank on ``torch.distributed``. ``make_data_mesh``
 returns a ``DataMesh``: the process group of the 1-D "data" axis, this
 process's rank, the world size and the device the rank computes on, with
-the two collectives the step needs (a summing ``all_reduce_`` and a
-``broadcast_``) and the ``CollectiveCounter`` of the gradient sync.
+the collectives the steps need (a summing ``all_reduce_``, a
+``broadcast_``, and the ZeRO modes' summing ``reduce_scatter_`` and
+``all_gather_``) and the ``CollectiveCounter`` of the gradient sync.
 
 The group comes from the ``torchrun`` environment (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
@@ -17,8 +18,13 @@ otherwise is a world of one in an in-memory store.
 Backend: NCCL where every rank of the host has a card of its own; gloo on
 the CPU, and where more ranks than cards share a card. gloo's collectives
 run on host memory, so with CUDA tensors the mesh stages each collective's
-buffer through pinned host memory itself (``staged`` is True), and a
-caller's timings show that copy.
+buffers (input and output) through pinned host memory itself (``staged``
+is True), and a caller's timings show that copy.
+
+``reduce_scatter_`` and ``all_gather_`` call ``reduce_scatter_tensor`` and
+``all_gather_into_tensor``, which torch 2.11 (NCCL and gloo) and 2.13
+(gloo) both run; 2.13 marks them deprecated, and the warning is
+silenced.
 
 A ``torch.distributed.DeviceMesh`` is not used: it binds rank r to the
 device of index r, which is wrong when two ranks share the one card, and
@@ -28,6 +34,7 @@ and tensor axes are sub-groups, is where it would serve.
 from __future__ import annotations
 
 import os
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
@@ -41,15 +48,20 @@ from repro_torch import resolve_device
 class CollectiveCounter:
     """Bytes handed to each collective and the number of calls, counted
     from the tensors sent, and the host-clock seconds of the syncs that
-    sent them (``sharding.sync.apply_grad_sync`` and the cross-rank
-    ``lofi_merge_`` add to it)."""
+    sent them (``sharding.sync``'s sync and re-layout functions add to
+    it). A reduce-scatter counts its input and an all-gather its output:
+    the full-size side, what ``sync_byte_report``'s ``rs_bytes`` and
+    ``ag_bytes`` price."""
     bytes: Dict[str, int] = field(default_factory=dict)
     calls: Dict[str, int] = field(default_factory=dict)
     seconds: float = 0.0
+    # host-clock seconds of the collective calls alone, by kind
+    kind_seconds: Dict[str, float] = field(default_factory=dict)
 
-    def add(self, kind: str, nbytes: int):
+    def add(self, kind: str, nbytes: int, seconds: float = 0.0):
         self.bytes[kind] = self.bytes.get(kind, 0) + int(nbytes)
         self.calls[kind] = self.calls.get(kind, 0) + 1
+        self.kind_seconds[kind] = self.kind_seconds.get(kind, 0.0) + seconds
 
     def total(self) -> int:
         return sum(self.bytes.values())
@@ -106,6 +118,51 @@ class DataMesh:
         """Overwrite ``t`` with rank ``src``'s, in place; returns ``t``."""
         self._collective(t, lambda x: dist.broadcast(x, src))
         return t
+
+    def _pair(self, out: torch.Tensor, inp: torch.Tensor, op):
+        """``op(out, inp)`` on flat contiguous 1-D tensors, staged through
+        one pinned host buffer holding both where the mesh is staged."""
+        if not self.staged:
+            op(out, inp)
+            return
+        host = self._host_buffer(inp.numel() + out.numel(), inp.dtype)
+        h_in, h_out = host[:inp.numel()], host[inp.numel():]
+        h_in.copy_(inp)
+        op(h_out, h_in)
+        out.copy_(h_out)
+
+    def reduce_scatter_(self, out: torch.Tensor,
+                        inp: torch.Tensor) -> torch.Tensor:
+        """Sum ``inp`` (flat, ``size`` x ``out.numel()`` elements) over the
+        ranks and leave this rank's contiguous 1/size of the sum in
+        ``out``; returns ``out``."""
+        if inp.numel() != out.numel() * self.size:
+            raise ValueError(f"reduce_scatter_ of {inp.numel()} elements "
+                             f"into {out.numel()} over {self.size} ranks")
+        self._pair(out, inp, self._reduce_scatter)
+        return out
+
+    def all_gather_(self, out: torch.Tensor,
+                    inp: torch.Tensor) -> torch.Tensor:
+        """Concatenate the ranks' ``inp`` (flat) in rank order into ``out``;
+        returns ``out``."""
+        if out.numel() != inp.numel() * self.size:
+            raise ValueError(f"all_gather_ of {inp.numel()} elements into "
+                             f"{out.numel()} over {self.size} ranks")
+        self._pair(out, inp, self._all_gather)
+        return out
+
+    @staticmethod
+    def _reduce_scatter(out, inp):
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", ".*is deprecated")
+            dist.reduce_scatter_tensor(out, inp)
+
+    @staticmethod
+    def _all_gather(out, inp):
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", ".*is deprecated")
+            dist.all_gather_into_tensor(out, inp)
 
     def close(self):
         """Destroy the process group if ``make_data_mesh`` created it."""

@@ -14,9 +14,8 @@ process group (one process per rank), where the JAX package builds a
 ``jax.sharding.Mesh`` with ``MeshSpec.build``. A stage or tensor axis above
 1, and the guard, raise ``NotImplementedError`` once every check the JAX
 package makes has passed, so a config the JAX package refuses is refused
-here with the same error. ``ParallelConfig`` accepts and validates the
-ZeRO modes as the JAX package does; the distributed step and loop refuse
-them (``require_ported``).
+here with the same error. Every sync mode runs: masked, ZeRO-1, ZeRO-3
+(streamed, with ``opt_chunk``) and local.
 """
 from __future__ import annotations
 
@@ -165,9 +164,10 @@ class ParallelConfig:
             raise not_ported("guard=True", "robustness")
 
     def require_ported(self):
-        """Refuse the sync modes the port's step and loop do not run."""
-        if self.sync_mode in ("zero", "zero3"):
-            raise not_ported(f"sync_mode={self.sync_mode!r}", "ZeRO")
+        """Refuse what the port's step and loop do not run: every sync
+        mode runs (masked, zero, zero3 streamed or not, local); a stage or
+        tensor axis and the guard raise "not ported yet" (``validate``)."""
+        self.validate()
 
     def validate_model(self, cfg):
         """Model-dependent divisibility checks (tensor axis tiling)."""

@@ -23,8 +23,10 @@ the full fine-tune's gradients and optimizer state: ``chip_smoke.py`` runs
 this loop on 8 of its 16 layers, and the full depth as D2FT-LoRA.)
 
 ``--distributed`` runs the data-parallel D2FT loop
-(``train.loop.finetune_distributed``: the schedule-masked gradient sync,
-one process per rank). One rank needs no launcher:
+(``train.loop.finetune_distributed``, one process per rank) with the
+schedule-masked gradient sync, or with ``--sync-mode zero`` (ZeRO-1: the
+optimizer moments sharded over the ranks) or ``--sync-mode zero3`` (the
+parameters sharded too). One rank needs no launcher:
 
   python -m repro_torch.launch.train --arch gemma3-1b --full --d2ft \
       --kernel --distributed --mesh data=1 --batch 4 --seq 1024 --steps 4
@@ -38,9 +40,8 @@ its own card, gloo where ranks share one, or on the CPU):
 
 It runs on the card unless ``--device cpu`` is given, with a reduced
 (smoke) config unless ``--full`` is passed. The weights are random, from
-seed 0. The ZeRO sync modes, the stage and tensor axes, and the elastic,
-fault-injection, resume and checkpoint options exit with "not ported
-yet".
+seed 0. The stage and tensor axes, and the elastic, fault-injection,
+resume and checkpoint options exit with "not ported yet".
 """
 from __future__ import annotations
 
@@ -92,8 +93,14 @@ def parse_args(argv=None):
                     choices=("masked", "zero", "zero3", "local"),
                     default="masked",
                     help="distributed gradient sync (only the --distributed "
-                         "path; zero / zero3 are not ported yet, local runs "
-                         "in the elastic loop)")
+                         "path): 'masked' = schedule-masked all-reduce "
+                         "(replicated optimizer state), 'zero' = ZeRO-1 "
+                         "sliced reduce-scatter / all-gather with the "
+                         "optimizer moments sharded ~1/n_ranks, 'zero3' = "
+                         "the parameters sharded too, with the "
+                         "schedule-masked (gate-elided) forward gather, "
+                         "'local' = lo-fi replicas (the elastic loop, not "
+                         "ported yet)")
     ap.add_argument("--refresh-every", type=int, default=None,
                     help="re-plan the schedule every k steps (only the "
                          "--distributed path)")
@@ -231,23 +238,43 @@ def _run(args, cfg, dev, mesh, spec) -> TrainLog:
     else:
         _, _, log = finetune_distributed(
             model, cfg, d2, opt, batches, steps=args.steps, mesh=mesh,
-            parallel=ParallelConfig(mesh=spec, use_kernel=args.kernel),
+            parallel=ParallelConfig(mesh=spec, sync_mode=args.sync_mode,
+                                    use_kernel=args.kernel),
             refresh_every=args.refresh_every)
         if lead:
-            rep, sync = log.extras["rebalance"], log.extras["sync"]
-            print(f"assignment: loads {rep['loads']} spread {rep['spread']} "
-                  f"imbalance {rep['imbalance']:.3f} "
-                  f"({len(log.extras['refreshes'])} replans)")
-            print(f"grad sync: {sync['fraction']:.0%} of param bytes "
-                  f"all-reduced ({sync['n_skipped']} leaves skipped, "
-                  f"{sync['n_sliced']} group-sliced); sent per step "
-                  f"{log.extras['sync_bytes']} bytes in "
-                  f"{[round(ms, 3) for ms in log.extras['sync_ms']]} ms")
+            _print_sync(args, log, spec.data)
     dt = time.time() - t0
     if lead:
         print(f"{args.steps} steps in {dt:.1f}s — loss "
               f"{log.losses[0]:.3f} -> {log.losses[-1]:.3f}")
     return log
+
+
+def _print_sync(args, log, ndev):
+    """Rank 0's report of the distributed run: the JAX launcher's lines,
+    then the bytes and host-clock ms each step sent."""
+    rep, sync = log.extras["rebalance"], log.extras["sync"]
+    print(f"assignment: loads {rep['loads']} spread {rep['spread']} "
+          f"imbalance {rep['imbalance']:.3f} "
+          f"({len(log.extras['refreshes'])} replans)")
+    if args.sync_mode in ("zero", "zero3"):
+        print(f"grad sync ({args.sync_mode}): {sync['fraction']:.0%} "
+              f"all-reduce-equivalent bytes ({sync['n_zero']} leaves "
+              f"partitioned over {ndev} shards, "
+              f"rs {sync['rs_bytes']:.2e}B / "
+              f"ag {sync['ag_bytes']:.2e}B)")
+        z3 = log.extras.get("zero3_params")
+        if args.sync_mode == "zero3" and z3 is not None:
+            print(f"param residency (zero3): "
+                  f"{z3['fraction']:.0%} of replicated peak "
+                  f"({z3['n_gather_elided']} forward-dead gathers "
+                  f"elided, peak unit {z3['peak_unit']})")
+    else:
+        print(f"grad sync: {sync['fraction']:.0%} of param bytes "
+              f"all-reduced ({sync['n_skipped']} leaves skipped, "
+              f"{sync['n_sliced']} group-sliced)")
+    print(f"sent per step {log.extras['sync_bytes']} bytes in "
+          f"{[round(ms, 3) for ms in log.extras['sync_ms']]} ms")
 
 
 if __name__ == "__main__":

@@ -100,6 +100,13 @@ class Block(nn.Module):
         if moe is not None:
             self.moe = moe
 
+    def forward(self, x, kind: str, cfg: ModelConfig, layer_gates=None,
+                use_kernel: bool = False, live_bounds=None):
+        """``apply_block`` as a module call, so that hooks on the block
+        (the streamed ZeRO-3 step's) see the layer run."""
+        return apply_block(self, x, kind, cfg, layer_gates,
+                           use_kernel=use_kernel, live_bounds=live_bounds)
+
 
 def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
                 dtype) -> Block:
@@ -417,12 +424,11 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, features=None,
     for i, (p, kind) in enumerate(zip(model.layers, cfg.layer_kinds)):
         lg = None if gates is None else (gates[0][i], gates[1][i])
         if remat:
-            x, a = checkpoint(apply_block, p, x, kind, cfg, lg,
-                              use_kernel=use_kernel, live_bounds=live_bounds,
-                              use_reentrant=False)
+            x, a = checkpoint(p, x, kind, cfg, lg, use_kernel=use_kernel,
+                              live_bounds=live_bounds, use_reentrant=False)
         else:
-            x, a = apply_block(p, x, kind, cfg, lg, use_kernel=use_kernel,
-                               live_bounds=live_bounds)
+            x, a = p(x, kind, cfg, lg, use_kernel=use_kernel,
+                     live_bounds=live_bounds)
         if a is not None:
             aux_sum = aux_sum + a["load_balance"] + a["router_z"]
     return logits_from_hidden(model, cfg, x), {"aux_loss": aux_sum}

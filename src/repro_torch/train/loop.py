@@ -7,9 +7,10 @@ the kernel path, a global-norm clip and the optimizer update, one step per
 batch; ``finetune`` also runs the packed path (``core.d2ft.
 packed_forward``). ``finetune_distributed`` is the paper's data-parallel
 D2FT over a ``launch.mesh.DataMesh`` (one process per rank), with the
-schedule-masked gradient sync; ``make_distributed_train_step`` also has
-the lo-fi local mode. The sharding policy, the ZeRO modes, the stage and
-tensor axes and the guard come with later slices.
+schedule-masked gradient sync or ZeRO-1 / ZeRO-3 (streamed too);
+``make_distributed_train_step`` also has the lo-fi local mode. The
+sharding policy, the stage and tensor axes and the guard come with later
+slices.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from repro_torch.data.synthetic import (microbatch_assignment,
 from repro_torch.kernels.ops import _validate_gates
 from repro_torch.models.transformer import Transformer, fused_xent, lm_loss
 from repro_torch.models.vit import ViT, ViTConfig, vit_forward, vit_loss
-from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm_
+from repro_torch.optim.optimizers import (Optimizer, chunked,
+                                          clip_by_global_norm_, clip_scale)
 
 
 @dataclass
@@ -219,6 +221,7 @@ def _resolve_parallel(parallel, mesh, given: dict, *, where: str):
 def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
                                 sync_plan, *, parallel=None,
                                 clip: float = 1.0, live_bounds=None,
+                                residency_recorder=None,
                                 use_kernel=_UNSET, axis_name=_UNSET,
                                 sync_mode=_UNSET, guard=_UNSET,
                                 streamed=_UNSET, opt_chunk=_UNSET):
@@ -237,19 +240,40 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
       averaged over the ranks; the loss and metrics are averaged too. The
       post-sync grads are the global mean on every rank, so the clip and
       the update stay replicated with no more collectives.
+    * ``"zero"`` — ZeRO-1: live runs are reduce-scattered onto their
+      owners (``apply_zero_scatter``), the global norm is sqrt(all-reduced
+      shard_sq + full_sq), each rank updates its owned shard copy with its
+      shard of the moments (``opt_state`` in the plan's shard layout), and
+      the schedule-masked all-gather (``apply_zero_gather``) writes the
+      updated runs back into the model's replicated parameters.
+    * ``"zero3"`` — ZeRO-3: the model's zero leaves hold this rank's
+      shards (``sharding.sync.zero3_shard_model_``) between steps. The
+      step materializes full views under the forward mask
+      (``zero3_materialize``), runs the loss with the views in place of
+      the parameters (``sharding.sync.installed``), takes the gradients
+      against the views, reduce-scatters them onto the shards, frees the
+      views and updates shard-resident: no gather after the update.
+      ``parallel.streamed`` swaps in the streamed schedule
+      (``zero3_stream_materialize``: one autograd Function a residency
+      unit, gathered when the forward reaches it, scattered when its
+      backward runs; the gradients autograd returns are the shards'),
+      bit-identical; ``residency_recorder`` counts its per-unit gather
+      bytes. ``parallel.opt_chunk`` streams the shard update that many
+      elements at a time (``optim.optimizers.chunked``, bit-identical).
     * ``"local"`` — the lo-fi communication-free mode: every rank is one
       replica and updates its own copy from its own shard with no
       collective in the step; the metrics are the rank's own. The caller
       merges the replicas with ``sharding.sync.lofi_merge_``.
 
     ``sync_plan``: {name: SyncSpec} from ``sharding.sync.grad_sync_plan``
-    (ignored in local mode). ``live_bounds``: the per-rank (live_fwd,
-    live_bwd) compaction bounds (``core.assignment.
+    of the step's mode (ignored in local mode). ``live_bounds``: the
+    per-rank (live_fwd, live_bwd) compaction bounds (``core.assignment.
     distributed_live_bounds``). The loose kwargs below ``live_bounds`` are
-    the deprecated spelling of ``parallel``. The ZeRO modes raise until the
-    ZeRO slice; stage / tensor axes and the guard are refused by
-    ``ParallelConfig``."""
-    from repro_torch.sharding.sync import apply_grad_sync
+    the deprecated spelling of ``parallel``. Stage / tensor axes and the
+    guard are refused by ``ParallelConfig``. The JAX step takes a
+    ``params`` template for the moments' sharding; here the shapes come
+    from the model."""
+    from repro_torch.sharding import sync
 
     given = {k: v for k, v in dict(
         use_kernel=use_kernel, axis_name=axis_name, sync_mode=sync_mode,
@@ -259,28 +283,102 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
                                  where="make_distributed_train_step")
     parallel.require_ported()
     parallel.validate_model(cfg)
-    local = parallel.sync_mode == "local"
+    mode = parallel.sync_mode
+    upd_opt = chunked(opt, parallel.opt_chunk) if parallel.opt_chunk \
+        else opt
 
-    def step(model: Transformer, opt_state, batch, gates):
-        params = dict(model.named_parameters())
-        loss, metrics = lm_loss(model, cfg, batch.get("tokens"),
-                                batch["labels"],
-                                features=batch.get("features"), gates=gates,
-                                use_kernel=parallel.use_kernel,
-                                live_bounds=live_bounds)
-        grads = _grads(loss, params)
+    def local_loss(model, batch, gates):
+        return lm_loss(model, cfg, batch.get("tokens"), batch["labels"],
+                       features=batch.get("features"), gates=gates,
+                       use_kernel=parallel.use_kernel,
+                       live_bounds=live_bounds)
+
+    def mean_over_ranks(loss, metrics, *extra):
+        """The loss and metrics, averaged over the ranks unless the mode
+        is local, in one scalar all-reduce that also sums ``extra`` (the
+        shards' squared norm)."""
         names = sorted(metrics)
         vals = torch.stack([loss.detach().float()] +
-                           [metrics[k].detach().float() for k in names])
-        if not local:
-            apply_grad_sync(grads, sync_plan, mesh)
-            vals = mesh.all_reduce_(vals) / mesh.size
+                           [metrics[k].detach().float() for k in names] +
+                           list(extra))
+        n = len(names) + 1
+        if mode == "local":
+            return dict(zip(names, vals[1:n]), loss=vals[0]), vals[n:]
+        vals = mesh.all_reduce_(vals)
+        return dict(zip(names, vals[1:n] / mesh.size),
+                    loss=vals[0] / mesh.size), vals[n:]
+
+    def finish_zero(gsync, loss, metrics):
+        """The ZeRO bodies' metrics and clip: the global norm is
+        sqrt(all-reduced shard_sq + full_sq), and the grads are scaled in
+        place."""
+        shard_sq, full_sq = sync.zero_norm_sq(gsync, sync_plan)
+        out, (shard_sum,) = mean_over_ranks(loss, metrics, shard_sq)
+        gnorm = torch.sqrt(shard_sum + full_sq)
+        scale = clip_scale(gnorm, clip)
+        for g in {id(g): g for g in gsync.values()}.values():
+            g.mul_(scale)
+        return dict(out, grad_norm=gnorm)
+
+    def step_masked(model, opt_state, batch, gates):
+        params = dict(model.named_parameters())
+        loss, metrics = local_loss(model, batch, gates)
+        grads = _grads(loss, params)
+        if mode != "local":
+            sync.apply_grad_sync(grads, sync_plan, mesh)
+        out, _ = mean_over_ranks(loss, metrics)
         grads, gnorm = clip_by_global_norm_(grads, clip)
         opt.update(grads, opt_state, params)
-        return model, opt_state, dict(zip(names, vals[1:]), loss=vals[0],
-                                      grad_norm=gnorm)
+        return model, opt_state, dict(out, grad_norm=gnorm)
 
-    return step
+    def step_zero(model, opt_state, batch, gates):
+        params = dict(model.named_parameters())
+        loss, metrics = local_loss(model, batch, gates)
+        gsync = sync.apply_zero_scatter(_grads(loss, params), sync_plan,
+                                        mesh)
+        out = finish_zero(gsync, loss, metrics)
+        # each rank updates its owned shard copy; the masked all-gather
+        # re-replicates exactly the runs whose parameters can have changed
+        pshard = sync.zero_shard_params(params, sync_plan, mesh.rank)
+        opt.update(gsync, opt_state, pshard)
+        sync.apply_zero_gather(pshard, params, sync_plan, mesh)
+        return model, opt_state, out
+
+    def step_zero3(model, opt_state, batch, gates):
+        params = dict(model.named_parameters())
+        full = sync.zero3_materialize(
+            {n: p.detach() for n, p in params.items()}, sync_plan, mesh)
+        views = {n: full[n].requires_grad_() for n in params
+                 if sync._is_zero(sync_plan[n])}
+        with sync.installed(model, views):
+            loss, metrics = local_loss(model, batch, gates)
+        grads = _grads(loss, {n: views.get(n, p) for n, p in params.items()})
+        del full, views
+        gsync = sync.apply_zero_scatter(grads, sync_plan, mesh)
+        del grads
+        out = finish_zero(gsync, loss, metrics)
+        del loss, metrics
+        # shards and their grads are both shard-resident: the update never
+        # touches a full tensor and no gather follows it
+        upd_opt.update(gsync, opt_state, params)
+        return model, opt_state, out
+
+    def step_zero3_streamed(model, opt_state, batch, gates):
+        params = dict(model.named_parameters())
+        with sync.zero3_stream_materialize(model, sync_plan, mesh,
+                                           recorder=residency_recorder):
+            loss, metrics = local_loss(model, batch, gates)
+        gsync = _grads(loss, params)
+        out = finish_zero(gsync, loss, metrics)
+        del loss, metrics
+        upd_opt.update(gsync, opt_state, params)
+        return model, opt_state, out
+
+    if mode in ("masked", "local"):
+        return step_masked
+    if mode == "zero":
+        return step_zero
+    return step_zero3_streamed if parallel.streamed else step_zero3
 
 
 def finetune_distributed(model: Transformer, cfg: ModelConfig,
@@ -305,16 +403,33 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
     ``log.extras`` and every refresh is appended to
     ``log.extras["refreshes"]``; ``log.extras["sync_bytes"]`` and
     ``["sync_ms"]`` hold each step's bytes handed to the sync's
-    collective (``mesh.counter``) and its host-clock ms. Runs on
-    ``mesh.device``, where the model must be; ``batches`` yields numpy
-    {"tokens", "labels"}. The loose kwargs are the deprecated spelling of
-    ``parallel``. Returns (model, opt_state, log); the model is updated in
-    place."""
+    collectives (``mesh.counter``) and its host-clock ms,
+    ``["sync_bytes_by_kind"]`` and ``["sync_ms_by_kind"]`` the same by
+    collective (the ms of the calls alone). Runs on ``mesh.device``, where
+    the model must be; ``batches`` yields numpy {"tokens", "labels"}. The
+    loose kwargs are the deprecated spelling of ``parallel``.
+
+    ``parallel.sync_mode``: "masked", or the ZeRO modes. "zero" runs the
+    ZeRO-1 step with the moments in each plan's shard layout, re-laid out
+    at every refresh (``sharding.sync.zero_relayout``); its gather elision
+    engages only for an ``opt.elidable`` optimizer and for groups never
+    backward-live since the moments were zero (``ever_live``). "zero3"
+    keeps each zero leaf's parameter as this rank's shard between steps;
+    at a refresh every rank first gathers every run back into canonical
+    parameters (counted under the kind "reshard", not a step's sync), rank
+    0 scores on them, and every rank then keeps its shard of the new
+    plan's layout; each refresh record gains the ``zero3_params``
+    residency report, and under ``streamed`` the ``residency`` check of
+    the first step of its plan (``check_zero3_residency``). Each ZeRO
+    refresh record gains ``zero_state`` (``zero_state_byte_report``). The
+    model's parameters and the returned moments are in canonical order,
+    whole, whatever the mode. Returns (model, opt_state, log); the model
+    is updated in place."""
     from repro_torch.core.assignment import (device_sample_order,
                                              distributed_live_bounds,
                                              plan_device_assignment)
     from repro_torch.core.schedule import op_counts
-    from repro_torch.sharding.sync import grad_sync_plan, sync_byte_report
+    from repro_torch.sharding import sync
 
     given = {k: v for k, v in dict(
         use_kernel=use_kernel, sync_mode=sync_mode, streamed=streamed,
@@ -322,11 +437,11 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
     parallel = _resolve_parallel(parallel, mesh, given,
                                  where="finetune_distributed")
     parallel.require_ported()
-    if parallel.sync_mode != "masked":
+    mode = parallel.sync_mode
+    if mode == "local":
         raise ValueError(
-            f"finetune_distributed runs sync_mode 'masked', not "
-            f"{parallel.sync_mode!r} (local replicas merge in the elastic "
-            "loop)")
+            "finetune_distributed runs the masked and ZeRO sync modes, not "
+            "'local' (local replicas merge in the elastic loop)")
     parallel.validate_model(cfg)
     parallel.validate_mesh(mesh)
     log = log or TrainLog()
@@ -334,14 +449,22 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
     params = dict(model.named_parameters())
     for p in params.values():
         mesh.broadcast_(p.detach())
-    opt_state = opt.init(params)
+    # the canonical shapes the plans and reports are made from (the
+    # parameters of a ZeRO-3 model hold shards between steps)
+    shapes = {n: torch.empty(p.shape, dtype=p.dtype, device="meta")
+              for n, p in params.items()}
+    zero = mode in ("zero", "zero3")
+    opt_state = None if zero else opt.init(params)
     G = d2.head_groups or max(cfg.n_heads, 1)
 
     def on_device(batch):
         return {k: torch.as_tensor(np.asarray(v), device=dev)
                 for k, v in batch.items()}
 
+    ever_live = None
+
     def replan(batch):
+        nonlocal ever_live
         table = torch.zeros((cfg.n_layers * G, d2.n_microbatches),
                             dtype=torch.int32, device=dev)
         if rank == 0:
@@ -356,22 +479,59 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
         sched = Schedule(table.cpu().numpy().astype(np.int8), cfg.n_layers,
                          G)
         assignment, report = plan_device_assignment(sched, world)
-        sync_plan = grad_sync_plan(params, cfg, sched)
+        if mode == "zero":
+            prior = ever_live
+            if ever_live is None:
+                ever_live = np.zeros((cfg.n_layers, sched.n_groups), bool)
+            sync_plan = sync.grad_sync_plan(
+                shapes, cfg, sched, "zero", n_shards=world, ever_live=prior,
+                elide_gather=opt.elidable)
+            ever_live = ever_live | sync.backward_live_groups(sched)
+        else:
+            sync_plan = sync.grad_sync_plan(shapes, cfg, sched, mode,
+                                            n_shards=world)
         record = {
             "rebalance": report,
-            "sync": sync_byte_report(sync_plan, params, n_shards=world),
+            "sync": sync.sync_byte_report(sync_plan, shapes, n_shards=world),
             "op_counts": op_counts(sched),
             "device_of": [int(x) for x in assignment.device_of],
         }
+        if zero:
+            record["zero_state"] = sync.zero_state_byte_report(
+                sync_plan, shapes, world, opt.n_moments)
+        if mode == "zero3":
+            record["zero3_params"] = sync.zero3_param_byte_report(
+                sync_plan, shapes, world)
         return sched, assignment, sync_plan, record
 
-    sched = assignment = sync_plan = step_fn = bounds = None
+    def relayout_state(state, old_plan, new_plan):
+        """The moments from one plan's shard layout to another's (None:
+        canonical whole); a fresh state at the first plan."""
+        if state is None:
+            return opt.init({n: torch.empty(
+                sync.zero_shard_shape(s.shape, new_plan[n]), dtype=s.dtype,
+                device=dev) for n, s in shapes.items()})
+        return {k: sync.zero_relayout(v, old_plan, new_plan, mesh)
+                if isinstance(v, dict) and v.keys() == shapes.keys() else v
+                for k, v in state.items()}
+
+    sched = assignment = sync_plan = step_fn = bounds = recorder = None
+    record = None
     for i, batch in enumerate(batches):
         if i >= steps:
             break
         if sched is None or (refresh_every and i % refresh_every == 0
                              and i > 0):
+            old_plan = sync_plan
+            if mode == "zero3" and old_plan is not None:
+                # back to canonical parameters before scoring
+                sync.zero3_unshard_model_(model, old_plan, mesh)
             sched, assignment, sync_plan, record = replan(batch)
+            if zero:
+                opt_state = relayout_state(opt_state, old_plan, sync_plan)
+            if mode == "zero3":
+                sync.zero3_shard_model_(model, sync_plan, rank)
+                log.extras["zero3_params"] = record["zero3_params"]
             record["step"] = i
             log.extras["rebalance"] = record["rebalance"]
             log.extras["sync"] = record["sync"]
@@ -385,13 +545,17 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
         if step_fn is None:
             bounds = distributed_live_bounds(sched, mb_of, assignment) \
                 if parallel.use_kernel else None
+            recorder = sync.ResidencyRecorder() if parallel.streamed \
+                else None
             step_fn = make_distributed_train_step(
                 cfg, opt, mesh, sync_plan, parallel=parallel, clip=clip,
-                live_bounds=bounds)
+                live_bounds=bounds, residency_recorder=recorder)
         g_f, g_b = gates_from_schedule(sched, mb_of[local], "cpu")
         _check_schedule_gates(g_f, g_b, bounds)
         shard = on_device({k: np.asarray(v)[local] for k, v in batch.items()})
-        sent, secs = mesh.counter.total(), mesh.counter.seconds
+        sent = dict(mesh.counter.bytes)
+        secs = dict(mesh.counter.kind_seconds)
+        total_s = mesh.counter.seconds
         t0 = time.perf_counter()
         _, opt_state, metrics = step_fn(model, opt_state, shard,
                                         (g_f.to(dev), g_b.to(dev)))
@@ -400,10 +564,24 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
         log.step_times.append(time.perf_counter() - t0)
         log.metrics.append({k: float(v) for k, v in metrics.items()})
         log.losses.append(log.metrics[-1]["loss"])
-        log.extras.setdefault("sync_bytes", []).append(
-            mesh.counter.total() - sent)
+        by_kind = {k: v - sent.get(k, 0)
+                   for k, v in mesh.counter.bytes.items()
+                   if v != sent.get(k, 0)}
+        log.extras.setdefault("sync_bytes", []).append(sum(by_kind.values()))
+        log.extras.setdefault("sync_bytes_by_kind", []).append(by_kind)
+        log.extras.setdefault("sync_ms_by_kind", []).append(
+            {k: 1e3 * (mesh.counter.kind_seconds[k] - secs.get(k, 0.0))
+             for k in by_kind})
         log.extras.setdefault("sync_ms", []).append(
-            1e3 * (mesh.counter.seconds - secs))
+            1e3 * (mesh.counter.seconds - total_s))
+        if recorder is not None and "residency" not in record:
+            record["residency"] = sync.check_zero3_residency(
+                recorder, sync_plan, shapes, world)
+    if zero and sync_plan is not None:
+        # hand back canonical whole state: the shard layout is internal
+        opt_state = relayout_state(opt_state, sync_plan, None)
+        if mode == "zero3":
+            sync.zero3_unshard_model_(model, sync_plan, mesh)
     return model, opt_state, log
 
 

@@ -19,6 +19,12 @@ Cases:
   the CPU), each from the same weights, saving losses and parameters; then
   2 steps of ``finetune_distributed(refresh_every=1)``, saving its log and
   parameters.
+* ``zero`` — for each leg of ``inp["legs"]`` (name, sync mode, streamed,
+  AdamW weight decay), 3 AdamW steps of the ZeRO step from the same
+  weights on the masked path, saving the losses, each step's bytes by
+  collective, the moments' bytes, the residency check of the streamed
+  step (``check_zero3_residency``) and the canonical parameters after the
+  run.
 """
 import subprocess
 import sys
@@ -39,7 +45,8 @@ from repro_torch.data.synthetic import microbatch_assignment  # noqa: E402
 from repro_torch.launch.mesh import make_data_mesh  # noqa: E402
 from repro_torch.launch.parallel import MeshSpec, ParallelConfig  # noqa
 from repro_torch.models.transformer import init_model, lm_loss  # noqa
-from repro_torch.optim.optimizers import sgd  # noqa: E402
+from repro_torch.optim.optimizers import adamw, sgd  # noqa: E402
+from repro_torch.sharding import sync  # noqa: E402
 from repro_torch.sharding.sync import (apply_grad_sync,  # noqa: E402
                                        grad_sync_plan, lofi_merge_)
 from repro_torch.train import loop  # noqa: E402
@@ -124,6 +131,49 @@ def case_train(inp, mesh, sched):
     return out
 
 
+def case_zero(inp, mesh, sched):
+    out = {}
+    for name, mode, streamed, wd in inp["legs"]:
+        cfg, model = _model(inp)
+        local, gates, _ = _shard(inp, sched, mesh)
+        opt = adamw(inp["lr"], weight_decay=wd)
+        shapes = {n: torch.empty(p.shape, device="meta")
+                  for n, p in model.named_parameters()}
+        plan = grad_sync_plan(shapes, cfg, sched, mode, n_shards=mesh.size,
+                              elide_gather=opt.elidable)
+        if mode == "zero3":
+            sync.zero3_shard_model_(model, plan, mesh.rank)
+        state = opt.init({n: torch.empty(sync.zero_shard_shape(s.shape,
+                                                               plan[n]))
+                          for n, s in shapes.items()})
+        recorder = sync.ResidencyRecorder() if streamed else None
+        step = loop.make_distributed_train_step(
+            cfg, opt, mesh, plan, residency_recorder=recorder,
+            parallel=ParallelConfig(mesh=MeshSpec(data=mesh.size),
+                                    sync_mode=mode, streamed=streamed))
+        losses, sent = [], []
+        for _ in range(3):
+            before = dict(mesh.counter.bytes)
+            _, state, metrics = step(model, state,
+                                     {"tokens": inp["tokens"][local],
+                                      "labels": inp["labels"][local]}, gates)
+            losses.append(float(metrics["loss"]))
+            sent.append({k: v - before.get(k, 0)
+                         for k, v in mesh.counter.bytes.items()
+                         if v != before.get(k, 0)})
+        out[name] = {
+            "losses": losses, "sent": sent,
+            "moment_bytes": sum(t.numel() * t.element_size()
+                                for k in ("m", "v")
+                                for t in state[k].values()),
+            "residency": None if recorder is None else
+            sync.check_zero3_residency(recorder, plan, shapes, mesh.size)}
+        if mode == "zero3":
+            sync.zero3_unshard_model_(model, plan, mesh)
+        out[name]["params"] = _params(model)
+    return out
+
+
 def run_ranks(case, root, inputs, world=2, timeout=240):
     """Start ``world`` ranks of ``case`` on ``inputs`` (in ``root``, a
     fresh directory) and return each rank's saved results."""
@@ -159,8 +209,8 @@ def main():
         inp = torch.load(root / "inputs.pt", weights_only=False)
         sched = Schedule(inp["table"].numpy().astype(np.int8),
                          inp["cfg"].n_layers, inp["G"])
-        out = {"sync": case_sync, "train": case_train}[case](inp, mesh,
-                                                              sched)
+        out = {"sync": case_sync, "train": case_train,
+               "zero": case_zero}[case](inp, mesh, sched)
         torch.save(out, root / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()

@@ -230,13 +230,23 @@ def test_jax_moe_norm2_gradient_is_live_in_a_dead_layer():
     assert plan["layers.0.norm2.scale"].mode == "all"
 
 
-def test_plan_refuses_the_zero_modes():
+def test_plan_takes_the_zero_modes():
+    """The zero modes plan (``tests/test_torch_zero.py`` holds them to
+    JAX's): at k = 2 every leaf of the gemma3 smoke config splits evenly,
+    so every spec is a zero spec, and a mode the JAX package lacks is
+    refused."""
     jcfg, cfg, G = CONFIGS["gemma3"]
     named = params_from_jax(_tree(jcfg))
     sched = Schedule(_schedules(cfg.n_layers, G)["all_pf"], cfg.n_layers, G)
     for mode in ("zero", "zero3"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            sync.grad_sync_plan(named, cfg, sched, mode=mode)
+        plan = sync.grad_sync_plan(named, cfg, sched, mode, n_shards=2)
+        assert {s.mode for s in plan.values()} == {"zero"}
+        assert all(s.shards == 2 and all(s.live) and all(s.gather)
+                   for s in plan.values())
+    with pytest.raises(ValueError, match="needs n_shards"):
+        sync.grad_sync_plan(named, cfg, sched, "zero")
+    with pytest.raises(ValueError, match="unknown sync plan mode"):
+        sync.grad_sync_plan(named, cfg, sched, "zero2", n_shards=2)
 
 
 @pytest.mark.parametrize("arch", ["gemma3", "gqa_g2", "olmoe", "mamba2"])
