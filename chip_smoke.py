@@ -341,6 +341,35 @@ Phases, one line each (any failure raises and exits non-zero):
    keep the whole script inside its limit, the launcher fine-tunes of
    phases 10, 13, 14, 17, 20 and 21 take 6 steps (8 before), and phase 23
    4 steps (6 before) on 13 of gemma3-1b's 26 layers.
+28. multi-axis D2FT — ``repro_torch.launch.train --distributed --mesh``
+   with a stage or a tensor axis, two gloo ranks sharing the card (the
+   collectives and the pipeline's sends staged through pinned host memory:
+   not interconnect numbers), in one ``torch.distributed.run`` of its own
+   (this script again, ``--mx-rank``), one process group for both runs,
+   each rank printing one JSON line a run. (a) gemma3-1b at full width and
+   depth, ``--mesh stage=2``, at phase 26's budget (global batch 4 x 1024,
+   M = 4 micro-batches of one sample, n_pf 3 / n_po 1, G 4, AdamW lr
+   1e-3, 4 steps, re-planned every 2) on phase 26 (a)'s schedules
+   (replayed): every step's loss within 1e-4 x max(1, |loss|) of phase 26
+   (a)'s one-rank run, the parameter checksums bitwise equal on both ranks
+   after every step, the counter's ``stage`` bytes equal to the gradient
+   tree's bytes and the 12 bytes of the loss and its two terms, its
+   ``p2p`` bytes (summed over the ranks) to 2 x M x (S - 1) x 1 x 1024 x
+   1152 x 4, the data axis's (one rank) ``all_reduce`` bytes to the plan's
+   ``ar_bytes``; the stages report (boundaries, loads, makespan ratio,
+   bubble), p50 step ms, each kind's ms and each rank's peak memory. (b)
+   stablelm-3b at full width on 8 of its 32 layers (full depth holds 11.2
+   GB of parameters a rank and moves 10.2 GB of tensor-axis gradients a
+   step through gloo), ``--mesh tensor=2``, batch 4 x 512, G = n_heads =
+   32, n_pf 3 / n_po 1 of 4, a momentum-free SGD (lr 1e-3), 3 steps, the
+   launcher's own schedule: losses within 1e-4 x max(1, |loss|) of a
+   one-rank masked ``train.loop.finetune`` of the same 8-layer model on the
+   same batches and schedule (replayed), parameters bitwise equal on both
+   ranks, ``tp_grad`` bytes equal to the attention and FFN weights' (8 x
+   317,194,240 a step), ``tp_act`` bytes to 8 x 4 all-reduces of [4, 512,
+   2560] float32. Neither axis has a kernel route: both runs take the
+   masked path. ``python3 chip_smoke.py --only 28`` runs phases 1, 2, 26
+   (a) and 28 alone (a partial run that prints no result).
 
 Then one JSON line of the 13 kernel records, the card line again, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -350,6 +379,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -495,6 +526,61 @@ DP_REFRESH = 2
 DP_LAUNCHER_STEPS = 2
 DP_MIX = (0.4, 0.3, 0.3)
 DP_TIMEOUT = 800
+
+# multi-axis D2FT (phase 28): (b)'s depth (stablelm-3b, 8 of 32 layers) and
+# a rank process's time limit; (a) takes phase 26's settings, (b) phase
+# 25's batch, budget and learning rate
+MX_DEPTH = 8
+MX_MIX_STEPS = 2        # phase 28 (a) on the concentrated mix: one plan
+MX_UPDATE_TOL = 1e-4    # (b)'s leaf update norms against the one rank's
+MX_TIMEOUT = 400
+
+
+# marks every process this script starts: each inherits the variable (a
+# sub-run's value extends the script's), whatever session it makes, so
+# what outlives its run is found and stopped
+RUN_ENV = "CHIP_SMOKE_RUN"
+
+
+def _alive(pid) -> bool:
+    """Whether ``pid`` is a process that has not yet exited (a zombie has:
+    it holds nothing, and its parent or init reaps it)."""
+    try:
+        stat = Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return False
+    return stat[stat.rfind(")") + 2:].split()[0] not in ("Z", "X")
+
+
+def stop_marked(prefix, what, wait_s=30.0):
+    """SIGKILL every other process whose ``RUN_ENV`` is ``prefix`` or
+    extends it (``prefix/...``), then wait up to ``wait_s`` for them to
+    exit (a process that held the card may take seconds to release it);
+    prints each one it stops to stderr. Returns their number."""
+    stopped = {}
+    for proc in Path("/proc").iterdir():
+        if not proc.name.isdigit() or int(proc.name) == os.getpid():
+            continue
+        try:
+            env = (proc / "environ").read_bytes().split(b"\0")
+            mark = next((e[len(RUN_ENV) + 1:].decode() for e in env
+                         if e.startswith(RUN_ENV.encode() + b"=")), None)
+            if mark is None or (mark != prefix
+                                and not mark.startswith(prefix + "/")):
+                continue
+            cmd = (proc / "cmdline").read_bytes().replace(b"\0", b" ")
+            os.kill(int(proc.name), signal.SIGKILL)
+        except (OSError, ValueError):
+            continue                  # gone, a zombie, or not ours to read
+        stopped[int(proc.name)] = cmd.decode(errors="replace")[:200]
+    t_end = time.monotonic() + wait_s
+    while any(map(_alive, stopped)) and time.monotonic() < t_end:
+        time.sleep(0.1)
+    for pid, cmd in stopped.items():
+        gone = "" if not _alive(pid) else f" (still exiting after {wait_s} s)"
+        print(f"[processes] {what}: stopped {pid} {cmd}{gone}",
+              file=sys.stderr, flush=True)
+    return len(stopped)
 
 
 def card_line() -> str:
@@ -4438,12 +4524,12 @@ def dp_rank(torch, np, leg, runs, argv):
         raise AssertionError(f"{kind} took a non-kernel route: {reason}")
     contract.on_fallback = refuse
     plan, make = loop.plan_from_scores, loop.make_distributed_train_step
-    make_mesh, init, fit = mesh_mod.make_data_mesh, launcher.init_model, \
+    make_mesh, init, fit = mesh_mod.make_mesh, launcher.init_model, \
         launcher.finetune_distributed
     rank = int(os.environ.get("RANK", 0))
     # one process group for every run: each run's mesh finds it made
-    group = make_mesh(int(os.environ.get("WORLD_SIZE", 1)),
-                      "cpu" if "cpu" in argv else None)
+    group = mesh_mod.make_data_mesh(int(os.environ.get("WORLD_SIZE", 1)),
+                                    "cpu" if "cpu" in argv else None)
     first_tables, z3_params = [], None
     for spec in runs.split(","):
         mode, opt_name, *flags = spec.split(":")
@@ -4505,7 +4591,7 @@ def dp_rank(torch, np, leg, runs, argv):
 
         loop.plan_from_scores, loop.make_distributed_train_step = planned, \
             checked
-        mesh_mod.make_data_mesh, launcher.init_model = capture_mesh, \
+        mesh_mod.make_mesh, launcher.init_model = capture_mesh, \
             capture_init
         launcher.finetune_distributed = streamed_fit
         d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
@@ -4566,38 +4652,39 @@ def dp_rank(torch, np, leg, runs, argv):
         os.write(1, ("DPREC " + json.dumps(line) + "\n").encode())
         del log
     loop.plan_from_scores, loop.make_distributed_train_step = plan, make
-    mesh_mod.make_data_mesh, launcher.init_model = make_mesh, init
+    mesh_mod.make_mesh, launcher.init_model = make_mesh, init
     launcher.finetune_distributed = fit
     group.close()
     return 0
 
 
-def dp_run(cmd, n_ranks, timeout=DP_TIMEOUT):
-    """Run a phase-26/27 command in a session of its own; kill the whole
-    session (torch.distributed.run's ranks included) at the time limit.
-    Returns ({run: {rank: record}}, seconds)."""
-    import os
-    import signal
+def dp_run(cmd, n_ranks, timeout=DP_TIMEOUT, tag="DPREC "):
+    """Run a phase-26/27 (or 28) command. Returns ({run: {rank: record}},
+    seconds) from the lines that start with ``tag``. torch.distributed.
+    elastic starts each rank in a session of its own, so the run's
+    processes are found by their mark (``RUN_ENV``): all of them are
+    stopped at the time limit, and any still running when the run ends
+    are stopped and named."""
     t0 = time.perf_counter()
+    mark = f"{os.environ.get(RUN_ENV, os.getpid())}/{time.time_ns()}"
+    what = " ".join(cmd[-4:])[:120]
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+                            env={**os.environ, RUN_ENV: mark})
     try:
         out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
+        stop_marked(mark, f"past the {timeout} s limit of {what}")
         out, _ = proc.communicate()
         raise AssertionError(f"{cmd} passed its {timeout} s limit:\n"
                              f"{out[-4000:]}") from None
     finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
+        stop_marked(mark, f"left running by {what}")
     seconds = time.perf_counter() - t0
     recs = {}
     for ln in out.splitlines():
-        if ln.startswith("DPREC "):
-            rec = json.loads(ln[6:])
+        if ln.startswith(tag):
+            rec = json.loads(ln[len(tag):])
             recs.setdefault(rec["run"], {})[rec["rank"]] = rec
     if proc.returncode != 0 or not recs or any(
             sorted(r) != list(range(n_ranks)) for r in recs.values()):
@@ -4687,7 +4774,8 @@ def data_parallel(torch, np, tag, phases=(26, 27)):
     ZeRO-1 with AdamW and with SGD, ZeRO-3 and streamed ZeRO-3 (27 (b)).
     Phase 27 alone still runs the masked runs on the mix and in (a), as
     the baselines its losses are held to. Returns {"launches": (a)'s
-    masked run's B2 launches}."""
+    masked run's B2 launches, "a": that run's record}, which phase 28
+    replays and is held to."""
     from repro_torch.configs import get_config
     cfg = get_config("gemma3-1b")
     t_phase = time.perf_counter()
@@ -4778,7 +4866,7 @@ def data_parallel(torch, np, tag, phases=(26, 27)):
           f"{secs:.1f} s for its {len(runs)} runs {tag}", flush=True)
     print(f"[data parallel] phases {'-'.join(map(str, phases))} took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {"launches": a["launches"]}
+    return {"launches": a["launches"], "a": a}
 
 
 def dp26_b_lines(np, leg, recs, a, tag):
@@ -4955,6 +5043,405 @@ def zero_mix_checks(np, recs, tag):
               f"{tag}", flush=True)
 
 
+def decode_table(np, text, cfg, G):
+    """A schedule table from its digit string (a run record's)."""
+    table = np.frombuffer(text.encode(), np.uint8) - ord("0")
+    return table.astype(np.int8).reshape(cfg.n_layers * G, -1)
+
+
+def mx_argv(leg):
+    """The launcher's flags of phase 28's run ``leg``: "a" and "am"
+    (``MX_MIX_STEPS`` steps, one plan) on gemma3-1b, "b" on stablelm-3b."""
+    if leg in ("a", "am"):
+        d2 = GM_D2FT
+        steps = DP_STEPS if leg == "a" else MX_MIX_STEPS
+        return ["--arch", "gemma3-1b", "--full", "--batch", str(GM_BATCH),
+                "--seq", str(GM_SEQ), "--steps", str(steps), "--lr",
+                str(GM_LR), "--n-microbatches", str(d2["n_microbatches"]),
+                "--n-pf", str(d2["n_pf"]), "--n-po", str(d2["n_po"]),
+                "--d2ft", "--distributed", "--mesh", "stage=2",
+                "--refresh-every", str(DP_REFRESH)]
+    d2 = NA_D2FT
+    return ["--arch", "stablelm-3b", "--full", "--batch", str(NA_BATCH),
+            "--seq", str(NA_SEQ), "--steps", str(NA_STEPS), "--lr",
+            str(NA_LR), "--n-microbatches", str(d2["n_microbatches"]),
+            "--n-pf", str(d2["n_pf"]), "--n-po", str(d2["n_po"]), "--d2ft",
+            "--distributed", "--mesh", "tensor=2", "--optimizer", "sgd"]
+
+
+def mx_rank(torch, np, replay):
+    """One rank of phase 28: ``repro_torch.launch.train.main`` on the card
+    for (a), (a) on the mix ("am") and (b), on one process group.
+    ``replay``: (a)'s schedule tables ("+"-joined digit strings), which
+    rank 0's planner returns in turn; "am"'s planner returns phase 27's
+    concentrated mix (``concentrated_table``, seed 0), whose live cost
+    varies by layer; (b) plans its own. (b)'s config is cut to
+    ``MX_DEPTH`` layers and its ``--optimizer sgd`` is the momentum-free
+    ``plain_sgd``. After every step: a checksum of the parameters; after
+    (b), each leaf's update norm (``update_norms``). Prints one line a
+    run, ``MXREC {json}``: the losses, step ms, bytes and host-clock ms by
+    collective, the refresh records' reports, the checksums, the
+    gradient tree's and the tensor-sharded leaves' bytes, peak memory and
+    the tables rank 0 planned."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedule import Schedule
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as launcher
+    from repro_torch.sharding import sync
+    from repro_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ.get("RANK", 0))
+    group = mesh_mod.make_data_mesh(int(os.environ.get("WORLD_SIZE", 1)))
+    plan, make = loop.plan_from_scores, loop.make_distributed_train_step
+    init, configs, sgd = launcher.init_model, launcher.get_config, \
+        launcher.sgd
+    replay = replay.split("+")
+    for leg in ("a", "am", "b"):
+        tables, sums, made = [], [], []
+
+        def planned(cfg, d2, *a, **k):
+            if leg == "a":
+                sched = Schedule(decode_table(np, replay[len(tables)], cfg,
+                                              d2.head_groups),
+                                 cfg.n_layers, d2.head_groups)
+            elif leg == "am":
+                sched = Schedule(concentrated_table(
+                    np, cfg.n_layers, d2.head_groups, d2.n_microbatches),
+                    cfg.n_layers, d2.head_groups)
+            else:
+                sched = plan(cfg, d2, *a, **k)
+            tables.append("".join(map(str, sched.table.ravel())))
+            return sched
+
+        def checked(*a, **k):
+            step = make(*a, **k)
+
+            def run(model, state, batch, gates):
+                out = step(model, state, batch, gates)
+                torch.cuda.synchronize()
+                sums.append(int(torch.stack([
+                    p.detach().view(torch.int32).sum(dtype=torch.int64)
+                    for p in model.parameters()]).sum()))
+                return out
+            return run
+
+        def capture_init(*a, **k):
+            made.append(init(*a, **k))
+            return made[-1]
+
+        def cut(arch):
+            cfg = configs(arch)
+            return cfg.replace(n_layers=MX_DEPTH) if leg == "b" else cfg
+
+        loop.plan_from_scores, loop.make_distributed_train_step = planned, \
+            checked
+        launcher.init_model, launcher.get_config = capture_init, cut
+        launcher.sgd = lambda lr: plain_sgd(torch, lr)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            log = launcher.main(mx_argv(leg))
+        finally:
+            loop.plan_from_scores, loop.make_distributed_train_step = \
+                plan, make
+            launcher.init_model, launcher.get_config, launcher.sgd = \
+                init, configs, sgd
+        peak = torch.cuda.max_memory_allocated()
+        model = made[-1]
+        named = dict(model.named_parameters())
+        updates = None
+        if leg == "b":
+            # the launcher's initial weights, made again from its seed
+            start = init(torch.Generator(
+                device=next(model.parameters()).device).manual_seed(0),
+                cut("stablelm-3b"))
+            updates = update_norms(torch, named,
+                                   dict(start.named_parameters()))
+            del start
+        with torch.no_grad():
+            weighted = 0
+            for p in named.values():
+                v = p.detach().reshape(-1).view(torch.int32).long()
+                w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+                weighted += int((v * w).sum())
+                del v, w
+        refreshes = log.extras["refreshes"]
+        line = {
+            "rank": rank, "run": leg, "losses": log.losses,
+            "step_ms": [1e3 * t for t in log.step_times],
+            "by_kind": log.extras["sync_bytes_by_kind"],
+            "ms_by_kind": log.extras["sync_ms_by_kind"],
+            "refresh_steps": [r["step"] for r in refreshes],
+            "ar_bytes": [r["sync"]["ar_bytes"] for r in refreshes],
+            "stages": [r.get("stages") for r in refreshes],
+            "tree_bytes": sum(p.numel() * p.element_size()
+                              for p in named.values()),
+            "tp_bytes": sum(p.numel() * p.element_size()
+                            for n, p in named.items()
+                            if sync.tensor_sharded(n)),
+            "sums": sums, "weighted": weighted, "peak": peak,
+            "updates": updates, "tables": tables}
+        os.write(1, ("MXREC " + json.dumps(line) + "\n").encode())
+        del model, made[:], named, log
+    group.close()
+    return 0
+
+
+def mx_run(torch, np, replay):
+    """Phase 28's ranks: one torch.distributed.run of two, killed with its
+    session at ``MX_TIMEOUT``. Returns ({run: {rank: record}}, seconds)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", str(ROOT / "chip_smoke.py"), "--mx-rank",
+           "+".join(replay)]
+    return dp_run(cmd, 2, timeout=MX_TIMEOUT, tag="MXREC ")
+
+
+def update_norms(torch, params, start):
+    """Each leaf's float64 norm of what the run moved it by."""
+    with torch.no_grad():
+        return {n: float(torch.linalg.vector_norm(p - start[n],
+                                                  dtype=torch.float64))
+                for n, p in params.items()}
+
+
+def mx_reference(torch, np, cfg, table):
+    """(b)'s one-rank masked ``loop.finetune`` (``use_kernel=False``) of the
+    same cut model, seed and batches, the run's table replayed, with the
+    momentum-free SGD. Returns the losses and each leaf's update norm."""
+    from repro_torch.configs.base import D2FTConfig
+    from repro_torch.core.schedule import Schedule
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train import loop
+
+    G = cfg.n_heads
+    d2 = D2FTConfig(head_groups=G, **NA_D2FT)
+    model = init_model(torch.Generator(device="cuda").manual_seed(0), cfg)
+    sched = Schedule(decode_table(np, table, cfg, G), cfg.n_layers, G)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    plan = loop.plan_from_scores
+    loop.plan_from_scores = lambda *a, **k: sched
+    try:
+        _, _, log = loop.finetune(
+            model, cfg, d2, plain_sgd(torch, NA_LR),
+            lm_batches(0, cfg.vocab_size, NA_BATCH, NA_SEQ, NA_STEPS),
+            steps=NA_STEPS, use_kernel=False)
+    finally:
+        loop.plan_from_scores = plan
+    updates = update_norms(torch, dict(model.named_parameters()), start)
+    del model, start
+    torch.cuda.empty_cache()
+    return log.losses, updates
+
+
+def mx_check_updates(mine, ref, what):
+    """Every leaf's update norm within ``MX_UPDATE_TOL`` of the reference's
+    (relative; a leaf the reference left still must stay still). Returns
+    the largest relative difference."""
+    if set(mine) != set(ref):
+        raise AssertionError(f"{what}: leaves {sorted(set(mine) ^ set(ref))}"
+                             f" in one run only")
+    worst = 0.0
+    for n, b in ref.items():
+        d = abs(mine[n] - b)
+        if d > MX_UPDATE_TOL * b:
+            raise AssertionError(f"{what}: {n} moved by {mine[n]!r}, the "
+                                 f"one-rank run's by {b!r}")
+        worst = max(worst, d / b if b else 0.0)
+    return worst
+
+
+def mx_ms(np, r):
+    """A run's p50 host-clock ms by collective kind (the calls alone)."""
+    kinds = sorted({k for d in r["ms_by_kind"] for k in d})
+    return {k: round(float(np.median([d.get(k, 0.0)
+                                      for d in r["ms_by_kind"]])), 3)
+            for k in kinds}
+
+
+def mx_check_ranks(np, recs, what):
+    """Both ranks' losses equal and finite, and their parameter checksums
+    bitwise equal after every step and at the end."""
+    r0, r1 = recs[0], recs[1]
+    if r0["losses"] != r1["losses"] or not np.isfinite(r0["losses"]).all():
+        raise AssertionError(f"{what}: losses {r0['losses']} vs "
+                             f"{r1['losses']}")
+    if r0["sums"] != r1["sums"] or r0["weighted"] != r1["weighted"] or \
+            len(r0["sums"]) != len(r0["losses"]):
+        raise AssertionError(f"{what}: parameter checksums differ across "
+                             f"ranks: {r0['sums']} {r0['weighted']} vs "
+                             f"{r1['sums']} {r1['weighted']}")
+
+
+def mx_check_kinds(rec, want, what):
+    """Each step's bytes by collective equal ``want`` (one dict a step)."""
+    if rec["by_kind"] != want:
+        raise AssertionError(f"{what} rank {rec['rank']}: bytes by "
+                             f"collective {rec['by_kind']} != {want}")
+
+
+def multi_axis(torch, np, tag, a):
+    """Phase 28: (a) and (b) in one torch.distributed.run of two gloo
+    ranks; ``a``: phase 26 (a)'s one-rank record (its losses and the
+    schedules it planned), which (a) replays and is held to."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    recs, secs = mx_run(torch, np, a["tables"])
+    t_ref = time.perf_counter()
+
+    # (a) gemma3-1b, stage=2
+    ra = recs["a"]
+    mx_check_ranks(np, ra, "(a)")
+    r0 = ra[0]
+    if r0["tables"] != a["tables"]:
+        raise AssertionError("(a): the replayed schedules differ from "
+                             "phase 26 (a)'s")
+    diff = check_losses(np, SimpleNamespace(losses=r0["losses"]),
+                        SimpleNamespace(losses=a["losses"]))
+    M, S, D = GM_D2FT["n_microbatches"], 2, get_config("gemma3-1b").d_model
+    act = (GM_BATCH // M) * GM_SEQ * D * 4
+    p2p = 0
+    for rank, r in ra.items():
+        plan_ar = dp_plan_bytes(r, "ar_bytes")
+        want = [{"stage": r["tree_bytes"] + 12, "all_reduce": int(ar),
+                 "p2p": M * act} for ar in plan_ar]
+        mx_check_kinds(r, want, "(a)")
+        p2p += r["by_kind"][0]["p2p"]
+    if p2p != 2 * M * (S - 1) * act:
+        raise AssertionError(f"(a): p2p bytes a step {p2p} != "
+                             f"{2 * M * (S - 1) * act}")
+    print(f"[multi-axis] (a) gemma3-1b full size (26 layers) through "
+          f"repro_torch.launch.train --distributed --mesh stage=2, two gloo "
+          f"ranks on one card (pipeline sends and collectives staged "
+          f"through pinned host memory: not interconnect numbers), batch "
+          f"{GM_BATCH} x {GM_SEQ}, M {M} micro-batches of "
+          f"{GM_BATCH // M}, n_pf {GM_D2FT['n_pf']} n_po {GM_D2FT['n_po']}"
+          f", G 4, AdamW lr {GM_LR}, {DP_STEPS} steps re-planned at steps "
+          f"{r0['refresh_steps']} on phase 26 (a)'s schedules (replayed): "
+          f"losses {[round(x, 6) for x in r0['losses']]} vs phase 26 (a)'s "
+          f"one rank {[round(x, 6) for x in a['losses']]}, max diff "
+          f"{diff:.3e}; parameter checksums bitwise equal on both ranks "
+          f"after every step {r0['sums']}; bytes a step by collective: "
+          f"rank 0 {r0['by_kind'][0]}, rank 1 {ra[1]['by_kind'][0]} "
+          f"(stage = the gradient tree's {r0['tree_bytes']} + 12, p2p "
+          f"{p2p} summed over the ranks = 2 x {M} x {S - 1} x "
+          f"{GM_BATCH // M} x {GM_SEQ} x {D} x 4, all_reduce = the data "
+          f"axis's ar_bytes) {tag}", flush=True)
+    for k, rep in enumerate(r0["stages"]):
+        print(f"[multi-axis] (a) stages at step {r0['refresh_steps'][k]}: "
+              f"boundaries {rep['boundaries']} loads {rep['loads']} "
+              f"makespan_ratio {rep['makespan_ratio']:.4f} (vs layer-count "
+              f"{rep['layer_count_boundaries']}) bubble "
+              f"{rep['bubble_fraction']:.4f}", flush=True)
+    mx_timing_lines(np, "(a)", ra, tag)
+    mx_mix(torch, np, recs["am"], tag)
+
+    # (b) stablelm-3b, 8 of 32 layers, tensor=2
+    rb = recs["b"]
+    mx_check_ranks(np, rb, "(b)")
+    cfg = get_config("stablelm-3b").replace(n_layers=MX_DEPTH)
+    ref, ref_updates = mx_reference(torch, np, cfg, rb[0]["tables"][0])
+    diff_b = check_losses(np, SimpleNamespace(losses=rb[0]["losses"]),
+                          SimpleNamespace(losses=ref))
+    upd_b = max(mx_check_updates(r["updates"], ref_updates, f"(b) rank {k}")
+                for k, r in rb.items())
+    act_b = NA_BATCH * NA_SEQ * cfg.d_model * 4
+    for rank, r in rb.items():
+        want = [{"tp_grad": r["tp_bytes"], "tp_act": 4 * MX_DEPTH * act_b,
+                 "all_reduce": int(ar)}
+                for ar in dp_plan_bytes(r, "ar_bytes")]
+        mx_check_kinds(r, want, "(b)")
+    layer_tp = 4 * cfg.d_model ** 2 + 3 * cfg.d_model * cfg.d_ff
+    if rb[0]["tp_bytes"] != MX_DEPTH * layer_tp * 4:
+        raise AssertionError(f"(b): tensor-sharded bytes "
+                             f"{rb[0]['tp_bytes']} != {MX_DEPTH} x "
+                             f"{layer_tp * 4}")
+    b0 = rb[0]
+    print(f"[multi-axis] (b) stablelm-3b full width, {MX_DEPTH} of 32 "
+          f"layers, through repro_torch.launch.train --distributed --mesh "
+          f"tensor=2, two gloo ranks on one card (staged: not interconnect "
+          f"numbers), batch {NA_BATCH} x {NA_SEQ}, G {cfg.n_heads}, n_pf "
+          f"{NA_D2FT['n_pf']} n_po {NA_D2FT['n_po']} of "
+          f"{NA_D2FT['n_microbatches']}, momentum-free SGD lr {NA_LR}, "
+          f"{NA_STEPS} steps: losses {[round(x, 6) for x in b0['losses']]} "
+          f"vs the one-rank masked finetune of the same model, batches and "
+          f"schedule {[round(x, 6) for x in ref]}, max diff {diff_b:.3e}; "
+          f"each leaf's update norm (float64, of the {len(ref_updates)} "
+          f"leaves, {math.sqrt(sum(v * v for v in ref_updates.values())):.6e}"
+          f" in all) within {upd_b:.3e} of the one-rank run's, relative "
+          f"(limit {MX_UPDATE_TOL}); "
+          f"parameter checksums bitwise equal on both ranks after every "
+          f"step {b0['sums']}; bytes a step by collective {b0['by_kind'][0]}"
+          f" (tp_grad = {MX_DEPTH} x {layer_tp * 4}, tp_act = {MX_DEPTH} x "
+          f"4 x {act_b}, all_reduce = the data axis's ar_bytes); reference "
+          f"{time.perf_counter() - t_ref:.1f} s {tag}", flush=True)
+    mx_timing_lines(np, "(b)", rb, tag)
+    print(f"[multi-axis] phase 28 took {time.perf_counter() - t_phase:.1f} s "
+          f"({secs:.1f} s in its torch.distributed.run of two ranks)",
+          flush=True)
+
+
+def mx_mix(torch, np, recs, tag):
+    """Phase 28 (a) on the concentrated mix: the live-cost boundaries
+    must differ from the layer-count split; the losses are held to a
+    one-rank ``finetune`` on the same table and batches
+    (``dp_reference``), the bytes to (a)'s counts."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3-1b")
+    mx_check_ranks(np, recs, "(a) mix")
+    r0 = recs[0]
+    want = "".join(map(str, concentrated_table(
+        np, cfg.n_layers, cfg.n_heads,
+        GM_D2FT["n_microbatches"]).ravel()))
+    if r0["tables"] != [want]:
+        raise AssertionError("(a) mix: the planned table is not the "
+                             "concentrated mix")
+    rep = r0["stages"][0]
+    if rep["boundaries"] == rep["layer_count_boundaries"] or \
+            not rep["makespan_ratio"] < 1.0:
+        raise AssertionError(f"(a) mix: live-cost stages {rep} equal the "
+                             f"layer-count split")
+    t0 = time.perf_counter()
+    ref = dp_reference(torch, np, cfg, r0["tables"])
+    diff = check_losses(np, SimpleNamespace(losses=r0["losses"]),
+                        SimpleNamespace(losses=ref))
+    M, S = GM_D2FT["n_microbatches"], 2
+    act = (GM_BATCH // M) * GM_SEQ * cfg.d_model * 4
+    for rank, r in recs.items():
+        mx_check_kinds(r, [{"stage": r["tree_bytes"] + 12,
+                            "all_reduce": int(ar), "p2p": M * act}
+                           for ar in dp_plan_bytes(r, "ar_bytes")],
+                       "(a) mix")
+    print(f"[multi-axis] (a) mix: the same run on phase 27's concentrated "
+          f"mix (seed 0), {MX_MIX_STEPS} steps, one plan: stages "
+          f"boundaries {rep['boundaries']} loads {rep['loads']} "
+          f"makespan_ratio {rep['makespan_ratio']:.4f} (vs layer-count "
+          f"{rep['layer_count_boundaries']}) bubble "
+          f"{rep['bubble_fraction']:.4f}; losses "
+          f"{[round(x, 6) for x in r0['losses']]} vs one-rank "
+          f"finetune(use_kernel=True) on the same table and batches "
+          f"{[round(x, 6) for x in ref]}, max diff {diff:.3e}; parameter "
+          f"checksums bitwise equal on both ranks {r0['sums']}; bytes a "
+          f"step by collective rank 0 {r0['by_kind'][0]}, rank 1 "
+          f"{recs[1]['by_kind'][0]}; reference "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    mx_timing_lines(np, "(a) mix", recs, tag)
+
+
+def mx_timing_lines(np, leg, recs, tag):
+    for rank, r in sorted(recs.items()):
+        print(f"[multi-axis] {leg} rank {rank}: step ms "
+              f"{[round(x, 3) for x in r['step_ms']]} (p50 "
+              f"{float(np.median(r['step_ms'])):.3f}); p50 ms by collective "
+              f"(host clock, the calls alone) {mx_ms(np, r)}; peak "
+              f"{r['peak']} bytes ({r['peak'] / 2**30:.2f} GiB) {tag}",
+              flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4968,6 +5455,8 @@ def main() -> int:
     import numpy as np
     if sys.argv[1:2] == ["--dp-rank"]:
         return dp_rank(torch, np, sys.argv[2], sys.argv[3], sys.argv[4:])
+    if sys.argv[1:2] == ["--mx-rank"]:
+        return mx_rank(torch, np, sys.argv[2])
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -4998,8 +5487,8 @@ def main() -> int:
     print(build.ptxas_report(), flush=True)
 
     if sys.argv[1:] in (["--only", "25"], ["--only", "26"],
-                        ["--only", "27"]):
-        # phase 25, 26 or 27 alone, after the device and the build: a
+                        ["--only", "27"], ["--only", "28"]):
+        # phase 25, 26, 27 or 28 alone, after the device and the build: a
         # partial run, which prints no result
         from repro_torch.kernels import contract
 
@@ -5009,6 +5498,12 @@ def main() -> int:
         only = sys.argv[2]
         if only == "25":
             new_archs(torch, np, f"[{card}]")
+        elif only == "28":
+            # phase 26 (a)'s one-rank run, the schedules and losses phase
+            # 28 (a) replays and is held to
+            recs, _ = dp_run([sys.executable, str(ROOT / "chip_smoke.py")]
+                             + dp_argv(1, "launcher", "masked:adamw"), 1)
+            multi_axis(torch, np, f"[{card}]", recs["masked_adamw"][0])
         else:
             data_parallel(torch, np, f"[{card}]", phases=(int(only),))
         print(f"chip_smoke: phase {only} alone passed (a partial run: no "
@@ -5372,8 +5867,14 @@ def main() -> int:
     lap(26)
     # 26-27. data-parallel D2FT on gemma3-1b, masked and ZeRO: one rank,
     # then two ---------------------------------------------------------
-    data_parallel(torch, np, tag)
-    lap("28 (the kernel records)")
+    dp = data_parallel(torch, np, tag)
+    torch.cuda.empty_cache()
+
+    lap(28)
+    # 28. multi-axis D2FT: gemma3-1b on a stage axis of two, stablelm-3b
+    # on a tensor axis of two -------------------------------------------
+    multi_axis(torch, np, tag, dp["a"])
+    lap("29 (the kernel records)")
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{
@@ -5441,6 +5942,10 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": by, "library_ms": l_ms})
     if len(kernels) != 13:
         raise AssertionError(f"{len(kernels)} kernel records, not 13")
+    n_left = stop_marked(os.environ.get(RUN_ENV, str(os.getpid())),
+                         "left running before the result")
+    print(f"[processes] {n_left} of the script's processes were left "
+          "running at its end (each stopped)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -5450,4 +5955,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] in (["--dp-rank"], ["--mx-rank"]):
+        sys.exit(main())                 # a rank: its run stops what it left
+    os.environ[RUN_ENV] = str(os.getpid())
+    try:
+        rc = main()
+    finally:
+        # nothing this script started outlives it (a process that escaped
+        # its sub-run's stop, e.g. one left by a phase that failed)
+        stop_marked(os.environ[RUN_ENV], "left running at exit")
+    sys.exit(rc)

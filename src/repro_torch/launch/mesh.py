@@ -1,13 +1,30 @@
-"""The data mesh of the distributed D2FT step (port of
-``repro/launch/mesh.py::make_data_mesh``).
+"""The meshes of the distributed D2FT step (port of
+``repro/launch/mesh.py::make_data_mesh`` and of ``MeshSpec.build``).
 
 The JAX package runs one program over a ``jax.sharding.Mesh``; the port
-runs one process per rank on ``torch.distributed``. ``make_data_mesh``
-returns a ``DataMesh``: the process group of the 1-D "data" axis, this
-process's rank, the world size and the device the rank computes on, with
-the collectives the steps need (a summing ``all_reduce_``, a
-``broadcast_``, and the ZeRO modes' summing ``reduce_scatter_`` and
-``all_gather_``) and the ``CollectiveCounter`` of the gradient sync.
+runs one process per rank on ``torch.distributed``. A ``DataMesh`` is one
+axis of ranks: its process group, this process's rank in it, its size and
+the device the rank computes on, with the collectives the steps need (a
+summing ``all_reduce_``, a ``broadcast_``, the ZeRO modes' summing
+``reduce_scatter_`` and ``all_gather_``, and the pipeline's ``send_`` /
+``recv_``) and the ``CollectiveCounter`` of the gradient sync.
+
+``make_mesh`` returns a ``Mesh`` of ``MeshSpec(data, stage, tensor)``:
+global rank r sits at (d, s, t) = r in row-major order over (data, stage,
+tensor), as ``MeshSpec.build`` reshapes its devices, and each axis is a
+``DataMesh`` over the process sub-group of the ranks that share the other
+two coordinates (``dist.new_group``: every rank creates every group, its
+own or not, in one fixed order, or the ranks hang). An axis that spans
+the world is the default group; an axis of one rank in a larger world
+has no group (``trivial``): its collectives are the identity and call
+nothing, where a staged 4 GB all-reduce over one rank would cost seconds.
+``make_data_mesh`` is ``make_mesh`` of a data axis over the whole world,
+and returns that axis: a world of one still calls its backend. The
+axes share one counter, which counts each collective under its own kind:
+``stage`` (the pipeline's loss and gradient reassembly), ``tp_grad``
+(``sharding.sync.apply_tensor_grad_sync``), ``tp_act`` (the tensor
+axis's f and g operators), ``p2p`` (the pipeline's sends), besides the
+data-axis sync's kinds.
 
 The group comes from the ``torchrun`` environment (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
@@ -19,24 +36,27 @@ Backend: NCCL where every rank of the host has a card of its own; gloo on
 the CPU, and where more ranks than cards share a card. gloo's collectives
 run on host memory, so with CUDA tensors the mesh stages each collective's
 buffers (input and output) through pinned host memory itself (``staged``
-is True), and a caller's timings show that copy.
+is True), and a caller's timings show that copy. The axes of one mesh
+share one pinned buffer.
 
 ``reduce_scatter_`` and ``all_gather_`` call ``reduce_scatter_tensor`` and
 ``all_gather_into_tensor``, which torch 2.11 (NCCL and gloo) and 2.13
 (gloo) both run; 2.13 marks them deprecated, and the warning is
 silenced.
 
-A ``torch.distributed.DeviceMesh`` is not used: it binds rank r to the
-device of index r, which is wrong when two ranks share the one card, and
-the 1-D data axis needs only the group. The multi-axis slice, whose stage
-and tensor axes are sub-groups, is where it would serve.
+A ``torch.distributed.DeviceMesh`` is not used for either mesh: it binds
+rank r to the device of index r, which is wrong when ranks share the one
+card, and its sub-meshes are process groups all the same; the axes here
+are plain groups, so one code path serves ranks with a card each and
+ranks that share one.
 """
 from __future__ import annotations
 
 import os
+import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -67,19 +87,50 @@ class CollectiveCounter:
         return sum(self.bytes.values())
 
 
+class _Pinned:
+    """One pinned host buffer, grown on demand and kept for the next call
+    (float32 buckets of up to a parameter copy: allocating it each step
+    would cost more than the copy); the axes of a mesh share it."""
+
+    def __init__(self):
+        self.buf: Optional[torch.Tensor] = None
+
+    def get(self, n: int, dtype) -> torch.Tensor:
+        nbytes = n * torch.empty((), dtype=dtype).element_size()
+        if self.buf is None or self.buf.numel() < nbytes:
+            self.buf = None
+            self.buf = torch.empty(nbytes, dtype=torch.uint8,
+                                   pin_memory=True)
+        return self.buf[:nbytes].view(dtype)
+
+
+def _sync_device(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 @dataclass
 class DataMesh:
+    """One axis of ranks: ``rank`` and ``size`` within its group
+    (``group`` None: the default group, the whole world; ``ranks``: the
+    group's global ranks in group order, None for the world; ``trivial``:
+    one rank of a larger world, no group, collectives that call
+    nothing)."""
     rank: int
     size: int
     device: torch.device
     backend: str
     owns_group: bool
     counter: CollectiveCounter = field(default_factory=CollectiveCounter)
-    _host: Optional[torch.Tensor] = field(default=None, repr=False)
+    _host: _Pinned = field(default_factory=_Pinned, repr=False)
+    group: Optional[object] = field(default=None, repr=False)
+    ranks: Optional[Tuple[int, ...]] = None
+    name: str = "data"
+    trivial: bool = False
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": self.size}
+        return {self.name: self.size}
 
     @property
     def staged(self) -> bool:
@@ -87,22 +138,18 @@ class DataMesh:
         memory (gloo with CUDA tensors)."""
         return self.backend == "gloo" and self.device.type == "cuda"
 
-    def _host_buffer(self, n: int, dtype) -> torch.Tensor:
-        """A pinned host buffer of at least n elements of ``dtype``,
-        kept for the next call (float32 buckets of up to a parameter
-        copy: allocating it each step would cost more than the copy)."""
-        nbytes = n * torch.empty((), dtype=dtype).element_size()
-        if self._host is None or self._host.numel() < nbytes:
-            self._host = torch.empty(nbytes, dtype=torch.uint8,
-                                     pin_memory=True)
-        return self._host[:nbytes].view(dtype)
+    def _global(self, r: int) -> int:
+        """The global rank of this axis's rank ``r``."""
+        return r if self.ranks is None else self.ranks[r]
 
     def _collective(self, t: torch.Tensor, op):
+        if self.trivial:
+            return
         if not self.staged:
             op(t)
             return
         flat = t.reshape(-1)
-        host = self._host_buffer(flat.numel(), flat.dtype)
+        host = self._host.get(flat.numel(), flat.dtype)
         host.copy_(flat)
         op(host)
         flat.copy_(host)
@@ -111,21 +158,65 @@ class DataMesh:
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place; returns ``t``."""
-        self._collective(t, dist.all_reduce)
+        self._collective(t, lambda x: dist.all_reduce(x, group=self.group))
         return t
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Overwrite ``t`` with rank ``src``'s, in place; returns ``t``."""
-        self._collective(t, lambda x: dist.broadcast(x, src))
+        self._collective(t, lambda x: dist.broadcast(
+            x, self._global(src), group=self.group))
+        return t
+
+    def counted(self, kind: str, nbytes: int, call):
+        """Run ``call`` (a collective), adding ``nbytes`` and its host-clock
+        seconds (the device synchronised at both ends) to the counter under
+        ``kind``."""
+        _sync_device(self.device)
+        t0 = time.perf_counter()
+        call()
+        _sync_device(self.device)
+        self.counter.add(kind, nbytes, time.perf_counter() - t0)
+
+    def sum_(self, t: torch.Tensor, kind: str) -> torch.Tensor:
+        """``all_reduce_`` counted under ``kind``; returns ``t``."""
+        self.counted(kind, t.numel() * t.element_size(),
+                     lambda: self.all_reduce_(t))
+        return t
+
+    def send_(self, t: torch.Tensor, dst: int):
+        """Send ``t`` to this axis's rank ``dst`` (blocking), counted under
+        ``p2p``."""
+        def call():
+            flat = t.detach().reshape(-1)
+            if self.staged:
+                host = self._host.get(flat.numel(), flat.dtype)
+                host.copy_(flat)
+                flat = host
+            dist.send(flat.contiguous(), self._global(dst), group=self.group)
+        self.counted("p2p", t.numel() * t.element_size(), call)
+
+    def recv_(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Fill ``t`` (contiguous) with what this axis's rank ``src`` sends
+        (blocking); returns ``t``."""
+        flat = t.view(-1)
+        if self.staged:
+            host = self._host.get(flat.numel(), flat.dtype)
+            dist.recv(host, self._global(src), group=self.group)
+            flat.copy_(host)
+        else:
+            dist.recv(flat, self._global(src), group=self.group)
         return t
 
     def _pair(self, out: torch.Tensor, inp: torch.Tensor, op):
         """``op(out, inp)`` on flat contiguous 1-D tensors, staged through
         one pinned host buffer holding both where the mesh is staged."""
+        if self.trivial:
+            out.copy_(inp)
+            return
         if not self.staged:
             op(out, inp)
             return
-        host = self._host_buffer(inp.numel() + out.numel(), inp.dtype)
+        host = self._host.get(inp.numel() + out.numel(), inp.dtype)
         h_in, h_out = host[:inp.numel()], host[inp.numel():]
         h_in.copy_(inp)
         op(h_out, h_in)
@@ -152,20 +243,19 @@ class DataMesh:
         self._pair(out, inp, self._all_gather)
         return out
 
-    @staticmethod
-    def _reduce_scatter(out, inp):
+    def _reduce_scatter(self, out, inp):
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", ".*is deprecated")
-            dist.reduce_scatter_tensor(out, inp)
+            dist.reduce_scatter_tensor(out, inp, group=self.group)
 
-    @staticmethod
-    def _all_gather(out, inp):
+    def _all_gather(self, out, inp):
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", ".*is deprecated")
-            dist.all_gather_into_tensor(out, inp)
+            dist.all_gather_into_tensor(out, inp, group=self.group)
 
     def close(self):
-        """Destroy the process group if ``make_data_mesh`` created it."""
+        """Destroy the default group if the mesh created it (an axis that
+        spans the world owns it with the world)."""
         if self.owns_group and dist.is_initialized():
             dist.destroy_process_group()
         self.owns_group = False
@@ -176,31 +266,30 @@ def _env_int(name: str, default: int) -> int:
     return default if v is None else int(v)
 
 
-def make_data_mesh(n_devices: Optional[int] = None,
-                   device=None) -> DataMesh:
-    """1-D "data" mesh over this process's world.
-
-    n_devices: the data-axis size the caller expects (``--mesh data=N``);
-    ValueError unless it equals the world size. device: the device type
-    the ranks compute on (default: the CUDA card; "cpu" for host ranks).
-    Rank 0 prints the backend it took."""
-    want = resolve_device(device)
+def _world_size() -> int:
+    """The world this process is in, or will make: the default group's,
+    else torchrun's ``WORLD_SIZE``, else 1."""
     if dist.is_initialized():
-        rank, world = dist.get_rank(), dist.get_world_size()
-        local_rank = _env_int("LOCAL_RANK", rank)
-        local_world = _env_int("LOCAL_WORLD_SIZE", world)
-        owns = False
+        return dist.get_world_size()
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return _env_int("WORLD_SIZE", 1)
+    return 1
+
+
+def _world(device) -> Tuple[DataMesh, int, int]:
+    """This process's world as a ``DataMesh`` (joining or making the
+    default group); also the local world size and the number of cards."""
+    want = resolve_device(device)
+    world = _world_size()
+    if dist.is_initialized():
+        rank = dist.get_rank()
+        owns = torchrun = False
     else:
         torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
         rank = _env_int("RANK", 0) if torchrun else 0
-        world = _env_int("WORLD_SIZE", 1) if torchrun else 1
-        local_rank = _env_int("LOCAL_RANK", rank)
-        local_world = _env_int("LOCAL_WORLD_SIZE", world)
         owns = True
-    if n_devices is not None and int(n_devices) != world:
-        raise ValueError(
-            f"a data mesh of {n_devices} needs a world of {n_devices} "
-            f"processes, this one has {world}")
+    local_rank = _env_int("LOCAL_RANK", rank)
+    local_world = _env_int("LOCAL_WORLD_SIZE", world)
     if want.type == "cuda":
         n_cards = torch.cuda.device_count()
         dev = torch.device("cuda", local_rank % n_cards)
@@ -218,12 +307,133 @@ def make_data_mesh(n_devices: Optional[int] = None,
                                     rank=0, world_size=1)
     else:
         backend = dist.get_backend()
-    mesh = DataMesh(rank=rank, size=world, device=dev, backend=backend,
-                    owns_group=owns)
-    if rank == 0:
-        share = f", {local_world} ranks share {n_cards} card(s): " \
-            "collectives staged through pinned host memory" \
-            if mesh.staged else ""
-        print(f"data mesh: backend {backend}, world {world}, device "
-              f"{dev}{share}", flush=True)
-    return mesh
+    return (DataMesh(rank=rank, size=world, device=dev, backend=backend,
+                     owns_group=owns, name="world"), local_world, n_cards)
+
+
+def _backend_line(mesh: DataMesh, local_world: int, n_cards: int) -> str:
+    share = f", {local_world} ranks share {n_cards} card(s): " \
+        "collectives staged through pinned host memory" \
+        if mesh.staged else ""
+    return (f"backend {mesh.backend}, world {mesh.size}, device "
+            f"{mesh.device}{share}")
+
+
+def make_data_mesh(n_devices: Optional[int] = None,
+                   device=None) -> DataMesh:
+    """1-D "data" mesh over this process's world: the data axis of
+    ``make_mesh(MeshSpec(data=world))``.
+
+    n_devices: the data-axis size the caller expects (``--mesh data=N``);
+    ValueError unless it equals the world size. device: the device type
+    the ranks compute on (default: the CUDA card; "cpu" for host ranks)."""
+    from repro_torch.launch.parallel import MeshSpec
+
+    world = _world_size()
+    if n_devices is not None and int(n_devices) != world:
+        raise ValueError(
+            f"a data mesh of {n_devices} needs a world of {n_devices} "
+            f"processes, this one has {world}")
+    return make_mesh(MeshSpec(data=world), device).data
+
+
+@dataclass
+class Mesh:
+    """A (data, stage, tensor) mesh of processes: this rank's coordinates
+    and one ``DataMesh`` an axis (``world`` spans every rank of the
+    mesh). The axes share the world's counter and pinned buffer."""
+    spec: "MeshSpec"
+    coords: Tuple[int, int, int]
+    world: DataMesh
+    data: DataMesh
+    stage: DataMesh
+    tensor: DataMesh
+
+    @property
+    def rank(self) -> int:
+        return self.world.rank
+
+    @property
+    def size(self) -> int:
+        return self.world.size
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    @property
+    def counter(self) -> CollectiveCounter:
+        return self.world.counter
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.spec.axis_names, self.spec.shape))
+
+    def close(self):
+        self.world.close()
+
+
+def make_mesh(spec, device=None) -> Optional[Mesh]:
+    """The ``MeshSpec`` mesh over the first ``spec.size`` ranks of this
+    process's world (one process a rank; rank r at (d, s, t) row-major over
+    (data, stage, tensor)). Every rank of the world must call it: each
+    takes part in creating every axis group. ValueError where the world is
+    smaller than the mesh, or larger and not made by the caller; ranks past
+    ``spec.size`` get None, as the devices past a JAX mesh's size are left
+    out of it. Rank 0 prints the mesh and its backend."""
+    import numpy as np
+
+    n, world = spec.size, _world_size()
+    if n > world or (n < world and not dist.is_initialized()):
+        raise ValueError(
+            f"requested a {spec.describe()} mesh ({n} ranks) but the world "
+            f"has {world} processes"
+            + ("" if n > world else
+               " (a smaller mesh needs a default group made by the caller)"))
+    full, local_world, n_cards = _world(device)
+    grid = np.arange(n).reshape(spec.shape)
+    member = full.rank < n
+
+    def axis(name, ranks):
+        # a group over every rank of the world is the default group (and
+        # owned with it); an axis of one rank in a larger world needs none
+        spans = len(ranks) == world
+        group = dist.new_group(list(ranks)) \
+            if 1 < len(ranks) < world else None
+        if not (member and full.rank in ranks):
+            return None
+        return DataMesh(rank=ranks.index(full.rank), size=len(ranks),
+                        device=full.device, backend=full.backend,
+                        owns_group=spans and full.owns_group,
+                        counter=full.counter, _host=full._host, group=group,
+                        ranks=None if spans else ranks, name=name,
+                        trivial=len(ranks) == 1 and not spans)
+
+    # one group for each combination of the other two coordinates, in
+    # row-major order: the same calls, in the same order, on every rank
+    mine = {}
+    for a, name in enumerate(spec.axis_names):
+        for line in np.moveaxis(grid, a, -1).reshape(-1, spec.shape[a]):
+            got = axis(name, tuple(int(r) for r in line))
+            if got is not None:
+                mine[name] = got
+    world_axis = axis("world", tuple(range(n))) if n < world else full
+    if not member:
+        return None
+    coords = tuple(int(c) for c in np.unravel_index(full.rank, spec.shape))
+    if full.rank == 0:
+        print(f"mesh {spec.describe()}: "
+              f"{_backend_line(full, local_world, n_cards)}", flush=True)
+    return Mesh(spec=spec, coords=coords, world=world_axis,
+                data=mine["data"], stage=mine["stage"],
+                tensor=mine["tensor"])
+
+
+def axes(mesh) -> Tuple[DataMesh, DataMesh, Optional[DataMesh],
+                        Optional[DataMesh]]:
+    """(world, data, stage, tensor) of a mesh; a ``DataMesh`` (what
+    ``make_data_mesh`` returns) is its own world and data axis and has no
+    stage or tensor axis."""
+    if isinstance(mesh, Mesh):
+        return mesh.world, mesh.data, mesh.stage, mesh.tensor
+    return mesh, mesh, None, None

@@ -9,13 +9,15 @@ distributed D2FT paths:
 * ``tensor`` — sharding of attention heads / FFN columns at the schedule's
   (layer, head-group) granularity.
 
-The port runs the data axis: ``launch.mesh.make_data_mesh`` builds its
-process group (one process per rank), where the JAX package builds a
-``jax.sharding.Mesh`` with ``MeshSpec.build``. A stage or tensor axis above
-1, and the guard, raise ``NotImplementedError`` once every check the JAX
-package makes has passed, so a config the JAX package refuses is refused
-here with the same error. Every sync mode runs: masked, ZeRO-1, ZeRO-3
-(streamed, with ``opt_chunk``) and local.
+The port runs one process per rank: ``launch.mesh.make_data_mesh`` builds
+the data-only mesh and ``launch.mesh.make_mesh`` the (data, stage, tensor)
+one, a process sub-group an axis, where the JAX package builds a
+``jax.sharding.Mesh`` with ``MeshSpec.build``. ``ParallelConfig`` makes
+every check the JAX package makes, with its error types and messages; then
+the guard alone raises ``NotImplementedError`` (it comes with the
+robustness slice). Every sync mode runs (masked, ZeRO-1, ZeRO-3, streamed
+with ``opt_chunk``, local), and the stage and tensor axes with the
+unstreamed ones.
 """
 from __future__ import annotations
 
@@ -117,7 +119,8 @@ class ParallelConfig:
 
     def validate(self):
         """The JAX package's cross-option checks, with its error types and
-        messages; then the refusal of what the port does not run yet."""
+        messages; then the refusal of the guard, which the port does not
+        run yet."""
         self.mesh.validate()
         if self.sync_mode not in SYNC_MODES:
             raise ValueError(f"unknown sync_mode {self.sync_mode!r}: "
@@ -157,16 +160,14 @@ class ParallelConfig:
         elif self.microbatches:
             raise ValueError(
                 "microbatches is a pipeline option: set mesh.stage > 1")
-        if S > 1 or T > 1:
-            raise not_ported(f"a {self.mesh.describe()} mesh (stage or "
-                             "tensor above 1)", "multi-axis")
         if self.guard:
             raise not_ported("guard=True", "robustness")
 
     def require_ported(self):
         """Refuse what the port's step and loop do not run: every sync
-        mode runs (masked, zero, zero3 streamed or not, local); a stage or
-        tensor axis and the guard raise "not ported yet" (``validate``)."""
+        mode runs (masked, zero, zero3 streamed or not, local), and the
+        stage and tensor axes; the guard raises "not ported yet"
+        (``validate``)."""
         self.validate()
 
     def validate_model(self, cfg):
@@ -183,9 +184,17 @@ class ParallelConfig:
                 f"(n_layers={cfg.n_layers})")
 
     def validate_mesh(self, mesh):
-        """Check a data mesh (``launch.mesh.DataMesh``) has this config's
-        data axis."""
-        if mesh.size != self.mesh.data:
+        """Check a mesh (``launch.mesh.DataMesh``, the data axis alone, or
+        ``launch.mesh.Mesh``) carries the axes this config needs."""
+        shape = dict(mesh.shape)
+        if shape.get(DATA_AXIS, 1) != self.mesh.data:
             raise ValueError(
-                f"mesh data axis is {mesh.size}, "
+                f"mesh data axis is {shape.get(DATA_AXIS, 1)}, "
                 f"ParallelConfig says {self.mesh.data}")
+        for name, want in ((STAGE_AXIS, self.mesh.stage),
+                           (TENSOR_AXIS, self.mesh.tensor)):
+            if want > 1 and shape.get(name, 1) != want:
+                raise ValueError(
+                    f"ParallelConfig wants {name}={want} but the mesh has "
+                    f"{name}={shape.get(name, 1)} "
+                    f"(mesh axes: {dict(mesh.shape)})")

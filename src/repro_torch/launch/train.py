@@ -38,10 +38,23 @@ its own card, gloo where ranks share one, or on the CPU):
       -m repro_torch.launch.train --arch gemma3-1b --d2ft --distributed \
       --mesh data=2 --steps 3 --device cpu
 
+``--mesh data=D,stage=S,tensor=T`` adds the stage axis (a GPipe pipeline
+over live-cost-balanced layer ranges, ``--n-microbatches`` micro-batches a
+data shard) and the tensor axis (Megatron sharding of attention heads and
+FFN columns); the world must equal D x S x T, one process a rank, and
+neither axis has a ``--kernel`` route (the masked path runs):
+
+  python -m torch.distributed.run --standalone --nproc_per_node 2 \
+      -m repro_torch.launch.train --arch gemma3-1b --full --d2ft \
+      --distributed --mesh stage=2 --batch 4 --seq 1024 --steps 4
+  python -m torch.distributed.run --standalone --nproc_per_node 2 \
+      -m repro_torch.launch.train --arch stablelm-3b --d2ft \
+      --distributed --mesh tensor=2 --steps 3 --device cpu
+
 It runs on the card unless ``--device cpu`` is given, with a reduced
 (smoke) config unless ``--full`` is passed. The weights are random, from
-seed 0. The stage and tensor axes, and the elastic, fault-injection,
-resume and checkpoint options exit with "not ported yet".
+seed 0. The elastic, fault-injection, resume and checkpoint options exit
+with "not ported yet".
 """
 from __future__ import annotations
 
@@ -57,7 +70,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, D2FTConfig
 from repro_torch.data.synthetic import lm_batches
 from repro_torch.launch.parallel import MeshSpec, ParallelConfig
-from repro_torch.models.transformer import init_model
+from repro_torch.models.transformer import check_tp_tiling, init_model
 from repro_torch.optim.optimizers import adamw, sgd
 from repro_torch.train.loop import TrainLog, finetune, finetune_distributed
 
@@ -87,8 +100,10 @@ def parse_args(argv=None):
                          "through the gated CUDA kernels (their plain "
                          "versions on the CPU)")
     ap.add_argument("--mesh", default=None, metavar="data=D,stage=S,tensor=T",
-                    help="device mesh of the --distributed path (the "
-                         "data axis: data=N, N the number of ranks)")
+                    help="device mesh of the --distributed path: D x S x T "
+                         "ranks, one process a rank (stage: the pipeline "
+                         "over --n-microbatches micro-batches; tensor: "
+                         "attention heads and FFN columns sharded)")
     ap.add_argument("--sync-mode",
                     choices=("masked", "zero", "zero3", "local"),
                     default="masked",
@@ -138,13 +153,15 @@ def _distributed_spec(args, spec, argv) -> MeshSpec:
     world = int(os.environ.get("WORLD_SIZE", 1))
     spec = spec or MeshSpec(data=world)
     try:
-        ParallelConfig(
-            mesh=spec, sync_mode=args.sync_mode, use_kernel=args.kernel,
-            microbatches=args.n_microbatches if spec.stage > 1 else 0
-        ).require_ported()
+        _parallel(args, spec).require_ported()
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
     ndev = spec.data
+    if spec.stage > 1 and (args.batch // ndev) % args.n_microbatches:
+        raise SystemExit(
+            f"pipeline needs the per-data-shard batch divisible by the "
+            f"microbatch count: ({args.batch} / {ndev}) % "
+            f"{args.n_microbatches} != 0")
     if args.n_microbatches % ndev:
         raise SystemExit(
             f"--distributed needs --n-microbatches divisible by the "
@@ -154,16 +171,26 @@ def _distributed_spec(args, spec, argv) -> MeshSpec:
         raise SystemExit(
             f"--batch must be divisible by --n-microbatches: "
             f"{args.batch} % {args.n_microbatches} != 0")
-    if ndev > 1 and "WORLD_SIZE" not in os.environ:
+    text = args.mesh or f"data={ndev}"
+    if spec.size > 1 and "WORLD_SIZE" not in os.environ:
         raise SystemExit(
-            f"--mesh data={ndev} runs one process per rank; launch it as "
+            f"--mesh {text} runs one process per rank; launch it as "
             f"python -m torch.distributed.run --standalone --nproc_per_node "
-            f"{ndev} -m repro_torch.launch.train "
+            f"{spec.size} -m repro_torch.launch.train "
             + " ".join(sys.argv[1:] if argv is None else argv))
-    if ndev != world:
-        raise SystemExit(f"--mesh data={ndev} does not match the world of "
+    if spec.size != world:
+        raise SystemExit(f"--mesh {text} does not match the world of "
                          f"{world} processes")
     return spec
+
+
+def _parallel(args, spec: MeshSpec) -> ParallelConfig:
+    """The run's ``ParallelConfig``: ``--n-microbatches`` is the pipeline's
+    micro-batch count where there is a stage axis, as in the JAX
+    launcher."""
+    return ParallelConfig(
+        mesh=spec, sync_mode=args.sync_mode, use_kernel=args.kernel,
+        microbatches=args.n_microbatches if spec.stage > 1 else 0)
 
 
 def main(argv=None) -> TrainLog:
@@ -202,8 +229,12 @@ def main(argv=None) -> TrainLog:
                                       "an MoE FFN"))
     if not args.distributed:
         return _run(args, cfg, resolve_device(args.device), None, None)
-    from repro_torch.launch.mesh import make_data_mesh
-    mesh = make_data_mesh(spec.data, args.device)
+    # the model-dependent refusals before any process group is made
+    _parallel(args, spec).validate_model(cfg)
+    if spec.tensor > 1:
+        check_tp_tiling(cfg, max(cfg.n_heads, 1), spec.tensor)
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(spec, args.device)
     try:
         return _run(args, cfg, mesh.device, mesh, spec)
     finally:
@@ -238,11 +269,10 @@ def _run(args, cfg, dev, mesh, spec) -> TrainLog:
     else:
         _, _, log = finetune_distributed(
             model, cfg, d2, opt, batches, steps=args.steps, mesh=mesh,
-            parallel=ParallelConfig(mesh=spec, sync_mode=args.sync_mode,
-                                    use_kernel=args.kernel),
+            parallel=_parallel(args, spec),
             refresh_every=args.refresh_every)
         if lead:
-            _print_sync(args, log, spec.data)
+            _print_sync(args, log, spec)
     dt = time.time() - t0
     if lead:
         print(f"{args.steps} steps in {dt:.1f}s — loss "
@@ -250,13 +280,22 @@ def _run(args, cfg, dev, mesh, spec) -> TrainLog:
     return log
 
 
-def _print_sync(args, log, ndev):
+def _print_sync(args, log, spec):
     """Rank 0's report of the distributed run: the JAX launcher's lines,
-    then the bytes and host-clock ms each step sent."""
+    then the bytes and host-clock ms each step sent (by collective where
+    there is a stage or tensor axis)."""
+    ndev = spec.data
     rep, sync = log.extras["rebalance"], log.extras["sync"]
     print(f"assignment: loads {rep['loads']} spread {rep['spread']} "
           f"imbalance {rep['imbalance']:.3f} "
           f"({len(log.extras['refreshes'])} replans)")
+    stages = log.extras.get("stages")
+    if stages is not None:
+        print(f"pipeline: boundaries {stages['boundaries']} "
+              f"loads {stages['loads']} "
+              f"makespan_ratio {stages['makespan_ratio']:.3f} "
+              f"(vs layer-count {stages['layer_count_boundaries']}) "
+              f"bubble {stages['bubble_fraction']:.3f}")
     if args.sync_mode in ("zero", "zero3"):
         print(f"grad sync ({args.sync_mode}): {sync['fraction']:.0%} "
               f"all-reduce-equivalent bytes ({sync['n_zero']} leaves "
@@ -275,6 +314,9 @@ def _print_sync(args, log, ndev):
               f"{sync['n_sliced']} group-sliced)")
     print(f"sent per step {log.extras['sync_bytes']} bytes in "
           f"{[round(ms, 3) for ms in log.extras['sync_ms']]} ms")
+    if spec.size > ndev:
+        print(f"sent per step by collective "
+              f"{log.extras['sync_bytes_by_kind']}")
 
 
 if __name__ == "__main__":

@@ -28,12 +28,22 @@ forward value but no gradient flows through the subnet for that sample;
 p_s removes the contribution. An SSD block gates its scan per (sample,
 head) instead (``models/ssm.apply_ssd``), an RG-LRU block per (sample,
 channel band) (``models/rglru.apply_rglru``), and an MoE FFN is one group
-whose gates also drive its dispatch (``models/moe.apply_moe``). The
-tensor-parallel, sharding-policy and expert-parallel branches come with
-the distributed slice.
+whose gates also drive its dispatch (``models/moe.apply_moe``).
+
+Tensor parallelism (``tp``: the tensor axis of a ``launch.mesh.Mesh``, a
+``DataMesh`` of T ranks): Megatron-style, each rank computes only its
+contiguous block of attention heads and of FFN columns (the weights stay
+whole on every rank and the block is sliced where the layer reads them,
+so a ZeRO-3 step's installed full views are sliced too), and the partial
+residual contributions are summed over the axis. ``_tp_copy`` (identity
+forward, all-reduce backward) enters each region and ``_tp_sum``
+(all-reduce forward, identity backward) leaves it. SSD, RG-LRU and MoE
+compute stays replicated under ``tp``, with no reduction. The
+sharding-policy and expert-parallel branches come with a later slice.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import List, Optional, Tuple
 
 import torch
@@ -77,6 +87,85 @@ def _group_project(heads_out, wo, G):
     return per_head.reshape(B, S, G, H // G, D).sum(dim=3)
 
 
+# =================================================== tensor-parallel helpers
+# tp: the tensor axis (``launch.mesh.DataMesh``: ``rank``, ``size`` and a
+# counted ``sum_``). Every all-reduce of an activation or its cotangent
+# counts under the kind "tp_act".
+class _TPCopy(torch.autograd.Function):
+    """Megatron's f operator: identity forward, all-reduce backward. It
+    enters every tensor-parallel region, so the activation cotangent, which
+    each rank computes only for its own head / column block, is summed,
+    keeping the grads of everything upstream replicated and exact."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        ctx.tp.sum_(g, "tp_act")
+        return g, None
+
+
+class _TPSum(torch.autograd.Function):
+    """Megatron's g operator: all-reduce forward, identity backward. It
+    leaves every tensor-parallel region; the cotangent downstream is
+    replicated over the axis, so the backward must NOT reduce it again
+    (pinned here explicitly, as the JAX package's custom VJP does)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        y = x.clone(memory_format=torch.contiguous_format)
+        tp.sum_(y, "tp_act")
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _tp_copy(x, tp):
+    return _TPCopy.apply(x, tp)
+
+
+def _tp_sum(x, tp):
+    return _TPSum.apply(x, tp)
+
+
+def _tp_gate_slice(layer_gates, idx: int, G_local: int):
+    """This rank's contiguous block of head-group gates ([B, G] pair)."""
+    g_f, g_b = layer_gates
+    return (g_f[:, idx * G_local:(idx + 1) * G_local],
+            g_b[:, idx * G_local:(idx + 1) * G_local])
+
+
+def _check_tp_heads(n_heads: int, n_kv: int, G: Optional[int], T: int):
+    if n_heads % T or n_kv % T or (G is not None and G % T):
+        raise ValueError(
+            f"tensor={T} must divide n_heads={n_heads}, n_kv_heads={n_kv}"
+            + ("" if G is None else f" and the G={G} gate groups"))
+
+
+def _check_tp_ffn(F: int, G: Optional[int], T: int):
+    if F % T or (G is not None and (G % T or F % G)):
+        raise ValueError(
+            f"tensor={T} must divide the FFN width {F}"
+            + ("" if G is None else
+               f", and the G={G} gate groups, which must divide it too"))
+
+
+def check_tp_tiling(cfg: ModelConfig, G: int, T: int):
+    """ValueError unless a tensor axis of T tiles the model at G gate
+    groups: T divides the query and KV heads and G, and G divides a dense
+    FFN's width (each rank's F/T columns are whole gate groups): the JAX
+    package's assertions, which its layers make (so do the port's)."""
+    _check_tp_heads(cfg.n_heads, cfg.n_kv_heads, G, T)
+    if cfg.moe is None and cfg.d_ff > 0:
+        _check_tp_ffn(cfg.d_ff, G, T)
+
+
 # ============================================================== block params
 class Block(nn.Module):
     """Pre-norm residual block: norm1 + a mixer (``attn``, ``ssd`` or
@@ -101,11 +190,12 @@ class Block(nn.Module):
             self.moe = moe
 
     def forward(self, x, kind: str, cfg: ModelConfig, layer_gates=None,
-                use_kernel: bool = False, live_bounds=None):
+                use_kernel: bool = False, live_bounds=None, tp=None):
         """``apply_block`` as a module call, so that hooks on the block
         (the streamed ZeRO-3 step's) see the layer run."""
         return apply_block(self, x, kind, cfg, layer_gates,
-                           use_kernel=use_kernel, live_bounds=live_bounds)
+                           use_kernel=use_kernel, live_bounds=live_bounds,
+                           tp=tp)
 
 
 def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
@@ -140,8 +230,8 @@ def _init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
 
 
 def _apply_ffn(p: Block, h, cfg: ModelConfig, layer_gates=None,
-               use_kernel: bool = False, live_bounds=None):
-    """The unsharded branches of the JAX ``_apply_ffn``. Returns (y, aux).
+               use_kernel: bool = False, live_bounds=None, tp=None):
+    """The JAX ``_apply_ffn`` but its policy branches. Returns (y, aux).
 
     MoE: one D2FT group, so the block's gates are those of group 0
     (``g_f[:, 0]``, ``g_b[:, 0]`` per sample), which also drive the
@@ -149,7 +239,10 @@ def _apply_ffn(p: Block, h, cfg: ModelConfig, layer_gates=None,
     grids stop at the live-token bounds ``min(B, live_bounds[k]) · S``
     (backward apart). ``gate_mix`` on group 0 mixes the output. Dense:
     plain, or split into G column groups of w_down and mixed by
-    ``gate_mix``; aux is None."""
+    ``gate_mix``; aux is None. Under ``tp`` a dense FFN computes this
+    rank's F/T-column block of w_up / w_gate / w_down (T | G and G | F
+    keep the grouped w_down reshape exact) and sums the contribution over
+    the axis; an MoE FFN runs replicated."""
     if hasattr(p, "moe"):
         moe_gates = live_toks = bwd_toks = None
         if layer_gates is not None:
@@ -168,36 +261,76 @@ def _apply_ffn(p: Block, h, cfg: ModelConfig, layer_gates=None,
             y = gate_mix(y[:, :, None, :], g_f[:, :1], g_b[:, :1])[:, :, 0]
         return y, aux
     mlp = p.mlp
+    if tp is not None:
+        T, idx = tp.size, tp.rank
+        F_full = mlp.w_up.shape[-1]
+        G = None if layer_gates is None else layer_gates[0].shape[-1]
+        _check_tp_ffn(F_full, G, T)
+        if layer_gates is not None:
+            layer_gates = _tp_gate_slice(layer_gates, idx, G // T)
+        h = _tp_copy(h, tp)
+        Fl = F_full // T
+        mlp = SimpleNamespace(w_up=mlp.w_up.narrow(1, idx * Fl, Fl),
+                              w_down=mlp.w_down.narrow(0, idx * Fl, Fl),
+                              w_gate=mlp.w_gate.narrow(1, idx * Fl, Fl)
+                              if cfg.mlp_gated else None)
     up = h @ mlp.w_up
     if cfg.mlp_gated:
         hid = _act(cfg.mlp_act)(h @ mlp.w_gate) * up
     else:
         hid = _act(cfg.mlp_act)(up)
     if layer_gates is None:
-        return hid @ mlp.w_down, None
-    g_f, g_b = layer_gates
-    G = g_f.shape[-1]
-    B, S, F = hid.shape
-    D = mlp.w_down.shape[-1]
-    wd = mlp.w_down.reshape(G, F // G, D)
-    c_g = torch.einsum("bsgf,gfD->bsgD", hid.reshape(B, S, G, F // G), wd)
-    return gate_mix(c_g, g_f, g_b).sum(dim=2), None
+        y = hid @ mlp.w_down
+    else:
+        g_f, g_b = layer_gates
+        G = g_f.shape[-1]
+        B, S, F = hid.shape
+        D = mlp.w_down.shape[-1]
+        wd = mlp.w_down.reshape(G, F // G, D)
+        c_g = torch.einsum("bsgf,gfD->bsgD", hid.reshape(B, S, G, F // G),
+                           wd)
+        y = gate_mix(c_g, g_f, g_b).sum(dim=2)
+    return (y if tp is None else _tp_sum(y, tp)), None
 
 
 def _apply_attn_inner(p, h, kind: str, cfg: ModelConfig, layer_gates,
-                      use_kernel: bool = False, live_bounds=None):
+                      use_kernel: bool = False, live_bounds=None, tp=None):
     """Attention contribution (pre-residual), with per-head-group gating
-    (the unsharded branches of the JAX function).
+    (the JAX function but its policy branches).
 
     use_kernel routes attention through the gated flash kernels, whose
     backward skips every g_b == 0 (sample, head) slice. live_bounds: the
     (live_fwd, live_bwd) bounds at (sample, group) granularity
     (``core.schedule.live_slice_bounds``), scaled here to per-head slice
-    counts for the kernels' compaction."""
+    counts for the kernels' compaction. tp: shard the heads over the
+    tensor axis; contiguous head blocks keep the GQA query -> kv mapping and
+    the head-group gate tiling exact when T divides H, H_kv and G (no
+    kernel route)."""
     window = cfg.window if kind == ATTN_LOCAL else 0
     hd = cfg.resolved_head_dim
     B, S, _ = h.shape
     n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
+    if tp is not None:
+        T, idx = tp.size, tp.rank
+        if use_kernel:
+            raise ValueError("tensor parallelism has no kernel route")
+        G = None if layer_gates is None else layer_gates[0].shape[-1]
+        _check_tp_heads(n_heads, n_kv, G, T)
+        h = _tp_copy(h, tp)
+        hq, hkv = n_heads // T, n_kv // T
+
+        def sl(a, width, dim):
+            return a.narrow(dim, idx * width, width)
+
+        q_cols, kv_cols = hq * hd, hkv * hd
+        p = SimpleNamespace(
+            wq=sl(p.wq, q_cols, 1), wk=sl(p.wk, kv_cols, 1),
+            wv=sl(p.wv, kv_cols, 1), wo=sl(p.wo, q_cols, 0),
+            **({"bq": sl(p.bq, q_cols, 0), "bk": sl(p.bk, kv_cols, 0),
+                "bv": sl(p.bv, kv_cols, 0)} if hasattr(p, "bq") else {}))
+        n_heads, n_kv = hq, hkv
+        if layer_gates is not None:
+            layer_gates = _tp_gate_slice(layer_gates, idx, G // T)
     q, k, v = attn._project_qkv(p, h, n_heads, n_kv, hd)
     if cfg.rope:
         pos = torch.arange(S, device=h.device)[None, :]
@@ -225,12 +358,14 @@ def _apply_attn_inner(p, h, kind: str, cfg: ModelConfig, layer_gates,
     else:
         out = attn.dense_attention(q, k, v, causal=cfg.causal, window=window)
     if layer_gates is None:
-        return out.reshape(B, S, n_heads * hd) @ p.wo
-    # group-wise projection + gate_mix: on the kernel path this also cuts
-    # wo gradients for p_o groups, matching the masked path exactly
-    g_f, g_b = layer_gates
-    c_g = _group_project(out, p.wo, g_f.shape[-1])         # [B,S,G,D]
-    return gate_mix(c_g, g_f, g_b).sum(dim=2)
+        c = out.reshape(B, S, n_heads * hd) @ p.wo
+    else:
+        # group-wise projection + gate_mix: on the kernel path this also
+        # cuts wo gradients for p_o groups, matching the masked path exactly
+        g_f, g_b = layer_gates
+        c_g = _group_project(out, p.wo, g_f.shape[-1])     # [B,S,G,D]
+        c = gate_mix(c_g, g_f, g_b).sum(dim=2)
+    return c if tp is None else _tp_sum(c, tp)
 
 
 def _apply_ssd_inner(p: ssm_mod.SSD, h, cfg: ModelConfig, layer_gates,
@@ -309,17 +444,16 @@ def apply_block(p: Block, x, kind: str, cfg: ModelConfig, layer_gates=None,
                 policy=None, use_kernel: bool = False, live_bounds=None,
                 tp=None):
     """Pre-norm residual block. Returns (x, aux): the MoE block's aux
-    losses, None for every other block. ``policy`` and ``tp`` (sharding
-    policy, tensor parallelism) raise until the distributed slice ports
-    them."""
+    losses, None for every other block. ``tp``: the tensor axis (see the
+    module docstring); SSD, RG-LRU and MoE blocks run replicated under it.
+    ``policy`` (the sharding policy) raises until a later slice ports
+    it."""
     if policy is not None:
         raise _not_ported_dist("the sharding-policy branch of apply_block")
-    if tp is not None:
-        raise _not_ported_dist("the tensor-parallel branch of apply_block")
     h = apply_norm(p.norm1, x, cfg.norm)
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         c = _apply_attn_inner(p.attn, h, kind, cfg, layer_gates, use_kernel,
-                              live_bounds)
+                              live_bounds, tp)
     elif kind == SSD:
         c = _apply_ssd_inner(p.ssd, h, cfg, layer_gates, use_kernel,
                              live_bounds)
@@ -332,7 +466,8 @@ def apply_block(p: Block, x, kind: str, cfg: ModelConfig, layer_gates=None,
     aux = None
     if hasattr(p, "norm2"):
         h2 = apply_norm(p.norm2, x, cfg.norm)
-        y, aux = _apply_ffn(p, h2, cfg, layer_gates, use_kernel, live_bounds)
+        y, aux = _apply_ffn(p, h2, cfg, layer_gates, use_kernel, live_bounds,
+                            tp)
         x = x + y
     return x, aux
 
@@ -408,11 +543,12 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, features=None,
     run as a plain loop over the flat layer list; the MoE blocks'
     load-balance and router-z losses sum into aux_loss in layer order.
     remat checkpoints one layer at a time: the same values and gradients,
-    each layer's activations recomputed in the backward. The sharding
-    branches (policy, tp) are not ported yet.
+    each layer's activations recomputed in the backward. tp: the tensor
+    axis (see the module docstring), which has no kernel route. The
+    sharding policy is not ported yet.
     """
-    if policy is not None or tp is not None:
-        raise _not_ported_dist("the sharding branches of forward")
+    if policy is not None:
+        raise _not_ported_dist("the sharding policy of forward")
     cdt = torch_dtype(cfg.compute_dtype)
     parts = []
     if features is not None:
@@ -425,10 +561,11 @@ def forward(model: Transformer, cfg: ModelConfig, tokens=None, features=None,
         lg = None if gates is None else (gates[0][i], gates[1][i])
         if remat:
             x, a = checkpoint(p, x, kind, cfg, lg, use_kernel=use_kernel,
-                              live_bounds=live_bounds, use_reentrant=False)
+                              live_bounds=live_bounds, tp=tp,
+                              use_reentrant=False)
         else:
             x, a = p(x, kind, cfg, lg, use_kernel=use_kernel,
-                     live_bounds=live_bounds)
+                     live_bounds=live_bounds, tp=tp)
         if a is not None:
             aux_sum = aux_sum + a["load_balance"] + a["router_z"]
     return logits_from_hidden(model, cfg, x), {"aux_loss": aux_sum}

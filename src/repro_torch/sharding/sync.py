@@ -81,6 +81,12 @@ pre-hook on the block, so a unit's full gradient lives only until its
 backward. ``ResidencyRecorder`` counts each unit's gathered bytes as it
 runs; ``check_zero3_residency`` holds them to ``zero3_param_byte_report``.
 
+The stage and tensor axes (``launch.mesh.Mesh``) add two sums: the
+pipeline's whole gradient tree over the stage axis (``sum_over_axis_``,
+kind ``stage``), then ``apply_tensor_grad_sync`` over the tensor axis
+(``tp_grad``: exactly the leaves JAX's ``_TP_SHARDED`` selects), both
+before the data-axis sync, which runs over the data axis alone.
+
 The JAX package's ``zero_param_specs`` and ``_zero_state_specs`` are
 ``PartitionSpec`` plumbing for ``shard_map``; each rank here holds its
 shard as an ordinary tensor, so they have no counterpart.
@@ -324,38 +330,80 @@ def _clock(mesh):
     mesh.counter.seconds += time.perf_counter() - t0
 
 
-def _send(mesh, kind: str, nbytes: int, call):
-    """Run one collective, adding its bytes and its own host-clock seconds
-    (device synchronised at both ends) to ``mesh.counter`` under ``kind``."""
-    _sync_device(mesh)
-    t0 = time.perf_counter()
-    call()
-    _sync_device(mesh)
-    mesh.counter.add(kind, nbytes, time.perf_counter() - t0)
+def _bucketed_sum_(views: List[torch.Tensor], mesh, kind: str,
+                   mean: bool = False):
+    """Sum ``views`` over the mesh's ranks in place (divided by their
+    number where ``mean``), through one flat bucket per dtype and one
+    ``all_reduce`` each, counted under ``kind``."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for v in views:
+        by_dtype.setdefault(v.dtype, []).append(v)
+    for dtype, vs in by_dtype.items():
+        n = sum(v.numel() for v in vs)
+        bucket = torch.empty(n, dtype=dtype, device=mesh.device)
+        off = 0
+        for v in vs:
+            bucket[off:off + v.numel()].view(v.shape).copy_(v)
+            off += v.numel()
+        mesh.counted(kind, bucket.numel() * bucket.element_size(),
+                     lambda: mesh.all_reduce_(bucket))
+        if mean:
+            bucket.div_(mesh.size)
+        off = 0
+        for v in vs:
+            v.copy_(bucket[off:off + v.numel()].view(v.shape))
+            off += v.numel()
+        del bucket
 
 
 def _all_reduce_live_(tensors: Mapping[str, torch.Tensor], plan, mesh):
     """Average the plan's live views of ``tensors`` over the mesh's ranks,
     in place, through one flat bucket per dtype and one ``all_reduce``
     each."""
-    by_dtype: Dict[torch.dtype, list] = {}
-    for name, spec in plan.items():
-        for v in _live_views(tensors[name], spec):
-            by_dtype.setdefault(v.dtype, []).append(v)
-    for dtype, views in by_dtype.items():
-        n = sum(v.numel() for v in views)
-        bucket = torch.empty(n, dtype=dtype, device=mesh.device)
-        off = 0
-        for v in views:
-            bucket[off:off + v.numel()].view(v.shape).copy_(v)
-            off += v.numel()
-        _send(mesh, "all_reduce", bucket.numel() * bucket.element_size(),
-              lambda: mesh.all_reduce_(bucket))
-        bucket.div_(mesh.size)
-        off = 0
-        for v in views:
-            v.copy_(bucket[off:off + v.numel()].view(v.shape))
-            off += v.numel()
+    _bucketed_sum_([v for name, spec in plan.items()
+                    for v in _live_views(tensors[name], spec)], mesh,
+                   "all_reduce", mean=True)
+
+
+@torch.no_grad()
+def sum_over_axis_(tensors, mesh, kind: str):
+    """Sum ``tensors`` (a list) over the ranks of ``mesh`` (one axis) in
+    place, one flat bucket per dtype, counted under ``kind``: the stage
+    axis's gradient reassembly and the tensor axis's gradient sync."""
+    _bucketed_sum_(list(tensors), mesh, kind)
+    return tensors
+
+
+# ------------------------------------------------ tensor-axis grad combine
+# Leaves whose COMPUTE shards over the tensor axis (attention head blocks,
+# FFN column blocks: the ``tp`` branches of models.transformer). Their local
+# grads are disjoint slices of the true grad (zero outside this rank's
+# block), so a sum over the tensor axis reassembles the full tensor. Every
+# other leaf's compute is replicated across the axis (identical grads after
+# the f operator's backward all-reduces the activation cotangent), so it
+# must NOT be summed. MoE reuses the w_up / w_gate / w_down names but runs
+# replicated, hence the parent-key rule.
+_TP_SHARDED = {
+    "attn": {"wq", "wk", "wv", "wo", "bq", "bk", "bv"},
+    "mlp": {"w_up", "w_gate", "w_down"},
+}
+
+
+def tensor_sharded(name: str) -> bool:
+    """Whether the flat parameter ``name`` (``layers.<l>.attn.wq`` ...) is
+    one the tensor axis shards: its parent key decides."""
+    parts = name.split(".")
+    return len(parts) >= 2 and parts[-1] in _TP_SHARDED.get(parts[-2], ())
+
+
+def apply_tensor_grad_sync(grads: Mapping[str, torch.Tensor], mesh):
+    """Sum the tensor-sharded grad leaves over ``mesh`` (the tensor axis)
+    in place, one bucket per dtype, counted under ``tp_grad``; replicated
+    leaves pass through. Runs before the data-axis sync, which then sees
+    full grads. Returns the grads."""
+    sum_over_axis_([g for n, g in grads.items() if tensor_sharded(n)], mesh,
+                   "tp_grad")
+    return grads
 
 
 @torch.no_grad()
@@ -604,8 +652,8 @@ def _reduce_scatter(grads, plan, mesh) -> Dict[str, torch.Tensor]:
     outs = {}
     for dtype, inp in _scatter_inputs(grads, plan, k).items():
         out = torch.empty(inp.numel() // k, dtype=dtype, device=inp.device)
-        _send(mesh, "reduce_scatter", inp.numel() * inp.element_size(),
-              lambda: mesh.reduce_scatter_(out, inp))
+        mesh.counted("reduce_scatter", inp.numel() * inp.element_size(),
+                     lambda: mesh.reduce_scatter_(out, inp))
         outs[dtype] = out.div_(k)
     return _scatter_outputs(outs, grads, plan, mesh.rank)
 
@@ -616,8 +664,8 @@ def _all_gather(shards, fulls, plan, mesh, which: Optional[str] = "gather",
     shapes = {n: tuple(f.shape) for n, f in fulls.items()}
     for dtype, inp in _gather_inputs(shards, plan, shapes, which).items():
         out = torch.empty(inp.numel() * k, dtype=dtype, device=inp.device)
-        _send(mesh, kind, out.numel() * out.element_size(),
-              lambda: mesh.all_gather_(out, inp))
+        mesh.counted(kind, out.numel() * out.element_size(),
+                     lambda: mesh.all_gather_(out, inp))
         _gather_outputs({dtype: out}, fulls, plan, k, which)
 
 

@@ -5,11 +5,13 @@
 Both: optional D2FT schedule (scores -> knapsack -> gates), the masked or
 the kernel path, a global-norm clip and the optimizer update, one step per
 batch; ``finetune`` also runs the packed path (``core.d2ft.
-packed_forward``). ``finetune_distributed`` is the paper's data-parallel
-D2FT over a ``launch.mesh.DataMesh`` (one process per rank), with the
-schedule-masked gradient sync or ZeRO-1 / ZeRO-3 (streamed too);
-``make_distributed_train_step`` also has the lo-fi local mode. The
-sharding policy, the stage and tensor axes and the guard come with later
+packed_forward``). ``finetune_distributed`` is the paper's distributed
+D2FT over a ``launch.mesh.DataMesh`` or a (data, stage, tensor)
+``launch.mesh.Mesh`` (one process per rank), with the schedule-masked
+gradient sync or ZeRO-1 / ZeRO-3 (streamed too, on a data mesh) over the
+data axis, the GPipe pipeline over the stage axis and Megatron tensor
+parallelism over the tensor axis; ``make_distributed_train_step`` also has
+the lo-fi local mode. The sharding policy and the guard come with later
 slices.
 """
 from __future__ import annotations
@@ -222,11 +224,14 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
                                 sync_plan, *, parallel=None,
                                 clip: float = 1.0, live_bounds=None,
                                 residency_recorder=None,
+                                stage_assignment=None,
+                                pipeline_recorder=None,
                                 use_kernel=_UNSET, axis_name=_UNSET,
                                 sync_mode=_UNSET, guard=_UNSET,
                                 streamed=_UNSET, opt_chunk=_UNSET):
     """The paper's *distributed* D2FT step on one rank of a data mesh
-    (``launch.mesh.DataMesh``).
+    (``launch.mesh.DataMesh``) or of a (data, stage, tensor) mesh
+    (``launch.mesh.Mesh``).
 
     Returns step(model, opt_state, batch, gates) -> (model, opt_state,
     metrics), updating the model in place: ``batch`` is this rank's shard
@@ -265,15 +270,35 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
       collective in the step; the metrics are the rank's own. The caller
       merges the replicas with ``sharding.sync.lofi_merge_``.
 
+    Axes beyond data compose around the same bodies, as in the JAX step:
+
+    * ``stage > 1`` — the GPipe pipeline (``train.pipeline.
+      pipeline_loss``): this rank runs its ``stage_assignment`` layer range
+      (a ``core.assignment.StageAssignment``, required) on
+      ``parallel.microbatches`` micro-batches; the loss, the metrics and
+      the whole grad tree are summed over the stage axis (counted under
+      ``stage``) before any data-axis sync, so the sync modes see the
+      full-batch grads they always did. ``pipeline_recorder`` (a
+      ``train.pipeline.PipelineRecorder``) counts rounds and sends.
+    * ``tensor > 1`` — Megatron sharding of attention heads / FFN columns
+      inside each block (``models.transformer``'s ``tp``); the sharded
+      leaves' grads are disjoint slices, summed over the tensor axis
+      (``sharding.sync.apply_tensor_grad_sync``) before the data-axis
+      sync.
+
+    Ranks that share a data index take the same batch shard; the data-axis
+    sync, the metrics' mean and the ZeRO shards run over the data axis.
+
     ``sync_plan``: {name: SyncSpec} from ``sharding.sync.grad_sync_plan``
     of the step's mode (ignored in local mode). ``live_bounds``: the
     per-rank (live_fwd, live_bwd) compaction bounds (``core.assignment.
     distributed_live_bounds``). The loose kwargs below ``live_bounds`` are
-    the deprecated spelling of ``parallel``. Stage / tensor axes and the
-    guard are refused by ``ParallelConfig``. The JAX step takes a
-    ``params`` template for the moments' sharding; here the shapes come
-    from the model."""
+    the deprecated spelling of ``parallel``. The guard is refused by
+    ``ParallelConfig``. The JAX step takes a ``params`` template for the
+    moments' sharding; here the shapes come from the model."""
+    from repro_torch.launch.mesh import axes
     from repro_torch.sharding import sync
+    from repro_torch.train.pipeline import pipeline_loss
 
     given = {k: v for k, v in dict(
         use_kernel=use_kernel, axis_name=axis_name, sync_mode=sync_mode,
@@ -284,6 +309,21 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
     parallel.require_ported()
     parallel.validate_model(cfg)
     mode = parallel.sync_mode
+    S, T = parallel.mesh.stage, parallel.mesh.tensor
+    if (S > 1 or T > 1) and mesh is not None:
+        parallel.validate_mesh(mesh)
+    if S > 1:
+        if stage_assignment is None:
+            raise ValueError(
+                "stage > 1 needs a core.assignment.StageAssignment "
+                "(plan_stage_assignment on the current schedule)")
+        if stage_assignment.n_stages != S:
+            raise ValueError(f"a stage assignment of "
+                             f"{stage_assignment.n_stages} stages on a "
+                             f"stage axis of {S}")
+    _, dmesh, smesh, tmesh = axes(mesh) if mesh is not None else \
+        (None, None, None, None)
+    tp = tmesh if T > 1 else None
     upd_opt = chunked(opt, parallel.opt_chunk) if parallel.opt_chunk \
         else opt
 
@@ -291,7 +331,34 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
         return lm_loss(model, cfg, batch.get("tokens"), batch["labels"],
                        features=batch.get("features"), gates=gates,
                        use_kernel=parallel.use_kernel,
-                       live_bounds=live_bounds)
+                       live_bounds=live_bounds, tp=tp)
+
+    def loss_and_grads(model, params, batch, gates):
+        """(loss, metrics, grads) against ``params``, completed over the
+        stage and tensor axes: every body below sees the full grads of
+        this data shard, as on a pure data mesh."""
+        if S <= 1:
+            loss, metrics = local_loss(model, batch, gates)
+            grads = _grads(loss, params)
+        else:
+            if batch.get("features") is not None:
+                raise ValueError("the pipeline path is tokens-only")
+            loss, metrics, grads = pipeline_loss(
+                model, cfg, params, batch["tokens"], batch["labels"], gates,
+                boundaries=stage_assignment.boundaries,
+                n_microbatches=parallel.microbatches, stage=smesh, tp=tp,
+                recorder=pipeline_recorder)
+            # stage partials (each stage's own layers, the last stage's
+            # head) sum to the full-batch values; the grads' supports are
+            # disjoint by layer, so the sum is a reassembly
+            names = sorted(metrics)
+            vals = smesh.sum_(torch.stack(
+                [loss] + [metrics[k] for k in names]), "stage")
+            loss, metrics = vals[0], dict(zip(names, vals[1:]))
+            sync.sum_over_axis_(grads.values(), smesh, "stage")
+        if tp is not None:
+            sync.apply_tensor_grad_sync(grads, tmesh)
+        return loss, metrics, grads
 
     def mean_over_ranks(loss, metrics, *extra):
         """The loss and metrics, averaged over the ranks unless the mode
@@ -304,9 +371,9 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
         n = len(names) + 1
         if mode == "local":
             return dict(zip(names, vals[1:n]), loss=vals[0]), vals[n:]
-        vals = mesh.all_reduce_(vals)
-        return dict(zip(names, vals[1:n] / mesh.size),
-                    loss=vals[0] / mesh.size), vals[n:]
+        vals = dmesh.all_reduce_(vals)
+        return dict(zip(names, vals[1:n] / dmesh.size),
+                    loss=vals[0] / dmesh.size), vals[n:]
 
     def finish_zero(gsync, loss, metrics):
         """The ZeRO bodies' metrics and clip: the global norm is
@@ -322,10 +389,9 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
 
     def step_masked(model, opt_state, batch, gates):
         params = dict(model.named_parameters())
-        loss, metrics = local_loss(model, batch, gates)
-        grads = _grads(loss, params)
+        loss, metrics, grads = loss_and_grads(model, params, batch, gates)
         if mode != "local":
-            sync.apply_grad_sync(grads, sync_plan, mesh)
+            sync.apply_grad_sync(grads, sync_plan, dmesh)
         out, _ = mean_over_ranks(loss, metrics)
         grads, gnorm = clip_by_global_norm_(grads, clip)
         opt.update(grads, opt_state, params)
@@ -333,28 +399,29 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
 
     def step_zero(model, opt_state, batch, gates):
         params = dict(model.named_parameters())
-        loss, metrics = local_loss(model, batch, gates)
-        gsync = sync.apply_zero_scatter(_grads(loss, params), sync_plan,
-                                        mesh)
+        loss, metrics, grads = loss_and_grads(model, params, batch, gates)
+        gsync = sync.apply_zero_scatter(grads, sync_plan, dmesh)
+        del grads
         out = finish_zero(gsync, loss, metrics)
         # each rank updates its owned shard copy; the masked all-gather
         # re-replicates exactly the runs whose parameters can have changed
-        pshard = sync.zero_shard_params(params, sync_plan, mesh.rank)
+        pshard = sync.zero_shard_params(params, sync_plan, dmesh.rank)
         opt.update(gsync, opt_state, pshard)
-        sync.apply_zero_gather(pshard, params, sync_plan, mesh)
+        sync.apply_zero_gather(pshard, params, sync_plan, dmesh)
         return model, opt_state, out
 
     def step_zero3(model, opt_state, batch, gates):
         params = dict(model.named_parameters())
         full = sync.zero3_materialize(
-            {n: p.detach() for n, p in params.items()}, sync_plan, mesh)
+            {n: p.detach() for n, p in params.items()}, sync_plan, dmesh)
         views = {n: full[n].requires_grad_() for n in params
                  if sync._is_zero(sync_plan[n])}
         with sync.installed(model, views):
-            loss, metrics = local_loss(model, batch, gates)
-        grads = _grads(loss, {n: views.get(n, p) for n, p in params.items()})
+            loss, metrics, grads = loss_and_grads(
+                model, {n: views.get(n, p) for n, p in params.items()},
+                batch, gates)
         del full, views
-        gsync = sync.apply_zero_scatter(grads, sync_plan, mesh)
+        gsync = sync.apply_zero_scatter(grads, sync_plan, dmesh)
         del grads
         out = finish_zero(gsync, loss, metrics)
         del loss, metrics
@@ -365,7 +432,7 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
 
     def step_zero3_streamed(model, opt_state, batch, gates):
         params = dict(model.named_parameters())
-        with sync.zero3_stream_materialize(model, sync_plan, mesh,
+        with sync.zero3_stream_materialize(model, sync_plan, dmesh,
                                            recorder=residency_recorder):
             loss, metrics = local_loss(model, batch, gates)
         gsync = _grads(loss, params)
@@ -389,18 +456,25 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
                          log: Optional[TrainLog] = None,
                          use_kernel=_UNSET, sync_mode=_UNSET,
                          streamed=_UNSET, opt_chunk=_UNSET) -> tuple:
-    """Distributed D2FT fine-tuning on one rank of ``mesh`` (every rank
-    calls it with the same arguments and the same batches).
+    """Distributed D2FT fine-tuning on one rank of ``mesh`` (a data mesh,
+    ``launch.mesh.DataMesh``, or a (data, stage, tensor)
+    ``launch.mesh.Mesh``; every rank calls it with the same arguments and
+    the same batches).
 
     Rank 0 broadcasts its parameters at the start. At the first batch, and
     every ``refresh_every`` steps, rank 0 scores the batch's micro-batches
     and plans the schedule, and broadcasts the table, so every rank runs
     one schedule; every rank then runs the multiple-knapsack device
-    assignment (``core.assignment.plan_device_assignment``), the sample
-    order and the per-rank live bounds, and rebuilds the sync plan. Rank r
-    takes the r-th contiguous block of the permuted batch and its gates
-    [L, B / world, G]. The latest rebalance and sync reports land in
-    ``log.extras`` and every refresh is appended to
+    assignment over the data axis (``core.assignment.
+    plan_device_assignment``), the sample order and the per-rank live
+    bounds, and rebuilds the sync plan; with a stage axis it also re-runs
+    the live-cost stage assigner (``core.assignment.plan_stage_assignment``
+    on the new schedule, with its ``bubble_fraction``: the refresh record's
+    and ``log.extras["stages"]``) and the step is rebuilt around the new
+    boundaries. The rank at data index d takes the d-th contiguous block of
+    the permuted batch and its gates [L, B / data, G]; ranks that share a
+    data index take the same block. The latest rebalance and sync reports
+    land in ``log.extras`` and every refresh is appended to
     ``log.extras["refreshes"]``; ``log.extras["sync_bytes"]`` and
     ``["sync_ms"]`` hold each step's bytes handed to the sync's
     collectives (``mesh.counter``) and its host-clock ms,
@@ -427,9 +501,13 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
     is updated in place."""
     from repro_torch.core.assignment import (device_sample_order,
                                              distributed_live_bounds,
-                                             plan_device_assignment)
+                                             plan_device_assignment,
+                                             plan_stage_assignment)
     from repro_torch.core.schedule import op_counts
+    from repro_torch.launch.mesh import axes
+    from repro_torch.models.transformer import check_tp_tiling
     from repro_torch.sharding import sync
+    from repro_torch.train.pipeline import analytic_bubble_fraction
 
     given = {k: v for k, v in dict(
         use_kernel=use_kernel, sync_mode=sync_mode, streamed=streamed,
@@ -444,18 +522,22 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
             "'local' (local replicas merge in the elastic loop)")
     parallel.validate_model(cfg)
     parallel.validate_mesh(mesh)
+    S, T = parallel.mesh.stage, parallel.mesh.tensor
+    G = d2.head_groups or max(cfg.n_heads, 1)
+    if T > 1:
+        check_tp_tiling(cfg, G, T)
     log = log or TrainLog()
-    dev, world, rank = mesh.device, mesh.size, mesh.rank
+    wmesh, dmesh, _, _ = axes(mesh)
+    dev, n_data, rank = mesh.device, dmesh.size, dmesh.rank
     params = dict(model.named_parameters())
     for p in params.values():
-        mesh.broadcast_(p.detach())
+        wmesh.broadcast_(p.detach())
     # the canonical shapes the plans and reports are made from (the
     # parameters of a ZeRO-3 model hold shards between steps)
     shapes = {n: torch.empty(p.shape, dtype=p.dtype, device="meta")
               for n, p in params.items()}
     zero = mode in ("zero", "zero3")
     opt_state = None if zero else opt.init(params)
-    G = d2.head_groups or max(cfg.n_heads, 1)
 
     def on_device(batch):
         return {k: torch.as_tensor(np.asarray(v), device=dev)
@@ -467,7 +549,7 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
         nonlocal ever_live
         table = torch.zeros((cfg.n_layers * G, d2.n_microbatches),
                             dtype=torch.int32, device=dev)
-        if rank == 0:
+        if wmesh.rank == 0:
             mbs = split_microbatches(on_device(batch), d2.n_microbatches)
             planned = plan_from_scores(
                 cfg, d2, params, mbs,
@@ -475,34 +557,43 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
                                       mb["labels"],
                                       features=mb.get("features"))[0])
             table.copy_(torch.from_numpy(planned.table.astype(np.int32)))
-        mesh.broadcast_(table)
+        wmesh.broadcast_(table)
         sched = Schedule(table.cpu().numpy().astype(np.int8), cfg.n_layers,
                          G)
-        assignment, report = plan_device_assignment(sched, world)
+        assignment, report = plan_device_assignment(sched, n_data)
         if mode == "zero":
             prior = ever_live
             if ever_live is None:
                 ever_live = np.zeros((cfg.n_layers, sched.n_groups), bool)
             sync_plan = sync.grad_sync_plan(
-                shapes, cfg, sched, "zero", n_shards=world, ever_live=prior,
-                elide_gather=opt.elidable)
+                shapes, cfg, sched, "zero", n_shards=n_data,
+                ever_live=prior, elide_gather=opt.elidable)
             ever_live = ever_live | sync.backward_live_groups(sched)
         else:
             sync_plan = sync.grad_sync_plan(shapes, cfg, sched, mode,
-                                            n_shards=world)
+                                            n_shards=n_data)
         record = {
             "rebalance": report,
-            "sync": sync.sync_byte_report(sync_plan, shapes, n_shards=world),
+            "sync": sync.sync_byte_report(sync_plan, shapes,
+                                          n_shards=n_data),
             "op_counts": op_counts(sched),
             "device_of": [int(x) for x in assignment.device_of],
         }
         if zero:
             record["zero_state"] = sync.zero_state_byte_report(
-                sync_plan, shapes, world, opt.n_moments)
+                sync_plan, shapes, n_data, opt.n_moments)
         if mode == "zero3":
             record["zero3_params"] = sync.zero3_param_byte_report(
-                sync_plan, shapes, world)
-        return sched, assignment, sync_plan, record
+                sync_plan, shapes, n_data)
+        stage_assign = None
+        if S > 1:
+            # re-pack the stages for the NEW schedule's live costs: a
+            # packing balanced for a stale schedule un-balances this one
+            stage_assign, stage_rep = plan_stage_assignment(sched, S)
+            stage_rep["bubble_fraction"] = analytic_bubble_fraction(
+                stage_assign.loads, parallel.microbatches)
+            record["stages"] = stage_rep
+        return sched, assignment, stage_assign, sync_plan, record
 
     def relayout_state(state, old_plan, new_plan):
         """The moments from one plan's shard layout to another's (None:
@@ -511,12 +602,12 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
             return opt.init({n: torch.empty(
                 sync.zero_shard_shape(s.shape, new_plan[n]), dtype=s.dtype,
                 device=dev) for n, s in shapes.items()})
-        return {k: sync.zero_relayout(v, old_plan, new_plan, mesh)
+        return {k: sync.zero_relayout(v, old_plan, new_plan, dmesh)
                 if isinstance(v, dict) and v.keys() == shapes.keys() else v
                 for k, v in state.items()}
 
-    sched = assignment = sync_plan = step_fn = bounds = recorder = None
-    record = None
+    sched = assignment = stage_assign = sync_plan = step_fn = None
+    bounds = recorder = record = None
     for i, batch in enumerate(batches):
         if i >= steps:
             break
@@ -525,8 +616,9 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
             old_plan = sync_plan
             if mode == "zero3" and old_plan is not None:
                 # back to canonical parameters before scoring
-                sync.zero3_unshard_model_(model, old_plan, mesh)
-            sched, assignment, sync_plan, record = replan(batch)
+                sync.zero3_unshard_model_(model, old_plan, dmesh)
+            sched, assignment, stage_assign, sync_plan, record = \
+                replan(batch)
             if zero:
                 opt_state = relayout_state(opt_state, old_plan, sync_plan)
             if mode == "zero3":
@@ -535,12 +627,14 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
             record["step"] = i
             log.extras["rebalance"] = record["rebalance"]
             log.extras["sync"] = record["sync"]
+            if "stages" in record:
+                log.extras["stages"] = record["stages"]
             log.extras.setdefault("refreshes", []).append(record)
             step_fn = None
         B = batch["labels"].shape[0]
         mb_of = microbatch_assignment(B, d2.n_microbatches)
         perm = device_sample_order(assignment, mb_of)
-        n = B // world
+        n = B // n_data
         local = perm[rank * n:(rank + 1) * n]
         if step_fn is None:
             bounds = distributed_live_bounds(sched, mb_of, assignment) \
@@ -549,7 +643,8 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
                 else None
             step_fn = make_distributed_train_step(
                 cfg, opt, mesh, sync_plan, parallel=parallel, clip=clip,
-                live_bounds=bounds, residency_recorder=recorder)
+                live_bounds=bounds, residency_recorder=recorder,
+                stage_assignment=stage_assign)
         g_f, g_b = gates_from_schedule(sched, mb_of[local], "cpu")
         _check_schedule_gates(g_f, g_b, bounds)
         shard = on_device({k: np.asarray(v)[local] for k, v in batch.items()})
@@ -576,12 +671,12 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
             1e3 * (mesh.counter.seconds - total_s))
         if recorder is not None and "residency" not in record:
             record["residency"] = sync.check_zero3_residency(
-                recorder, sync_plan, shapes, world)
+                recorder, sync_plan, shapes, n_data)
     if zero and sync_plan is not None:
         # hand back canonical whole state: the shard layout is internal
         opt_state = relayout_state(opt_state, sync_plan, None)
         if mode == "zero3":
-            sync.zero3_unshard_model_(model, sync_plan, mesh)
+            sync.zero3_unshard_model_(model, sync_plan, dmesh)
     return model, opt_state, log
 
 

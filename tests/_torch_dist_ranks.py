@@ -25,9 +25,22 @@ Cases:
   collective, the moments' bytes, the residency check of the streamed
   step (``check_zero3_residency``) and the canonical parameters after the
   run.
+* ``multiaxis`` — a world of 8 (``launch.mesh.make_mesh``), one arm after
+  another, each 3 SGD steps of the step from the same weights, saving its
+  losses, each step's bytes by collective, the pipeline's round report and
+  the parameters: (data=4, tensor=2), the same with ZeRO-3, (data=2,
+  stage=2) on ranks 0-3 (M = 4, the live-cost stage assignment),
+  (data=2, stage=2, tensor=2), and (data=4, tensor=2) with D2FT-LoRA
+  (``merge_lora``, then the loss under ``tp``, the adapter grads summed
+  over the tensor axis before the data axis's mean). Then the tensor
+  axis's f and g operators on rank-dependent inputs, and the launcher's
+  ``--mesh data=4,stage=2`` and ``data=4,tensor=2`` on stablelm-3b's
+  smoke config, saving their logs and the schedules they planned.
 """
+import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -42,7 +55,7 @@ from repro_torch.core.assignment import (device_sample_order,  # noqa: E402
                                          plan_device_assignment)
 from repro_torch.core.schedule import Schedule, gates_from_schedule  # noqa
 from repro_torch.data.synthetic import microbatch_assignment  # noqa: E402
-from repro_torch.launch.mesh import make_data_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_data_mesh, make_mesh  # noqa
 from repro_torch.launch.parallel import MeshSpec, ParallelConfig  # noqa
 from repro_torch.models.transformer import init_model, lm_loss  # noqa
 from repro_torch.optim.optimizers import adamw, sgd  # noqa: E402
@@ -174,27 +187,199 @@ def case_zero(inp, mesh, sched):
     return out
 
 
+MULTIAXIS_ARMS = (
+    ("tp", dict(data=4, tensor=2), "masked"),
+    ("tp_zero3", dict(data=4, tensor=2), "zero3"),
+    ("pipe", dict(data=2, stage=2), "masked"),
+    ("all3", dict(data=2, stage=2, tensor=2), "masked"),
+    ("lora_tp", dict(data=4, tensor=2), "lora"))
+
+
+def _arm_shard(inp, sched, mesh):
+    """This rank's contiguous block of the batch by its data index (the
+    JAX shard_map's batch sharding) and its gates."""
+    B = inp["tokens"].shape[0]
+    n = B // mesh.data.size
+    rows = slice(mesh.data.rank * n, (mesh.data.rank + 1) * n)
+    g_f, g_b = gates_from_schedule(
+        sched, microbatch_assignment(B, sched.n_microbatches), "cpu")
+    return ({"tokens": inp["tokens"][rows], "labels": inp["labels"][rows]},
+            (g_f[:, rows], g_b[:, rows]))
+
+
+def _lora_arm(inp, sched, mesh):
+    from repro_torch.core.lora import call_with_weights, merge_lora
+    cfg, model = _model(inp)
+    batch, gates = _arm_shard(inp, sched, mesh)
+    lora = {n: {k: t.clone().requires_grad_() for k, t in ab.items()}
+            for n, ab in inp["lora"].items()}
+    lp = {f"{n}.{k}": ab[k] for n, ab in lora.items() for k in ("a", "b")}
+    params = dict(model.named_parameters())
+    plan = {n: sync.SyncSpec("all") for n in lp}
+    opt = sgd(1e-2)
+    state = opt.init(lp)
+    losses, sent = [], []
+    for _ in range(3):
+        before = dict(mesh.counter.bytes)
+        loss, _ = call_with_weights(
+            lm_loss, model, merge_lora(params, lora, 1.0), cfg,
+            batch["tokens"], batch["labels"], gates=gates, tp=mesh.tensor)
+        grads = dict(zip(lp, torch.autograd.grad(loss, list(lp.values()))))
+        # the adapter grads come through this rank's slice of the merged
+        # weights: the tensor axis sums them, then the data axis averages
+        sync.sum_over_axis_(grads.values(), mesh.tensor, "tp_grad")
+        sync.apply_grad_sync(grads, plan, mesh.data)
+        opt.update(grads, state, lp)
+        losses.append(float(mesh.data.all_reduce_(loss.detach().clone())
+                            / mesh.data.size))
+        sent.append({k: v - before.get(k, 0)
+                     for k, v in mesh.counter.bytes.items()
+                     if v != before.get(k, 0)})
+    return {"losses": losses, "sent": sent,
+            "params": {n: t.detach().clone() for n, t in lp.items()}}
+
+
+def _step_arm(inp, sched, mesh, spec, mode):
+    from repro_torch.core.assignment import plan_stage_assignment
+    from repro_torch.train.pipeline import PipelineRecorder
+    cfg, model = _model(inp)
+    batch, gates = _arm_shard(inp, sched, mesh)
+    opt = sgd(1e-2)
+    shapes = {n: torch.empty(p.shape, device="meta")
+              for n, p in model.named_parameters()}
+    plan = grad_sync_plan(shapes, cfg, sched, mode,
+                          n_shards=mesh.data.size)
+    if mode == "zero3":
+        sync.zero3_shard_model_(model, plan, mesh.data.rank)
+    state = opt.init({n: torch.empty(sync.zero_shard_shape(s.shape,
+                                                           plan[n]))
+                      for n, s in shapes.items()})
+    stages = recorder = None
+    if spec.stage > 1:
+        stages, _ = plan_stage_assignment(sched, spec.stage)
+        recorder = PipelineRecorder()
+    step = loop.make_distributed_train_step(
+        cfg, opt, mesh, plan, stage_assignment=stages,
+        pipeline_recorder=recorder,
+        parallel=ParallelConfig(mesh=spec, sync_mode=mode,
+                                microbatches=4 if spec.stage > 1 else 0))
+    losses, sent = [], []
+    for _ in range(3):
+        before = dict(mesh.counter.bytes)
+        _, state, metrics = step(model, state, batch, gates)
+        losses.append(float(metrics["loss"]))
+        sent.append({k: v - before.get(k, 0)
+                     for k, v in mesh.counter.bytes.items()
+                     if v != before.get(k, 0)})
+    if mode == "zero3":
+        sync.zero3_unshard_model_(model, plan, mesh.data)
+    return {"losses": losses, "sent": sent, "params": _params(model),
+            "report": None if recorder is None else recorder.report(),
+            "boundaries": None if stages is None else stages.boundaries}
+
+
+def _tp_operators(mesh):
+    """f and g on the tensor axis: forward values and the gradients of
+    rank-dependent cotangents."""
+    from repro_torch.models.transformer import _tp_copy, _tp_sum
+    tp, r = mesh.tensor, mesh.tensor.rank
+    out = {}
+    for name, op in (("copy", _tp_copy), ("sum", _tp_sum)):
+        x = (torch.arange(6.0) * (1 + r)).requires_grad_()
+        before = dict(mesh.counter.calls)
+        y = op(x, tp)
+        y.backward(torch.full((6,), float(r + 1)))
+        out[name] = {"y": y.detach(), "grad": x.grad.clone(),
+                     "calls": mesh.counter.calls.get("tp_act", 0)
+                     - before.get("tp_act", 0)}
+    return out
+
+
+def _launcher_runs():
+    """The launcher at --mesh data=4,stage=2 and data=4,tensor=2 (stablelm
+    smoke), with the schedule tables it planned."""
+    from repro_torch.core import assignment
+    from repro_torch.launch import train as launcher
+    os.environ["WORLD_SIZE"] = str(dist.get_world_size())
+    out = {}
+    for mesh_arg in ("data=4,stage=2", "data=4,tensor=2"):
+        tables = []
+        orig = assignment.plan_device_assignment
+
+        def capture(sched, n, orig=orig, tables=tables):
+            tables.append(torch.as_tensor(sched.table))
+            return orig(sched, n)
+        assignment.plan_device_assignment = capture
+        try:
+            log = launcher.main([
+                "--arch", "stablelm-3b", "--d2ft", "--distributed",
+                "--mesh", mesh_arg, "--batch", "16", "--seq", "16",
+                "--steps", "2", "--refresh-every", "1", "--optimizer",
+                "sgd", "--device", "cpu"])
+        finally:
+            assignment.plan_device_assignment = orig
+        out[mesh_arg] = {"losses": log.losses, "tables": tables,
+                         "stages": [r.get("stages")
+                                    for r in log.extras["refreshes"]],
+                         "by_kind": log.extras["sync_bytes_by_kind"]}
+    return out
+
+
+def case_multiaxis(inp, world_mesh, sched):
+    out = {}
+    for name, axes, mode in MULTIAXIS_ARMS:
+        spec = MeshSpec(**axes)
+        mesh = make_mesh(spec, "cpu")
+        if mesh is None:
+            continue
+        out[name] = _lora_arm(inp, sched, mesh) if mode == "lora" else \
+            _step_arm(inp, sched, mesh, spec, mode)
+        out[name]["coords"] = mesh.coords
+        out[name]["axes"] = {
+            ax: (getattr(mesh, ax).size, getattr(mesh, ax).trivial)
+            for ax in ("world", "data", "stage", "tensor")}
+        if name == "tp":
+            out["tp_operators"] = _tp_operators(mesh)
+    out["launcher"] = _launcher_runs()
+    return out
+
+
 def run_ranks(case, root, inputs, world=2, timeout=240):
     """Start ``world`` ranks of ``case`` on ``inputs`` (in ``root``, a
     fresh directory) and return each rank's saved results."""
+    return start_ranks(case, root, inputs, world, timeout)()
+
+
+def start_ranks(case, root, inputs, world=2, timeout=240):
+    """``run_ranks`` that returns as soon as the ranks have started: call
+    what it returns for each rank's saved results (the caller works
+    meanwhile)."""
     torch.save(inputs, root / "inputs.pt")
+    # one thread a rank: the ranks share the CPU with each other and with
+    # the test run's other workers
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, __file__, case, str(root),
                                str(r), str(world)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, out in zip(procs, outs):
-        if p.returncode != 0:
-            raise RuntimeError(f"rank exited with {p.returncode}:\n{out}")
-    return [torch.load(root / f"rank{r}.pt") for r in range(world)]
+                              text=True, env=env) for r in range(world)]
+    t_end = time.monotonic() + timeout
+
+    def results():
+        outs = []
+        try:
+            for p in procs:
+                left = max(t_end - time.monotonic(), 1.0)
+                outs.append(p.communicate(timeout=left)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, out in zip(procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"rank exited with {p.returncode}:\n{out}")
+        return [torch.load(root / f"rank{r}.pt") for r in range(world)]
+    return results
 
 
 def main():
@@ -209,8 +394,8 @@ def main():
         inp = torch.load(root / "inputs.pt", weights_only=False)
         sched = Schedule(inp["table"].numpy().astype(np.int8),
                          inp["cfg"].n_layers, inp["G"])
-        out = {"sync": case_sync, "train": case_train,
-               "zero": case_zero}[case](inp, mesh, sched)
+        out = {"sync": case_sync, "train": case_train, "zero": case_zero,
+               "multiaxis": case_multiaxis}[case](inp, mesh, sched)
         torch.save(out, root / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()

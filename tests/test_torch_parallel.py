@@ -3,10 +3,10 @@
 flags, ``optim/optimizers.py::chunked``) against the JAX package on the
 CPU: ``MeshSpec.parse`` and ``ParallelConfig`` give JAX's results, error
 types and messages, case for case; the launcher refuses the distributed
-flags' misuses with JAX's messages; what the port does not run yet (stage
-and tensor axes, the guard, the elastic loop) raises "not ported yet",
-and the ZeRO calls that raised it before run; ``chunked`` is
-bit-identical to the unchunked SGD and AdamW updates.
+flags' misuses, ``--mesh`` among them, with JAX's messages; what the port
+does not run yet (the guard, the elastic loop) raises "not ported yet",
+and the ZeRO, stage and tensor calls that raised it before run;
+``chunked`` is bit-identical to the unchunked SGD and AdamW updates.
 """
 import sys
 import warnings
@@ -20,6 +20,7 @@ from repro.launch.parallel import MeshSpec as JaxMeshSpec
 from repro.launch.parallel import ParallelConfig as JaxParallelConfig
 from repro_torch.configs import gemma3_1b
 from repro_torch.configs.base import D2FTConfig
+from repro_torch.core.assignment import plan_stage_assignment
 from repro_torch.core.schedule import Schedule
 from repro_torch.launch import train as launcher
 from repro_torch.launch.parallel import MeshSpec, ParallelConfig
@@ -58,7 +59,12 @@ def test_mesh_spec_parse_matches_jax(text):
     dict(guard=True, mesh=dict(tensor=2)),
     dict(use_kernel=True, mesh=dict(stage=2), microbatches=2),
     dict(mesh=dict(stage=2)), dict(microbatches=2),
-    dict(mesh=dict(data=0)), dict(use_kernel=True, mesh=dict(data=4))],
+    dict(mesh=dict(data=0)), dict(use_kernel=True, mesh=dict(data=4)),
+    dict(mesh=dict(stage=2), microbatches=4), dict(mesh=dict(tensor=2)),
+    dict(mesh=dict(data=2, stage=2, tensor=2), microbatches=4,
+         sync_mode="zero3"),
+    dict(use_kernel=True, mesh=dict(tensor=2)),
+    dict(sync_mode="zero", mesh=dict(tensor=2), microbatches=1)],
     ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()) or "default")
 def test_parallel_config_matches_jax(kw):
     """Every config the JAX package refuses is refused with its error; the
@@ -75,18 +81,12 @@ def test_parallel_config_matches_jax(kw):
         _outcome(make(JaxParallelConfig, JaxMeshSpec))
 
 
-@pytest.mark.parametrize("what", [
-    "stage", "tensor", "guard", "launcher_stage", "launcher_elastic"])
+@pytest.mark.parametrize("what", ["guard", "launcher_elastic"])
 def test_what_is_not_ported_says_so(what):
     argv = ["--arch", "gemma3-1b", "--d2ft", "--distributed", "--device",
             "cpu"]
     calls = {
-        "stage": lambda: ParallelConfig(mesh=MeshSpec(stage=2),
-                                        microbatches=2),
-        "tensor": lambda: ParallelConfig(mesh=MeshSpec(tensor=2)),
         "guard": lambda: ParallelConfig(guard=True),
-        "launcher_stage": lambda: launcher.main(argv + [
-            "--mesh", "data=1,stage=2"]),
         "launcher_elastic": lambda: launcher.main(argv + ["--elastic"]),
     }
     exc = SystemExit if what.startswith("launcher") else NotImplementedError
@@ -96,13 +96,17 @@ def test_what_is_not_ported_says_so(what):
 
 @pytest.mark.parametrize("what", [
     "step_zero", "step_zero3", "loop_zero3", "plan_zero", "launcher_zero",
-    "launcher_zero3", "require_zero3_streamed"])
+    "launcher_zero3", "require_zero3_streamed", "stage", "tensor",
+    "step_stage", "launcher_stage"])
 def test_what_was_refused_now_runs(what, capsys):
     """The ZeRO calls that raised "not ported yet" before the ZeRO slice
     run: the steps and the plan are made, the loop and the launcher run
     one step on the CPU (a world of one), and the launcher prints the JAX
     launcher's two lines (``grad sync (zero...)``, and ``param residency
-    (zero3)`` under zero3) from the run's own reports."""
+    (zero3)`` under zero3) from the run's own reports. So do the stage and
+    tensor configs and the pipeline step, and the launcher's ``--mesh
+    data=1,stage=2`` asks for its two processes (its runs are in
+    tests/test_torch_multiaxis.py)."""
     from repro_torch.launch.mesh import make_data_mesh
     from repro_torch.sharding import sync
     cfg = gemma3_1b.smoke_config()
@@ -142,7 +146,23 @@ def test_what_was_refused_now_runs(what, capsys):
                                                         "zero3"]),
         "require_zero3_streamed": lambda: ParallelConfig(
             sync_mode="zero3", streamed=True).require_ported(),
+        "stage": lambda: ParallelConfig(mesh=MeshSpec(stage=2),
+                                        microbatches=2).require_ported(),
+        "tensor": lambda: ParallelConfig(
+            mesh=MeshSpec(tensor=2)).require_ported(),
+        "step_stage": lambda: loop.make_distributed_train_step(
+            cfg, sgd(0.1), None, None,
+            parallel=ParallelConfig(mesh=MeshSpec(stage=2), microbatches=2),
+            stage_assignment=plan_stage_assignment(sched, 2)[0]),
     }
+    if what == "launcher_stage":
+        with pytest.raises(SystemExit) as e:
+            launcher.main(argv + ["--mesh", "data=1,stage=2"])
+        assert str(e.value).startswith(
+            "--mesh data=1,stage=2 runs one process per rank; launch it as "
+            "python -m torch.distributed.run --standalone --nproc_per_node "
+            "2 -m repro_torch.launch.train")
+        return
     out = calls[what]()
     if what == "plan_zero":
         assert out["embed.table"] == sync.SyncSpec(
@@ -197,19 +217,67 @@ def test_launcher_refusals_match_jax(argv, monkeypatch):
      "repro_torch.launch.train --arch gemma3-1b --steps 1 --d2ft "
      "--distributed --mesh data=2 --device cpu"),
     (["--mesh", "data=1"], {"WORLD_SIZE": "2"},
-     "--mesh data=1 does not match the world of 2 processes")],
-    ids=["n_microbatches", "torchrun", "world"])
+     "--mesh data=1 does not match the world of 2 processes"),
+    (["--mesh", "data=2,stage=2"], {"WORLD_SIZE": "2"},
+     "--mesh data=2,stage=2 does not match the world of 2 processes"),
+    (["--mesh", "stage=2,tensor=2"], {},
+     "--mesh stage=2,tensor=2 runs one process per rank; launch it as "
+     "python -m torch.distributed.run --standalone --nproc_per_node 4 -m "
+     "repro_torch.launch.train --arch gemma3-1b --steps 1 --d2ft "
+     "--distributed --mesh stage=2,tensor=2 --device cpu"),
+    (["--mesh", "data=2,stage=2", "--batch", "4"], {"WORLD_SIZE": "4"},
+     "pipeline needs the per-data-shard batch divisible by the microbatch "
+     "count: (4 / 2) % 4 != 0")],
+    ids=["n_microbatches", "torchrun", "world", "world_of_d_s_t",
+         "torchrun_of_d_s_t", "pipeline_shard"])
 def test_launcher_mesh_must_match_the_world(argv, env, match, monkeypatch):
-    """What the port's process-per-rank launch adds: ``--mesh data=N``
-    equals the world size, and N > 1 needs ``torch.distributed.run``; the
-    n_microbatches % data refusal is JAX's message (the JAX launcher
-    reaches it only on a mesh of more devices than this host has)."""
+    """What the port's process-per-rank launch adds: the world equals
+    D x S x T of ``--mesh``, and more than one rank needs
+    ``torch.distributed.run`` (where the JAX launcher refuses a mesh of
+    more devices than the host has); the n_microbatches % data and
+    pipeline-shard refusals are JAX's messages (the JAX launcher reaches
+    them only on such a mesh)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(SystemExit) as e:
         launcher.main(["--arch", "gemma3-1b", "--steps", "1", "--d2ft",
                        "--distributed"] + argv + ["--device", "cpu"])
     assert str(e.value) == match
+
+
+@pytest.mark.parametrize("argv,env,config", [
+    (["--kernel", "--mesh", "tensor=2"], {"WORLD_SIZE": "2"},
+     dict(mesh=dict(tensor=2), use_kernel=True)),
+    (["--mesh", "stage=2", "--n-microbatches", "0"], {"WORLD_SIZE": "2"},
+     dict(mesh=dict(stage=2), microbatches=0)),
+    (["--mesh", "tensor=3"], {"WORLD_SIZE": "3"},
+     dict(mesh=dict(tensor=3), model=True)),
+    (["--mesh", "stage=4"], {"WORLD_SIZE": "4"},
+     dict(mesh=dict(stage=4), microbatches=4, model=True))],
+    ids=["kernel_tensor", "stage_without_m", "tensor3_on_4_heads",
+         "stage4_on_2_layers"])
+def test_launcher_mesh_refusals_match_jax(argv, env, config, monkeypatch):
+    """The launcher's refusals of a stage or tensor axis, case by case,
+    with the error and message of the JAX package's ``ParallelConfig``
+    (and ``validate_model`` on the arch's smoke config), before any
+    process group is made (the JAX launcher builds its device mesh first,
+    which this host's one device cannot hold)."""
+    from repro.configs import get_smoke_config as jax_smoke
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    config = dict(config)
+    model = config.pop("model", False)
+
+    def theirs():
+        c = JaxParallelConfig(**dict(config, mesh=JaxMeshSpec(
+            **config["mesh"])))
+        if model:
+            c.validate_model(jax_smoke("stablelm-3b"))
+    assert _outcome(theirs)[0] != "ok"
+    assert _outcome(lambda: launcher.main(
+        ["--arch", "stablelm-3b", "--steps", "1", "--d2ft",
+         "--distributed"] + argv + ["--device", "cpu"])) == \
+        _outcome(theirs)
 
 
 def test_loose_kwargs_are_the_deprecated_spelling():
