@@ -84,7 +84,7 @@ Phases, one line each (any failure raises and exits non-zero):
 10. LLM fine-tune — ``repro_torch.launch.train`` on mamba2-130m at full
    size (24 layers, d 768, random weights from seed 0), batch 8 x seq
    2048 of ``lm_batches`` in 4 micro-batches, n_pf 2 / n_po 1, AdamW lr
-   1e-3, 6 steps, scores and knapsack at step 0. 24 forward and 24
+   1e-3, 4 steps, scores and knapsack at step 0. 24 forward and 24
    backward SSD launches per step, executed step fractions equal to the
    schedule's live counts (read from the device counter), finite losses
    within 1e-4 x max(1, |loss|) of the masked plain path on the same
@@ -113,7 +113,7 @@ Phases, one line each (any failure raises and exits non-zero):
 13. gemma3-1b fine-tune — ``repro_torch.launch.train --arch gemma3-1b
    --full --d2ft --kernel`` (26 layers, d 1152, random weights from seed
    0), batch 4 x seq 1024 in 4 micro-batches, n_pf 3 / n_po 1, G 4, AdamW
-   lr 1e-3, 6 steps: 26 + 26 attention launches per step, executed tile
+   lr 1e-3, 4 steps: 26 + 26 attention launches per step, executed tile
    fractions from the device counter equal to the schedule's, finite
    losses within 1e-4 x max(1, |loss|) of the masked path; p50 step ms of
    the kernel path, the masked path and standard full fine-tuning (each
@@ -157,7 +157,7 @@ Phases, one line each (any failure raises and exits non-zero):
    18 RG-LRU and 8 local attention, d 2560, 10 query heads on 1 KV head of
    256, window 2048, random weights from seed 0, 3,549,934,080
    parameters), batch 4 x seq 512 in 4 micro-batches, n_pf 3 / n_po 1, G
-   10, lr 1e-3, 6 steps: 18 + 18 RG-LRU and 8 + 8 attention launches per
+   10, lr 1e-3, 4 steps: 18 + 18 RG-LRU and 8 + 8 attention launches per
    step, executed fractions from the device counter equal to the
    schedule's, finite losses; p50 step ms of the kernel path and standard
    full fine-tuning (each twice, in turns), tokens/s, peak memory, a
@@ -191,7 +191,7 @@ Phases, one line each (any failure raises and exits non-zero):
    ``repro_torch.examples.lora_finetune``'s ``plan_lora`` and
    ``finetune_lora``: rank 8 on wq/wk/wv and per-expert w_up (26,738,688
    adapter parameters), SGD 0.1, n_pf 3 / n_po 0 of 4, G 16, batch 4 x
-   seq 512, 6 steps: 16 + 16 MoE and 16 + 16 attention launches per step,
+   seq 512, 4 steps: 16 + 16 MoE and 16 + 16 attention launches per step,
    executed MoE tiles = the launched masks', attention tiles = the
    schedule's, the base bit-identical after the steps and the adapters
    moved, losses within 1e-4 x max(1, |loss|) of the masked path; p50 step
@@ -203,7 +203,7 @@ Phases, one line each (any failure raises and exits non-zero):
 21. olmoe-1b-7b fine-tune — the launcher's loop (``train/loop.py::
    finetune`` with ``repro_torch.launch.train``'s settings: --optimizer
    sgd, lr 1e-3, n_pf 3 / n_po 1 of 4, G 16) at full width on 8 of the 16
-   layers (3,562,571,776 parameters), batch 4 x seq 512, 6 steps: 8 + 8
+   layers (3,562,571,776 parameters), batch 4 x seq 512, 4 steps: 8 + 8
    MoE and attention launches per step, device tile counts = the masks'
    and the schedule's, losses within tolerance of the masked path; p50
    step ms of the kernel, masked and full fine-tuning paths (each twice,
@@ -268,7 +268,7 @@ Phases, one line each (any failure raises and exits non-zero):
    a fallback: (a) stablelm-3b at full size (32 layers, d 2560, 32 heads
    of 80, 2.8 B parameters) through ``repro_torch.launch.train --full
    --d2ft --kernel`` (batch 4 x seq 512 in 4 micro-batches, n_pf 3 / n_po
-   1, G 32, AdamW, 3 steps): 32 + 32 B2 launches a step, executed tiles =
+   1, G 32, AdamW, 2 steps): 32 + 32 B2 launches a step, executed tiles =
    the schedule's, losses within 1e-4 x max(1, |loss|) of the masked
    path's; p50 step ms of the kernel, masked and full paths (each twice,
    in turns), peak memory, a profiler window over 3 steps with B2's share
@@ -277,7 +277,7 @@ Phases, one line each (any failure raises and exits non-zero):
    (1024 frames of 512, batch 4, bidirectional), and (d) qwen1.5-32b (4
    of 64 layers), mixtral-8x22b (2 of 56) and moonshot-v1-16b-a3b (8 of
    48) at full width, batch 4 x 512, through ``train/loop.py::finetune(...,
-   use_kernel=True)`` (n_pf 3 / n_po 1, momentum-free SGD, 3 steps):
+   use_kernel=True)`` (n_pf 3 / n_po 1, momentum-free SGD, 2 steps):
    launches a step = the schedule's count, executed tiles = the
    schedule's (MoE: the launched masks'), the first-step loss within
    tolerance of the masked path's forward on the same weights, schedule
@@ -318,7 +318,10 @@ Phases, one line each (any failure raises and exits non-zero):
    fails fails the phase. ``python3 chip_smoke.py --only 26`` runs phases
    1, 2 and 26 alone (a partial run that prints no result). In the whole
    script the run on the launcher's schedule takes its first plan only (2
-   steps), and runs in phase 27's process of two ranks.
+   steps), and runs in phase 27's process of two ranks; the two-rank runs
+   on the mix take 3 steps (4 before phase 29), still re-planned at step
+   2; phase 27 (b)'s SGD pair on 6 of the 26 layers (one pattern cycle;
+   all 26 before phase 29).
 27. ZeRO-1 and ZeRO-3 data-parallel D2FT on gemma3-1b, in phase 26's
    processes, on phase 26's model, budget and refreshes. (a) After the
    masked run on the one NCCL rank, ``--sync-mode zero`` and ``zero3`` on
@@ -339,8 +342,10 @@ Phases, one line each (any failure raises and exits non-zero):
    ``python3 chip_smoke.py --only 27`` runs phases 1, 2 and 27 alone,
    with the masked baselines (a partial run that prints no result). To
    keep the whole script inside its limit, the launcher fine-tunes of
-   phases 10, 13, 14, 17, 20 and 21 take 6 steps (8 before), and phase 23
-   4 steps (6 before) on 13 of gemma3-1b's 26 layers.
+   phases 10, 13, 14, 17, 20 and 21 take 4 steps (8, then 6 before phase
+   29), and phase 23 4 steps (6 before) on 13 of gemma3-1b's 26 layers;
+   since phase 29 the masked and ZeRO-1 SGD pair of 27 (b) takes 2 steps
+   (its first plan) and phase 25 and 28 (b) 2 steps (3 before).
 28. multi-axis D2FT — ``repro_torch.launch.train --distributed --mesh``
    with a stage or a tensor axis, two gloo ranks sharing the card (the
    collectives and the pipeline's sends staged through pinned host memory:
@@ -349,9 +354,9 @@ Phases, one line each (any failure raises and exits non-zero):
    each rank printing one JSON line a run. (a) gemma3-1b at full width and
    depth, ``--mesh stage=2``, at phase 26's budget (global batch 4 x 1024,
    M = 4 micro-batches of one sample, n_pf 3 / n_po 1, G 4, AdamW lr
-   1e-3, 4 steps, re-planned every 2) on phase 26 (a)'s schedules
-   (replayed): every step's loss within 1e-4 x max(1, |loss|) of phase 26
-   (a)'s one-rank run, the parameter checksums bitwise equal on both ranks
+   1e-3, 3 steps (4 before phase 29), re-planned every 2) on phase 26
+   (a)'s schedules (replayed): every step's loss within 1e-4 x max(1,
+   |loss|) of phase 26 (a)'s one-rank run's first 3, the parameter checksums bitwise equal on both ranks
    after every step, the counter's ``stage`` bytes equal to the gradient
    tree's bytes and the 12 bytes of the loss and its two terms, its
    ``p2p`` bytes (summed over the ranks) to 2 x M x (S - 1) x 1 x 1024 x
@@ -361,7 +366,7 @@ Phases, one line each (any failure raises and exits non-zero):
    stablelm-3b at full width on 8 of its 32 layers (full depth holds 11.2
    GB of parameters a rank and moves 10.2 GB of tensor-axis gradients a
    step through gloo), ``--mesh tensor=2``, batch 4 x 512, G = n_heads =
-   32, n_pf 3 / n_po 1 of 4, a momentum-free SGD (lr 1e-3), 3 steps, the
+   32, n_pf 3 / n_po 1 of 4, a momentum-free SGD (lr 1e-3), 2 steps, the
    launcher's own schedule: losses within 1e-4 x max(1, |loss|) of a
    one-rank masked ``train.loop.finetune`` of the same 8-layer model on the
    same batches and schedule (replayed), parameters bitwise equal on both
@@ -370,6 +375,31 @@ Phases, one line each (any failure raises and exits non-zero):
    2560] float32. Neither axis has a kernel route: both runs take the
    masked path. ``python3 chip_smoke.py --only 28`` runs phases 1, 2, 26
    (a) and 28 alone (a partial run that prints no result).
+29. the elastic layer — ``repro_torch.launch.train --d2ft --kernel
+   --distributed --elastic`` on gemma3-1b at full width on 6 of its 26
+   layers (one pattern cycle: five windowed layers and one global, so B2
+   runs both), phase 26's budget (batch 4 x 1024, n_pf 3 / n_po 1 of 4,
+   G 4, AdamW lr 1e-3), re-planned every 2 steps, in phase 28's ranks
+   (this script again, ``--mx-rank``, three more runs on its process
+   group), the checkpoints in a temporary directory the phase removes
+   (it refuses to start with under 12 GB free there). (a) ``--mesh
+   data=2 --faults`` a plan the phase writes (rank 1 twice as slow, a
+   NaN burst on rank 1 at step 1, rank 1 dropped at step 4),
+   ``--ckpt-every 3``, 5 steps: step 1 a guard skip on both ranks with the
+   parameters' checksum unchanged; the step-2 refresh's unit times (1,
+   1.75) engage capacities, its makespan at most the unmitigated one
+   (the ratio printed); at step 4 rank 0 restores ckpt_3 alone (1 step to
+   replay) and rank 1 stops, launching no B2 after; B2 12 launches a
+   step a rank. Then ``--resume-from ckpt_3.npz --ckpt-every 0 --mesh
+   data=1`` on rank 0 alone: its final parameters within 1e-6 of (a)'s
+   (the difference printed). (b) ``--faults`` the syncs of steps 1 and 2
+   dropped, ``--merge-every 2 --ckpt-every 0``, 6 steps: two sync
+   drops, the lo-fi fallback, merges, final mode local; after every merge
+   the ranks' parameters bitwise equal and the bytes it sent the mask plan's.
+   Printed: step ms, each collective kind's ms, the checkpoints' save and
+   load seconds and bytes, each rank's peak memory. ``python3
+   chip_smoke.py --only 29`` runs phases 1, 2 and 29 alone (a partial run
+   that prints no result).
 
 Then one JSON line of the 13 kernel records, the card line again, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -413,7 +443,7 @@ FT_LR = 0.05
 # examples/d2ft_llm_finetune.py (2 p_f + 1 p_o of 4 micro-batches)
 LM_BATCH = 8
 LM_SEQ = 2048
-LM_STEPS = 6
+LM_STEPS = 4
 LM_LR = 1e-3
 LM_D2FT = dict(n_microbatches=4, n_pf=2, n_po=1)
 SSD_P, SSD_N, SSD_CHUNK = 64, 128, 256         # mamba2-130m's SSD widths
@@ -425,7 +455,7 @@ SSD_P, SSD_N, SSD_CHUNK = 64, 128, 256         # mamba2-130m's SSD widths
 # LoRA example's own settings (repro_torch/examples/lora_finetune.py)
 GM_BATCH = 4
 GM_SEQ = 1024
-GM_STEPS = 6
+GM_STEPS = 4
 GM_LR = 1e-3
 GM_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 
@@ -435,7 +465,7 @@ GM_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 # memory before any run (PERF.md, section 4)
 RG_BATCH = 4
 RG_SEQ = 512
-RG_STEPS = 6
+RG_STEPS = 4
 RG_LR = 1e-3
 RG_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 RG_CHUNK = 128                     # repro/models/rglru.py's scan chunk
@@ -450,7 +480,7 @@ RG_PARAMS = 3_549_934_080          # the JAX init_model's, by jax.eval_shape
 # tokens x 8 / 64 experts, 384 after the pad to block_c 128)
 MO_BATCH = 4
 MO_SEQ = 512
-MO_STEPS = 6
+MO_STEPS = 4
 MO_LR = 1e-3
 MO_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 MO_LORA_D2FT = dict(n_microbatches=4, n_pf=3, n_po=0)
@@ -496,7 +526,7 @@ MO_SERVE_LAYERS = 16
 # served, mixtral-8x22b with one request past its 4096 window
 NA_BATCH = 4
 NA_SEQ = 512
-NA_STEPS = 3
+NA_STEPS = 2
 NA_LR = 1e-3
 NA_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 VL_TEXT = 448                      # + 576 patch rows: 1024 positions
@@ -524,6 +554,15 @@ DP_REFRESH = 2
 # phase 26 (b)'s run on the launcher's schedule: its first plan only, cut
 # from 4 steps to keep the whole script inside its time limit
 DP_LAUNCHER_STEPS = 2
+# phase 26 (b) and 27 (b)'s runs on the concentrated mix, cut from 4 steps
+# to 3 to make room for phase 29: still one re-plan (at step 2), so
+# zero_relayout runs, and ZeRO-1 SGD's elided gather meets ever_live;
+# phase 27 (b)'s masked / ZeRO-1 SGD pair on 6 of the 26 layers (one
+# pattern cycle: five windowed layers and one global) to keep the whole
+# script inside its time limit (its AdamW runs stay at 26: ZeRO-3's
+# between-step bytes are held to 1 % of a state that depth shrinks)
+DP_MIX_STEPS = 3
+DP_SGD_DEPTH = 6
 DP_MIX = (0.4, 0.3, 0.3)
 DP_TIMEOUT = 800
 
@@ -532,6 +571,28 @@ DP_TIMEOUT = 800
 # 25's batch, budget and learning rate
 MX_DEPTH = 8
 MX_MIX_STEPS = 2        # phase 28 (a) on the concentrated mix: one plan
+MX_STEPS = 3            # phase 28 (a) (4 before phase 29): one re-plan
+
+# the elastic layer (phase 29): gemma3-1b at full width on 6 of its 26
+# layers (one pattern cycle: five local layers and one global), phase
+# 26's budget, re-planned every 2 steps. (a)'s plan: rank 1 twice as
+# slow, a NaN burst on rank 1 at step 1, rank 1 dropped at step 4,
+# checkpoints every 3 steps, 5 steps (6 would write a ckpt_6 no check
+# reads); (b)'s: the syncs of steps 1 and 2 dropped (the lo-fi fallback),
+# merged every 2 steps, 6 steps. Two 5.56 GB checkpoints are on the disk
+# at once; a rank process's time limit grows by EL_TIMEOUT
+EL_DEPTH = 6
+EL_STEPS_A = 5
+EL_STEPS = 6
+EL_CKPT_EVERY = 3
+EL_PLAN_A = dict(slowdowns=((1, 2.0),), grad_faults=((1, 1, float("nan")),),
+                 dropout=(4, 1))
+EL_PLAN_B = dict(dropped_syncs=(1, 2))
+EL_MERGE_EVERY = 2
+EL_DISK = 12e9
+EL_RESUME_TOL = 1e-6
+EL_TIMEOUT = 360
+EL_LEGS = "ea,er,eb"
 MX_UPDATE_TOL = 1e-4    # (b)'s leaf update norms against the one rank's
 MX_TIMEOUT = 400
 
@@ -4495,7 +4556,8 @@ def dp_rank(torch, np, leg, runs, argv):
     ``--sync-mode mode --optimizer optimizer`` to ``argv``; the flags are
     ``streamed`` (the loop's ``ParallelConfig`` with ``streamed=True``,
     which the launcher has no flag for), ``launcher`` (the run's leg is
-    "launcher", whatever ``leg`` says) and ``steps=N``. The schedule is
+    "launcher", whatever ``leg`` says), ``steps=N`` and ``depth=N`` (the
+    model cut to N layers). The schedule is
     the one the launcher plans (leg "launcher": the first such run plans
     and scores, the later ones replay its tables) or the concentrated mix
     ("mix"). After every step: the
@@ -4526,6 +4588,7 @@ def dp_rank(torch, np, leg, runs, argv):
     plan, make = loop.plan_from_scores, loop.make_distributed_train_step
     make_mesh, init, fit = mesh_mod.make_mesh, launcher.init_model, \
         launcher.finetune_distributed
+    configs = launcher.get_config
     rank = int(os.environ.get("RANK", 0))
     # one process group for every run: each run's mesh finds it made
     group = mesh_mod.make_data_mesh(int(os.environ.get("WORLD_SIZE", 1)),
@@ -4536,8 +4599,9 @@ def dp_rank(torch, np, leg, runs, argv):
         streamed = "streamed" in flags
         run_leg = "launcher" if "launcher" in flags else leg
         steps = [f.split("=")[1] for f in flags if f.startswith("steps=")]
-        name = "_".join([mode, opt_name] + [f for f in flags
-                                           if not f.startswith("steps=")])
+        depth = [int(f.split("=")[1]) for f in flags
+                 if f.startswith("depth=")]
+        name = "_".join([mode, opt_name] + [f for f in flags if "=" not in f])
         tables, sums, moments, between, between_alloc = [], [], [], [], []
         made, meshes = [], []
 
@@ -4594,6 +4658,8 @@ def dp_rank(torch, np, leg, runs, argv):
         mesh_mod.make_mesh, launcher.init_model = capture_mesh, \
             capture_init
         launcher.finetune_distributed = streamed_fit
+        launcher.get_config = configs if not depth else (
+            lambda arch, n=depth[0]: configs(arch).replace(n_layers=n))
         d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4624,7 +4690,7 @@ def dp_rank(torch, np, leg, runs, argv):
         refreshes = log.extras["refreshes"]
         line = {
             "rank": rank, "run": name, "mode": mode, "opt": opt_name,
-            "streamed": streamed,
+            "streamed": streamed, "n_layers": depth[0] if depth else None,
             "losses": log.losses, "step_ms": [1e3 * t for t in log.step_times],
             "sync_bytes": log.extras["sync_bytes"],
             "by_kind": log.extras["sync_bytes_by_kind"],
@@ -4653,7 +4719,7 @@ def dp_rank(torch, np, leg, runs, argv):
         del log
     loop.plan_from_scores, loop.make_distributed_train_step = plan, make
     mesh_mod.make_mesh, launcher.init_model = make_mesh, init
-    launcher.finetune_distributed = fit
+    launcher.finetune_distributed, launcher.get_config = fit, configs
     group.close()
     return 0
 
@@ -4830,11 +4896,15 @@ def data_parallel(torch, np, tag, phases=(26, 27)):
         print(f"[zero] (a) one process, {secs:.1f} s for its three runs "
               f"{tag}", flush=True)
 
-    # (b) two ranks sharing the card over gloo, one torch.distributed.run
+    # (b) two ranks sharing the card over gloo, one torch.distributed.run;
+    # every run on the mix crosses the re-plan at step 2 (zero_relayout;
+    # under ZeRO-1 SGD the gather elided where ever_live allows)
     runs = ([f"masked:adamw:launcher:steps={DP_LAUNCHER_STEPS}"]
-            if 26 in phases else []) + ["masked:adamw"] + (
-        ["masked:sgd", "zero:adamw", "zero:sgd", "zero3:adamw",
-         "zero3:adamw:streamed"] if zero else [])
+            if 26 in phases else []) + [
+        f"{run}:steps={DP_MIX_STEPS}" for run in ["masked:adamw"] + (
+            ["zero:adamw", "zero3:adamw", "zero3:adamw:streamed",
+             f"masked:sgd:depth={DP_SGD_DEPTH}",
+             f"zero:sgd:depth={DP_SGD_DEPTH}"] if zero else [])]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "2", str(ROOT / "chip_smoke.py")] + \
         dp_argv(2, "mix", ",".join(runs))
@@ -4842,8 +4912,8 @@ def data_parallel(torch, np, tag, phases=(26, 27)):
     for name, by_rank in recs.items():
         for r in by_rank.values():
             dp_check_bytes(r, f"(b) {name}")
-            n = len(r["losses"])
-            if r["launches"] != {"fwd": n_layers * n, "bwd": n_layers * n}:
+            n = len(r["losses"]) * (r["n_layers"] or n_layers)
+            if r["launches"] != {"fwd": n, "bwd": n}:
                 raise AssertionError(f"(b) {name} rank {r['rank']}: B2 "
                                      f"launches {r['launches']}")
             if not np.isfinite(r["losses"]).all():
@@ -5022,7 +5092,9 @@ def zero_mix_checks(np, recs, tag):
         for rank in (0, 1):
             r = by_rank[rank]
             print(f"[zero] (b) {name} rank {rank}: two gloo ranks on one "
-                  f"card, the concentrated mix, 2 x {GM_SEQ} a rank: "
+                  f"card, the concentrated mix"
+                  + (f" on {r['n_layers']} of 26 layers" if r["n_layers"]
+                     else "") + f", 2 x {GM_SEQ} a rank: "
                   f"losses {[round(x, 6) for x in r['losses']]}, max diff "
                   f"against the masked {r['opt']} run's "
                   f"{dp_max_diff(np, r, base[rank]):.3e} (limit 1e-6); "
@@ -5054,7 +5126,7 @@ def mx_argv(leg):
     (``MX_MIX_STEPS`` steps, one plan) on gemma3-1b, "b" on stablelm-3b."""
     if leg in ("a", "am"):
         d2 = GM_D2FT
-        steps = DP_STEPS if leg == "a" else MX_MIX_STEPS
+        steps = MX_STEPS if leg == "a" else MX_MIX_STEPS
         return ["--arch", "gemma3-1b", "--full", "--batch", str(GM_BATCH),
                 "--seq", str(GM_SEQ), "--steps", str(steps), "--lr",
                 str(GM_LR), "--n-microbatches", str(d2["n_microbatches"]),
@@ -5069,9 +5141,11 @@ def mx_argv(leg):
             "--distributed", "--mesh", "tensor=2", "--optimizer", "sgd"]
 
 
-def mx_rank(torch, np, replay):
-    """One rank of phase 28: ``repro_torch.launch.train.main`` on the card
-    for (a), (a) on the mix ("am") and (b), on one process group.
+def mx_rank(torch, np, replay, legs="a,am,b", ckdir=""):
+    """One rank of phases 28 and 29: ``repro_torch.launch.train.main`` on
+    the card for each of ``legs`` ("a,am,b" and phase 29's ``EL_LEGS``,
+    whose checkpoints go under ``ckdir``: ``el_leg``), on one process
+    group. Phase 28: (a), (a) on the mix ("am") and (b).
     ``replay``: (a)'s schedule tables ("+"-joined digit strings), which
     rank 0's planner returns in turn; "am"'s planner returns phase 27's
     concentrated mix (``concentrated_table``, seed 0), whose live cost
@@ -5099,7 +5173,12 @@ def mx_rank(torch, np, replay):
     init, configs, sgd = launcher.init_model, launcher.get_config, \
         launcher.sgd
     replay = replay.split("+")
-    for leg in ("a", "am", "b"):
+    keep = {}
+    for leg in legs.split(","):
+        if leg in EL_LEGS.split(","):
+            line = el_leg(torch, leg, rank, ckdir, keep)
+            os.write(1, ("MXREC " + json.dumps(line) + "\n").encode())
+            continue
         tables, sums, made = [], [], []
 
         def planned(cfg, d2, *a, **k):
@@ -5190,13 +5269,155 @@ def mx_rank(torch, np, replay):
     return 0
 
 
-def mx_run(torch, np, replay):
-    """Phase 28's ranks: one torch.distributed.run of two, killed with its
-    session at ``MX_TIMEOUT``. Returns ({run: {rank: record}}, seconds)."""
+def mx_run(torch, np, replay, legs="a,am,b", ckdir=""):
+    """Phase 28's and 29's ranks: one torch.distributed.run of two running
+    ``legs``, killed with its session at its time limit. Returns ({run:
+    {rank: record}}, seconds)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "2", str(ROOT / "chip_smoke.py"), "--mx-rank",
-           "+".join(replay)]
-    return dp_run(cmd, 2, timeout=MX_TIMEOUT, tag="MXREC ")
+           "+".join(replay), legs, ckdir]
+    limit = (MX_TIMEOUT if "a" in legs.split(",") else 0) + \
+        (EL_TIMEOUT if "ea" in legs.split(",") else 0)
+    return dp_run(cmd, 2, timeout=limit, tag="MXREC ")
+
+
+def param_sum(torch, tensors):
+    """A checksum of float32 tensors: their bits as int32, summed."""
+    return int(torch.stack([t.detach().view(torch.int32).sum(
+        dtype=torch.int64) for t in tensors]).sum())
+
+
+def el_argv(leg, ckdir):
+    """The launcher's flags of phase 29's leg: "ea" (a) on two ranks with
+    (a)'s plan, "er" the resume of (a)'s step-3 checkpoint on rank 0 alone
+    (a mesh of one in the world of two), "eb" (b) on two ranks."""
+    d2 = GM_D2FT
+    steps = EL_STEPS if leg == "eb" else EL_STEPS_A
+    argv = ["--arch", "gemma3-1b", "--full", "--batch", str(GM_BATCH),
+            "--seq", str(GM_SEQ), "--steps", str(steps), "--lr",
+            str(GM_LR), "--n-microbatches", str(d2["n_microbatches"]),
+            "--n-pf", str(d2["n_pf"]), "--n-po", str(d2["n_po"]), "--d2ft",
+            "--kernel", "--distributed", "--elastic", "--refresh-every",
+            str(DP_REFRESH)]
+    if leg == "ea":
+        return argv + ["--mesh", "data=2", "--faults",
+                       os.path.join(ckdir, "plan_a.json"), "--ckpt-every",
+                       str(EL_CKPT_EVERY), "--ckpt-dir",
+                       os.path.join(ckdir, "a")]
+    if leg == "er":
+        return argv + ["--mesh", "data=1", "--resume-from",
+                       os.path.join(ckdir, "a", f"ckpt_{EL_CKPT_EVERY}.npz"),
+                       "--ckpt-every", "0", "--ckpt-dir",
+                       os.path.join(ckdir, "r")]
+    return argv + ["--mesh", "data=2", "--faults",
+                   os.path.join(ckdir, "plan_b.json"), "--merge-every",
+                   str(EL_MERGE_EVERY), "--ckpt-every", "0", "--ckpt-dir",
+                   os.path.join(ckdir, "b")]
+
+
+def el_leg(torch, leg, rank, ckdir, keep):
+    """One rank's run of phase 29's ``leg`` (``el_argv``) on the card,
+    gemma3-1b cut to ``EL_DEPTH`` layers, the kernel path only. After
+    every step: a checksum of the parameters and B2's launches so far;
+    after every lo-fi merge: a checksum of the merged parameters and the
+    bytes the merge sent. ``keep`` carries rank 0's final (a) parameters
+    (on the host) to "er", which records its largest difference from
+    them. Rank 0 deletes each checkpoint once no later run reads it.
+    Returns the run's record (a rank outside the run's mesh: ``sat_out``).
+    """
+    import shutil
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.launch import train as launcher
+    from repro_torch.sharding import sync
+    from repro_torch.train import elastic
+
+    def refuse(kind, reason):
+        raise AssertionError(f"{kind} took a non-kernel route: {reason}")
+    contract.on_fallback = refuse
+    make, merge = elastic.make_distributed_train_step, sync.lofi_merge_
+    configs, init = launcher.get_config, launcher.init_model
+    sums, at, merges, made = [], [], [], []
+
+    def launched():
+        return d2a.flash_fwd.launches + d2a.flash_bwd.launches
+
+    def checked(*a, **k):
+        step = make(*a, **k)
+
+        def run(model, *rest):
+            out = step(model, *rest)
+            torch.cuda.synchronize()
+            sums.append(param_sum(torch, model.parameters()))
+            at.append(launched())
+            return out
+        return run
+
+    def recorded(named, plan, mesh, kind="all_reduce"):
+        sent = mesh.counter.bytes.get(kind, 0)
+        merge(named, plan, mesh, kind)
+        torch.cuda.synchronize()
+        merges.append({"sum": param_sum(torch, named.values()),
+                       "bytes": mesh.counter.bytes[kind] - sent})
+        return named
+
+    def capture_init(*a, **k):
+        made.append(init(*a, **k))
+        return made[-1]
+
+    elastic.make_distributed_train_step, sync.lofi_merge_ = checked, recorded
+    launcher.get_config = lambda arch: configs(arch).replace(
+        n_layers=EL_DEPTH)
+    launcher.init_model = capture_init
+    d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        log = launcher.main(el_argv(leg, ckdir))
+    finally:
+        elastic.make_distributed_train_step, sync.lofi_merge_ = make, merge
+        launcher.get_config, launcher.init_model = configs, init
+    secs = time.perf_counter() - t0
+    if log is None:
+        return {"rank": rank, "run": leg, "sat_out": True}
+    ev = log.extras["elastic"]
+    named = dict(made[-1].named_parameters())
+    line = {
+        "rank": rank, "run": leg, "seconds": secs, "losses": log.losses,
+        "step_ms": [1e3 * t for t in log.step_times],
+        "by_kind": log.extras["sync_bytes_by_kind"],
+        "ms_by_kind": log.extras["sync_ms_by_kind"],
+        "events": ev["events"], "final_mode": ev["final_mode"],
+        "dropped": ev["dropped"], "n_devices": ev["n_devices"],
+        "ckpts": [{k: c[k] for k in ("step", "seconds", "bytes")}
+                  for c in ev["ckpts"]],
+        "restores": [{k: c[k] for k in ("step", "seconds")}
+                     for c in ev["restores"]],
+        "refreshes": [{k: r[k] for k in ("step", "elastic", "n_devices",
+                                          "sync_mode")}
+                      for r in log.extras["refreshes"]],
+        "sums": sums, "at": at, "launches_end": launched(),
+        "merges": merges, "peak": torch.cuda.max_memory_allocated(),
+        "tree_bytes": sum(p.numel() * p.element_size()
+                          for p in named.values())}
+    if leg == "ea" and not ev["dropped"]:
+        keep["a"] = {n: p.detach().cpu() for n, p in named.items()}
+    if leg == "er":
+        line["max_diff"] = max(
+            float((p.detach().cpu() - keep["a"][n]).abs().max())
+            for n, p in named.items())
+    if rank == 0:
+        if leg == "ea":
+            for c in ev["ckpts"]:
+                if c["step"] != EL_CKPT_EVERY:
+                    os.remove(c["path"])
+        else:
+            for d in (("a", "r") if leg == "er" else ("b",)):
+                shutil.rmtree(os.path.join(ckdir, d), ignore_errors=True)
+    del made[:], named, log
+    torch.cuda.empty_cache()
+    return line
 
 
 def update_norms(torch, params, start):
@@ -5283,14 +5504,17 @@ def mx_check_kinds(rec, want, what):
                              f"collective {rec['by_kind']} != {want}")
 
 
-def multi_axis(torch, np, tag, a):
+def multi_axis(torch, np, tag, a, ckdir=""):
     """Phase 28: (a) and (b) in one torch.distributed.run of two gloo
     ranks; ``a``: phase 26 (a)'s one-rank record (its losses and the
-    schedules it planned), which (a) replays and is held to."""
+    schedules it planned), which (a) replays and is held to. With
+    ``ckdir`` (``el_dir``) the same ranks then run phase 29's legs, whose
+    records it returns."""
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    recs, secs = mx_run(torch, np, a["tables"])
+    recs, secs = mx_run(torch, np, a["tables"],
+                        "a,am,b" + ("," + EL_LEGS if ckdir else ""), ckdir)
     t_ref = time.perf_counter()
 
     # (a) gemma3-1b, stage=2
@@ -5301,7 +5525,7 @@ def multi_axis(torch, np, tag, a):
         raise AssertionError("(a): the replayed schedules differ from "
                              "phase 26 (a)'s")
     diff = check_losses(np, SimpleNamespace(losses=r0["losses"]),
-                        SimpleNamespace(losses=a["losses"]))
+                        SimpleNamespace(losses=a["losses"][:MX_STEPS]))
     M, S, D = GM_D2FT["n_microbatches"], 2, get_config("gemma3-1b").d_model
     act = (GM_BATCH // M) * GM_SEQ * D * 4
     p2p = 0
@@ -5320,10 +5544,11 @@ def multi_axis(torch, np, tag, a):
           f"through pinned host memory: not interconnect numbers), batch "
           f"{GM_BATCH} x {GM_SEQ}, M {M} micro-batches of "
           f"{GM_BATCH // M}, n_pf {GM_D2FT['n_pf']} n_po {GM_D2FT['n_po']}"
-          f", G 4, AdamW lr {GM_LR}, {DP_STEPS} steps re-planned at steps "
+          f", G 4, AdamW lr {GM_LR}, {MX_STEPS} steps re-planned at steps "
           f"{r0['refresh_steps']} on phase 26 (a)'s schedules (replayed): "
           f"losses {[round(x, 6) for x in r0['losses']]} vs phase 26 (a)'s "
-          f"one rank {[round(x, 6) for x in a['losses']]}, max diff "
+          f"one rank {[round(x, 6) for x in a['losses'][:MX_STEPS]]}, "
+          f"max diff "
           f"{diff:.3e}; parameter checksums bitwise equal on both ranks "
           f"after every step {r0['sums']}; bytes a step by collective: "
           f"rank 0 {r0['by_kind'][0]}, rank 1 {ra[1]['by_kind'][0]} "
@@ -5380,9 +5605,157 @@ def multi_axis(torch, np, tag, a):
           f"4 x {act_b}, all_reduce = the data axis's ar_bytes); reference "
           f"{time.perf_counter() - t_ref:.1f} s {tag}", flush=True)
     mx_timing_lines(np, "(b)", rb, tag)
+    el_secs = max((r["seconds"] for leg in EL_LEGS.split(",")
+                   for r in recs.get(leg, {}).values() if "seconds" in r),
+                  default=0.0)
     print(f"[multi-axis] phase 28 took {time.perf_counter() - t_phase:.1f} s "
-          f"({secs:.1f} s in its torch.distributed.run of two ranks)",
-          flush=True)
+          f"({secs:.1f} s in its torch.distributed.run of two ranks"
+          + (f", phase 29's runs included: their longest {el_secs:.1f} s"
+             if ckdir else "") + ")", flush=True)
+    return recs
+
+
+class el_dir:
+    """Phase 29's checkpoint directory: a fresh temporary directory with
+    (a)'s and (b)'s fault plans (``FaultPlan.to_json``), removed with
+    everything in it on exit, whether the phase passed or failed. Refuses
+    to start with less than ``EL_DISK`` bytes free there."""
+
+    def __enter__(self):
+        import shutil
+        import tempfile
+        from repro_torch.launch.faults import FaultPlan
+        self.path = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+        free = shutil.disk_usage(self.path).free
+        if free < EL_DISK:
+            shutil.rmtree(self.path)
+            raise AssertionError(
+                f"phase 29 needs {EL_DISK / 1e9:.0f} GB free for its "
+                f"checkpoints (two of 5.56 GB at once) under "
+                f"{os.path.dirname(self.path)}: {free / 1e9:.1f} GB free")
+        for name, plan in (("plan_a", EL_PLAN_A), ("plan_b", EL_PLAN_B)):
+            with open(os.path.join(self.path, f"{name}.json"), "w") as f:
+                f.write(FaultPlan(**plan).to_json())
+        return self.path
+
+    def __exit__(self, *exc):
+        import shutil
+        shutil.rmtree(self.path, ignore_errors=True)
+        return False
+
+
+def elastic_checks(torch, np, tag, recs):
+    """Phase 29's checks on the records of its three runs (``el_leg``)."""
+    a0, a1 = recs["ea"][0], recs["ea"][1]
+    # (a) step 1: a guard skip on both ranks, the parameters untouched
+    for r in (a0, a1):
+        skips = [e for e in r["events"] if e["type"] == "guard_skip"]
+        if [e["step"] for e in skips] != [1] or \
+                skips[0]["bad_devices"] != 1.0:
+            raise AssertionError(f"(a) rank {r['rank']}: guard skips "
+                                 f"{skips}")
+        if r["sums"][1] != r["sums"][0]:
+            raise AssertionError(f"(a) rank {r['rank']}: the parameters "
+                                 f"moved at the skipped step: {r['sums']}")
+    if a0["sums"][:4] != a1["sums"][:4] or \
+            a0["losses"][:4] != a1["losses"][:4]:
+        raise AssertionError(f"(a): the ranks differ before the dropout: "
+                             f"{a0['sums']} {a1['sums']}")
+    # the refresh at step 2 engages capacities for the straggler
+    mit = next(x for x in a0["refreshes"] if x["step"] == 2)["elastic"]
+    if mit["unit_times"] != [1.0, 1.75] or mit["capacities"] is None or \
+            not mit["makespan"] <= mit["unmitigated_makespan"]:
+        raise AssertionError(f"(a): the step-2 refresh's mitigation {mit}")
+    # the dropout at step 4: rank 0 restores ckpt_3 alone; rank 1 stops
+    rec = [e for e in a0["events"] if e["type"] == "dropout_recovery"]
+    if len(rec) != 1 or rec[0]["ckpt_step"] != EL_CKPT_EVERY or \
+            rec[0]["recovery_steps"] != 1 or rec[0]["n_devices"] != 1 or \
+            a0["final_mode"] != "masked" or a0["dropped"]:
+        raise AssertionError(f"(a) rank 0: events {a0['events']}")
+    if [e["type"] for e in a1["events"]] != ["guard_skip", "dropped"] or \
+            not a1["dropped"] or len(a1["losses"]) != 4 or \
+            a1["launches_end"] != a1["at"][-1]:
+        raise AssertionError(f"(a) rank 1: events {a1['events']}, "
+                             f"{len(a1['losses'])} steps, B2 launches "
+                             f"{a1['at']} then {a1['launches_end']}")
+    for r in (a0, a1):
+        want = [2 * EL_DEPTH * (k + 1) for k in range(len(r["at"]))]
+        if r["at"] != want or not np.isfinite(r["losses"]).all():
+            raise AssertionError(f"(a) rank {r['rank']}: B2 launches "
+                                 f"{r['at']} != {want}, losses "
+                                 f"{r['losses']}")
+    # a fresh resume of ckpt_3 on rank 0 alone ends where (a) did
+    r0 = recs["er"][0]
+    if not recs["er"][1].get("sat_out") or \
+            not r0["max_diff"] <= EL_RESUME_TOL:
+        raise AssertionError(f"the resume: max diff {r0.get('max_diff')}")
+    # (b) two dropped syncs, the lo-fi fallback, merges equal on the ranks
+    b0, b1 = recs["eb"][0], recs["eb"][1]
+    kinds = [e["type"] for e in b0["events"]]
+    merges = [e for e in b0["events"] if e["type"] == "merge"]
+    if kinds[:3] != ["sync_drop", "sync_drop", "lofi_fallback"] or \
+            not merges or b0["final_mode"] != "local" or \
+            b0["events"] != b1["events"] or \
+            not len(b0["merges"]) == len(merges) == len(b1["merges"]):
+        raise AssertionError(f"(b): events {b0['events']} / "
+                             f"{b1['events']}")
+    for m0, m1, e in zip(b0["merges"], b1["merges"], merges):
+        if m0["sum"] != m1["sum"] or \
+                not m0["bytes"] == m1["bytes"] == e["merged_bytes"]:
+            raise AssertionError(f"(b): merge at step {e['step']}: "
+                                 f"checksums {m0} {m1}, plan bytes "
+                                 f"{e['merged_bytes']}")
+
+    def ckpt_line(r):
+        return (f"saves {[(c['step'], round(c['seconds'], 3)) for c in r['ckpts']]}"
+                f" s of {r['ckpts'][0]['bytes']} bytes, loads "
+                f"{[(c['step'], round(c['seconds'], 3)) for c in r['restores']]} s")
+    skip = [e for e in a0["events"] if e["type"] == "guard_skip"][0]
+    print(f"[elastic] (a) gemma3-1b full width, {EL_DEPTH} of 26 layers "
+          f"({a0['tree_bytes']} bytes of parameters), through "
+          f"repro_torch.launch.train --d2ft --kernel --distributed --elastic"
+          f" --mesh data=2 --faults {EL_PLAN_A}, two gloo ranks on one "
+          f"card, batch {GM_BATCH} x {GM_SEQ}, n_pf {GM_D2FT['n_pf']} n_po "
+          f"{GM_D2FT['n_po']} of {GM_D2FT['n_microbatches']}, G 4, AdamW lr "
+          f"{GM_LR}, {EL_STEPS_A} steps re-planned every {DP_REFRESH}, "
+          f"checkpoints every {EL_CKPT_EVERY}: step 1 a guard skip on both "
+          f"ranks (bad_devices {skip['bad_devices']}, bad_blocks "
+          f"{skip['bad_blocks']}), checksum after it {a0['sums'][1]} = after"
+          f" step 0; the step-2 refresh: unit times {mit['unit_times']}, "
+          f"capacities {mit['capacities']}, makespan {mit['makespan']} vs "
+          f"unmitigated {mit['unmitigated_makespan']} (ratio "
+          f"{mit['mitigation_ratio']}); the dropout at step 4: rank 0 "
+          f"restored ckpt_{EL_CKPT_EVERY} alone ({rec[0]['recovery_steps']}"
+          f" step to replay), rank 1 ran {len(a1['losses'])} steps and "
+          f"launched {a1['launches_end']} B2 kernels, none after; rank 0's "
+          f"B2 launches {a0['launches_end']}; losses "
+          f"{[round(x, 6) for x in a0['losses']]}; rank 0 {ckpt_line(a0)} "
+          f"{tag}", flush=True)
+    print(f"[elastic] the resume of ckpt_{EL_CKPT_EVERY} on rank 0 alone "
+          f"(--resume-from, --ckpt-every 0): losses "
+          f"{[round(x, 6) for x in r0['losses']]} vs (a)'s after the "
+          f"recovery {[round(x, 6) for x in a0['losses'][-len(r0['losses']):]]}"
+          f"; final parameters' max diff from (a)'s {r0['max_diff']:.3e} "
+          f"(limit {EL_RESUME_TOL}); {ckpt_line(r0)} {tag}", flush=True)
+    print(f"[elastic] (b) the plan {EL_PLAN_B}, --merge-every "
+          f"{EL_MERGE_EVERY}, two gloo ranks: events {kinds}, final mode "
+          f"{b0['final_mode']}; after each merge the ranks' parameter "
+          f"checksums {[m['sum'] for m in b0['merges']]} equal, each merge "
+          f"sent its mask plan's bytes {[m['bytes'] for m in b0['merges']]} "
+          f"(live fractions {[e['live_fraction'] for e in merges]}); losses "
+          f"rank 0 {[round(x, 6) for x in b0['losses']]}, rank 1 "
+          f"{[round(x, 6) for x in b1['losses']]} {tag}", flush=True)
+    for leg, name in (("ea", "(a)"), ("er", "resume"), ("eb", "(b)")):
+        for rank, r in sorted(recs[leg].items()):
+            if r.get("sat_out"):
+                continue
+            print(f"[elastic] {name} rank {rank}: {r['seconds']:.1f} s; step "
+                  f"ms {[round(x, 3) for x in r['step_ms']]} (p50 "
+                  f"{float(np.median(r['step_ms'])):.3f}); p50 ms by "
+                  f"collective (host clock, the calls alone) {mx_ms(np, r)}"
+                  f"; bytes a step by collective {r['by_kind'][-1]}; peak "
+                  f"{r['peak']} bytes ({r['peak'] / 2**30:.2f} GiB) {tag}",
+                  flush=True)
 
 
 def mx_mix(torch, np, recs, tag):
@@ -5456,7 +5829,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--dp-rank"]:
         return dp_rank(torch, np, sys.argv[2], sys.argv[3], sys.argv[4:])
     if sys.argv[1:2] == ["--mx-rank"]:
-        return mx_rank(torch, np, sys.argv[2])
+        return mx_rank(torch, np, *sys.argv[2:5])
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -5487,9 +5860,10 @@ def main() -> int:
     print(build.ptxas_report(), flush=True)
 
     if sys.argv[1:] in (["--only", "25"], ["--only", "26"],
-                        ["--only", "27"], ["--only", "28"]):
-        # phase 25, 26, 27 or 28 alone, after the device and the build: a
-        # partial run, which prints no result
+                        ["--only", "27"], ["--only", "28"],
+                        ["--only", "29"]):
+        # phase 25, 26, 27, 28 or 29 alone, after the device and the build:
+        # a partial run, which prints no result
         from repro_torch.kernels import contract
 
         def refuse(kind, reason):
@@ -5504,6 +5878,14 @@ def main() -> int:
             recs, _ = dp_run([sys.executable, str(ROOT / "chip_smoke.py")]
                              + dp_argv(1, "launcher", "masked:adamw"), 1)
             multi_axis(torch, np, f"[{card}]", recs["masked_adamw"][0])
+        elif only == "29":
+            t29 = time.perf_counter()
+            with el_dir() as ckdir:
+                recs, secs = mx_run(torch, np, [], EL_LEGS, ckdir)
+                elastic_checks(torch, np, f"[{card}]", recs)
+            print(f"[elastic] phase 29 took {time.perf_counter() - t29:.1f} "
+                  f"s ({secs:.1f} s in its torch.distributed.run of two "
+                  "ranks)", flush=True)
         else:
             data_parallel(torch, np, f"[{card}]", phases=(int(only),))
         print(f"chip_smoke: phase {only} alone passed (a partial run: no "
@@ -5871,10 +6253,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap(28)
-    # 28. multi-axis D2FT: gemma3-1b on a stage axis of two, stablelm-3b
-    # on a tensor axis of two -------------------------------------------
-    multi_axis(torch, np, tag, dp["a"])
-    lap("29 (the kernel records)")
+    # 28-29. multi-axis D2FT: gemma3-1b on a stage axis of two, stablelm-3b
+    # on a tensor axis of two; then, in the same ranks, the elastic layer
+    # on gemma3-1b ----------------------------------------------------------
+    with el_dir() as ckdir:
+        mx = multi_axis(torch, np, tag, dp["a"], ckdir)
+        elastic_checks(torch, np, tag, mx)
+    lap("30 (the kernel records)")
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{

@@ -429,6 +429,36 @@ def make_mesh(spec, device=None) -> Optional[Mesh]:
                 tensor=mine["tensor"])
 
 
+def sub_mesh(mesh: DataMesh, members) -> Optional[DataMesh]:
+    """The data mesh of ``members`` (ranks of ``mesh``, in the order
+    given), sharing ``mesh``'s counter and pinned buffer: the survivors of
+    the elastic loop's dropout. A group of two or more ranks is a
+    ``dist.new_group``, which is collective over the world: every rank of
+    the world calls this, and ``mesh`` must then span the world
+    (ValueError otherwise). One member takes no group (``trivial``: its
+    collectives call nothing); all of ``mesh``'s ranks give ``mesh``
+    itself. Returns None on a rank outside ``members``."""
+    members = [int(r) for r in members]
+    if members == list(range(mesh.size)):
+        return mesh
+    glob = tuple(mesh._global(r) for r in members)
+    group = None
+    if len(members) > 1:
+        if mesh.size != dist.get_world_size():
+            raise ValueError(
+                f"a sub-mesh of {len(members)} ranks needs a new process "
+                f"group, which every rank of the world must create: the "
+                f"mesh spans {mesh.size} of {dist.get_world_size()}")
+        group = dist.new_group(list(glob))
+    if mesh.rank not in members:
+        return None
+    return DataMesh(rank=members.index(mesh.rank), size=len(members),
+                    device=mesh.device, backend=mesh.backend,
+                    owns_group=False, counter=mesh.counter, _host=mesh._host,
+                    group=group, ranks=glob, name=mesh.name,
+                    trivial=len(members) == 1)
+
+
 def axes(mesh) -> Tuple[DataMesh, DataMesh, Optional[DataMesh],
                         Optional[DataMesh]]:
     """(world, data, stage, tensor) of a mesh; a ``DataMesh`` (what

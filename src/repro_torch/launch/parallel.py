@@ -13,11 +13,10 @@ The port runs one process per rank: ``launch.mesh.make_data_mesh`` builds
 the data-only mesh and ``launch.mesh.make_mesh`` the (data, stage, tensor)
 one, a process sub-group an axis, where the JAX package builds a
 ``jax.sharding.Mesh`` with ``MeshSpec.build``. ``ParallelConfig`` makes
-every check the JAX package makes, with its error types and messages; then
-the guard alone raises ``NotImplementedError`` (it comes with the
-robustness slice). Every sync mode runs (masked, ZeRO-1, ZeRO-3, streamed
-with ``opt_chunk``, local), and the stage and tensor axes with the
-unstreamed ones.
+every check the JAX package makes, with its error types and messages, and
+no other. Every sync mode runs (masked, ZeRO-1, ZeRO-3, streamed with
+``opt_chunk``, local), the stage and tensor axes with the unstreamed
+ones, and the pre-sync guard on a pure data mesh (not streamed).
 """
 from __future__ import annotations
 
@@ -28,11 +27,6 @@ SYNC_MODES = ("masked", "zero", "zero3", "local")
 
 # canonical axis names, in mesh order
 DATA_AXIS, STAGE_AXIS, TENSOR_AXIS = "data", "stage", "tensor"
-
-
-def not_ported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice")
 
 
 @dataclass(frozen=True)
@@ -119,8 +113,7 @@ class ParallelConfig:
 
     def validate(self):
         """The JAX package's cross-option checks, with its error types and
-        messages; then the refusal of the guard, which the port does not
-        run yet."""
+        messages."""
         self.mesh.validate()
         if self.sync_mode not in SYNC_MODES:
             raise ValueError(f"unknown sync_mode {self.sync_mode!r}: "
@@ -160,15 +153,6 @@ class ParallelConfig:
         elif self.microbatches:
             raise ValueError(
                 "microbatches is a pipeline option: set mesh.stage > 1")
-        if self.guard:
-            raise not_ported("guard=True", "robustness")
-
-    def require_ported(self):
-        """Refuse what the port's step and loop do not run: every sync
-        mode runs (masked, zero, zero3 streamed or not, local), and the
-        stage and tensor axes; the guard raises "not ported yet"
-        (``validate``)."""
-        self.validate()
 
     def validate_model(self, cfg):
         """Model-dependent divisibility checks (tensor axis tiling)."""

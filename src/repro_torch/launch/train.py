@@ -51,10 +51,31 @@ neither axis has a ``--kernel`` route (the masked path runs):
       -m repro_torch.launch.train --arch stablelm-3b --d2ft \
       --distributed --mesh tensor=2 --steps 3 --device cpu
 
+``--elastic`` (with ``--distributed``, on a data mesh) runs the
+fault-tolerant loop (``train.elastic.finetune_elastic``): step-level
+checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir``, the pre-sync
+guard, straggler-aware re-planning, dropout recovery and the lo-fi
+fallback; ``--faults plan.json`` injects a ``launch.faults.FaultPlan``
+(its ``to_json`` text), ``--resume-from ckpt_N.npz`` resumes from a
+checkpoint (this port's or the JAX package's), on the mesh it was saved
+on or a smaller one, and ``--sync-mode local`` starts in the lo-fi mode
+(merged every ``--merge-every`` steps):
+
+  python -m repro_torch.launch.train --arch gemma3-1b --d2ft --kernel \
+      --distributed --elastic --faults plan.json --ckpt out.npz --device cpu
+  python -m torch.distributed.run --standalone --nproc_per_node 2 \
+      -m repro_torch.launch.train --arch gemma3-1b --d2ft --kernel \
+      --distributed --elastic --mesh data=2 --faults plan.json --device cpu
+
+``--ckpt out.npz`` saves ``{"params": ...}`` in the JAX package's layout
+(``interop.params_to_jax``) at the end of every path. Where the caller
+made the process group itself, ``--mesh`` may be smaller than the world:
+the ranks past it sit the run out (``main`` returns None there), as the
+devices past a JAX mesh's size are left out of it.
+
 It runs on the card unless ``--device cpu`` is given, with a reduced
 (smoke) config unless ``--full`` is passed. The weights are random, from
-seed 0. The elastic, fault-injection, resume and checkpoint options exit
-with "not ported yet".
+seed 0.
 """
 from __future__ import annotations
 
@@ -62,8 +83,10 @@ import argparse
 import os
 import sys
 import time
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
@@ -73,9 +96,6 @@ from repro_torch.launch.parallel import MeshSpec, ParallelConfig
 from repro_torch.models.transformer import check_tp_tiling, init_model
 from repro_torch.optim.optimizers import adamw, sgd
 from repro_torch.train.loop import TrainLog, finetune, finetune_distributed
-
-# flags of the JAX launcher whose paths come with later slices
-_NOT_PORTED = ("elastic", "faults", "resume_from", "ckpt")
 
 
 def parse_args(argv=None):
@@ -114,8 +134,8 @@ def parse_args(argv=None):
                          "optimizer moments sharded ~1/n_ranks, 'zero3' = "
                          "the parameters sharded too, with the "
                          "schedule-masked (gate-elided) forward gather, "
-                         "'local' = lo-fi replicas (the elastic loop, not "
-                         "ported yet)")
+                         "'local' = lo-fi zero-sync replicas merged every "
+                         "--merge-every steps (requires --elastic)")
     ap.add_argument("--refresh-every", type=int, default=None,
                     help="re-plan the schedule every k steps (only the "
                          "--distributed path)")
@@ -127,17 +147,32 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain versions)")
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="save the final parameters here (npz, the JAX "
+                         "package's layout)")
     ap.add_argument("--elastic", action="store_true",
-                    help="the fault-tolerant elastic loop (not ported yet)")
+                    help="run the fault-tolerant elastic loop "
+                         "(train.elastic.finetune_elastic): straggler-"
+                         "aware replanning, dropout recovery from step-"
+                         "level checkpoints, NaN-burst gradient guard, "
+                         "lo-fi sync fallback; requires --distributed")
     ap.add_argument("--faults", default=None, metavar="PATH.json",
-                    help="inject a FaultPlan (not ported yet)")
-    ap.add_argument("--ckpt-every", type=int, default=1)
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--merge-every", type=int, default=4)
+                    help="inject a deterministic FaultPlan from a JSON "
+                         "file (launch.faults.FaultPlan.to_json) into the "
+                         "elastic loop: slowdowns, a rank dropout, "
+                         "gradient bursts, dropped sync rounds")
+    ap.add_argument("--ckpt-every", type=int, default=1,
+                    help="elastic step-level checkpoint cadence (steps); "
+                         "0 disables periodic checkpoints")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="directory for elastic step-level checkpoints "
+                         "(default: a fresh temp dir)")
+    ap.add_argument("--merge-every", type=int, default=4,
+                    help="lo-fi local-mode weight-merge cadence (steps)")
     ap.add_argument("--resume-from", default=None, metavar="CKPT.npz",
-                    help="resume from a step-level checkpoint (not ported "
-                         "yet)")
+                    help="resume the elastic loop from a step-level "
+                         "checkpoint (save_train_state format), on the "
+                         "original mesh size or a shrunk one")
     return ap.parse_args(argv)
 
 
@@ -152,10 +187,7 @@ def _distributed_spec(args, spec, argv) -> MeshSpec:
                          "(the shard_map step drives the gated paths)")
     world = int(os.environ.get("WORLD_SIZE", 1))
     spec = spec or MeshSpec(data=world)
-    try:
-        _parallel(args, spec).require_ported()
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    _parallel(args, spec)
     ndev = spec.data
     if spec.stage > 1 and (args.batch // ndev) % args.n_microbatches:
         raise SystemExit(
@@ -178,7 +210,8 @@ def _distributed_spec(args, spec, argv) -> MeshSpec:
             f"python -m torch.distributed.run --standalone --nproc_per_node "
             f"{spec.size} -m repro_torch.launch.train "
             + " ".join(sys.argv[1:] if argv is None else argv))
-    if spec.size != world:
+    if spec.size > world or (spec.size < world
+                             and not dist.is_initialized()):
         raise SystemExit(f"--mesh {text} does not match the world of "
                          f"{world} processes")
     return spec
@@ -193,14 +226,15 @@ def _parallel(args, spec: MeshSpec) -> ParallelConfig:
         microbatches=args.n_microbatches if spec.stage > 1 else 0)
 
 
-def main(argv=None) -> TrainLog:
+def main(argv=None) -> Optional[TrainLog]:
     args = parse_args(argv)
     spec = MeshSpec.parse(args.mesh) if args.mesh else None
     if spec is not None and not args.distributed:
         raise SystemExit("--mesh only applies to the --distributed path")
-    for flag in _NOT_PORTED:
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet")
+    if spec is not None and args.elastic and \
+            (spec.stage > 1 or spec.tensor > 1):
+        raise SystemExit("--elastic runs on a pure data mesh; use "
+                         "--mesh data=N (stage=tensor=1)")
     if args.packed and args.kernel:
         raise SystemExit("--packed and --kernel are exclusive (the packed "
                          "gather path bypasses the gated attention kernel)")
@@ -208,10 +242,13 @@ def main(argv=None) -> TrainLog:
                                  or args.refresh_every is not None):
         raise SystemExit("--sync-mode/--refresh-every only apply to the "
                          "--distributed path")
-    if args.sync_mode == "local":
+    if not args.elastic and (args.faults or args.resume_from
+                             or args.sync_mode == "local"):
         raise SystemExit("--faults/--resume-from/--sync-mode local require "
                          "--elastic (the plain distributed loop has no "
                          "fault handling)")
+    if args.elastic and not args.distributed:
+        raise SystemExit("--elastic requires --distributed")
     if args.packed and not args.d2ft:
         raise SystemExit("--packed runs a D2FT schedule: add --d2ft")
     if args.distributed:
@@ -235,6 +272,8 @@ def main(argv=None) -> TrainLog:
         check_tp_tiling(cfg, max(cfg.n_heads, 1), spec.tensor)
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(spec, args.device)
+    if mesh is None:
+        return None             # a rank past the mesh: it sits the run out
     try:
         return _run(args, cfg, mesh.device, mesh, spec)
     finally:
@@ -266,6 +305,13 @@ def _run(args, cfg, dev, mesh, spec) -> TrainLog:
     if mesh is None:
         _, _, log = finetune(model, cfg, d2, opt, batches, steps=args.steps,
                              packed=args.packed, use_kernel=args.kernel)
+    elif args.elastic:
+        log = _run_elastic(args, cfg, d2, model, opt, batches, mesh)
+        # after a dropout the survivors' first rank reports; the dropped
+        # rank is silent
+        lead = log.extras["elastic"]["rank"] == 0
+        if lead:
+            _print_sync(args, log, spec)
     else:
         _, _, log = finetune_distributed(
             model, cfg, d2, opt, batches, steps=args.steps, mesh=mesh,
@@ -277,6 +323,41 @@ def _run(args, cfg, dev, mesh, spec) -> TrainLog:
     if lead:
         print(f"{args.steps} steps in {dt:.1f}s — loss "
               f"{log.losses[0]:.3f} -> {log.losses[-1]:.3f}")
+        if args.ckpt:
+            from repro_torch.interop import params_to_jax
+            from repro_torch.train.checkpoints import save_checkpoint
+            save_checkpoint(args.ckpt, {"params": params_to_jax(
+                dict(model.named_parameters()), cfg)})
+            print(f"saved {args.ckpt}")
+    return log
+
+
+def _run_elastic(args, cfg, d2, model, opt, batches, mesh) -> TrainLog:
+    """``finetune_elastic`` with the launcher's flags; the first rank of
+    the final mesh prints the JAX launcher's elastic lines."""
+    from repro_torch.launch.faults import FaultPlan
+    from repro_torch.train.elastic import ElasticConfig, finetune_elastic
+    fp = None
+    if args.faults:
+        with open(args.faults) as f:
+            fp = FaultPlan.from_json(f.read())
+    el = ElasticConfig(refresh_every=args.refresh_every,
+                       ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
+                       merge_every=args.merge_every)
+    _, _, log = finetune_elastic(
+        model, cfg, d2, opt, batches, steps=args.steps, mesh=mesh,
+        sync_mode=args.sync_mode, faults=fp, elastic=el,
+        use_kernel=args.kernel, resume_from=args.resume_from)
+    ev = log.extras["elastic"]
+    if ev["rank"] == 0:
+        print(f"elastic: final_mode={ev['final_mode']} "
+              f"devices={ev['n_devices']} "
+              f"guard_skips={ev['guard_skips']} "
+              f"sync_faults={ev['sync_faults']} "
+              f"merges={ev['merges']}")
+        for e in ev["events"]:
+            print(f"  event: {e}")
+        print(f"last checkpoint: {ev['last_ckpt']}")
     return log
 
 
@@ -284,8 +365,8 @@ def _print_sync(args, log, spec):
     """Rank 0's report of the distributed run: the JAX launcher's lines,
     then the bytes and host-clock ms each step sent (by collective where
     there is a stage or tensor axis)."""
-    ndev = spec.data
-    rep, sync = log.extras["rebalance"], log.extras["sync"]
+    ndev = log.extras["elastic"]["n_devices"] if args.elastic else spec.data
+    rep, sync = log.extras["rebalance"], log.extras.get("sync")
     print(f"assignment: loads {rep['loads']} spread {rep['spread']} "
           f"imbalance {rep['imbalance']:.3f} "
           f"({len(log.extras['refreshes'])} replans)")
@@ -296,7 +377,10 @@ def _print_sync(args, log, spec):
               f"makespan_ratio {stages['makespan_ratio']:.3f} "
               f"(vs layer-count {stages['layer_count_boundaries']}) "
               f"bubble {stages['bubble_fraction']:.3f}")
-    if args.sync_mode in ("zero", "zero3"):
+    if sync is None:
+        print("grad sync: none (lo-fi local replicas, merged "
+              f"every {args.merge_every} steps)")
+    elif args.sync_mode in ("zero", "zero3"):
         print(f"grad sync ({args.sync_mode}): {sync['fraction']:.0%} "
               f"all-reduce-equivalent bytes ({sync['n_zero']} leaves "
               f"partitioned over {ndev} shards, "

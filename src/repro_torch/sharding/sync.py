@@ -356,13 +356,14 @@ def _bucketed_sum_(views: List[torch.Tensor], mesh, kind: str,
         del bucket
 
 
-def _all_reduce_live_(tensors: Mapping[str, torch.Tensor], plan, mesh):
+def _all_reduce_live_(tensors: Mapping[str, torch.Tensor], plan, mesh,
+                      kind: str = "all_reduce"):
     """Average the plan's live views of ``tensors`` over the mesh's ranks,
     in place, through one flat bucket per dtype and one ``all_reduce``
-    each."""
+    each, counted under ``kind``."""
     _bucketed_sum_([v for name, spec in plan.items()
                     for v in _live_views(tensors[name], spec)], mesh,
-                   "all_reduce", mean=True)
+                   kind, mean=True)
 
 
 @torch.no_grad()
@@ -407,12 +408,13 @@ def apply_tensor_grad_sync(grads: Mapping[str, torch.Tensor], mesh):
 
 
 @torch.no_grad()
-def _mean_live_(tensors: Mapping[str, torch.Tensor], plan, mesh):
+def _mean_live_(tensors: Mapping[str, torch.Tensor], plan, mesh,
+                kind: str = "all_reduce"):
     """``_all_reduce_live_`` adding the bytes sent to ``mesh.counter``,
     and the host-clock seconds of the whole sync, bucket copies
     included."""
     with _clock(mesh):
-        _all_reduce_live_(tensors, plan, mesh)
+        _all_reduce_live_(tensors, plan, mesh, kind)
 
 
 def apply_grad_sync(grads: Mapping[str, torch.Tensor], plan, mesh):
@@ -459,11 +461,13 @@ def lofi_merge(stacked: Mapping[str, torch.Tensor], plan
     return {k: _merge_leaf(stacked[k], plan[k]) for k in stacked}
 
 
-def lofi_merge_(named: Mapping[str, torch.Tensor], plan, mesh):
+def lofi_merge_(named: Mapping[str, torch.Tensor], plan, mesh,
+                kind: str = "all_reduce"):
     """The cross-rank merge: each rank holds one replica; the plan's live
-    slices are averaged over the ranks through the gradient sync's bucket,
-    in place, and every other slice is left as it is. Returns ``named``."""
-    _mean_live_(named, plan, mesh)
+    slices are averaged over the ranks through the gradient sync's bucket
+    (counted under ``kind``), in place, and every other slice is left as
+    it is. Returns ``named``."""
+    _mean_live_(named, plan, mesh, kind)
     return named
 
 

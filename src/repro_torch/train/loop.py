@@ -11,8 +11,9 @@ D2FT over a ``launch.mesh.DataMesh`` or a (data, stage, tensor)
 gradient sync or ZeRO-1 / ZeRO-3 (streamed too, on a data mesh) over the
 data axis, the GPipe pipeline over the stage axis and Megatron tensor
 parallelism over the tensor axis; ``make_distributed_train_step`` also has
-the lo-fi local mode. The sharding policy and the guard come with later
-slices.
+the lo-fi local mode and the pre-sync guard (``_grad_anomaly``), which
+``train/elastic.py::finetune_elastic`` arms. The sharding policy comes
+with a later slice.
 """
 from __future__ import annotations
 
@@ -189,6 +190,33 @@ def finetune(model: Transformer, cfg: ModelConfig, d2: Optional[D2FTConfig],
 
 
 # ---------------------------------------------------------- distributed path
+def _block_of(name: str) -> str:
+    """The guard's block of a flat parameter name: its layer
+    (``layers.<l>``), else its loss-path subtree (``embed``,
+    ``final_norm``, ``unembed``, ``frontend_proj``)."""
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "layers" else parts[0]
+
+
+def _grad_anomaly(grads, thresh):
+    """Per-subnet-block gradient anomaly detection (the pre-sync guard).
+
+    One squared grad norm per parameter block: each layer (the JAX
+    package's per-cycle entry of a ``cycles`` leaf, or a ``rest`` block)
+    and each loss-path subtree; a block is bad when its norm is non-finite
+    or exceeds ``thresh`` (+inf disables the norm test). Returns
+    (bad_any, n_bad_blocks): a 0-d bool and a 0-d float32 tensor, left on
+    the device."""
+    blocks: dict = {}
+    for n, g in grads.items():
+        sq = torch.sum(g.float() ** 2)
+        b = _block_of(n)
+        blocks[b] = blocks[b] + sq if b in blocks else sq
+    sq = torch.stack(list(blocks.values()))
+    bad = ~torch.isfinite(sq) | (torch.sqrt(sq) > float(thresh))
+    return bad.any(), bad.sum().float()
+
+
 _UNSET = object()     # sentinel: a deprecated loose kwarg was not passed
 
 
@@ -289,13 +317,30 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
     Ranks that share a data index take the same batch shard; the data-axis
     sync, the metrics' mean and the ZeRO shards run over the data axis.
 
+    ``parallel.guard`` arms the pre-sync guard (not with ``streamed``, nor
+    with a stage or tensor axis: ``ParallelConfig`` refuses them, as JAX
+    does): the step takes ``(fault, thresh)`` after the gates, ``fault`` a
+    [data ranks] multiplier (numpy) of which this rank applies entry
+    ``rank`` to its local grads (the fault-injection seam; all ones when
+    healthy) and ``thresh`` the per-block grad-norm threshold (+inf
+    disables it). After the backward each rank checks its local grads
+    block by block (``_grad_anomaly``) and zeroes them all where one is
+    bad, before any collective; one ``all_reduce`` of [bad, n_bad_blocks]
+    (counted under ``guard``) tells every rank whether any rank flagged.
+    If one did, the sync still runs (on the zeroed grads; its norm is the
+    step's ``grad_norm``) but no rank updates: parameters and optimizer
+    state stay bit for bit. The metrics gain ``skipped`` (0 / 1),
+    ``bad_devices`` and ``bad_blocks``. In the local mode the guard is
+    the rank's own: no collective, and only the flagged replica holds
+    back.
+
     ``sync_plan``: {name: SyncSpec} from ``sharding.sync.grad_sync_plan``
     of the step's mode (ignored in local mode). ``live_bounds``: the
     per-rank (live_fwd, live_bwd) compaction bounds (``core.assignment.
     distributed_live_bounds``). The loose kwargs below ``live_bounds`` are
-    the deprecated spelling of ``parallel``. The guard is refused by
-    ``ParallelConfig``. The JAX step takes a ``params`` template for the
-    moments' sharding; here the shapes come from the model."""
+    the deprecated spelling of ``parallel``. The JAX step takes a
+    ``params`` template for the moments' sharding; here the shapes come
+    from the model."""
     from repro_torch.launch.mesh import axes
     from repro_torch.sharding import sync
     from repro_torch.train.pipeline import pipeline_loss
@@ -306,7 +351,6 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
         if v is not _UNSET}
     parallel = _resolve_parallel(parallel, mesh, given,
                                  where="make_distributed_train_step")
-    parallel.require_ported()
     parallel.validate_model(cfg)
     mode = parallel.sync_mode
     S, T = parallel.mesh.stage, parallel.mesh.tensor
@@ -323,6 +367,7 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
                              f"stage axis of {S}")
     _, dmesh, smesh, tmesh = axes(mesh) if mesh is not None else \
         (None, None, None, None)
+    guard = parallel.guard
     tp = tmesh if T > 1 else None
     upd_opt = chunked(opt, parallel.opt_chunk) if parallel.opt_chunk \
         else opt
@@ -375,6 +420,32 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
         return dict(zip(names, vals[1:n] / dmesh.size),
                     loss=vals[0] / dmesh.size), vals[n:]
 
+    def guard_local(grads, fault, thresh):
+        """Fault-inject, then zero this rank's grads where a block is
+        anomalous, before any collective. Returns [bad ranks, bad blocks]
+        over the ranks (this rank's own in the local mode)."""
+        uniq = list({id(g): g for g in grads.values()}.values())
+        f = float(np.asarray(fault)[dmesh.rank if dmesh is not None else 0])
+        if f != 1.0:
+            for g in uniq:
+                g.mul_(f)
+        bad, n_bad = _grad_anomaly(grads, np.inf if thresh is None
+                                   else thresh)
+        for g in uniq:
+            g.masked_fill_(bad, 0.0)
+        flags = torch.stack([bad.float(), n_bad])
+        if mode != "local":
+            dmesh.sum_(flags, "guard")
+        return flags
+
+    def guarded(metrics, flags):
+        """(skip the update?, the metrics with the guard's three)."""
+        if flags is None:
+            return False, metrics
+        return bool(flags[0] > 0), dict(
+            metrics, skipped=(flags[0] > 0).float(), bad_devices=flags[0],
+            bad_blocks=flags[1])
+
     def finish_zero(gsync, loss, metrics):
         """The ZeRO bodies' metrics and clip: the global norm is
         sqrt(all-reduced shard_sq + full_sq), and the grads are scaled in
@@ -387,30 +458,37 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
             g.mul_(scale)
         return dict(out, grad_norm=gnorm)
 
-    def step_masked(model, opt_state, batch, gates):
+    def step_masked(model, opt_state, batch, gates, fault=None,
+                    thresh=None):
         params = dict(model.named_parameters())
         loss, metrics, grads = loss_and_grads(model, params, batch, gates)
+        flags = guard_local(grads, fault, thresh) if guard else None
         if mode != "local":
             sync.apply_grad_sync(grads, sync_plan, dmesh)
         out, _ = mean_over_ranks(loss, metrics)
         grads, gnorm = clip_by_global_norm_(grads, clip)
-        opt.update(grads, opt_state, params)
-        return model, opt_state, dict(out, grad_norm=gnorm)
-
-    def step_zero(model, opt_state, batch, gates):
-        params = dict(model.named_parameters())
-        loss, metrics, grads = loss_and_grads(model, params, batch, gates)
-        gsync = sync.apply_zero_scatter(grads, sync_plan, dmesh)
-        del grads
-        out = finish_zero(gsync, loss, metrics)
-        # each rank updates its owned shard copy; the masked all-gather
-        # re-replicates exactly the runs whose parameters can have changed
-        pshard = sync.zero_shard_params(params, sync_plan, dmesh.rank)
-        opt.update(gsync, opt_state, pshard)
-        sync.apply_zero_gather(pshard, params, sync_plan, dmesh)
+        skip, out = guarded(dict(out, grad_norm=gnorm), flags)
+        if not skip:
+            opt.update(grads, opt_state, params)
         return model, opt_state, out
 
-    def step_zero3(model, opt_state, batch, gates):
+    def step_zero(model, opt_state, batch, gates, fault=None, thresh=None):
+        params = dict(model.named_parameters())
+        loss, metrics, grads = loss_and_grads(model, params, batch, gates)
+        flags = guard_local(grads, fault, thresh) if guard else None
+        gsync = sync.apply_zero_scatter(grads, sync_plan, dmesh)
+        del grads
+        skip, out = guarded(finish_zero(gsync, loss, metrics), flags)
+        if not skip:
+            # each rank updates its owned shard copy; the masked all-gather
+            # re-replicates exactly the runs whose parameters can have
+            # changed
+            pshard = sync.zero_shard_params(params, sync_plan, dmesh.rank)
+            opt.update(gsync, opt_state, pshard)
+            sync.apply_zero_gather(pshard, params, sync_plan, dmesh)
+        return model, opt_state, out
+
+    def step_zero3(model, opt_state, batch, gates, fault=None, thresh=None):
         params = dict(model.named_parameters())
         full = sync.zero3_materialize(
             {n: p.detach() for n, p in params.items()}, sync_plan, dmesh)
@@ -421,13 +499,15 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
                 model, {n: views.get(n, p) for n, p in params.items()},
                 batch, gates)
         del full, views
+        flags = guard_local(grads, fault, thresh) if guard else None
         gsync = sync.apply_zero_scatter(grads, sync_plan, dmesh)
         del grads
-        out = finish_zero(gsync, loss, metrics)
+        skip, out = guarded(finish_zero(gsync, loss, metrics), flags)
         del loss, metrics
         # shards and their grads are both shard-resident: the update never
         # touches a full tensor and no gather follows it
-        upd_opt.update(gsync, opt_state, params)
+        if not skip:
+            upd_opt.update(gsync, opt_state, params)
         return model, opt_state, out
 
     def step_zero3_streamed(model, opt_state, batch, gates):
@@ -446,6 +526,148 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
     if mode == "zero":
         return step_zero
     return step_zero3_streamed if parallel.streamed else step_zero3
+
+
+def planned_schedule(model: Transformer, cfg: ModelConfig, d2: D2FTConfig,
+                     batch, mesh) -> Schedule:
+    """Rank 0 of ``mesh`` scores ``batch``'s micro-batches on the model and
+    plans the schedule; the table is broadcast over ``mesh``, so every rank
+    runs one schedule. ``batch``: numpy {"tokens", "labels"}."""
+    G = d2.head_groups or max(cfg.n_heads, 1)
+    dev = mesh.device
+    table = torch.zeros((cfg.n_layers * G, d2.n_microbatches),
+                        dtype=torch.int32, device=dev)
+    if mesh.rank == 0:
+        mbs = split_microbatches(
+            {k: torch.as_tensor(np.asarray(v), device=dev)
+             for k, v in batch.items()}, d2.n_microbatches)
+        planned = plan_from_scores(
+            cfg, d2, dict(model.named_parameters()), mbs,
+            lambda p, mb: lm_loss(model, cfg, mb.get("tokens"),
+                                  mb["labels"],
+                                  features=mb.get("features"))[0])
+        table.copy_(torch.from_numpy(planned.table.astype(np.int32)))
+    mesh.broadcast_(table)
+    return Schedule(table.cpu().numpy().astype(np.int8), cfg.n_layers, G)
+
+
+def logged_step(log: TrainLog, counter, dev, call):
+    """Run one distributed step (``call()`` -> (model, opt_state,
+    metrics)) and log it: its host-clock seconds to a device sync, its
+    metrics and loss, and the bytes and ms it handed to each collective
+    (``counter``: the mesh's ``CollectiveCounter``) in ``log.extras``'s
+    ``sync_bytes``, ``sync_bytes_by_kind``, ``sync_ms_by_kind`` and
+    ``sync_ms``. Returns (opt_state, metrics as floats)."""
+    sent = dict(counter.bytes)
+    secs = dict(counter.kind_seconds)
+    total_s = counter.seconds
+    t0 = time.perf_counter()
+    _, opt_state, metrics = call()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    log.step_times.append(time.perf_counter() - t0)
+    log.metrics.append({k: float(v) for k, v in metrics.items()})
+    log.losses.append(log.metrics[-1]["loss"])
+    by_kind = {k: v - sent.get(k, 0) for k, v in counter.bytes.items()
+               if v != sent.get(k, 0)}
+    log.extras.setdefault("sync_bytes", []).append(sum(by_kind.values()))
+    log.extras.setdefault("sync_bytes_by_kind", []).append(by_kind)
+    log.extras.setdefault("sync_ms_by_kind", []).append(
+        {k: 1e3 * (counter.kind_seconds[k] - secs.get(k, 0.0))
+         for k in by_kind})
+    log.extras.setdefault("sync_ms", []).append(
+        1e3 * (counter.seconds - total_s))
+    return opt_state, log.metrics[-1]
+
+
+# the data axis's plan and step inputs, shared by ``finetune_distributed``
+# and ``train/elastic.py::finetune_elastic``
+def data_sync_plan(shapes, cfg: ModelConfig, sched: Schedule, mode: str,
+                   n_data: int, opt: Optimizer, ever_live):
+    """(the data axis's sync plan for ``sched`` under ``mode``, the new
+    ``ever_live``). ``ever_live`` is ZeRO-1's [L, G] groups backward-live
+    under any plan since the moments were zero (None: none yet): its
+    gather elision, for an ``opt.elidable`` optimizer only, must still
+    gather them. ``shapes``: the canonical parameter shapes."""
+    from repro_torch.sharding import sync
+    if mode != "zero":
+        return sync.grad_sync_plan(shapes, cfg, sched, mode,
+                                   n_shards=n_data), ever_live
+    plan = sync.grad_sync_plan(shapes, cfg, sched, "zero", n_shards=n_data,
+                               ever_live=ever_live,
+                               elide_gather=opt.elidable)
+    live = sync.backward_live_groups(sched)
+    return plan, live if ever_live is None else ever_live | live
+
+
+def data_plan_record(sync_plan, shapes, mode: str, n_data: int,
+                     opt: Optimizer) -> dict:
+    """A refresh record's byte reports of ``sync_plan``: ``sync``, and
+    under ZeRO ``zero_state``, under ZeRO-3 ``zero3_params``."""
+    from repro_torch.sharding import sync
+    record = {"sync": sync.sync_byte_report(sync_plan, shapes,
+                                            n_shards=n_data)}
+    if mode in ("zero", "zero3"):
+        record["zero_state"] = sync.zero_state_byte_report(
+            sync_plan, shapes, n_data, opt.n_moments)
+    if mode == "zero3":
+        record["zero3_params"] = sync.zero3_param_byte_report(
+            sync_plan, shapes, n_data)
+    return record
+
+
+def relayout_moments(state, old_plan, new_plan, mesh, shapes):
+    """The optimizer state's moments from ``old_plan``'s shard layout to
+    ``new_plan``'s over ``mesh`` (None: canonical whole); a new dict, the
+    step counter kept."""
+    from repro_torch.sharding import sync
+    return {k: sync.zero_relayout(v, old_plan, new_plan, mesh)
+            if isinstance(v, dict) and v.keys() == shapes.keys() else v
+            for k, v in state.items()}
+
+
+def lay_out_plan(model: Transformer, opt: Optimizer, opt_state, old_plan,
+                 new_plan, mode: str, mesh, shapes):
+    """The ZeRO state moved to ``new_plan``'s layout on this rank of the
+    data axis ``mesh``: the moments re-laid out from ``old_plan``'s (a
+    None state starts fresh in the new layout) and, under ZeRO-3, the
+    model's parameters, whole on entry, cut to this rank's shards. Returns
+    the optimizer state; the masked mode's is returned as it is."""
+    from repro_torch.sharding import sync
+    if mode not in ("zero", "zero3"):
+        return opt_state
+    if opt_state is None:
+        opt_state = opt.init({n: torch.empty(
+            sync.zero_shard_shape(s.shape, new_plan[n]), dtype=s.dtype,
+            device=mesh.device) for n, s in shapes.items()})
+    else:
+        opt_state = relayout_moments(opt_state, old_plan, new_plan, mesh,
+                                     shapes)
+    if mode == "zero3":
+        sync.zero3_shard_model_(model, new_plan, mesh.rank)
+    return opt_state
+
+
+def data_step_inputs(batch, sched: Schedule, assignment, n_microbatches: int,
+                     n_data: int, rank: int, dev, use_kernel: bool):
+    """(shard, gates, bounds) of data rank ``rank``: its contiguous block
+    of the numpy ``batch`` permuted by the device assignment, as tensors on
+    ``dev``; its gates [L, B / n_data, G] on ``dev``; the kernel's live
+    bounds over every rank (None without the kernel), which the gates are
+    checked against."""
+    from repro_torch.core.assignment import (device_sample_order,
+                                             distributed_live_bounds)
+    B = batch["labels"].shape[0]
+    mb_of = microbatch_assignment(B, n_microbatches)
+    n = B // n_data
+    local = device_sample_order(assignment, mb_of)[rank * n:(rank + 1) * n]
+    bounds = distributed_live_bounds(sched, mb_of, assignment) \
+        if use_kernel else None
+    g_f, g_b = gates_from_schedule(sched, mb_of[local], "cpu")
+    _check_schedule_gates(g_f, g_b, bounds)
+    shard = {k: torch.as_tensor(np.asarray(v)[local], device=dev)
+             for k, v in batch.items()}
+    return shard, (g_f.to(dev), g_b.to(dev)), bounds
 
 
 def finetune_distributed(model: Transformer, cfg: ModelConfig,
@@ -499,9 +721,7 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
     model's parameters and the returned moments are in canonical order,
     whole, whatever the mode. Returns (model, opt_state, log); the model
     is updated in place."""
-    from repro_torch.core.assignment import (device_sample_order,
-                                             distributed_live_bounds,
-                                             plan_device_assignment,
+    from repro_torch.core.assignment import (plan_device_assignment,
                                              plan_stage_assignment)
     from repro_torch.core.schedule import op_counts
     from repro_torch.launch.mesh import axes
@@ -514,7 +734,6 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
         opt_chunk=opt_chunk).items() if v is not _UNSET}
     parallel = _resolve_parallel(parallel, mesh, given,
                                  where="finetune_distributed")
-    parallel.require_ported()
     mode = parallel.sync_mode
     if mode == "local":
         raise ValueError(
@@ -528,7 +747,7 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
         check_tp_tiling(cfg, G, T)
     log = log or TrainLog()
     wmesh, dmesh, _, _ = axes(mesh)
-    dev, n_data, rank = mesh.device, dmesh.size, dmesh.rank
+    dev, n_data = mesh.device, dmesh.size
     params = dict(model.named_parameters())
     for p in params.values():
         wmesh.broadcast_(p.detach())
@@ -539,52 +758,20 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
     zero = mode in ("zero", "zero3")
     opt_state = None if zero else opt.init(params)
 
-    def on_device(batch):
-        return {k: torch.as_tensor(np.asarray(v), device=dev)
-                for k, v in batch.items()}
-
     ever_live = None
 
     def replan(batch):
         nonlocal ever_live
-        table = torch.zeros((cfg.n_layers * G, d2.n_microbatches),
-                            dtype=torch.int32, device=dev)
-        if wmesh.rank == 0:
-            mbs = split_microbatches(on_device(batch), d2.n_microbatches)
-            planned = plan_from_scores(
-                cfg, d2, params, mbs,
-                lambda p, mb: lm_loss(model, cfg, mb.get("tokens"),
-                                      mb["labels"],
-                                      features=mb.get("features"))[0])
-            table.copy_(torch.from_numpy(planned.table.astype(np.int32)))
-        wmesh.broadcast_(table)
-        sched = Schedule(table.cpu().numpy().astype(np.int8), cfg.n_layers,
-                         G)
+        sched = planned_schedule(model, cfg, d2, batch, wmesh)
         assignment, report = plan_device_assignment(sched, n_data)
-        if mode == "zero":
-            prior = ever_live
-            if ever_live is None:
-                ever_live = np.zeros((cfg.n_layers, sched.n_groups), bool)
-            sync_plan = sync.grad_sync_plan(
-                shapes, cfg, sched, "zero", n_shards=n_data,
-                ever_live=prior, elide_gather=opt.elidable)
-            ever_live = ever_live | sync.backward_live_groups(sched)
-        else:
-            sync_plan = sync.grad_sync_plan(shapes, cfg, sched, mode,
-                                            n_shards=n_data)
+        sync_plan, ever_live = data_sync_plan(shapes, cfg, sched, mode,
+                                              n_data, opt, ever_live)
         record = {
             "rebalance": report,
-            "sync": sync.sync_byte_report(sync_plan, shapes,
-                                          n_shards=n_data),
+            **data_plan_record(sync_plan, shapes, mode, n_data, opt),
             "op_counts": op_counts(sched),
             "device_of": [int(x) for x in assignment.device_of],
         }
-        if zero:
-            record["zero_state"] = sync.zero_state_byte_report(
-                sync_plan, shapes, n_data, opt.n_moments)
-        if mode == "zero3":
-            record["zero3_params"] = sync.zero3_param_byte_report(
-                sync_plan, shapes, n_data)
         stage_assign = None
         if S > 1:
             # re-pack the stages for the NEW schedule's live costs: a
@@ -595,19 +782,8 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
             record["stages"] = stage_rep
         return sched, assignment, stage_assign, sync_plan, record
 
-    def relayout_state(state, old_plan, new_plan):
-        """The moments from one plan's shard layout to another's (None:
-        canonical whole); a fresh state at the first plan."""
-        if state is None:
-            return opt.init({n: torch.empty(
-                sync.zero_shard_shape(s.shape, new_plan[n]), dtype=s.dtype,
-                device=dev) for n, s in shapes.items()})
-        return {k: sync.zero_relayout(v, old_plan, new_plan, dmesh)
-                if isinstance(v, dict) and v.keys() == shapes.keys() else v
-                for k, v in state.items()}
-
     sched = assignment = stage_assign = sync_plan = step_fn = None
-    bounds = recorder = record = None
+    recorder = record = None
     for i, batch in enumerate(batches):
         if i >= steps:
             break
@@ -619,10 +795,9 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
                 sync.zero3_unshard_model_(model, old_plan, dmesh)
             sched, assignment, stage_assign, sync_plan, record = \
                 replan(batch)
-            if zero:
-                opt_state = relayout_state(opt_state, old_plan, sync_plan)
+            opt_state = lay_out_plan(model, opt, opt_state, old_plan,
+                                     sync_plan, mode, dmesh, shapes)
             if mode == "zero3":
-                sync.zero3_shard_model_(model, sync_plan, rank)
                 log.extras["zero3_params"] = record["zero3_params"]
             record["step"] = i
             log.extras["rebalance"] = record["rebalance"]
@@ -631,50 +806,26 @@ def finetune_distributed(model: Transformer, cfg: ModelConfig,
                 log.extras["stages"] = record["stages"]
             log.extras.setdefault("refreshes", []).append(record)
             step_fn = None
-        B = batch["labels"].shape[0]
-        mb_of = microbatch_assignment(B, d2.n_microbatches)
-        perm = device_sample_order(assignment, mb_of)
-        n = B // n_data
-        local = perm[rank * n:(rank + 1) * n]
+        shard, gates, bounds = data_step_inputs(
+            batch, sched, assignment, d2.n_microbatches, n_data, dmesh.rank,
+            dev, parallel.use_kernel)
         if step_fn is None:
-            bounds = distributed_live_bounds(sched, mb_of, assignment) \
-                if parallel.use_kernel else None
             recorder = sync.ResidencyRecorder() if parallel.streamed \
                 else None
             step_fn = make_distributed_train_step(
                 cfg, opt, mesh, sync_plan, parallel=parallel, clip=clip,
                 live_bounds=bounds, residency_recorder=recorder,
                 stage_assignment=stage_assign)
-        g_f, g_b = gates_from_schedule(sched, mb_of[local], "cpu")
-        _check_schedule_gates(g_f, g_b, bounds)
-        shard = on_device({k: np.asarray(v)[local] for k, v in batch.items()})
-        sent = dict(mesh.counter.bytes)
-        secs = dict(mesh.counter.kind_seconds)
-        total_s = mesh.counter.seconds
-        t0 = time.perf_counter()
-        _, opt_state, metrics = step_fn(model, opt_state, shard,
-                                        (g_f.to(dev), g_b.to(dev)))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        log.step_times.append(time.perf_counter() - t0)
-        log.metrics.append({k: float(v) for k, v in metrics.items()})
-        log.losses.append(log.metrics[-1]["loss"])
-        by_kind = {k: v - sent.get(k, 0)
-                   for k, v in mesh.counter.bytes.items()
-                   if v != sent.get(k, 0)}
-        log.extras.setdefault("sync_bytes", []).append(sum(by_kind.values()))
-        log.extras.setdefault("sync_bytes_by_kind", []).append(by_kind)
-        log.extras.setdefault("sync_ms_by_kind", []).append(
-            {k: 1e3 * (mesh.counter.kind_seconds[k] - secs.get(k, 0.0))
-             for k in by_kind})
-        log.extras.setdefault("sync_ms", []).append(
-            1e3 * (mesh.counter.seconds - total_s))
+        opt_state, _ = logged_step(
+            log, mesh.counter, dev,
+            lambda: step_fn(model, opt_state, shard, gates))
         if recorder is not None and "residency" not in record:
             record["residency"] = sync.check_zero3_residency(
                 recorder, sync_plan, shapes, n_data)
     if zero and sync_plan is not None:
         # hand back canonical whole state: the shard layout is internal
-        opt_state = relayout_state(opt_state, sync_plan, None)
+        opt_state = relayout_moments(opt_state, sync_plan, None, dmesh,
+                                     shapes)
         if mode == "zero3":
             sync.zero3_unshard_model_(model, sync_plan, dmesh)
     return model, opt_state, log

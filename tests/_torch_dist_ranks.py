@@ -25,6 +25,14 @@ Cases:
   collective, the moments' bytes, the residency check of the streamed
   step (``check_zero3_residency``) and the canonical parameters after the
   run.
+* ``elastic`` — ``train.elastic.finetune_elastic`` on the two ranks,
+  two legs. (a) The plan drops rank 1 at step 3 (checkpoints every 2):
+  each rank saves its events, losses, parameters and the steps it ran;
+  then rank 0 alone resumes the step-2 checkpoint on a mesh of its own
+  (``launch.mesh.sub_mesh``) and saves the same. (b) Dropped syncs at
+  steps 1 and 2 into the lo-fi mode, merged every 2 steps, checkpoints in
+  the default directory (rank 0's, broadcast): each rank saves its events
+  and, after every merge, its parameters and the bytes the merge sent.
 * ``multiaxis`` — a world of 8 (``launch.mesh.make_mesh``), one arm after
   another, each 3 SGD steps of the step from the same weights, saving its
   losses, each step's bytes by collective, the pipeline's round report and
@@ -382,6 +390,56 @@ def start_ranks(case, root, inputs, world=2, timeout=240):
     return results
 
 
+def case_elastic(inp, mesh, sched):
+    from repro_torch.launch.faults import FaultPlan
+    from repro_torch.launch.mesh import sub_mesh
+    from repro_torch.train import elastic
+
+    d2 = D2FTConfig(**inp["d2"])
+    root = Path(inp["root"])
+    out = {}
+
+    def run(faults, steps, run_mesh, **kw):
+        cfg, model = _model(inp)
+        el = elastic.ElasticConfig(**kw.pop("el"))
+        _, _, log = elastic.finetune_elastic(
+            model, cfg, d2, sgd(0.1), inp["batches"], steps=steps,
+            mesh=run_mesh, faults=faults, elastic=el, use_kernel=True, **kw)
+        ev = log.extras["elastic"]
+        return {"events": ev["events"], "losses": log.losses,
+                "params": _params(model), "steps_run": len(log.losses),
+                "dropped": ev["dropped"], "final_mode": ev["final_mode"]}
+
+    out["dropout"] = run(FaultPlan(dropout=(3, 1)), 5, mesh,
+                         el=dict(ckpt_every=2, ckpt_dir=str(root / "a")))
+    alone = sub_mesh(mesh, [0])
+    if alone is not None:
+        out["resumed"] = run(None, 5, alone,
+                             el=dict(ckpt_every=0, ckpt_dir=str(root / "r")),
+                             resume_from=str(root / "a" / "ckpt_2.npz"))
+    merged, merge_bytes = [], []
+    merge = sync.lofi_merge_
+
+    def recorded(named, plan, m, kind="all_reduce"):
+        sent = m.counter.bytes.get(kind, 0)
+        merge(named, plan, m, kind)
+        merged.append({n: t.clone() for n, t in named.items()})
+        merge_bytes.append(m.counter.bytes[kind] - sent)
+        return named
+
+    # the default checkpoint directory: rank 0's fresh temporary directory,
+    # broadcast (made under the test's own directory)
+    import tempfile
+    sync.lofi_merge_, tempfile.tempdir = recorded, str(root)
+    try:
+        out["lofi"] = run(FaultPlan(dropped_syncs=(1, 2)), 6, mesh,
+                          el=dict(ckpt_every=0, merge_every=2))
+    finally:
+        sync.lofi_merge_, tempfile.tempdir = merge, None
+    out["lofi"].update(merged=merged, merge_bytes=merge_bytes)
+    return out
+
+
 def main():
     case, root, rank, world = sys.argv[1], Path(sys.argv[2]), \
         int(sys.argv[3]), int(sys.argv[4])
@@ -394,8 +452,10 @@ def main():
         inp = torch.load(root / "inputs.pt", weights_only=False)
         sched = Schedule(inp["table"].numpy().astype(np.int8),
                          inp["cfg"].n_layers, inp["G"])
+        inp["root"] = str(root)
         out = {"sync": case_sync, "train": case_train, "zero": case_zero,
-               "multiaxis": case_multiaxis}[case](inp, mesh, sched)
+               "multiaxis": case_multiaxis,
+               "elastic": case_elastic}[case](inp, mesh, sched)
         torch.save(out, root / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()

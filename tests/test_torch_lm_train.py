@@ -105,20 +105,36 @@ def test_launcher_runs_the_fine_tune_on_the_cpu(capsys):
     assert len(log.losses) == 2 and np.isfinite(log.losses).all()
 
 
-# the distributed path is ported, the ZeRO sync modes and the stage and
-# tensor axes too: a mesh with a stage or a tensor axis now asks for its
-# processes (torch.distributed.run) instead of saying "not ported yet"
+# every flag of the JAX launcher is ported: a mesh with a stage or a
+# tensor axis asks for its processes (torch.distributed.run), the elastic
+# flags give the JAX launcher's refusals where they are misused, and
+# --ckpt saves the final parameters in the JAX package's layout
 NOT_PORTED_WITH = {"--distributed": ["--d2ft", "--mesh", "data=1,stage=2"],
                    "--mesh=data=2": ["--distributed", "--d2ft",
                                      "--mesh=data=2,tensor=2"]}
+REFUSED = {"--elastic": "--elastic requires --distributed",
+           "--faults=f.json": "--faults/--resume-from/--sync-mode local "
+                              "require --elastic",
+           "--resume-from=c.npz": "--faults/--resume-from/--sync-mode local"
+                                  " require --elastic"}
 
 
 @pytest.mark.parametrize("flag", ["--distributed", "--elastic",
                                   "--mesh=data=2", "--faults=f.json",
                                   "--resume-from=c.npz", "--ckpt=c.npz"])
-def test_launcher_refuses_what_is_not_ported(flag):
+def test_launcher_refuses_what_is_not_ported(flag, tmp_path, monkeypatch):
+    if flag == "--ckpt=c.npz":
+        from repro_torch.interop import params_from_jax
+        from repro_torch.train.checkpoints import load_checkpoint
+        monkeypatch.chdir(tmp_path)
+        launcher.main(["--arch", "mamba2-130m", flag, "--device", "cpu",
+                       "--steps", "1", "--batch", "2", "--seq", "8"])
+        saved = params_from_jax(load_checkpoint("c.npz")["params"])
+        assert "layers.0.ssd.w_in" in saved and \
+            all(np.isfinite(t.numpy()).all() for t in saved.values())
+        return
     match = "runs one process per rank" if flag in NOT_PORTED_WITH \
-        else "not ported yet"
+        else REFUSED[flag]
     with pytest.raises(SystemExit, match=match):
         launcher.main(["--arch", "mamba2-130m", flag, "--device", "cpu"]
                       + NOT_PORTED_WITH.get(flag, []))

@@ -52,6 +52,17 @@ CONFIGS = {"d2ft": (JaxModelConfig(**CFG), ModelConfig(**CFG)),
            "gemma3": (jax_gemma.smoke_config(), gemma3_1b.smoke_config())}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """torch's intra-op threads at 1 for this file's tests, the old count
+    restored after: its small CPU ops run faster on one thread than across
+    threads beside the other test processes."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_params(name):
     jcfg = CONFIGS[name][0]

@@ -4,8 +4,9 @@ flags, ``optim/optimizers.py::chunked``) against the JAX package on the
 CPU: ``MeshSpec.parse`` and ``ParallelConfig`` give JAX's results, error
 types and messages, case for case; the launcher refuses the distributed
 flags' misuses, ``--mesh`` among them, with JAX's messages; what the port
-does not run yet (the guard, the elastic loop) raises "not ported yet",
-and the ZeRO, stage and tensor calls that raised it before run;
+ran "not ported yet" before runs now (the guard builds with JAX's
+refusals only, the launcher's elastic flags take JAX's refusals), and so
+do the ZeRO, stage and tensor calls;
 ``chunked`` is bit-identical to the unchunked SGD and AdamW updates.
 """
 import sys
@@ -82,16 +83,33 @@ def test_parallel_config_matches_jax(kw):
 
 
 @pytest.mark.parametrize("what", ["guard", "launcher_elastic"])
-def test_what_is_not_ported_says_so(what):
-    argv = ["--arch", "gemma3-1b", "--d2ft", "--distributed", "--device",
-            "cpu"]
-    calls = {
-        "guard": lambda: ParallelConfig(guard=True),
-        "launcher_elastic": lambda: launcher.main(argv + ["--elastic"]),
-    }
-    exc = SystemExit if what.startswith("launcher") else NotImplementedError
-    with pytest.raises(exc, match="not ported yet"):
-        calls[what]()
+def test_what_is_not_ported_says_so(what, monkeypatch):
+    """What said "not ported yet" before the elastic slice: the guard
+    builds as JAX's does (on a data mesh, masked or ZeRO), and the
+    launcher's ``--elastic`` reaches JAX's refusal of a stage axis, with
+    its message."""
+    if what == "guard":
+        for kw in (dict(), dict(sync_mode="zero3"),
+                   dict(sync_mode="local", mesh=dict(data=2))):
+            def build(config, spec):
+                c = config(guard=True, **dict(kw, mesh=spec(
+                    **kw.get("mesh", {}))))
+                return c.guard, c.sync_mode, c.mesh.shape
+            assert _outcome(lambda: build(ParallelConfig, MeshSpec)) == \
+                _outcome(lambda: build(JaxParallelConfig, JaxMeshSpec)) == \
+                ("ok", (True, kw.get("sync_mode", "masked"),
+                        (kw.get("mesh", {}).get("data", 1), 1, 1)))
+        return
+    argv = ["--arch", "gemma3-1b", "--d2ft", "--distributed", "--elastic",
+            "--mesh", "data=1,stage=2"]
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    with pytest.raises(SystemExit) as theirs:
+        jax_launcher.main()
+    with pytest.raises(SystemExit) as mine:
+        launcher.main(argv + ["--device", "cpu"])
+    assert str(mine.value) == str(theirs.value) == (
+        "--elastic runs on a pure data mesh; use --mesh data=N "
+        "(stage=tensor=1)")
 
 
 @pytest.mark.parametrize("what", [
@@ -145,11 +163,11 @@ def test_what_was_refused_now_runs(what, capsys):
         "launcher_zero3": lambda: launcher.main(argv + ["--sync-mode",
                                                         "zero3"]),
         "require_zero3_streamed": lambda: ParallelConfig(
-            sync_mode="zero3", streamed=True).require_ported(),
+            sync_mode="zero3", streamed=True).validate(),
         "stage": lambda: ParallelConfig(mesh=MeshSpec(stage=2),
-                                        microbatches=2).require_ported(),
+                                        microbatches=2).validate(),
         "tensor": lambda: ParallelConfig(
-            mesh=MeshSpec(tensor=2)).require_ported(),
+            mesh=MeshSpec(tensor=2)).validate(),
         "step_stage": lambda: loop.make_distributed_train_step(
             cfg, sgd(0.1), None, None,
             parallel=ParallelConfig(mesh=MeshSpec(stage=2), microbatches=2),
@@ -190,6 +208,8 @@ def test_what_was_refused_now_runs(what, capsys):
     ["--sync-mode", "zero"],
     ["--refresh-every", "2"],
     ["--distributed", "--d2ft", "--sync-mode", "local"],
+    ["--elastic"], ["--faults", "plan.json"], ["--resume-from", "c.npz"],
+    ["--distributed", "--d2ft", "--elastic", "--mesh", "tensor=2"],
     ["--distributed"],
     ["--distributed", "--d2ft", "--packed"],
     ["--distributed", "--d2ft", "--batch", "6"],

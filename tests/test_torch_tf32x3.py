@@ -28,6 +28,7 @@ puts a warp's 32 lanes on 32 distinct banks; the attention tiles at hd 80
 and 96, rows padded to a pitch of 96 floats, keep every element in a slot
 of its own and every fragment read on 32 distinct banks.
 """
+import contextlib
 import functools
 
 import numpy as np
@@ -73,6 +74,20 @@ def mm_ksteps(a, b, terms):
     for k8 in range(0, a.shape[1], 8):
         out = out + mm(a[:, k8:k8 + 8], b[k8:k8 + 8], terms)
     return out
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch's intra-op threads at 1 inside the block, the old count
+    restored after: ``mm_ksteps``'s many 8-deep products run slower across
+    threads than on one (and oversubscribe the cores beside other test
+    processes). The results are the same bits."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
 
 
 def test_rounding_and_split():
@@ -261,6 +276,11 @@ def _silu_pair(g):
 
 @functools.cache
 def _moe_products(terms):
+    with one_thread():
+        return _moe_products_on_one_thread(terms)
+
+
+def _moe_products_on_one_thread(terms):
     """The MoE kernels' products on the slices, each by ``mm_ksteps`` in
     the kernels' k order (terms 3 or 1), or in float64 (terms 0): y (the
     forward's mid then down kernel), dx (the backward's mid kernel: h, g

@@ -79,6 +79,17 @@ TRAJ_TOL = 1e-4
 N_MB = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """torch's intra-op threads at 1 for this file's tests, the old count
+    restored after: its small CPU ops run faster on one thread than across
+    threads beside the other test processes."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _gqa(cfg):
     return dataclasses.replace(cfg, n_heads=8, n_kv_heads=2, head_dim=16)
 
