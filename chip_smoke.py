@@ -84,7 +84,7 @@ Phases, one line each (any failure raises and exits non-zero):
 10. LLM fine-tune — ``repro_torch.launch.train`` on mamba2-130m at full
    size (24 layers, d 768, random weights from seed 0), batch 8 x seq
    2048 of ``lm_batches`` in 4 micro-batches, n_pf 2 / n_po 1, AdamW lr
-   1e-3, 4 steps, scores and knapsack at step 0. 24 forward and 24
+   1e-3, 3 steps, scores and knapsack at step 0. 24 forward and 24
    backward SSD launches per step, executed step fractions equal to the
    schedule's live counts (read from the device counter), finite losses
    within 1e-4 x max(1, |loss|) of the masked plain path on the same
@@ -113,14 +113,14 @@ Phases, one line each (any failure raises and exits non-zero):
 13. gemma3-1b fine-tune — ``repro_torch.launch.train --arch gemma3-1b
    --full --d2ft --kernel`` (26 layers, d 1152, random weights from seed
    0), batch 4 x seq 1024 in 4 micro-batches, n_pf 3 / n_po 1, G 4, AdamW
-   lr 1e-3, 4 steps: 26 + 26 attention launches per step, executed tile
+   lr 1e-3, 3 steps: 26 + 26 attention launches per step, executed tile
    fractions from the device counter equal to the schedule's, finite
    losses within 1e-4 x max(1, |loss|) of the masked path; p50 step ms of
    the kernel path, the masked path and standard full fine-tuning (each
    twice, in turns), tokens/s, peak memory, a profiler window.
 14. D2FT-LoRA on gemma3-1b — ``repro_torch.examples.lora_finetune``'s
    ``run`` with the example's settings (rank 8 on wq/wk/wv, SGD 0.1, n_pf
-   3 / n_po 0 of 4, 4 head groups) at full size, batch 4 x seq 1024, 8
+   3 / n_po 0 of 4, 4 head groups) at full size, batch 4 x seq 1024, 3
    steps: its one fused ``lora_linear`` call launches the LoRA kernel,
    26 + 26 attention launches per step, 1,038,336 adapter parameters,
    the base bit-identical after the steps and the adapters moved, losses
@@ -157,7 +157,7 @@ Phases, one line each (any failure raises and exits non-zero):
    18 RG-LRU and 8 local attention, d 2560, 10 query heads on 1 KV head of
    256, window 2048, random weights from seed 0, 3,549,934,080
    parameters), batch 4 x seq 512 in 4 micro-batches, n_pf 3 / n_po 1, G
-   10, lr 1e-3, 4 steps: 18 + 18 RG-LRU and 8 + 8 attention launches per
+   10, lr 1e-3, 3 steps: 18 + 18 RG-LRU and 8 + 8 attention launches per
    step, executed fractions from the device counter equal to the
    schedule's, finite losses; p50 step ms of the kernel path and standard
    full fine-tuning (each twice, in turns), tokens/s, peak memory, a
@@ -191,7 +191,7 @@ Phases, one line each (any failure raises and exits non-zero):
    ``repro_torch.examples.lora_finetune``'s ``plan_lora`` and
    ``finetune_lora``: rank 8 on wq/wk/wv and per-expert w_up (26,738,688
    adapter parameters), SGD 0.1, n_pf 3 / n_po 0 of 4, G 16, batch 4 x
-   seq 512, 4 steps: 16 + 16 MoE and 16 + 16 attention launches per step,
+   seq 512, 3 steps: 16 + 16 MoE and 16 + 16 attention launches per step,
    executed MoE tiles = the launched masks', attention tiles = the
    schedule's, the base bit-identical after the steps and the adapters
    moved, losses within 1e-4 x max(1, |loss|) of the masked path; p50 step
@@ -203,7 +203,7 @@ Phases, one line each (any failure raises and exits non-zero):
 21. olmoe-1b-7b fine-tune — the launcher's loop (``train/loop.py::
    finetune`` with ``repro_torch.launch.train``'s settings: --optimizer
    sgd, lr 1e-3, n_pf 3 / n_po 1 of 4, G 16) at full width on 8 of the 16
-   layers (3,562,571,776 parameters), batch 4 x seq 512, 4 steps: 8 + 8
+   layers (3,562,571,776 parameters), batch 4 x seq 512, 3 steps: 8 + 8
    MoE and attention launches per step, device tile counts = the masks'
    and the schedule's, losses within tolerance of the masked path; p50
    step ms of the kernel, masked and full fine-tuning paths (each twice,
@@ -223,8 +223,8 @@ Phases, one line each (any failure raises and exits non-zero):
    bounds.
 23. the packed D2FT path — (a) ``repro_torch.launch.train --arch
    gemma3-1b --full --d2ft --packed`` (phase 13's model at full width,
-   its first 13 of 26 layers, seed 0, batch 4 x seq 1024 in 4
-   micro-batches, G 4, AdamW lr 1e-3, 4 steps) at the
+   its first 6 of 26 layers, seed 0, batch 4 x seq 1024 in 4
+   micro-batches, G 4, AdamW lr 1e-3, 3 steps) at the
    launcher's budget (3 p_f + 1 p_o: every group gathers all four
    samples) and the LLM example's (2 p_f + 1 p_o: every group skips one),
    each with a step over ``packed_forward_mb`` (the micro-batch form: no
@@ -265,10 +265,11 @@ Phases, one line each (any failure raises and exits non-zero):
    configs.
 25. the rest of the model surface — random weights from seed 0, f32,
    TF32 off outside the 3xTF32 kernels, every kernel route armed against
-   a fallback: (a) stablelm-3b at full size (32 layers, d 2560, 32 heads
-   of 80, 2.8 B parameters) through ``repro_torch.launch.train --full
-   --d2ft --kernel`` (batch 4 x seq 512 in 4 micro-batches, n_pf 3 / n_po
-   1, G 32, AdamW, 2 steps): 32 + 32 B2 launches a step, executed tiles =
+   a fallback: (a) stablelm-3b at full width (d 2560, 32 heads of 80) on
+   16 of its 32 layers (all 32 before phase 30) through
+   ``repro_torch.launch.train --full --d2ft --kernel`` (batch 4 x seq 512
+   in 4 micro-batches, n_pf 3 / n_po 1, G 32, AdamW, 2 steps): 16 + 16 B2
+   launches a step, executed tiles =
    the schedule's, losses within 1e-4 x max(1, |loss|) of the masked
    path's; p50 step ms of the kernel, masked and full paths (each twice,
    in turns), peak memory, a profiler window over 3 steps with B2's share
@@ -299,12 +300,12 @@ Phases, one line each (any failure raises and exits non-zero):
 26. data-parallel D2FT on gemma3-1b — ``repro_torch.launch.train --arch
    gemma3-1b --full --d2ft --kernel --distributed`` at phase 13's budget
    (global batch 4 x 1024 in 4 micro-batches, n_pf 3 / n_po 1, G 4, AdamW
-   lr 1e-3), 4 steps, the schedule re-planned every 2, each in a process
+   lr 1e-3), 3 steps, the schedule re-planned every 2, each in a process
    of its own (this script again, ``--dp-rank``), which prints one JSON
    line a rank. (a) One rank over NCCL (``--mesh data=1``): every step's
    loss within 1e-4 x max(1, |loss|) of ``train.loop.finetune
    (use_kernel=True)``'s on the same batches and schedules (replayed),
-   B2's launches = 26 x 4 a direction, the sync's bytes = the plan's
+   B2's launches = 26 x 3 a direction, the sync's bytes = the plan's
    ``ar_bytes``. (b) Two ranks sharing the card over gloo, 2 x 1024 a rank
    (``torch.distributed.run --nproc_per_node 2 ... --mesh data=2``), on
    the launcher's own knapsack schedule and on the paper's concentrated
@@ -319,14 +320,14 @@ Phases, one line each (any failure raises and exits non-zero):
    1, 2 and 26 alone (a partial run that prints no result). In the whole
    script the run on the launcher's schedule takes its first plan only (2
    steps), and runs in phase 27's process of two ranks; the two-rank runs
-   on the mix take 3 steps (4 before phase 29), still re-planned at step
-   2; phase 27 (b)'s SGD pair on 6 of the 26 layers (one pattern cycle;
-   all 26 before phase 29).
+   on the mix take 2 steps re-planned at step 1 (since phase 30; 3 steps
+   re-planned at step 2 before, 4 before phase 29); phase 27 (b)'s SGD pair
+   on 6 of the 26 layers (one pattern cycle; all 26 before phase 29).
 27. ZeRO-1 and ZeRO-3 data-parallel D2FT on gemma3-1b, in phase 26's
    processes, on phase 26's model, budget and refreshes. (a) After the
    masked run on the one NCCL rank, ``--sync-mode zero`` and ``zero3`` on
    its schedules (replayed): losses within 1e-6 of the masked run's, B2's
-   launches 26 x 4 a direction, each step's bytes by collective equal to
+   launches 26 x 3 a direction, each step's bytes by collective equal to
    the plan's ``rs_bytes`` / ``ag_bytes`` / ``ar_bytes``, the moments'
    bytes equal to ``zero_state_byte_report``'s, ZeRO-3's bytes between
    steps within 1 % of the shards and the moments. (b) After the masked
@@ -342,10 +343,13 @@ Phases, one line each (any failure raises and exits non-zero):
    ``python3 chip_smoke.py --only 27`` runs phases 1, 2 and 27 alone,
    with the masked baselines (a partial run that prints no result). To
    keep the whole script inside its limit, the launcher fine-tunes of
-   phases 10, 13, 14, 17, 20 and 21 take 4 steps (8, then 6 before phase
-   29), and phase 23 4 steps (6 before) on 13 of gemma3-1b's 26 layers;
-   since phase 29 the masked and ZeRO-1 SGD pair of 27 (b) takes 2 steps
-   (its first plan) and phase 25 and 28 (b) 2 steps (3 before).
+   phases 10, 13, 14, 17, 20 and 21 take 3 steps (8, then 6 before phase
+   29, 4 before phase 30), phase 26 (a) 3 (4 before phase 30), and phase
+   23 3 steps (6, then 4 before phase 30) on 6 of gemma3-1b's 26 layers
+   (13 before phase 30); since phase 29 phase 25 and 28 (b) take 2 steps
+   (3 before); since phase 30 the runs on the mix 2 steps re-planned at
+   step 1, and every rank process stages its meshes' collectives through
+   one pinned buffer.
 28. multi-axis D2FT — ``repro_torch.launch.train --distributed --mesh``
    with a stage or a tensor axis, two gloo ranks sharing the card (the
    collectives and the pipeline's sends staged through pinned host memory:
@@ -400,6 +404,34 @@ Phases, one line each (any failure raises and exits non-zero):
    load seconds and bytes, each rank's peak memory. ``python3
    chip_smoke.py --only 29`` runs phases 1, 2 and 29 alone (a partial run
    that prints no result).
+30. the distributed measurement layer — ``repro_torch.launch.diststep``.
+   (a) ``measure_distributed_step(2)`` on gemma3-1b at full width on 6 of
+   its 26 layers (phase 29's model), batch 8 x 512 in 8 micro-batches,
+   the kernel path (B2 at hd 256), one timed step after a warm-up, in
+   phase 28's two ranks (one more ``--mx-rank`` run): JAX's eight
+   variants (the all-p_f baseline; the concentrated mix masked, ZeRO-1,
+   ZeRO-3, streamed ZeRO-3; the half-live spread masked, ZeRO-1, ZeRO-3)
+   and the pipeline at (data 1, stage 2). Printed as one ``DISTSTEP
+   {json}`` line (rank 0's record). Checked on both ranks, every
+   variant: the mesh's records under the plan's kinds equal its
+   ``ar_bytes`` / ``rs_bytes`` / ``ag_bytes``, and priced by
+   ``launch.collectives`` its per-rank ``wire``; the other kinds only
+   the metrics all-reduce (printed apart with its bytes); the ZeRO-3
+   variants all-gather and the masked ones do not; the streamed
+   variant's residency check passes; B2's forward and backward launched
+   in the measured step of every kernel variant (none in the pipeline's,
+   which has no kernel route). The tied 262,144 x 1,152 embedding is 302
+   M of the model's 463 M parameters and every variant syncs it, so the
+   fractions sit well above the paper's ~0.5: this configuration's own
+   numbers. (b) ``measure_elastic(4)`` in one torch.distributed.run of
+   four gloo ranks sharing the card, at the function's own tiny config:
+   an ``ELASTICM {json}`` line and JAX's code's outcomes at four ranks
+   (the dropout of device 5 at step 3 leaves 2 ranks, which replay 1 step
+   from ckpt_2 and end within 1e-6 of a fresh resume; one guard skip, at
+   step 2; the lo-fi fallback at step 2, merges, final mode local; the
+   straggler's mitigation ratio below 1). ``python3 chip_smoke.py --only
+   30`` runs phases 1, 2 and 30 alone (a partial run that prints no
+   result).
 
 Then one JSON line of the 13 kernel records, the card line again, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -443,7 +475,7 @@ FT_LR = 0.05
 # examples/d2ft_llm_finetune.py (2 p_f + 1 p_o of 4 micro-batches)
 LM_BATCH = 8
 LM_SEQ = 2048
-LM_STEPS = 4
+LM_STEPS = 3
 LM_LR = 1e-3
 LM_D2FT = dict(n_microbatches=4, n_pf=2, n_po=1)
 SSD_P, SSD_N, SSD_CHUNK = 64, 128, 256         # mamba2-130m's SSD widths
@@ -455,7 +487,7 @@ SSD_P, SSD_N, SSD_CHUNK = 64, 128, 256         # mamba2-130m's SSD widths
 # LoRA example's own settings (repro_torch/examples/lora_finetune.py)
 GM_BATCH = 4
 GM_SEQ = 1024
-GM_STEPS = 4
+GM_STEPS = 3
 GM_LR = 1e-3
 GM_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 
@@ -465,7 +497,7 @@ GM_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 # memory before any run (PERF.md, section 4)
 RG_BATCH = 4
 RG_SEQ = 512
-RG_STEPS = 4
+RG_STEPS = 3
 RG_LR = 1e-3
 RG_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 RG_CHUNK = 128                     # repro/models/rglru.py's scan chunk
@@ -480,7 +512,7 @@ RG_PARAMS = 3_549_934_080          # the JAX init_model's, by jax.eval_shape
 # tokens x 8 / 64 experts, 384 after the pad to block_c 128)
 MO_BATCH = 4
 MO_SEQ = 512
-MO_STEPS = 4
+MO_STEPS = 3
 MO_LR = 1e-3
 MO_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 MO_LORA_D2FT = dict(n_microbatches=4, n_pf=3, n_po=0)
@@ -497,11 +529,12 @@ ACTS_ALL = ("silu", "gelu", "relu")
 # of one sample: every group gathers all four samples, so this budget
 # measures the gather's overhead) and the LLM example's (2 p_f + 1 p_o:
 # every group skips one sample)
-PK_STEPS = 4                       # 8 took the phase past 150 s
-# the first 13 of gemma3-1b's 26 layers (two cycles of five local and one
-# global, then one local): phase 23 took 140-165 s at full depth, which
-# with phases 26-27 pushed the whole script near its limit
-PK_LAYERS = 13
+PK_STEPS = 3                       # 8 took the phase past 150 s
+# the first 6 of gemma3-1b's 26 layers (one cycle of five local and one
+# global): phase 23 took 140-165 s at full depth, which with phases 26-27
+# pushed the whole script near its limit; 13 layers before phase 30, 6 since
+# phase 30
+PK_LAYERS = 6
 PK_BUDGETS = ((3, 1), (2, 1))
 PK_PROFILE_BUDGET = (2, 1)
 PK_REMAT_STEPS = 2
@@ -527,6 +560,9 @@ MO_SERVE_LAYERS = 16
 NA_BATCH = 4
 NA_SEQ = 512
 NA_STEPS = 2
+# (a)'s stablelm-3b through the launcher on 16 of its 32 layers (full
+# depth before phase 30; phase 28 (b) runs it on 8, serving at full size)
+NA_LM_DEPTH = 16
 NA_LR = 1e-3
 NA_D2FT = dict(n_microbatches=4, n_pf=3, n_po=1)
 VL_TEXT = 448                      # + 576 patch rows: 1024 positions
@@ -546,22 +582,24 @@ NEW_DECODE_CASES = (([15, 16, 17, 700], "edges"),
 NEW_DECODE_NPMAX = 270
 
 # data-parallel D2FT on gemma3-1b (phase 26): phase 13's model, seed,
-# budget and optimizer at 4 steps, re-planned every 2; the paper's
-# concentrated schedule mix (p_f, p_o, p_s shares of the subnets) for the
-# second two-rank run; a rank process's time limit
-DP_STEPS = 4
+# budget and optimizer at 3 steps (4 before phase 30), re-planned every
+# 2; the paper's concentrated schedule mix (p_f, p_o, p_s shares of the
+# subnets) for the second two-rank run; a rank process's time limit
+DP_STEPS = 3
 DP_REFRESH = 2
 # phase 26 (b)'s run on the launcher's schedule: its first plan only, cut
 # from 4 steps to keep the whole script inside its time limit
 DP_LAUNCHER_STEPS = 2
 # phase 26 (b) and 27 (b)'s runs on the concentrated mix, cut from 4 steps
-# to 3 to make room for phase 29: still one re-plan (at step 2), so
-# zero_relayout runs, and ZeRO-1 SGD's elided gather meets ever_live;
+# to 3 to make room for phase 29, then to 2 re-planned at step 1 for
+# phase 30: still one re-plan, so zero_relayout runs, and ZeRO-1 SGD's
+# elided gather meets ever_live;
 # phase 27 (b)'s masked / ZeRO-1 SGD pair on 6 of the 26 layers (one
 # pattern cycle: five windowed layers and one global) to keep the whole
 # script inside its time limit (its AdamW runs stay at 26: ZeRO-3's
 # between-step bytes are held to 1 % of a state that depth shrinks)
-DP_MIX_STEPS = 3
+DP_MIX_STEPS = 2
+DP_MIX_REFRESH = 1
 DP_SGD_DEPTH = 6
 DP_MIX = (0.4, 0.3, 0.3)
 DP_TIMEOUT = 800
@@ -595,6 +633,21 @@ EL_TIMEOUT = 360
 EL_LEGS = "ea,er,eb"
 MX_UPDATE_TOL = 1e-4    # (b)'s leaf update norms against the one rank's
 MX_TIMEOUT = 400
+
+# the distributed measurement layer (phase 30): measure_distributed_step
+# on gemma3-1b at full width on 6 of its 26 layers (phase 29's model),
+# batch 8 x 512 in 8 micro-batches, the kernel path, one timed step after
+# a warm-up, in phase 28's ranks; measure_elastic on four ranks at its own
+# config. A rank process's time limit grows by DM_TIMEOUT; EM_TIMEOUT is
+# the four-rank run's
+DM_DEPTH = 6
+DM_BATCH = 8
+DM_SEQ = 512
+DM_MB = 8
+DM_TIME_STEPS = 1
+DM_TIMEOUT = 360
+EM_RANKS = 4
+EM_TIMEOUT = 300
 
 
 # marks every process this script starts: each inherits the variable (a
@@ -1886,11 +1939,13 @@ def launcher_finetune(torch, np, tag, arch, label, B, S, steps, lr, d2,
     from repro_torch.kernels import contract
     from repro_torch.kernels import d2ft_attention as d2a
     from repro_torch.models import attention as attn_mod
+    from repro_torch.launch import train as launcher
     from repro_torch.models.transformer import init_model
     from repro_torch.optim.optimizers import adamw
     from repro_torch.train import loop
 
-    cfg = get_config(arch)
+    # the launcher's config (a caller may have cut its depth)
+    cfg = launcher.get_config(arch)
     n_mb = d2["n_microbatches"]
     run, scheds = launcher_paths(
         ["--arch", arch, "--full", "--batch", str(B), "--seq", str(S),
@@ -1929,7 +1984,8 @@ def launcher_finetune(torch, np, tag, arch, label, B, S, steps, lr, d2,
     torch.cuda.reset_peak_memory_stats()
     p50, per = in_turns(np, run, {"kernel": log_k, "masked": log_m})
     peak_all = torch.cuda.max_memory_allocated()
-    print(f"[{label}] {arch} full size ({cfg.n_layers} layers, d "
+    print(f"[{label}] {arch} at full width ({cfg.n_layers} of "
+          f"{get_config(arch).n_layers} layers, d "
           f"{cfg.d_model}, {cfg.n_heads} query heads and {cfg.n_kv_heads} KV "
           f"head(s) of {cfg.resolved_head_dim}, window {cfg.window}, "
           f"{cfg.norm} norm, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, f32, "
@@ -4455,12 +4511,20 @@ def new_archs(torch, np, tag):
             f"({'causal' if causal else 'bidirectional'})", B, H, S, hd,
             window, *run["heads"], *run["bounds"], tag, causal=causal)
 
-    # (a) stablelm-3b through the launcher; served at full size
+    # (a) stablelm-3b through the launcher on NA_LM_DEPTH of its layers;
+    # served at full size
+    from repro_torch.launch import train as launcher
     t0 = time.perf_counter()
     call = []
-    st = launcher_finetune(torch, np, tag, "stablelm-3b", "new archs",
-                           NA_BATCH, NA_SEQ, NA_STEPS, NA_LR, NA_D2FT, (0,),
-                           call)
+    get = launcher.get_config
+    launcher.get_config = lambda arch: get(arch).replace(
+        n_layers=NA_LM_DEPTH) if arch == "stablelm-3b" else get(arch)
+    try:
+        st = launcher_finetune(torch, np, tag, "stablelm-3b", "new archs",
+                               NA_BATCH, NA_SEQ, NA_STEPS, NA_LR, NA_D2FT,
+                               (0,), call)
+    finally:
+        launcher.get_config = get
     B, H, S, hd = attention_operands_vs_plain(torch, "stablelm-3b", call[0],
                                               gen)[2][:4]
     del call
@@ -4549,6 +4613,26 @@ def concentrated_table(np, L, G, n_mb, mix=DP_MIX, seed=0):
     return table
 
 
+def share_pinned(mesh_mod):
+    """Every mesh this process makes from here on stages its collectives
+    through one pinned host buffer, kept across the runs (a mesh's own
+    buffer would be allocated anew, up to the largest bucket, by every
+    run: 0.5-2.2 s a run a rank on the card). Returns the undo."""
+    make, shared = mesh_mod.make_mesh, mesh_mod._Pinned()
+
+    def make_shared(*a, **k):
+        m = make(*a, **k)
+        if m is not None:
+            for ax in (m.world, m.data, m.stage, m.tensor):
+                ax._host = shared
+        return m
+    mesh_mod.make_mesh = make_shared
+
+    def undo():
+        mesh_mod.make_mesh = make
+    return undo
+
+
 def dp_rank(torch, np, leg, runs, argv):
     """One rank of phases 26-27: ``repro_torch.launch.train.main`` on the
     card once a run, the kernel path only (a fallback raises), in one
@@ -4556,8 +4640,10 @@ def dp_rank(torch, np, leg, runs, argv):
     ``--sync-mode mode --optimizer optimizer`` to ``argv``; the flags are
     ``streamed`` (the loop's ``ParallelConfig`` with ``streamed=True``,
     which the launcher has no flag for), ``launcher`` (the run's leg is
-    "launcher", whatever ``leg`` says), ``steps=N`` and ``depth=N`` (the
-    model cut to N layers). The schedule is
+    "launcher", whatever ``leg`` says), ``steps=N``, ``refresh=N``
+    (``--refresh-every N``) and ``depth=N`` (the model cut to N layers).
+    Every mesh of the process stages through one pinned buffer
+    (``share_pinned``). The schedule is
     the one the launcher plans (leg "launcher": the first such run plans
     and scores, the later ones replay its tables) or the concentrated mix
     ("mix"). After every step: the
@@ -4567,7 +4653,8 @@ def dp_rank(torch, np, leg, runs, argv):
     the parameters are replicated, their checksum. Prints
     one line a run, ``DPREC {json}``: the loss, step and sync times, the
     sync's bytes by collective and the plan's, the reports, the checksums,
-    peak memory, B2's launches and, for a
+    peak memory, B2's launches, the run's host-clock seconds by what took
+    them (``dp_seconds_text``) and, for a
     streamed run after an unstreamed ZeRO-3 one, whether the canonical
     parameters are bitwise equal."""
     import dataclasses
@@ -4586,19 +4673,48 @@ def dp_rank(torch, np, leg, runs, argv):
         raise AssertionError(f"{kind} took a non-kernel route: {reason}")
     contract.on_fallback = refuse
     plan, make = loop.plan_from_scores, loop.make_distributed_train_step
-    make_mesh, init, fit = mesh_mod.make_mesh, launcher.init_model, \
-        launcher.finetune_distributed
+    init, fit = launcher.init_model, launcher.finetune_distributed
     configs = launcher.get_config
     rank = int(os.environ.get("RANK", 0))
     # one process group for every run: each run's mesh finds it made
     group = mesh_mod.make_data_mesh(int(os.environ.get("WORLD_SIZE", 1)),
                                     "cpu" if "cpu" in argv else None)
+    unshare = share_pinned(mesh_mod)
+    make_mesh = mesh_mod.make_mesh
     first_tables, z3_params = [], None
+    # where a run's seconds go besides its steps: host-clock seconds of
+    # the broadcasts, the model's init, the mesh and the pinned buffers'
+    # growth (inside the broadcasts' and the steps' seconds)
+    spent = {}
+    broadcast, pinned_get = mesh_mod.DataMesh.broadcast_, \
+        mesh_mod._Pinned.get
+
+    def timed(what, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[what] = spent.get(what, 0.0) + time.perf_counter() - t
+            return out
+        return call
+
+    def pinned_growth(buf, n, dtype):
+        before, t = buf.buf, time.perf_counter()
+        out = pinned_get(buf, n, dtype)
+        if buf.buf is not before:
+            spent["pinned"] = spent.get("pinned", 0.0) + \
+                time.perf_counter() - t
+        return out
+    mesh_mod.DataMesh.broadcast_ = timed("broadcast", broadcast)
+    mesh_mod._Pinned.get = pinned_growth
     for spec in runs.split(","):
         mode, opt_name, *flags = spec.split(":")
         streamed = "streamed" in flags
         run_leg = "launcher" if "launcher" in flags else leg
         steps = [f.split("=")[1] for f in flags if f.startswith("steps=")]
+        refresh = [f.split("=")[1] for f in flags
+                   if f.startswith("refresh=")]
         depth = [int(f.split("=")[1]) for f in flags
                  if f.startswith("depth=")]
         name = "_".join([mode, opt_name] + [f for f in flags if "=" not in f])
@@ -4642,11 +4758,11 @@ def dp_rank(torch, np, leg, runs, argv):
             return run
 
         def capture_init(*a, **k):
-            made.append(init(*a, **k))
+            made.append(timed("init", init)(*a, **k))
             return made[-1]
 
         def capture_mesh(*a, **k):
-            meshes.append(make_mesh(*a, **k))
+            meshes.append(timed("mesh", make_mesh)(*a, **k))
             return meshes[-1]
 
         def streamed_fit(*a, parallel, **k):
@@ -4663,9 +4779,15 @@ def dp_rank(torch, np, leg, runs, argv):
         d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        spent.clear()
+        t_run = time.perf_counter()
         log = launcher.main(argv + ["--sync-mode", mode, "--optimizer",
                                     opt_name]
-                            + (["--steps", steps[0]] if steps else []))
+                            + (["--steps", steps[0]] if steps else [])
+                            + (["--refresh-every", refresh[0]]
+                               if refresh else []))
+        t_run = time.perf_counter() - t_run
+        t_checks = time.perf_counter()
         peak = torch.cuda.max_memory_allocated()
         launches = {"fwd": d2a.flash_fwd.launches,
                     "bwd": d2a.flash_bwd.launches}
@@ -4688,6 +4810,12 @@ def dp_rank(torch, np, leg, runs, argv):
                                 for n, p in model.named_parameters())
         del model, made[:]
         refreshes = log.extras["refreshes"]
+        seconds = {"run": t_run, "steps": sum(log.step_times),
+                   "reshard": meshes[-1].counter.kind_seconds.get(
+                       "reshard", 0.0),
+                   **{k: v for k, v in spent.items() if k != "init"},
+                   "init": spent.get("init", 0.0),
+                   "checks": time.perf_counter() - t_checks}
         line = {
             "rank": rank, "run": name, "mode": mode, "opt": opt_name,
             "streamed": streamed, "n_layers": depth[0] if depth else None,
@@ -4713,13 +4841,16 @@ def dp_rank(torch, np, leg, runs, argv):
             "between": between, "between_alloc": between_alloc,
             "peak": peak, "launches": launches,
             "reshard": meshes[-1].counter.bytes.get("reshard", 0),
-            "same_as_zero3": same_as_zero3,
+            "same_as_zero3": same_as_zero3, "seconds": seconds,
             "tables": tables}
         os.write(1, ("DPREC " + json.dumps(line) + "\n").encode())
         del log
     loop.plan_from_scores, loop.make_distributed_train_step = plan, make
     mesh_mod.make_mesh, launcher.init_model = make_mesh, init
     launcher.finetune_distributed, launcher.get_config = fit, configs
+    mesh_mod.DataMesh.broadcast_, mesh_mod._Pinned.get = broadcast, \
+        pinned_get
+    unshare()
     group.close()
     return 0
 
@@ -4897,11 +5028,12 @@ def data_parallel(torch, np, tag, phases=(26, 27)):
               f"{tag}", flush=True)
 
     # (b) two ranks sharing the card over gloo, one torch.distributed.run;
-    # every run on the mix crosses the re-plan at step 2 (zero_relayout;
+    # every run on the mix crosses the re-plan at step 1 (zero_relayout;
     # under ZeRO-1 SGD the gather elided where ever_live allows)
     runs = ([f"masked:adamw:launcher:steps={DP_LAUNCHER_STEPS}"]
             if 26 in phases else []) + [
-        f"{run}:steps={DP_MIX_STEPS}" for run in ["masked:adamw"] + (
+        f"{run}:steps={DP_MIX_STEPS}:refresh={DP_MIX_REFRESH}"
+        for run in ["masked:adamw"] + (
             ["zero:adamw", "zero3:adamw", "zero3:adamw:streamed",
              f"masked:sgd:depth={DP_SGD_DEPTH}",
              f"zero:sgd:depth={DP_SGD_DEPTH}"] if zero else [])]
@@ -4927,6 +5059,11 @@ def data_parallel(torch, np, tag, phases=(26, 27)):
         if r0["losses"] != r1["losses"]:
             raise AssertionError(f"(b) {name}: the ranks' mean losses "
                                  f"differ: {r0['losses']} {r1['losses']}")
+    for name, by_rank in recs.items():
+        print(f"[data parallel] (b) {name}: seconds besides the steps, a "
+              f"rank: " + "; ".join(
+                  f"rank {k} " + dp_seconds_text(r["seconds"])
+                  for k, r in sorted(by_rank.items())), flush=True)
     if 26 in phases:
         dp26_b_lines(np, "launcher", recs["masked_adamw_launcher"], a, tag)
         dp26_b_lines(np, "mix", recs["masked_adamw"], a, tag)
@@ -4937,6 +5074,20 @@ def data_parallel(torch, np, tag, phases=(26, 27)):
     print(f"[data parallel] phases {'-'.join(map(str, phases))} took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"launches": a["launches"], "a": a}
+
+
+def dp_seconds_text(sec):
+    """A run's host-clock seconds: the launcher's call, its steps, and
+    besides them the broadcasts, the model's init, the mesh, the
+    re-layouts and the rest; then the checks after the run."""
+    parts = ("broadcast", "init", "mesh", "reshard")
+    rest = sec["run"] - sec["steps"] - sum(sec.get(k, 0.0) for k in parts)
+    return (f"{sec['run']:.2f} s in launcher.main, steps "
+            f"{sec['steps']:.2f}, " + ", ".join(
+                f"{k} {sec.get(k, 0.0):.2f}" for k in parts)
+            + f", other {rest:.2f} (pinned buffers' growth, in the "
+            f"broadcasts and steps: {sec.get('pinned', 0.0):.2f}); checks "
+            f"after {sec['checks']:.2f}")
 
 
 def dp26_b_lines(np, leg, recs, a, tag):
@@ -5169,14 +5320,17 @@ def mx_rank(torch, np, replay, legs="a,am,b", ckdir=""):
     torch.backends.cudnn.allow_tf32 = False
     rank = int(os.environ.get("RANK", 0))
     group = mesh_mod.make_data_mesh(int(os.environ.get("WORLD_SIZE", 1)))
+    unshare = share_pinned(mesh_mod)
     plan, make = loop.plan_from_scores, loop.make_distributed_train_step
     init, configs, sgd = launcher.init_model, launcher.get_config, \
         launcher.sgd
     replay = replay.split("+")
     keep = {}
     for leg in legs.split(","):
-        if leg in EL_LEGS.split(","):
-            line = el_leg(torch, leg, rank, ckdir, keep)
+        if leg in EL_LEGS.split(",") + ["dm", "em"]:
+            line = el_leg(torch, leg, rank, ckdir, keep) \
+                if leg in EL_LEGS.split(",") else \
+                measure_leg(torch, leg, rank)
             os.write(1, ("MXREC " + json.dumps(line) + "\n").encode())
             continue
         tables, sums, made = [], [], []
@@ -5265,20 +5419,234 @@ def mx_rank(torch, np, replay, legs="a,am,b", ckdir=""):
             "updates": updates, "tables": tables}
         os.write(1, ("MXREC " + json.dumps(line) + "\n").encode())
         del model, made[:], named, log
+    unshare()
     group.close()
     return 0
 
 
-def mx_run(torch, np, replay, legs="a,am,b", ckdir=""):
-    """Phase 28's and 29's ranks: one torch.distributed.run of two running
-    ``legs``, killed with its session at its time limit. Returns ({run:
-    {rank: record}}, seconds)."""
+def mx_run(torch, np, replay, legs="a,am,b", ckdir="", n_ranks=2):
+    """Phase 28's, 29's and 30's ranks: one torch.distributed.run of
+    ``n_ranks`` running ``legs``, killed with its session at its time
+    limit. Returns ({run: {rank: record}}, seconds)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "2", str(ROOT / "chip_smoke.py"), "--mx-rank",
-           "+".join(replay), legs, ckdir]
-    limit = (MX_TIMEOUT if "a" in legs.split(",") else 0) + \
-        (EL_TIMEOUT if "ea" in legs.split(",") else 0)
-    return dp_run(cmd, 2, timeout=limit, tag="MXREC ")
+           "--nproc_per_node", str(n_ranks), str(ROOT / "chip_smoke.py"),
+           "--mx-rank", "+".join(replay), legs, ckdir]
+    names = legs.split(",")
+    limit = (MX_TIMEOUT if "a" in names else 0) + \
+        (EL_TIMEOUT if "ea" in names else 0) + \
+        (DM_TIMEOUT if "dm" in names else 0) + \
+        (EM_TIMEOUT if "em" in names else 0)
+    return dp_run(cmd, n_ranks, timeout=limit, tag="MXREC ")
+
+
+def measure_leg(torch, leg, rank):
+    """One rank of phase 30: "dm" runs ``diststep.measure_distributed_step``
+    on the two ranks (the kernel path only: a fallback raises), counting
+    B2's launches in every step of every variant (the steps the function
+    builds, in its order: eight variants, then the pipeline); "em" runs
+    ``diststep.measure_elastic`` on the four. Returns the rank's line: the
+    record, the launches, the seconds and the peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import contract
+    from repro_torch.kernels import d2ft_attention as d2a
+    from repro_torch.launch import diststep
+    from repro_torch.train import loop
+
+    def refuse(kind, reason):
+        raise AssertionError(f"{kind} took a non-kernel route: {reason}")
+    contract.on_fallback = refuse
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if leg == "em":
+        rec = diststep.measure_elastic(EM_RANKS)
+        return {"rank": rank, "run": leg, "record": rec,
+                "seconds": time.perf_counter() - t0,
+                "peak": torch.cuda.max_memory_allocated()}
+    make = loop.make_distributed_train_step
+    launches = []
+
+    def counting(*a, **k):
+        step = make(*a, **k)
+        steps = []
+        launches.append(steps)
+
+        def run(*args):
+            f0, b0 = d2a.flash_fwd.launches, d2a.flash_bwd.launches
+            out = step(*args)
+            torch.cuda.synchronize()
+            steps.append([d2a.flash_fwd.launches - f0,
+                          d2a.flash_bwd.launches - b0])
+            return out
+        return run
+
+    loop.make_distributed_train_step = counting
+    d2a.flash_fwd.launches = d2a.flash_bwd.launches = 0
+    try:
+        rec = diststep.measure_distributed_step(
+            2, cfg=get_config("gemma3-1b").replace(n_layers=DM_DEPTH),
+            batch=DM_BATCH, seq=DM_SEQ, n_mb=DM_MB, use_kernel=True,
+            time_steps=DM_TIME_STEPS)
+    finally:
+        loop.make_distributed_train_step = make
+    return {"rank": rank, "run": leg, "record": rec, "launches": launches,
+            "seconds": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def diststep_checks(np, tag, by_rank):
+    """Phase 30 (a)'s checks on both ranks' ``dm`` lines; prints the
+    ``DISTSTEP`` line and a line a variant."""
+    from repro_torch.launch.diststep import SYNC_KINDS, VARIANTS
+    keys = dict(zip(SYNC_KINDS, ("ar_bytes", "rs_bytes", "ag_bytes")))
+    ops = dict(zip(SYNC_KINDS, ("all-reduce", "reduce-scatter",
+                                "all-gather")))
+    rec0 = by_rank[0]["record"]
+    print("DISTSTEP " + json.dumps(rec0), flush=True)
+    for rank, line in sorted(by_rank.items()):
+        rec = line["record"]
+        if list(rec["variants"]) != list(VARIANTS):
+            raise AssertionError(f"(a) rank {rank}: variants "
+                                 f"{list(rec['variants'])}")
+        if len(line["launches"]) != len(VARIANTS) + 1:
+            raise AssertionError(f"(a) rank {rank}: {len(line['launches'])}"
+                                 f" steps built, not {len(VARIANTS) + 1}")
+        for i, (name, v) in enumerate(rec["variants"].items()):
+            what = f"(a) rank {rank} {name}"
+            plan = v["sync_plan"]
+            for kind, key in keys.items():
+                got = v["recorded"].get(kind, {}).get("bytes", 0)
+                if got != int(plan[key]):
+                    raise AssertionError(f"{what}: {kind} bytes {got} != "
+                                         f"the plan's {key} {plan[key]}")
+                wire = v["sync_collectives"].get(ops[kind], 0.0)
+                if not math.isclose(wire, plan["wire"][kind], rel_tol=1e-9,
+                                    abs_tol=1e-6):
+                    raise AssertionError(f"{what}: {kind} wire {wire} != "
+                                         f"the plan's {plan['wire'][kind]}")
+            other = set(v["recorded"]) - set(SYNC_KINDS)
+            if not other <= {"metrics", "guard"}:
+                raise AssertionError(f"{what}: other kinds {other}")
+            n_ag = v["collectives_n"].get("all-gather", 0)
+            if (v["sync_mode"] == "zero3" and not n_ag) or \
+                    (v["sync_mode"] == "masked" and n_ag):
+                raise AssertionError(f"{what}: {n_ag} all-gathers")
+            if v["streamed"] and "residency_check" not in v:
+                raise AssertionError(f"{what}: no residency check")
+            fwd, bwd = line["launches"][i][0]
+            if not (fwd > 0 and bwd > 0):
+                raise AssertionError(f"{what}: B2 launches {fwd} / {bwd} "
+                                     "in its measured step")
+        if any(f or b for f, b in line["launches"][-1]):
+            raise AssertionError(f"(a) rank {rank}: B2 launched in the "
+                                 "pipeline variant")
+        if not np.isfinite([v["loss"]
+                            for v in rec["variants"].values()]).all():
+            raise AssertionError(f"(a) rank {rank}: a loss is not finite")
+    for i, (name, v) in enumerate(rec0["variants"].items()):
+        rest = {k: e["bytes"] for k, e in v["recorded"].items()
+                if k not in SYNC_KINDS}
+        print(f"[diststep] (a) {name}: {v['sync_mode']}"
+              f"{' streamed' if v['streamed'] else ''} on {v['schedule']} "
+              f"{v['op_counts']}: sync bytes "
+              f"{ {k: v['recorded'][k]['bytes'] for k in SYNC_KINDS if k in v['recorded']} }"
+              f" = the plan's (fraction {v['sync_plan']['fraction']:.4f}), "
+              f"calls {v['collectives_n']}, wire a rank "
+              f"{v['wire_bytes']:.0f} = the plan's; other kinds {rest}; "
+              f"loss {v['loss']:.6f}; B2 launches (fwd, bwd) a step "
+              f"{by_rank[0]['launches'][i]}; "
+              f"{v['wall_us_per_step'] / 1e3:.3f} ms a timed step {tag}",
+              flush=True)
+    p = rec0["pipeline"]
+    z, z3, ov = rec0["zero_sync"], rec0["zero3"], rec0["overlap"]
+    print(f"[diststep] (a) gemma3-1b, {DM_DEPTH} of 26 layers, batch "
+          f"{DM_BATCH} x {DM_SEQ}, {DM_MB} micro-batches, two gloo ranks on "
+          f"one card (staged: not interconnect numbers): all_reduce_fraction "
+          f"{rec0['all_reduce_fraction']:.4f} (the plans' ar_bytes ratio; "
+          f"sync_model_fraction {rec0['sync_model_fraction']:.4f}; the tied "
+          f"262,144 x 1,152 embedding, synced by every variant, is 302 M of "
+          f"the 463 M parameters, so the fractions sit above the paper's "
+          f"~0.5); ZeRO-1 wire fraction {z['paper_mix_wire_fraction']:.4f} "
+          f"(masked {z['paper_mix_masked_wire_fraction']:.4f}; spread "
+          f"{z['uniform_wire_fraction']:.4f} / "
+          f"{z['uniform_masked_wire_fraction']:.4f}, "
+          f"{z['uniform_masked_n_skipped']} leaves skipped), moments "
+          f"{z['opt_memory_fraction']:.4f} a rank; ZeRO-3 wire "
+          f"{z3['paper_mix_wire_fraction']:.4f}, residency "
+          f"{z3['residency_fraction']:.4f}, {z3['n_gather_elided']} gathers "
+          f"elided ({z3['elided_bytes']:.0f} bytes); streamed: measured "
+          f"residency {ov['streamed_residency_fraction']:.4f} (model "
+          f"agreement {ov['peak_agreement']:.6f}), exposed gather fraction "
+          f"{ov['exposed_collective_fraction']:.4f} (model, compute ratio "
+          f"{ov['compute_ratio']}), wire ratio to unstreamed "
+          f"{ov['wire_ratio_vs_unstreamed']:.6f}; pipeline (data 1, stage 2)"
+          f" boundaries {p['boundaries']} makespan_ratio "
+          f"{p['makespan_ratio']:.4f} bubble {p['bubble_fraction']:.4f} "
+          f"(layer-count {p['layer_count_bubble_fraction']:.4f}), "
+          f"{p['wall_us_per_step'] / 1e3:.3f} ms a timed step; "
+          f"{by_rank[0]['seconds']:.1f} s, peak "
+          f"{max(r['peak'] for r in by_rank.values()) / 2**30:.2f} GiB a "
+          f"rank {tag}", flush=True)
+
+
+def elastic_measure_checks(tag, by_rank):
+    """Phase 30 (b)'s checks on the four ranks' ``em`` lines: JAX's code's
+    outcomes at four ranks; prints the ``ELASTICM`` line."""
+    rec0 = by_rank[0]["record"]
+    print("ELASTICM " + json.dumps(rec0), flush=True)
+    for rank, line in sorted(by_rank.items()):
+        rec, what = line["record"], f"(b) rank {rank}"
+        d, g, lo, st = (rec["dropout"], rec["nan_guard"], rec["lofi"],
+                        rec["straggler"])
+        if d["n_devices_after"] != 2 or (rank < 2 and not (
+                d["ckpt_step"] == 2 and d["recovery_steps"] == 1
+                and d["resume_parity_diff"] <= EL_RESUME_TOL
+                and d["resume_opt_diff"] <= EL_RESUME_TOL)):
+            raise AssertionError(f"{what}: dropout {d}")
+        if g["skip_steps"] != [2] or g["steps_skipped"] != 1:
+            raise AssertionError(f"{what}: guard {g}")
+        if not (lo["n_fallbacks"] == 1 and lo["fallback_step"] == 2
+                and lo["n_merges"] >= 1 and lo["final_mode_local"] == 1
+                and lo["loss_drop"] > 0):
+            raise AssertionError(f"{what}: lo-fi {lo}")
+        if not (st["n_capacity_refreshes"] >= 1
+                and st["mitigation_ratio"] < 1.0 and math.isclose(
+                    st["mitigation_ratio"],
+                    st["makespan"] / st["unmitigated_makespan"],
+                    abs_tol=2e-6)):
+            raise AssertionError(f"{what}: straggler {st}")
+    d, g, lo, st = (rec0["dropout"], rec0["nan_guard"], rec0["lofi"],
+                    rec0["straggler"])
+    print(f"[diststep] (b) measure_elastic({EM_RANKS}), four gloo ranks on "
+          f"one card, its own config (4 layers, d 64, batch 32 x 16, 16 "
+          f"micro-batches): straggler unit times {st['unit_times']}, "
+          f"mitigation ratio {st['mitigation_ratio']} ({st['makespan']} / "
+          f"{st['unmitigated_makespan']}); dropout: {d['n_devices_after']} "
+          f"ranks resume ckpt_{d['ckpt_step']}, {d['recovery_steps']} step "
+          f"replayed, max diff to a fresh resume {d['resume_parity_diff']} "
+          f"(state {d['resume_opt_diff']}); guard skips at "
+          f"{g['skip_steps']}, final-loss gap fraction "
+          f"{g['gap_fraction']}; lo-fi from step {lo['fallback_step']}, "
+          f"{lo['n_merges']} merges, loss drop {lo['loss_drop']}; wall s "
+          f"{[rec0[k]['wall_s'] for k in ('straggler', 'dropout', 'nan_guard', 'lofi')]}"
+          f"; {by_rank[0]['seconds']:.1f} s in the function {tag}",
+          flush=True)
+
+
+def measurement(torch, np, tag, recs=None):
+    """Phase 30: (a)'s checks on ``recs`` (phase 28's run, with its "dm"
+    leg; None: a run of "dm" alone), then (b) in a torch.distributed.run
+    of four ranks."""
+    t0 = time.perf_counter()
+    if recs is None:
+        recs, _ = mx_run(torch, np, [], "dm")
+    diststep_checks(np, tag, recs["dm"])
+    em, secs = mx_run(torch, np, [], "em", n_ranks=EM_RANKS)
+    elastic_measure_checks(tag, em["em"])
+    print(f"[diststep] phase 30 took {time.perf_counter() - t0:.1f} s after "
+          f"(a)'s run ({recs['dm'][0]['seconds']:.1f} s in phase 28's "
+          f"ranks); (b) {secs:.1f} s in its torch.distributed.run of "
+          f"{EM_RANKS} ranks", flush=True)
 
 
 def param_sum(torch, tensors):
@@ -5514,7 +5882,8 @@ def multi_axis(torch, np, tag, a, ckdir=""):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     recs, secs = mx_run(torch, np, a["tables"],
-                        "a,am,b" + ("," + EL_LEGS if ckdir else ""), ckdir)
+                        "a,am,b" + ("," + EL_LEGS + ",dm" if ckdir else ""),
+                        ckdir)
     t_ref = time.perf_counter()
 
     # (a) gemma3-1b, stage=2
@@ -5861,9 +6230,9 @@ def main() -> int:
 
     if sys.argv[1:] in (["--only", "25"], ["--only", "26"],
                         ["--only", "27"], ["--only", "28"],
-                        ["--only", "29"]):
-        # phase 25, 26, 27, 28 or 29 alone, after the device and the build:
-        # a partial run, which prints no result
+                        ["--only", "29"], ["--only", "30"]):
+        # phase 25, 26, 27, 28, 29 or 30 alone, after the device and the
+        # build: a partial run, which prints no result
         from repro_torch.kernels import contract
 
         def refuse(kind, reason):
@@ -5886,6 +6255,8 @@ def main() -> int:
             print(f"[elastic] phase 29 took {time.perf_counter() - t29:.1f} "
                   f"s ({secs:.1f} s in its torch.distributed.run of two "
                   "ranks)", flush=True)
+        elif only == "30":
+            measurement(torch, np, f"[{card}]")
         else:
             data_parallel(torch, np, f"[{card}]", phases=(int(only),))
         print(f"chip_smoke: phase {only} alone passed (a partial run: no "
@@ -6259,7 +6630,11 @@ def main() -> int:
     with el_dir() as ckdir:
         mx = multi_axis(torch, np, tag, dp["a"], ckdir)
         elastic_checks(torch, np, tag, mx)
-    lap("30 (the kernel records)")
+    lap(30)
+    # 30. the distributed measurement layer: (a) ran in phase 28's ranks;
+    # measure_elastic on four ----------------------------------------------
+    measurement(torch, np, tag, mx)
+    lap("31 (the kernel records)")
 
     k_ms, p_ms, l_ms, b_ms, by = paged
     kernels = [{

@@ -84,7 +84,13 @@ def rglru_scan_ref(la, b, chunk: int):
     0)``: the same values, and a finite gradient where a chunk's decay sum
     passes ~88 and exp overflows above the diagonal (JAX's gives 0 · inf =
     NaN there; at the model's initial decays a chunk sums to at most ~13.5,
-    so the two agree)."""
+    so the two agree).
+
+    The in-chunk sum is an elementwise product and a sum over k, not an
+    einsum: a batched matmul takes the process's matmul settings (bf16
+    products under ``torch.set_float32_matmul_precision("medium")`` on a
+    CPU with bf16 units, TF32 on a card that allows it), and the plain
+    version the kernels are held to must not."""
     Bsz, S, W = la.shape
     Q = min(chunk, S)
     if S % Q:
@@ -100,7 +106,7 @@ def rglru_scan_ref(la, b, chunk: int):
     Lm = torch.exp(torch.where(causal[:, :, None], diff,
                                torch.tensor(float("-inf"), device=la.device,
                                             dtype=acc)))
-    h_intra = torch.einsum("bcqkw,bckw->bcqw", Lm, bc)
+    h_intra = (Lm * bc[:, :, None]).sum(dim=3)              # [B,nc,Q,W]
     carry = torch.zeros((Bsz, W), dtype=acc, device=la.device)
     hs = []
     for c in range(nc):

@@ -24,7 +24,13 @@ axes share one counter, which counts each collective under its own kind:
 ``stage`` (the pipeline's loss and gradient reassembly), ``tp_grad``
 (``sharding.sync.apply_tensor_grad_sync``), ``tp_act`` (the tensor
 axis's f and g operators), ``p2p`` (the pipeline's sends), besides the
-data-axis sync's kinds.
+data-axis sync's kinds. The counter also records every call the mesh
+makes, one ``CollectiveRecord`` each (its kind, the operation class of
+``COLLECTIVE_OPS``, the bytes counted, the axis's size and name), the
+calls it does not count among them: the loop's metric all-reduces
+(``metrics``), broadcasts (``broadcast``) and the elastic loop's barrier
+after a checkpoint save (``barrier``). ``launch.collectives`` prices the
+records as ``repro/launch/hlo.py`` prices a compiled step's collectives.
 
 The group comes from the ``torchrun`` environment (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
@@ -56,12 +62,60 @@ import os
 import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+
+
+# The operation class of each kind of collective the mesh makes: the class
+# of HLO instruction JAX's parser (``repro/launch/hlo.py``) prices such a
+# call under. None: the class of the call the kind wraps (a re-layout
+# gathers). ``broadcast`` has no HLO class: JAX's replicated inputs need
+# none. The kinds of ``RECORDED_ONLY`` are recorded but kept out of the
+# counter's per-kind totals, which price a step's sync and re-layouts.
+COLLECTIVE_OPS = {
+    "all_reduce": "all-reduce", "guard": "all-reduce",
+    "tp_grad": "all-reduce", "tp_act": "all-reduce", "stage": "all-reduce",
+    "merge": "all-reduce", "reduce_scatter": "reduce-scatter",
+    "all_gather": "all-gather", "ckpt": "all-gather",
+    "p2p": "collective-permute", "reshard": None,
+    "metrics": "all-reduce", "barrier": "all-reduce",
+    "broadcast": "broadcast",
+}
+RECORDED_ONLY = frozenset({"metrics", "barrier", "broadcast"})
+
+
+def collective_op(kind: str) -> Optional[str]:
+    """The operation class of ``kind`` (``COLLECTIVE_OPS``); ValueError for
+    a kind the table lacks."""
+    try:
+        return COLLECTIVE_OPS[kind]
+    except KeyError:
+        raise ValueError(f"unknown collective kind {kind!r}: the mesh's "
+                         f"kinds are {sorted(COLLECTIVE_OPS)}") from None
+
+
+def _check_counted(kind: str):
+    """ValueError unless ``kind`` is one the per-kind totals count."""
+    collective_op(kind)
+    if kind in RECORDED_ONLY:
+        raise ValueError(f"{kind!r} calls are recorded, not counted")
+
+
+@dataclass(frozen=True)
+class CollectiveRecord:
+    """One collective call: its kind, its operation class, the bytes the
+    counter counts for it, the size k of the axis that made it (1 on a
+    trivial axis or a world of one: no byte leaves the rank) and the
+    axis's name."""
+    kind: str
+    op: str
+    nbytes: int
+    k: int
+    axis: str
 
 
 @dataclass
@@ -71,17 +125,31 @@ class CollectiveCounter:
     sent them (``sharding.sync``'s sync and re-layout functions add to
     it). A reduce-scatter counts its input and an all-gather its output:
     the full-size side, what ``sync_byte_report``'s ``rs_bytes`` and
-    ``ag_bytes`` price."""
+    ``ag_bytes`` price. ``records`` holds every call in order, the
+    ``RECORDED_ONLY`` kinds too (callers clear it)."""
     bytes: Dict[str, int] = field(default_factory=dict)
     calls: Dict[str, int] = field(default_factory=dict)
     seconds: float = 0.0
     # host-clock seconds of the collective calls alone, by kind
     kind_seconds: Dict[str, float] = field(default_factory=dict)
+    records: List[CollectiveRecord] = field(default_factory=list)
+    # (kind, bytes) of the ``DataMesh.counted`` block in progress
+    pending: Optional[Tuple[str, int]] = None
 
     def add(self, kind: str, nbytes: int, seconds: float = 0.0):
+        _check_counted(kind)
         self.bytes[kind] = self.bytes.get(kind, 0) + int(nbytes)
         self.calls[kind] = self.calls.get(kind, 0) + 1
         self.kind_seconds[kind] = self.kind_seconds.get(kind, 0.0) + seconds
+
+    def record(self, kind: str, op: str, nbytes: int, k: int, axis: str):
+        """Record one call; ValueError where ``kind`` is not in
+        ``COLLECTIVE_OPS`` or its class is not ``op``."""
+        want = collective_op(kind)
+        if want is not None and want != op:
+            raise ValueError(f"a {kind!r} call made a {op}, not a {want}")
+        self.records.append(CollectiveRecord(kind, op, int(nbytes), int(k),
+                                             axis))
 
     def total(self) -> int:
         return sum(self.bytes.values())
@@ -142,6 +210,15 @@ class DataMesh:
         """The global rank of this axis's rank ``r``."""
         return r if self.ranks is None else self.ranks[r]
 
+    def _note(self, op: str, kind: str, nbytes: int):
+        """Record a call of class ``op``: under the kind and bytes of the
+        ``counted`` block in progress, else under ``kind`` and
+        ``nbytes``."""
+        c = self.counter
+        if c.pending is not None:
+            (kind, nbytes), c.pending = c.pending, None
+        c.record(kind, op, nbytes, self.size, self.name)
+
     def _collective(self, t: torch.Tensor, op):
         if self.trivial:
             return
@@ -156,24 +233,40 @@ class DataMesh:
         if flat.data_ptr() != t.data_ptr():
             t.copy_(flat.view(t.shape))
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place; returns ``t``."""
+    def all_reduce_(self, t: torch.Tensor,
+                    kind: str = "metrics") -> torch.Tensor:
+        """Sum ``t`` over the ranks, in place; returns ``t``. Recorded
+        under ``kind`` outside a ``counted`` block."""
+        self._note("all-reduce", kind, t.numel() * t.element_size())
         self._collective(t, lambda x: dist.all_reduce(x, group=self.group))
         return t
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Overwrite ``t`` with rank ``src``'s, in place; returns ``t``."""
+        """Overwrite ``t`` with rank ``src``'s, in place; returns ``t``.
+        Recorded under ``broadcast``."""
+        self._note("broadcast", "broadcast", t.numel() * t.element_size())
         self._collective(t, lambda x: dist.broadcast(
             x, self._global(src), group=self.group))
         return t
 
     def counted(self, kind: str, nbytes: int, call):
-        """Run ``call`` (a collective), adding ``nbytes`` and its host-clock
-        seconds (the device synchronised at both ends) to the counter under
-        ``kind``."""
+        """Run ``call`` (one collective of this mesh), adding ``nbytes`` and
+        its host-clock seconds (the device synchronised at both ends) to
+        the counter under ``kind``; the call is recorded under ``kind``
+        with ``nbytes``. ValueError for a kind ``COLLECTIVE_OPS`` lacks or
+        keeps out of the totals; RuntimeError where ``call`` made no
+        collective of the mesh."""
+        _check_counted(kind)
         _sync_device(self.device)
         t0 = time.perf_counter()
-        call()
+        self.counter.pending = (kind, int(nbytes))
+        try:
+            call()
+            if self.counter.pending is not None:
+                raise RuntimeError(f"a counted {kind!r} block made no "
+                                   "collective of the mesh")
+        finally:
+            self.counter.pending = None
         _sync_device(self.device)
         self.counter.add(kind, nbytes, time.perf_counter() - t0)
 
@@ -186,18 +279,22 @@ class DataMesh:
     def send_(self, t: torch.Tensor, dst: int):
         """Send ``t`` to this axis's rank ``dst`` (blocking), counted under
         ``p2p``."""
+        nbytes = t.numel() * t.element_size()
+
         def call():
+            self._note("collective-permute", "p2p", nbytes)
             flat = t.detach().reshape(-1)
             if self.staged:
                 host = self._host.get(flat.numel(), flat.dtype)
                 host.copy_(flat)
                 flat = host
             dist.send(flat.contiguous(), self._global(dst), group=self.group)
-        self.counted("p2p", t.numel() * t.element_size(), call)
+        self.counted("p2p", nbytes, call)
 
     def recv_(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """Fill ``t`` (contiguous) with what this axis's rank ``src`` sends
-        (blocking); returns ``t``."""
+        (blocking); returns ``t``. Not recorded: a receive is the other
+        half of its sender's ``p2p`` record."""
         flat = t.view(-1)
         if self.staged:
             host = self._host.get(flat.numel(), flat.dtype)
@@ -226,20 +323,26 @@ class DataMesh:
                         inp: torch.Tensor) -> torch.Tensor:
         """Sum ``inp`` (flat, ``size`` x ``out.numel()`` elements) over the
         ranks and leave this rank's contiguous 1/size of the sum in
-        ``out``; returns ``out``."""
+        ``out``; returns ``out``. Recorded under ``reduce_scatter`` outside
+        a ``counted`` block."""
         if inp.numel() != out.numel() * self.size:
             raise ValueError(f"reduce_scatter_ of {inp.numel()} elements "
                              f"into {out.numel()} over {self.size} ranks")
+        self._note("reduce-scatter", "reduce_scatter",
+                   inp.numel() * inp.element_size())
         self._pair(out, inp, self._reduce_scatter)
         return out
 
     def all_gather_(self, out: torch.Tensor,
                     inp: torch.Tensor) -> torch.Tensor:
         """Concatenate the ranks' ``inp`` (flat) in rank order into ``out``;
-        returns ``out``."""
+        returns ``out``. Recorded under ``all_gather`` outside a
+        ``counted`` block."""
         if out.numel() != inp.numel() * self.size:
             raise ValueError(f"all_gather_ of {inp.numel()} elements into "
                              f"{out.numel()} over {self.size} ranks")
+        self._note("all-gather", "all_gather",
+                   out.numel() * out.element_size())
         self._pair(out, inp, self._all_gather)
         return out
 

@@ -826,8 +826,11 @@ class ResidencyRecorder:
 
 
 # Loss-path subtrees consumed before the layers in the forward; everything
-# else outside the layers (final norm, unembed) runs after them.
+# else outside the layers runs after them, the final norm before the
+# unembedding (JAX's parameter order, whatever order the caller's names
+# come in)
 _HEAD_KEYS = ("embed", "frontend_proj")
+_TAIL_KEYS = ("final_norm", "unembed")
 
 
 def _unit_of(name: str) -> str:
@@ -840,14 +843,17 @@ def _unit_of(name: str) -> str:
 
 def _units(names) -> Dict[str, List[str]]:
     """{unit: its parameter names}, ordered as the forward runs them: the
-    head loss-path units, the layers in layer order, then the rest."""
+    head loss-path units, the layers in layer order, then the rest (the
+    final norm, then the unembedding)."""
     units: Dict[str, List[str]] = {}
     for n in names:
         units.setdefault(_unit_of(n), []).append(n)
     head = [u for u in units if u in _HEAD_KEYS]
     layers = sorted((u for u in units if u.startswith("layers.")),
                     key=lambda u: int(u.split(".")[1]))
-    tail = [u for u in units if u not in head and u not in layers]
+    tail = sorted((u for u in units if u not in head and u not in layers),
+                  key=lambda u: _TAIL_KEYS.index(u) if u in _TAIL_KEYS
+                  else len(_TAIL_KEYS))
     return {u: units[u] for u in head + layers + tail}
 
 

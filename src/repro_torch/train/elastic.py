@@ -315,7 +315,7 @@ def finetune_elastic(model: Transformer, cfg: ModelConfig, d2: D2FTConfig,
             os.replace(tmp, path)
         del p, s
         # no rank reads the file before its writer is done
-        run_mesh.all_reduce_(torch.zeros(1, device=dev))
+        run_mesh.all_reduce_(torch.zeros(1, device=dev), kind="barrier")
         elastic_log["ckpts"].append({
             "step": step, "path": path,
             "seconds": time.perf_counter() - t0,

@@ -416,7 +416,7 @@ def make_distributed_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
         n = len(names) + 1
         if mode == "local":
             return dict(zip(names, vals[1:n]), loss=vals[0]), vals[n:]
-        vals = dmesh.all_reduce_(vals)
+        vals = dmesh.all_reduce_(vals, kind="metrics")
         return dict(zip(names, vals[1:n] / dmesh.size),
                     loss=vals[0] / dmesh.size), vals[n:]
 

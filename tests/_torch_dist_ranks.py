@@ -44,6 +44,14 @@ Cases:
   axis's f and g operators on rank-dependent inputs, and the launcher's
   ``--mesh data=4,stage=2`` and ``data=4,tensor=2`` on stablelm-3b's
   smoke config, saving their logs and the schedules they planned.
+* ``diststep`` — ``launch.diststep.measure_distributed_step`` at its
+  small config on the ranks (``time_steps`` 0), every
+  ``torch.distributed`` function that sends or receives wrapped to count
+  its calls: saves the record and the counts.
+* ``elastic_measure`` — ``launch.diststep.measure_elastic`` on the ranks
+  (a world of 4), the elastic loop's capacity-mitigated device
+  assignments captured (schedule table, ranks, capacities): saves the
+  record and the captures.
 """
 import os
 import subprocess
@@ -440,6 +448,55 @@ def case_elastic(inp, mesh, sched):
     return out
 
 
+# the torch.distributed functions that move data between ranks
+DIST_CALLS = ("all_reduce", "broadcast", "reduce_scatter_tensor",
+              "all_gather_into_tensor", "send", "recv", "isend", "irecv",
+              "all_gather", "reduce_scatter", "all_to_all",
+              "all_to_all_single", "gather", "scatter", "reduce", "barrier",
+              "all_gather_object", "broadcast_object_list",
+              "batch_isend_irecv")
+
+
+def case_diststep(inp, mesh, sched):
+    from repro_torch.launch import diststep
+    counts = {}
+    real = {n: getattr(dist, n) for n in DIST_CALLS if hasattr(dist, n)}
+
+    def counting(name, fn):
+        def call(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **k)
+        return call
+    for name, fn in real.items():
+        setattr(dist, name, counting(name, fn))
+    try:
+        rec = diststep.measure_distributed_step(mesh.size, device="cpu")
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+    return {"record": rec, "counts": counts}
+
+
+def case_elastic_measure(inp, mesh, sched):
+    from repro_torch.launch import diststep
+    from repro_torch.train import elastic
+    mitigated = []
+    orig = elastic.plan_device_assignment
+
+    def capture(sched, n, caps=None):
+        if caps is not None:
+            mitigated.append({"table": torch.from_numpy(sched.table.copy()),
+                              "n": n, "caps": torch.from_numpy(
+                                  np.array(caps, np.float64))})
+        return orig(sched, n, caps)
+    elastic.plan_device_assignment = capture
+    try:
+        rec = diststep.measure_elastic(mesh.size, device="cpu")
+    finally:
+        elastic.plan_device_assignment = orig
+    return {"record": rec, "mitigated": mitigated}
+
+
 def main():
     case, root, rank, world = sys.argv[1], Path(sys.argv[2]), \
         int(sys.argv[3]), int(sys.argv[4])
@@ -451,11 +508,14 @@ def main():
         # the test process wrote these inputs (a ModelConfig among them)
         inp = torch.load(root / "inputs.pt", weights_only=False)
         sched = Schedule(inp["table"].numpy().astype(np.int8),
-                         inp["cfg"].n_layers, inp["G"])
+                         inp["cfg"].n_layers, inp["G"]) \
+            if "table" in inp else None
         inp["root"] = str(root)
         out = {"sync": case_sync, "train": case_train, "zero": case_zero,
-               "multiaxis": case_multiaxis,
-               "elastic": case_elastic}[case](inp, mesh, sched)
+               "multiaxis": case_multiaxis, "elastic": case_elastic,
+               "diststep": case_diststep,
+               "elastic_measure": case_elastic_measure}[case](inp, mesh,
+                                                              sched)
         torch.save(out, root / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()

@@ -141,6 +141,33 @@ def test_plain_version_matches_jax_kernel_and_ref(S, G, bounds):
         assert np.all(bands[gate == 0] == 0)
 
 
+@pytest.mark.parametrize("precision", ["high", "medium"])
+def test_plain_scan_takes_no_matmul_setting(precision):
+    """The plain version's h does not depend on the process's float32
+    matmul setting: with its in-chunk sum as a batched matmul, "medium"
+    (bf16 products on a CPU with bf16 units) moved h by ~1.3e-2 against
+    the float64 scan (ROADMAP §C). It is bitwise the result under the
+    default setting and within 1e-5 of the float64 scan."""
+    rng = np.random.default_rng(34)
+    la, b, dy = _operands(rng, 24)
+    ones = np.ones((B, 1), np.float32)
+
+    def scan():
+        return d2ft_rglru.rglru_scan_ref(torch.from_numpy(la),
+                                         torch.from_numpy(b), CHUNK)
+    want = scan()
+    old = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision(precision)
+        got = scan()
+    finally:
+        torch.set_float32_matmul_precision(old)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.numpy(),
+                               _gated_scan_f64(la, b, dy, ones, ones)[0],
+                               atol=FWD_TOL, rtol=0)
+
+
 # The CUDA kernels' tile geometry (csrc/d2ft_rglru_common.cuh): each
 # thread folds KERNEL_ROWS rows, a warp holds 32 / 8 = 4 segments of each
 # of its 8 channel columns, a block 8 warps: tiles of 4 x 4 x 8 = 128 rows
